@@ -1,0 +1,138 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, runs
+on the GPU unless asked for the CPU, and takes its kernels' plain versions
+only for tensors on the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ltr_lowrank_sdp_torch import resolve_device
+from ltr_lowrank_sdp_torch.ops import kernels as K
+from ltr_lowrank_sdp_torch.solver.driver import Solver
+from ltr_lowrank_sdp_torch.testing import random_maxcut_problem
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "ltr_lowrank_sdp_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "ltr_lowrank_sdp_tpu")
+
+
+def _port_modules():
+    return sorted(p for p in PORT.rglob("*.py") if "build" not in p.parts)
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", None) == "__import__":
+            yield "__import__"
+
+
+@pytest.mark.parametrize(
+    "path", _port_modules() + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN), roots & set(FORBIDDEN)
+    assert "__import__" not in roots
+
+
+def test_port_imports_with_jax_blocked():
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in _port_modules()]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
+            + "".join(f"import {m}\n" for m in mods)
+            + "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = random_maxcut_problem(80, avg_degree=4, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(prob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert Solver(prob, device="cpu").device == torch.device("cpu")
+
+
+def test_cpu_solve_runs_the_plain_versions_only():
+    K.reset_counts()
+    prob = random_maxcut_problem(60, avg_degree=4, seed=2)
+    res = Solver(prob, device="cpu").solve()
+    counts = K.counts()
+    assert set(counts) == {"spmm_sym_csr", "diag_rowdot",
+                           "diag_normal_matvec", "sym_contract_sum"}
+    assert all(launches == 0 for launches, _ in counts.values()), counts
+    assert all(plain > 0 for _, plain in counts.values()), counts
+    assert res.host_syncs > 0
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(K.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.build_kernels()
+
+
+def test_plain_versions_match_dense_references():
+    rng = np.random.default_rng(0)
+    n, r = 40, 5
+    # symmetric sparse C from an upper-triangle COO with a diagonal
+    rows = np.concatenate([np.arange(n), rng.integers(0, n, 60)])
+    cols = np.concatenate([np.arange(n), rng.integers(0, n, 60)])
+    lo, hi = np.minimum(rows, cols), np.maximum(rows, cols)
+    key = np.unique(lo * n + hi)
+    lo, hi = key // n, key % n
+    vals = rng.standard_normal(lo.size)
+    C = np.zeros((n, n))
+    C[lo, hi] = vals
+    C[hi, lo] = vals
+    csr = K.SymCSR.from_upper_coo(lo, hi, vals, n, "cpu")
+    assert csr.nnz == 2 * lo.size - int(np.sum(lo == hi))
+    Y = rng.standard_normal((n, r))
+    d = rng.standard_normal(n)
+    Yt, dt = torch.tensor(Y), torch.tensor(d)
+    np.testing.assert_allclose(
+        K.spmm_sym_csr(csr, Yt, 1.5, dt).numpy(),
+        1.5 * C @ Y + d[:, None] * Y, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(K.spmm_sym_csr(None, Yt, 0.0, dt).numpy(),
+                               d[:, None] * Y, rtol=1e-12, atol=1e-12)
+    U, V = rng.standard_normal((n, r)), rng.standard_normal((n, r))
+    Ut, Vt = torch.tensor(U), torch.tensor(V)
+    o1, o2 = K.diag_rowdot(Ut, Vt, dt, 2.0, second=True)
+    np.testing.assert_allclose(o1.numpy(), 2 * d * np.sum(U * V, 1),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(o2.numpy(), d * np.sum(V * V, 1),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        K.diag_normal_matvec(Ut, Vt, dt).numpy(),
+        U + (d * d * np.sum(U * V, 1))[:, None] * V, rtol=1e-12, atol=1e-12)
+    coef = np.where(lo != hi, 2.0 * vals, vals)
+    X = 0.5 * (U @ V.T + V @ U.T)
+    got = K.sym_contract_sum(torch.tensor(lo, dtype=torch.int32),
+                             torch.tensor(hi, dtype=torch.int32),
+                             torch.tensor(coef), Ut, Vt)
+    assert float(got) == pytest.approx(np.sum(C * X), rel=1e-12)
+    got = K.sym_contract_sum(torch.tensor(lo, dtype=torch.int32),
+                             torch.tensor(hi, dtype=torch.int32),
+                             torch.tensor(coef), Ut, Ut)
+    assert float(got) == pytest.approx(np.sum(C * (U @ U.T)), rel=1e-12)
