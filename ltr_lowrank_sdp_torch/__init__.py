@@ -1,8 +1,9 @@
 """ltr_lowrank_sdp_torch — the PyTorch/CUDA port of ``ltr_lowrank_sdp_tpu``.
 
 The LoRADS-class Burer-Monteiro solver (ALM -> ADMM -> Lanczos dual
-certificate) on an NVIDIA GPU.  The hot conic operators of the MaxCut family
-run through hand-written CUDA kernels (``csrc/``, bound in
+certificate) on an NVIDIA GPU.  The hot conic operators of single-block
+problems with diag or sparse constraints and a sparse objective (MaxCut,
+matrix completion) run through hand-written CUDA kernels (``csrc/``, bound in
 :mod:`.ops.kernels`); everything around them is plain PyTorch in float64.
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU; with no

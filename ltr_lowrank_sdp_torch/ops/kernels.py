@@ -1,4 +1,4 @@
-"""The slice's four CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's six CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -24,13 +24,27 @@ K3     diag_normal_matvec    ops/coneops.py ConeOps.cg_normal_matvec
                              (diag_identity)
 K4     sym_contract_sum      ops/coneops.py ConeOps.obj_value (sparse C)
                              + ops/compsum.py csum
+K5     coo_contract_segsum   ops/gatherseg.py EllSegSum.__call__ fused with
+                             ops/coneops.py ConeOps.constr_vals and
+                             ConeOps.constr_vals_pair (sparse A and
+                             non-identity diag), and the first half of
+                             their ConeOps.cg_normal_matvec
+K6     spmm_constr_csr       ops/gatherseg.py EllSpMM.apply_constr via
+                             ConeOps.apply_a / apply_w (sparse A and
+                             non-identity diag), and the second half of
+                             their ConeOps.cg_normal_matvec
 =====  ====================  ==============================================
+
+K1-K4 carry the MaxCut family (one diagonal constraint per row); K1, K4, K5
+and K6 carry every other single-block cone with sparse constraints and a
+sparse objective.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -105,6 +119,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("sym_contract_sum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:332",
            (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P)),
+    Kernel("coo_contract_segsum",
+           "ltr_lowrank_sdp_tpu/ops/gatherseg.py:143",
+           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
+    Kernel("spmm_constr_csr",
+           "ltr_lowrank_sdp_tpu/ops/gatherseg.py:256",
+           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P)),
 )}
 
 
@@ -219,6 +239,15 @@ def _i32(v: int, what: str) -> int:
     return int(v)
 
 
+def _ids_from_ptr(ptr: torch.Tensor) -> torch.Tensor:
+    """The int64 segment (or row) id of every entry of a CSR-like layout,
+    from its pointer array.  Only the plain versions index with it, so the
+    layouts derive it at first use and the kernels' path never holds it."""
+    ptr = ptr.long()
+    return torch.repeat_interleave(
+        torch.arange(ptr.numel() - 1, device=ptr.device), ptr[1:] - ptr[:-1])
+
+
 # --------------------------------------------------------------------------- #
 # K1: symmetric CSR SpMM (+ diagonal row scale)
 # --------------------------------------------------------------------------- #
@@ -233,11 +262,15 @@ class SymCSR:
     indptr: torch.Tensor     # (n+1,) int32
     indices: torch.Tensor    # (nnz,) int32
     vals: torch.Tensor       # (nnz,) float64
-    row_ids: torch.Tensor    # (nnz,) int64 row of each stored entry (plain)
 
     @property
     def nnz(self) -> int:
         return int(self.indices.numel())
+
+    @functools.cached_property
+    def row_ids(self) -> torch.Tensor:
+        """(nnz,) int64 row of each stored entry (plain version only)."""
+        return _ids_from_ptr(self.indptr)
 
     @staticmethod
     def from_upper_coo(rows, cols, vals, n: int, device,
@@ -258,8 +291,7 @@ class SymCSR:
             n=n,
             indptr=torch.tensor(indptr, dtype=torch.int32, device=device),
             indices=torch.tensor(c_all, dtype=torch.int32, device=device),
-            vals=torch.tensor(v_all, dtype=dtype, device=device),
-            row_ids=torch.tensor(r_all, dtype=torch.int64, device=device))
+            vals=torch.tensor(v_all, dtype=dtype, device=device))
 
 
 def spmm_sym_csr_plain(csr: Optional[SymCSR], Y: torch.Tensor,
@@ -426,4 +458,198 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
     k.launch(rows.data_ptr(), cols.data_ptr(), coef.data_ptr(), U.data_ptr(),
              V.data_ptr(), _i32(nnz, "nnz"), r, 1 if U is V else 0,
              partials.data_ptr(), nblocks, out.data_ptr(), _stream(dev))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K5: A(sym(U V^T)) for general sparse constraints (contraction + segment sum)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class SegCOO:
+    """The upper-triangle entries of a cone's constraint matrices, sorted by
+    constraint id on the host: the entries of constraint i are the segment
+    ``seg_ptr[i]:seg_ptr[i+1]``.  ``coef`` counts an off-diagonal entry twice
+    (``<A, X>`` for symmetric X)."""
+
+    n: int
+    m: int
+    seg_ptr: torch.Tensor    # (m+1,) int32
+    rows: torch.Tensor       # (nnz,) int32
+    cols: torch.Tensor       # (nnz,) int32
+    coef: torch.Tensor       # (nnz,) float64
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.numel())
+
+    @functools.cached_property
+    def seg_ids(self) -> torch.Tensor:
+        """(nnz,) int64 constraint of each entry (plain version only)."""
+        return _ids_from_ptr(self.seg_ptr)
+
+    @staticmethod
+    def from_coo(rows, cols, vals, cid, n: int, m: int, device,
+                 dtype=torch.float64) -> "SegCOO":
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals, np.float64)
+        cid = np.asarray(cid, np.int64)
+        _i32(max(rows.size, m + 1, n), "nnz of A")
+        order = np.argsort(cid, kind="stable")
+        rows, cols = rows[order], cols[order]
+        vals = vals[order]
+        seg_ptr = np.zeros(m + 1, np.int64)
+        np.cumsum(np.bincount(cid, minlength=m), out=seg_ptr[1:])
+        coef = np.where(rows != cols, 2.0 * vals, vals)
+        return SegCOO(
+            n=n, m=m,
+            seg_ptr=torch.tensor(seg_ptr, dtype=torch.int32, device=device),
+            rows=torch.tensor(rows, dtype=torch.int32, device=device),
+            cols=torch.tensor(cols, dtype=torch.int32, device=device),
+            coef=torch.tensor(coef, dtype=dtype, device=device))
+
+
+def coo_contract_segsum_plain(seg: SegCOO, U, V, pair: bool = False):
+    """Plain version of K5."""
+    rows, cols = seg.rows.long(), seg.cols.long()
+
+    def segsum(e):
+        return torch.zeros(seg.m, dtype=e.dtype, device=e.device).index_add_(
+            0, seg.seg_ids, seg.coef * e)
+
+    if pair:
+        Vr, Vc = V[rows], V[cols]
+        e_uv = (torch.sum(U[rows] * Vc, dim=-1)
+                + torch.sum(U[cols] * Vr, dim=-1))
+        return segsum(e_uv), segsum(torch.sum(Vr * Vc, dim=-1))
+    if U is V:
+        return segsum(torch.sum(U[rows] * U[cols], dim=-1))
+    return segsum(0.5 * (torch.sum(U[rows] * V[cols], dim=-1)
+                         + torch.sum(U[cols] * V[rows], dim=-1)))
+
+
+def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
+                        pair: bool = False):
+    """K5: per constraint i, ``sum_k coef_k * sym(U V^T)[rows_k, cols_k]``
+    over its entries -> (m,) (``U is V`` reads U only); with ``pair`` the two
+    vectors ``(A(2 sym(U V^T)), A(V V^T))`` from one read of the rows."""
+    k = KERNELS["coo_contract_segsum"]
+    if _is_cpu(U):
+        k.plain_calls += 1
+        return coo_contract_segsum_plain(seg, U, V, pair)
+    dev = U.device
+    if U.dim() != 2:
+        raise ValueError(f"U must be (n, r), got {tuple(U.shape)}")
+    n, r = U.shape
+    if n != seg.n or r < 1:
+        raise ValueError(f"the cone has {seg.n} rows, U is {tuple(U.shape)}")
+    _check(U, "U", torch.float64, (n, r), dev)
+    _check(V, "V", torch.float64, (n, r), dev)
+    _check(seg.seg_ptr, "seg_ptr", torch.int32, (seg.m + 1,), dev)
+    _check(seg.rows, "rows", torch.int32, (seg.nnz,), dev)
+    _check(seg.cols, "cols", torch.int32, (seg.nnz,), dev)
+    _check(seg.coef, "coef", torch.float64, (seg.nnz,), dev)
+    _i32(n * r, "n * r")
+    mode = 2 if pair else (1 if U is V else 0)
+    o1 = torch.empty(seg.m, dtype=torch.float64, device=dev)
+    o2 = torch.empty(seg.m, dtype=torch.float64, device=dev) if pair else None
+    k.launch(seg.seg_ptr.data_ptr(), seg.rows.data_ptr(), seg.cols.data_ptr(),
+             seg.coef.data_ptr(), U.data_ptr(), V.data_ptr(), seg.m, r, mode,
+             o1.data_ptr(), _ptr(o2), _stream(dev))
+    return (o1, o2) if pair else o1
+
+
+# --------------------------------------------------------------------------- #
+# K6: (sum_i w_i A_i) Y over the symmetrized constraint pattern (+ beta Z)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class ConstrCSR:
+    """All constraint entries of a cone as one full symmetric CSR (both
+    triangles, a diagonal entry once), built on the host from the
+    upper-triangle COO.  Every slot keeps the id of its constraint, so
+    entries of different constraints at one (row, col) stay separate."""
+
+    n: int
+    m: int
+    indptr: torch.Tensor     # (n+1,) int32
+    indices: torch.Tensor    # (nnz,) int32
+    vals: torch.Tensor       # (nnz,) float64
+    cid: torch.Tensor        # (nnz,) int32
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.numel())
+
+    @functools.cached_property
+    def row_ids(self) -> torch.Tensor:
+        """(nnz,) int64 row of each slot (plain version only)."""
+        return _ids_from_ptr(self.indptr)
+
+    @staticmethod
+    def from_upper_coo(rows, cols, vals, cid, n: int, m: int, device,
+                       dtype=torch.float64) -> "ConstrCSR":
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals, np.float64)
+        cid = np.asarray(cid, np.int64)
+        off = rows != cols
+        r_all = np.concatenate([rows, cols[off]])
+        c_all = np.concatenate([cols, rows[off]])
+        v_all = np.concatenate([vals, vals[off]])
+        k_all = np.concatenate([cid, cid[off]])
+        _i32(max(r_all.size, n + 1, m), "nnz of A")
+        order = np.lexsort((k_all, c_all, r_all))
+        r_all, c_all = r_all[order], c_all[order]
+        v_all, k_all = v_all[order], k_all[order]
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(r_all, minlength=n), out=indptr[1:])
+        return ConstrCSR(
+            n=n, m=m,
+            indptr=torch.tensor(indptr, dtype=torch.int32, device=device),
+            indices=torch.tensor(c_all, dtype=torch.int32, device=device),
+            vals=torch.tensor(v_all, dtype=dtype, device=device),
+            cid=torch.tensor(k_all, dtype=torch.int32, device=device))
+
+
+def spmm_constr_csr_plain(csr: ConstrCSR, w, Y, Z=None, beta: float = 1.0):
+    """Plain version of K6."""
+    wt = w[csr.cid.long()] * csr.vals
+    out = torch.zeros_like(Y).index_add_(
+        0, csr.row_ids, wt[:, None] * Y[csr.indices.long()])
+    return out if Z is None else beta * Z + out
+
+
+def spmm_constr_csr(csr: ConstrCSR, w: torch.Tensor, Y: torch.Tensor,
+                    Z: Optional[torch.Tensor] = None,
+                    beta: float = 1.0) -> torch.Tensor:
+    """K6: ``(sum_i w_i A_i) @ Y (+ beta * Z)`` with per-slot weight
+    ``w[cid] * val`` gathered inside the kernel."""
+    k = KERNELS["spmm_constr_csr"]
+    if _is_cpu(Y):
+        k.plain_calls += 1
+        return spmm_constr_csr_plain(csr, w, Y, Z, beta)
+    dev = Y.device
+    if Y.dim() != 2:
+        raise ValueError(f"Y must be (n, r), got {tuple(Y.shape)}")
+    n, r = Y.shape
+    if n != csr.n or r < 1:
+        raise ValueError(f"the cone has {csr.n} rows, Y is {tuple(Y.shape)}")
+    _check(Y, "Y", torch.float64, (n, r), dev)
+    _check(w, "w", torch.float64, (csr.m,), dev)
+    if Z is not None:
+        _check(Z, "Z", torch.float64, (n, r), dev)
+    _check(csr.indptr, "indptr", torch.int32, (n + 1,), dev)
+    _check(csr.indices, "indices", torch.int32, (csr.nnz,), dev)
+    _check(csr.vals, "vals", torch.float64, (csr.nnz,), dev)
+    _check(csr.cid, "cid", torch.int32, (csr.nnz,), dev)
+    _i32(n * r, "n * r")
+    out = torch.empty((n, r), dtype=torch.float64, device=dev)
+    k.launch(csr.indptr.data_ptr(), csr.indices.data_ptr(),
+             csr.vals.data_ptr(), csr.cid.data_ptr(), w.data_ptr(),
+             Y.data_ptr(), _ptr(Z), out.data_ptr(), n, r, float(beta),
+             _stream(dev))
     return out

@@ -16,8 +16,8 @@ solver's per-cone operator data, choosing a compute path per cone:
   since an n x n temporary must fit in memory.
 
 The classification is kept identical to the JAX package so both build the
-same ``SDPProblem``; the port's operators cover the diag cone with sparse C
-only (the other kinds raise in :mod:`.ops.coneops`).
+same ``SDPProblem``; the port's operators cover the diag and sparse cones
+with a sparse C (the dense kinds raise in :mod:`.ops.coneops`).
 """
 
 from __future__ import annotations

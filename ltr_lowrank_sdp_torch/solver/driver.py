@@ -115,10 +115,14 @@ class Solver:
         self.cones, _, self.constr_order = build_cone_ops_internal(
             prob, self.device, self.dtype)
         self.consts = ProblemConsts.from_problem(prob)
-        b_np = np.asarray(prob.b, np.float64)[self.constr_order]
+        b_np = np.asarray(prob.b, np.float64)
+        if self.constr_order is not None:
+            b_np = b_np[self.constr_order]
         self.b = torch.tensor(b_np, dtype=self.dtype, device=self.device)
 
     def _dual_out(self, dual: np.ndarray) -> np.ndarray:
+        if self.constr_order is None:
+            return dual
         out = np.empty_like(dual)
         out[self.constr_order] = dual
         return out

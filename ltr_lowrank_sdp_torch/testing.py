@@ -4,6 +4,12 @@
 packages build the same ``SDPProblem`` from the same seed.  It mirrors the
 Julia data generator's construction (``lorads/data/gen_MaxCut.jl:213-243``):
 objective = graph Laplacian scaled, constraints diag(X) = 1.
+
+``matcomp_sdpa`` / ``matcomp_problem`` follow ``scripts/gen_instances.py``
+``gen_matcomp`` (``lorads/data/gen_MatrixCompletion.jl:261-276``) draw for
+draw, built in memory; ``write_sdpa`` writes the same instance as a
+``.dat-s`` file that reads back to identical arrays.  ``random_sparse_cone``
+follows the random cone of the JAX package's ``tests/test_coneops.py``.
 """
 
 from __future__ import annotations
@@ -12,8 +18,8 @@ import numpy as np
 import scipy.sparse
 import scipy.spatial
 
-from .io.sdpa import SDPAData, SDPABlock
-from .problem import SDPProblem, canonicalize
+from .io.sdpa import SDPAData, SDPABlock, _postprocess
+from .problem import ConeData, SDPProblem, canonicalize
 
 
 def random_maxcut_problem(n: int, avg_degree: int = 6, seed: int = 0,
@@ -72,3 +78,119 @@ def delaunay_maxcut_adjacency(n: int, seed: int) -> scipy.sparse.csc_matrix:
     hi = (uniq % n).astype(np.int32)
     A = scipy.sparse.coo_matrix((np.ones(lo.size), (lo, hi)), shape=(n, n))
     return (A + A.T).tocsc()
+
+
+def matcomp_sdpa(n1: int, n2: int, rank: int = 3, sample_factor: float = 2.0,
+                 seed: int = 0) -> SDPAData:
+    """Nuclear-norm matrix completion of a seeded rank-``rank`` (n1, n2)
+    matrix M as an SDP on the embedding Y = [[W1, X], [X^T, W2]]:
+    min tr(W1) + tr(W2) s.t. 2 Y[i, n1 + j] = 2 M_ij on the observed
+    entries.  The same draws as ``scripts/gen_instances.py gen_matcomp``,
+    passed through the SDPA reader's conventions (objective negated, upper
+    triangle, sorted by constraint)."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(n1, rank))
+    R = rng.normal(size=(n2, rank))
+    n_obs = int(sample_factor * rank * (n1 + n2) * np.log(n1 + n2))
+    n_obs = min(n_obs, n1 * n2)
+    idx = rng.choice(n1 * n2, size=n_obs, replace=False)
+    ii, jj = (idx // n2).astype(np.int64), (idx % n2).astype(np.int64)
+    vals = np.einsum("ij,ij->i", L[ii], R[jj])
+    n = n1 + n2
+    # as written to a file: constraint 0 is the objective F0 = -I, which
+    # the solver minimizes negated
+    diag = np.arange(n, dtype=np.int64)
+    cid = np.concatenate([np.zeros(n, np.int64), np.arange(1, n_obs + 1)])
+    row = np.concatenate([diag, ii])
+    col = np.concatenate([diag, n1 + jj])
+    val = np.concatenate([-np.ones(n), np.ones(n_obs)])
+    return _postprocess([n], 0, 2.0 * vals, cid, np.zeros_like(cid), row,
+                        col, val)
+
+
+def matcomp_problem(n1: int, n2: int, rank: int = 3,
+                    sample_factor: float = 2.0, seed: int = 0,
+                    name: str = "synthetic_matcomp") -> SDPProblem:
+    """:func:`matcomp_sdpa` canonicalized.  Below n1 + n2 of about 1000 the
+    default sampling gives a union pattern dense enough to be classified
+    ``dense``; ``rank=2, sample_factor=1.0`` keeps a small instance sparse."""
+    return canonicalize(matcomp_sdpa(n1, n2, rank, sample_factor, seed),
+                        name=name)
+
+
+def write_sdpa(path, data: SDPAData) -> None:
+    """Write SDP blocks (no LP block) in SDPA sparse format.  Objective
+    values are negated back to the file's convention and every number is
+    written with 17 significant digits, so :func:`..io.sdpa.read_sdpa`
+    returns arrays identical to ``data``."""
+    if data.n_lp_cols:
+        raise ValueError("write_sdpa writes SDP blocks only")
+    with open(path, "w") as f:
+        f.write(f"{data.n_constrs}\n{len(data.blocks)}\n")
+        f.write(" ".join(str(d) for d in data.block_dims) + "\n")
+        f.write(" ".join(f"{x:.17g}" for x in data.b.tolist()) + "\n")
+        for k, blk in enumerate(data.blocks, start=1):
+            f.writelines(
+                f"0 {k} {i + 1} {j + 1} {-v:.17g}\n" for i, j, v in zip(
+                    blk.c_rows.tolist(), blk.c_cols.tolist(),
+                    blk.c_vals.tolist()))
+            f.writelines(
+                f"{c + 1} {k} {i + 1} {j + 1} {v:.17g}\n" for c, i, j, v in
+                zip(blk.a_cid.tolist(), blk.a_rows.tolist(),
+                    blk.a_cols.tolist(), blk.a_vals.tolist()))
+
+
+def random_sparse_cone(rng: np.random.Generator, n: int, m: int,
+                       nnz_per: int = 3, diag_only: bool = False,
+                       force_kind=None) -> SDPProblem:
+    """A single-block problem with ``nnz_per`` random upper-triangle entries
+    per constraint (all on the diagonal with ``diag_only``) and 2n random
+    objective entries; the draws of ``random_cone`` in the JAX package's
+    ``tests/test_coneops.py``.  ``force_kind`` overrides the cone's
+    ``kind_a`` (a small random cone is classified dense by its sparsity
+    ratio), and with it the objective's kind for a forced ``sparse``."""
+    rows, cols, vals, cids = [], [], [], []
+    for i in range(m):
+        for _ in range(nnz_per):
+            r = rng.integers(0, n)
+            c = rng.integers(r, n) if not diag_only else r
+            rows.append(r)
+            cols.append(c)
+            vals.append(rng.normal())
+            cids.append(i)
+    c_rows = rng.integers(0, n, size=2 * n)
+    c_cols = np.maximum(c_rows, rng.integers(0, n, size=2 * n))
+    c_vals = rng.normal(size=2 * n)
+    blk = SDPABlock(
+        dim=n,
+        c_rows=c_rows.astype(np.int32), c_cols=c_cols.astype(np.int32),
+        c_vals=c_vals,
+        a_rows=np.array(rows, np.int32), a_cols=np.array(cols, np.int32),
+        a_vals=np.array(vals), a_cid=np.array(cids, np.int32),
+    )
+    prob = canonicalize(SDPAData(n_constrs=m, blocks=[blk],
+                                 b=rng.normal(size=m)))
+    if force_kind:
+        prob.cones[0].kind_a = force_kind
+        if force_kind == "sparse":
+            prob.cones[0].kind_c = "sparse"
+    return prob
+
+
+def dense_constraint_matrices(cone: ConeData) -> np.ndarray:
+    """(m, n, n) dense symmetric stack of a cone's A_i (small tests only)."""
+    A = np.zeros((cone.m, cone.n, cone.n))
+    np.add.at(A, (cone.a_cid, cone.a_rows, cone.a_cols), cone.a_vals)
+    off = cone.a_rows != cone.a_cols
+    np.add.at(A, (cone.a_cid[off], cone.a_cols[off], cone.a_rows[off]),
+              cone.a_vals[off])
+    return A
+
+
+def dense_objective_matrix(cone: ConeData) -> np.ndarray:
+    """(n, n) dense symmetric C of a cone (small tests only)."""
+    C = np.zeros((cone.n, cone.n))
+    np.add.at(C, (cone.c_rows, cone.c_cols), cone.c_vals)
+    off = cone.c_rows != cone.c_cols
+    np.add.at(C, (cone.c_cols[off], cone.c_rows[off]), cone.c_vals[off])
+    return C

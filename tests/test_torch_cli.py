@@ -1,6 +1,6 @@
-"""The port's CLI and readers on the CPU: a generated SDPA ``.dat-s`` and a
-SuiteSparse-style ``.mat`` MaxCut file are read into the same
-``SDPProblem`` as the JAX package reads, solved through
+"""The port's CLI and readers on the CPU: generated SDPA ``.dat-s`` files
+(MaxCut, matrix completion) and a SuiteSparse-style ``.mat`` MaxCut file
+are read into the same ``SDPProblem`` as the JAX package reads, solved through
 ``ltr_lowrank_sdp_torch.cli.main(..., "--device", "cpu")``, and the
 trajectory JSON is written with the schema of the JAX package."""
 
@@ -16,7 +16,9 @@ from ltr_lowrank_sdp_tpu.problem import load_problem as jax_load_problem
 from ltr_lowrank_sdp_torch import cli
 from ltr_lowrank_sdp_torch.config import SolverStatus
 from ltr_lowrank_sdp_torch.problem import initial_ranks, load_problem
-from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
+from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
+                                           matcomp_problem, matcomp_sdpa,
+                                           write_sdpa)
 
 CONE_FIELDS = ("c_rows", "c_cols", "c_vals", "a_rows", "a_cols", "a_vals",
                "a_cid", "diag_idx", "diag_val", "diag_cid")
@@ -58,7 +60,16 @@ def mat(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("which", ["dat_s", "mat"])
+@pytest.fixture(scope="module")
+def mc_dat_s(tmp_path_factory):
+    """Matrix completion of a 200 x 200 rank-2 matrix: n = 400, 4793
+    one-entry constraints (sparse constraints, sparse objective)."""
+    path = tmp_path_factory.mktemp("cli") / "mc200.dat-s"
+    write_sdpa(path, matcomp_sdpa(200, 200, 2, 1.0, seed=0))
+    return path
+
+
+@pytest.mark.parametrize("which", ["dat_s", "mat", "mc_dat_s"])
 def test_reader_matches_jax(which, request):
     path = str(request.getfixturevalue(which))
     jp, tp = jax_load_problem(path), load_problem(path)
@@ -88,6 +99,39 @@ def test_cli_solves_on_cpu_and_writes_json(which, request, tmp_path):
     assert payload["metrics"]["primal_obj"] == pytest.approx(res.pobj)
     p1 = payload["trajectory"]["phase_1"]
     assert len(p1["curr_rank"]) == len(p1["oracle_rank"]) > 0
+
+
+def test_written_matcomp_file_reads_back_identical(mc_dat_s):
+    mem = matcomp_problem(200, 200, 2, 1.0, seed=0)
+    got = load_problem(str(mc_dat_s))
+    np.testing.assert_array_equal(got.b, mem.b)
+    for name in CONE_FIELDS[:7]:
+        np.testing.assert_array_equal(getattr(got.cones[0], name),
+                                      getattr(mem.cones[0], name))
+    assert (got.cones[0].kind_a, got.cones[0].kind_c) == ("sparse", "sparse")
+
+
+def test_cli_solves_matrix_completion_on_cpu(mc_dat_s, tmp_path):
+    """The flags of the JAX package's own matrix-completion test
+    (``tests/test_e2e.py``: heuristicFactor 10) and its limits."""
+    out = tmp_path / "mc.json"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # no faster with more at this size
+    try:
+        res = cli.main([str(mc_dat_s), "--device", "cpu",
+                        "--heuristicFactor", "10", "--jsonfile", str(out)])
+    finally:
+        torch.set_num_threads(threads)
+    assert res.status in (SolverStatus.PRIMAL_DUAL_OPTIMAL,
+                          SolverStatus.PRIMAL_OPTIMAL)
+    assert res.pinf_l1 <= 1e-5 and res.gap <= 5e-5 and res.dinf_l1 <= 5e-5
+    assert res.final_ranks == [12]
+    payload = json.loads(out.read_text())
+    assert set(payload) == {"problem_id", "file_path", "metrics",
+                            "trajectory"}
+    assert payload["problem_id"] == "mc200"
+    assert payload["metrics"]["primal_obj"] == pytest.approx(res.pobj)
+    assert set(payload["trajectory"]) == {"phase_1", "phase_2"}
 
 
 def test_cli_flags_are_the_jax_flags_plus_device():

@@ -1,12 +1,17 @@
-"""Parity of the PyTorch port's MaxCut-family conic operators with the JAX
-package's ``ConeOps`` (``ltr_lowrank_sdp_tpu/ops/coneops.py``).
+"""Parity of the PyTorch port's conic operators with the JAX package's
+``ConeOps`` (``ltr_lowrank_sdp_tpu/ops/coneops.py``): the MaxCut family
+(``diag_identity``) and the general path (sparse constraints, a diag cone
+that is not one constraint per row, matrix completion, a cone with no
+constraint entry).
 
 Both packages build the same ``SDPProblem`` from a seed; inputs are numpy
 arrays in the problem's original row and constraint order.  The JAX
 operators work in a relabeled internal order (``row_order`` for vertices,
-``constr_order`` for constraints), the port only relabels constraints, so
-every output is mapped back to the original order before comparing.  On the
-CPU every operator runs through its kernel's plain PyTorch version.
+``constr_order`` for constraints), the port only relabels the constraints
+of a ``diag_identity`` cone, so every output is mapped back to the original
+order before comparing.  On the CPU every operator runs through its
+kernel's plain PyTorch version.  The general path is also held against a
+dense numpy evaluation that shares no code with either package's operators.
 
 Tolerance: relative 1e-12 in the 2-norm (float64; the two sides sum in
 different orders).
@@ -17,13 +22,18 @@ import numpy as np
 import pytest
 import torch
 
+from ltr_lowrank_sdp_tpu.io.sdpa import SDPABlock as JaxSDPABlock
+from ltr_lowrank_sdp_tpu.io.sdpa import SDPAData as JaxSDPAData
 from ltr_lowrank_sdp_tpu.ops.coneops import (
     build_cone_ops_internal as jax_build_cone_ops_internal)
+from ltr_lowrank_sdp_tpu.problem import canonicalize as jax_canonicalize
 from ltr_lowrank_sdp_tpu.testing import (
     random_maxcut_problem as jax_random_maxcut_problem)
 from ltr_lowrank_sdp_torch.ops import kernels as K
 from ltr_lowrank_sdp_torch.ops.coneops import ConeOps, build_cone_ops_internal
-from ltr_lowrank_sdp_torch.testing import random_maxcut_problem
+from ltr_lowrank_sdp_torch.testing import (
+    dense_constraint_matrices, dense_objective_matrix, matcomp_problem,
+    random_maxcut_problem, random_sparse_cone)
 
 RTOL = 1e-12
 RANK = 7
@@ -151,7 +161,10 @@ def test_cpu_operators_take_the_plain_path(pair):
     pair.t.obj_value(Ut, Ut)
     counts = K.counts()
     assert all(launches == 0 for launches, _ in counts.values())
-    assert all(plain == 1 for _, plain in counts.values())
+    maxcut = {"spmm_sym_csr", "diag_rowdot", "diag_normal_matvec",
+              "sym_contract_sum"}
+    assert all(plain == (1 if name in maxcut else 0)
+               for name, (_, plain) in counts.items()), counts
 
 
 def test_unported_cones_raise():
@@ -159,6 +172,222 @@ def test_unported_cones_raise():
 
     prob = random_multiblock_problem()
     with pytest.raises(NotImplementedError, match="later slice"):
-        ConeOps(prob.cones[0], "cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
         build_cone_ops_internal(prob, "cpu")
+    cone = random_sparse_cone(np.random.default_rng(0), 12, 7).cones[0]
+    assert (cone.kind_a, cone.kind_c) == ("dense", "dense")
+    with pytest.raises(NotImplementedError, match="dense-S path"):
+        ConeOps(cone, "cpu")
+    cone.kind_a = "sparse"
+    with pytest.raises(NotImplementedError, match="dense-C GEMM"):
+        ConeOps(cone, "cpu")
+    cone.kind_c = "sparse"
+    with pytest.raises(NotImplementedError, match="float32"):
+        ConeOps(cone, "cpu", dtype=torch.float32)
+
+
+# --------------------------------------------------------------------------- #
+# the general path: sparse constraints and non-identity diag cones
+# --------------------------------------------------------------------------- #
+
+
+def _jax_twin(prob, like):
+    """The same raw entries through the JAX package's own ``SDPABlock`` and
+    ``canonicalize``, with the cone kinds forced as on the port's side."""
+    c = prob.cones[0]
+    blk = JaxSDPABlock(dim=c.n, c_rows=c.c_rows, c_cols=c.c_cols,
+                       c_vals=c.c_vals, a_rows=c.a_rows, a_cols=c.a_cols,
+                       a_vals=c.a_vals, a_cid=c.a_cid)
+    jp = jax_canonicalize(JaxSDPAData(n_constrs=prob.m, blocks=[blk],
+                                      b=prob.b))
+    jp.cones[0].kind_a, jp.cones[0].kind_c = like
+    return jp
+
+
+def _general_problem(kind):
+    rng = np.random.default_rng(42)
+    if kind == "sparse":      # several entries per constraint, duplicates
+        return random_sparse_cone(rng, 40, 25, nnz_per=4, force_kind="sparse")
+    if kind == "diag":        # 45 one-entry diagonal constraints on 30 rows
+        prob = random_sparse_cone(rng, 30, 45, nnz_per=1, diag_only=True)
+        prob.cones[0].kind_c = "sparse"
+        return prob
+    if kind == "matcomp":     # every constraint one off-diagonal entry
+        return matcomp_problem(120, 120, rank=2, sample_factor=0.5, seed=0)
+    if kind == "empty":       # no constraint entry in the cone
+        prob = random_sparse_cone(rng, 30, 5, nnz_per=0, force_kind="sparse")
+        assert prob.cones[0].a_rows.size == 0
+        return prob
+    raise AssertionError(kind)
+
+
+class _GeneralPair(_Pair):
+    def __init__(self, kind):
+        self.kind = kind
+        self.tp = _general_problem(kind)
+        cone = self.tp.cones[0]
+        self.cone = cone
+        self.jp = _jax_twin(self.tp, (cone.kind_a, cone.kind_c))
+        jc, _, self.jorder = jax_build_cone_ops_internal(self.jp, jnp.float64)
+        tc, _, self.torder = build_cone_ops_internal(self.tp, "cpu")
+        self.j, self.t = jc[0], tc[0]
+        assert self.jorder is None and self.torder is None
+        self.jorder = self.torder = np.arange(cone.m)
+        rng = np.random.default_rng(7)
+        n = cone.n
+        self.U = rng.standard_normal((n, RANK))
+        self.V = rng.standard_normal((n, RANK))
+        self.w = rng.standard_normal(cone.m)
+        self.m = cone.m
+
+    def dense(self):
+        """(X -> A(X), S(w)) evaluated densely from the problem's own COO
+        entries, with numpy scatter-adds only."""
+        c = self.cone
+        rows, cols, vals, cid = c.a_rows, c.a_cols, c.a_vals, c.a_cid
+        mult = np.where(rows != cols, 2.0, 1.0)
+
+        def constr(X):
+            out = np.zeros(c.m)
+            np.add.at(out, cid, mult * vals * X[rows, cols])
+            return out
+
+        def adjoint(w):
+            S = np.zeros((c.n, c.n))
+            np.add.at(S, (rows, cols), w[cid] * vals)
+            off = rows != cols
+            np.add.at(S, (cols[off], rows[off]), (w[cid] * vals)[off])
+            return S
+
+        return constr, adjoint, dense_objective_matrix(c)
+
+
+GENERAL = ["sparse", "diag", "matcomp", "empty"]
+
+
+def _match(got, want):
+    """Relative RTOL in the 2-norm; an all-zero reference (the cone with no
+    constraint entry) must be met exactly."""
+    if not np.any(want):
+        assert not np.any(np.asarray(got))
+    else:
+        assert _rel(got, want) <= RTOL
+
+
+@pytest.fixture(scope="module", params=GENERAL)
+def gpair(request):
+    return _GeneralPair(request.param)
+
+
+def test_general_cone_kinds(gpair):
+    kinds = {"sparse": ("sparse", False), "diag": ("diag", False),
+             "matcomp": ("sparse", False), "empty": ("sparse", False)}
+    assert (gpair.t.kind_a, gpair.t.diag_identity) == kinds[gpair.kind]
+    assert gpair.t.kind_c == "sparse" and gpair.t.constr_order is None
+    assert not gpair.j.diag_identity
+    if gpair.kind == "diag":
+        assert gpair.cone.m != gpair.cone.n
+    if gpair.kind == "sparse":
+        # the hard cases are present: several entries of one constraint in
+        # one row, and a diagonal entry
+        c = gpair.cone
+        per_row = {}
+        for r, k in zip(c.a_rows.tolist(), c.a_cid.tolist()):
+            per_row[(r, k)] = per_row.get((r, k), 0) + 1
+        assert max(per_row.values()) > 1
+        assert np.any(c.a_rows == c.a_cols)
+    for rank in (1, RANK):
+        assert gpair.t.constr_flops(rank) == gpair.j.constr_flops(rank)
+        assert gpair.t.apply_flops(rank) == gpair.j.apply_flops(rank)
+
+
+@pytest.mark.parametrize("method", METHODS + ["apply_w_rank1"])
+def test_general_operator_matches_jax(gpair, method):
+    if method == "apply_w_rank1":
+        # the Lanczos matvec applies the slack to one column
+        U, w = gpair.U[:, :1], gpair.w
+        want = gpair.j_rows_out(gpair.j.apply_w(
+            gpair.j_constr(w), gpair.j_rows(U), obj_coef=0.5,
+            include_obj=True))
+        got = gpair.t.apply_w(torch.tensor(w), torch.tensor(U),
+                              obj_coef=0.5).numpy()
+        assert got.shape == (gpair.cone.n, 1)
+        assert _rel(got, want) <= RTOL
+    else:
+        test_operator_matches_jax(gpair, method)
+
+
+@pytest.mark.parametrize("method", ["constr_vals", "constr_vals_same",
+                                    "constr_vals_pair", "cg_normal_matvec",
+                                    "obj_value", "apply_c", "apply_a",
+                                    "apply_w", "apply_w_no_obj"])
+def test_general_operator_matches_dense_reference(gpair, method):
+    constr, adjoint, C = gpair.dense()
+    U, V, w = gpair.U, gpair.V, gpair.w
+    Ut, Vt, wt = torch.tensor(U), torch.tensor(V), torch.tensor(w)
+    sym = 0.5 * (U @ V.T + V @ U.T)
+    ops = gpair.t
+    if method == "constr_vals":
+        _match(ops.constr_vals(Ut, Vt), constr(sym))
+    elif method == "constr_vals_same":
+        got = ops.constr_vals(Ut, Ut)
+        assert got.shape == (gpair.cone.m,)
+        _match(got, constr(U @ U.T))
+    elif method == "constr_vals_pair":
+        o1, o2 = ops.constr_vals_pair(Ut, Vt)
+        _match(o1, constr(2.0 * sym))
+        _match(o2, constr(V @ V.T))
+    elif method == "cg_normal_matvec":
+        _match(ops.cg_normal_matvec(Vt)(Ut), U + adjoint(constr(sym)) @ V)
+    elif method == "obj_value":
+        assert float(ops.obj_value(Ut, Vt)) == pytest.approx(
+            np.sum(C * sym), rel=RTOL)
+    elif method == "apply_c":
+        _match(ops.apply_c(Ut), C @ U)
+    elif method == "apply_a":
+        _match(ops.apply_a(wt, Ut), adjoint(w) @ U)
+    elif method == "apply_w":
+        _match(ops.apply_w(wt, Ut, obj_coef=2.5), (2.5 * C + adjoint(w)) @ U)
+    elif method == "apply_w_no_obj":
+        _match(ops.apply_w(wt, Ut, include_obj=False), adjoint(w) @ U)
+    else:
+        raise AssertionError(method)
+
+
+def test_general_adjointness(gpair):
+    """<A(sym(U V^T)), w> = <U, A*(w) V>."""
+    Ut, Vt = torch.tensor(gpair.U), torch.tensor(gpair.V)
+    wt = torch.tensor(gpair.w)
+    lhs = float(torch.dot(gpair.t.constr_vals(Ut, Vt), wt))
+    rhs = float(torch.sum(Ut * gpair.t.apply_a(wt, Vt)))
+    assert lhs == pytest.approx(rhs, rel=1e-12, abs=1e-300)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "diag"])
+def test_general_matches_dense_constraint_stack(kind):
+    """The (m, n, n) stack of ``dense_constraint_matrices`` (the port's copy
+    of the JAX package's test reference) gives the same A and A*."""
+    g = _GeneralPair(kind)
+    A = dense_constraint_matrices(g.cone)
+    U, V, w = g.U, g.V, g.w
+    sym = 0.5 * (U @ V.T + V @ U.T)
+    assert _rel(g.t.constr_vals(torch.tensor(U), torch.tensor(V)),
+                np.einsum("mij,ij->m", A, sym)) <= RTOL
+    assert _rel(g.t.apply_a(torch.tensor(w), torch.tensor(U)),
+                np.einsum("m,mij->ij", w, A) @ U) <= RTOL
+
+
+def test_general_cpu_operators_take_the_plain_path(gpair):
+    K.reset_counts()
+    Ut, wt = torch.tensor(gpair.U), torch.tensor(gpair.w)
+    gpair.t.apply_w(wt, Ut)
+    gpair.t.constr_vals_pair(Ut, Ut)
+    gpair.t.cg_normal_matvec(Ut)(Ut)
+    gpair.t.obj_value(Ut, Ut)
+    counts = K.counts()
+    assert all(launches == 0 for launches, _ in counts.values())
+    plain = {name: p for name, (_, p) in counts.items()}
+    empty = gpair.kind == "empty"
+    assert plain == {"spmm_sym_csr": 1, "diag_rowdot": 0,
+                     "diag_normal_matvec": 0, "sym_contract_sum": 1,
+                     "coo_contract_segsum": 0 if empty else 2,
+                     "spmm_constr_csr": 0 if empty else 2}
