@@ -9,9 +9,8 @@ the rank-schedule flags of the released binary (``--rankSchedule``,
 The one semantic difference: ``dtype="auto"`` resolves to float64 on every
 device, because the H100 has native FP64 (the JAX package picks float32 on a
 TPU only because the TPU emulates float64).  The JAX package's float32-only
-knobs (``host_f64_verify``, ``f64_polish``) and its multi-block Jacobi sweep
-(``admm_jacobi``) have no effect on this port's single-cone float64 path and
-are left out until the slices that need them.
+knobs (``host_f64_verify``, ``f64_polish``) have no effect on this port's
+float64 path and are left out until the float32 slice.
 """
 
 from __future__ import annotations
@@ -104,6 +103,9 @@ class SolverParams:
     cg_restart_freq: int = 20
     cg_max_iter: int = 800
     constr_refresh_every: int = 25   # recompute A(RR^T) fresh every k inner its
+    admm_jacobi: bool = False        # multi-block ADMM: Jacobi (parallel) cone
+                                     # sweep instead of Gauss-Seidel, each
+                                     # update under-relaxed by the block count
     seed: int = 925                  # factor init seed (reference uses srand(925))
 
     def rank_flag_threshold(self) -> float:

@@ -34,10 +34,18 @@
 // the end.  Each output is written by one lane: no atomics, a fixed sum
 // order, the same bits on every run.  A constraint with no entry in the cone
 // writes exactly 0; a diagonal entry (row == col) reads its row once.
-// Segment lengths range from 1 (every matrix-completion constraint) to n (a
-// trace constraint): a one-entry segment at r < 32 leaves lanes idle, and a
-// long segment is one warp's dependent chain of index and row reads.  Both
-// are accepted here and the times are recorded.
+//
+// Segment lengths range from 1 (every matrix-completion constraint) to n (the
+// trace constraint of a Lovasz theta problem).  One warp walking a segment is
+// a dependent chain of index and row reads, about a third of a microsecond
+// per entry on an H100, that the rest of the grid waits for.  So the host
+// cuts every segment of at least `long_thresh` entries into short chunks.
+// The same launch gives each chunk a warp of its own (the blocks after those
+// of the constraints), which writes the chunk's partial sums; a second, small
+// launch adds the partials of each long segment in chunk order with a fixed
+// tree.  The split is fixed by the layout, so the result does not depend on
+// timing.  A layout with no long segment is one launch as before.  A
+// one-entry segment at r < 32 leaves lanes idle, accepted here.
 
 #include <cuda_runtime.h>
 
@@ -94,55 +102,133 @@ __device__ __forceinline__ void add_entry(int mode,
   }
 }
 
-__global__ void coo_contract_segsum_kernel(const int* __restrict__ seg_ptr,
-                                           const int* __restrict__ rows,
-                                           const int* __restrict__ cols,
-                                           const double* __restrict__ coef,
-                                           const double* __restrict__ U,
-                                           const double* __restrict__ V,
-                                           int m, int r, int mode,
-                                           double* __restrict__ out1,
-                                           double* __restrict__ out2) {
-  const int lane = threadIdx.x & 31;
-  const long long seg =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (seg >= m) return;
-  const int start = seg_ptr[seg];
-  const int end = seg_ptr[seg + 1];
-  double s1 = 0.0;
-  double s2 = 0.0;
+// The whole warp walks entries start .. end in order and leaves the reduced
+// sums in lane 0's s1 (and s2 in pair mode).
+__device__ __forceinline__ void walk_entries(
+    int mode, const int* __restrict__ rows, const int* __restrict__ cols,
+    const double* __restrict__ coef, const double* __restrict__ U,
+    const double* __restrict__ V, int start, int end, int r, int lane,
+    double& s1, double& s2) {
+  s1 = 0.0;
+  s2 = 0.0;
   for (int k = start; k < end; ++k) {
     add_entry(mode, U, V, static_cast<long long>(rows[k]) * r,
               static_cast<long long>(cols[k]) * r, r, lane, coef[k], s1, s2);
   }
   s1 = warp_sum(s1);
   if (mode == 2) s2 = warp_sum(s2);
+}
+
+// Blocks 0 .. seg_blocks - 1: one warp per constraint (a constraint that the
+// host cut into chunks is left to the chunk warps).  The blocks after them:
+// one warp per chunk, writing part1[chunk] (and part2[chunk]).  Both kinds
+// of warp pick their entry range and their output slot first and then share
+// one copy of the walk, which keeps the register count of the layout with no
+// long segment.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+coo_contract_segsum_kernel(
+    const int* __restrict__ seg_ptr, const int* __restrict__ rows,
+    const int* __restrict__ cols, const double* __restrict__ coef,
+    const double* __restrict__ U, const double* __restrict__ V, int m, int r,
+    int mode, double* __restrict__ out1, double* __restrict__ out2,
+    int seg_blocks, int long_thresh, const int* __restrict__ chunk_ptr,
+    int n_chunks, double* __restrict__ part1, double* __restrict__ part2) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int start, end;
+  long long slot;
+  const bool is_chunk = static_cast<int>(blockIdx.x) >= seg_blocks;
+  if (!is_chunk) {
+    slot = static_cast<long long>(blockIdx.x) * kWarpsPerBlock + warp;
+    if (slot >= m) return;
+    start = seg_ptr[slot];
+    end = seg_ptr[slot + 1];
+    if (n_chunks > 0 && end - start >= long_thresh) return;
+  } else {
+    slot = static_cast<long long>(blockIdx.x - seg_blocks) * kWarpsPerBlock +
+           warp;
+    if (slot >= n_chunks) return;
+    start = chunk_ptr[2 * slot];
+    end = chunk_ptr[2 * slot + 1];
+  }
+  double s1, s2;
+  walk_entries(mode, rows, cols, coef, U, V, start, end, r, lane, s1, s2);
   if (lane == 0) {
-    out1[seg] = s1;
-    if (mode == 2) out2[seg] = s2;
+    (is_chunk ? part1 : out1)[slot] = s1;
+    if (mode == 2) (is_chunk ? part2 : out2)[slot] = s2;
+  }
+}
+
+// One warp per long segment: the partials of its chunks long_ptr[l] ..
+// long_ptr[l + 1], lanes striding over them, one shuffle tree.
+__global__ void coo_long_reduce_kernel(const int* __restrict__ long_seg,
+                                       const int* __restrict__ long_ptr,
+                                       int n_long, int mode,
+                                       const double* __restrict__ part1,
+                                       const double* __restrict__ part2,
+                                       double* __restrict__ out1,
+                                       double* __restrict__ out2) {
+  const int lane = threadIdx.x & 31;
+  const int l = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (l >= n_long) return;
+  const int start = long_ptr[l];
+  const int end = long_ptr[l + 1];
+  double s1 = 0.0;
+  double s2 = 0.0;
+  for (int c = start + lane; c < end; c += 32) {
+    s1 += part1[c];
+    if (mode == 2) s2 += part2[c];
+  }
+  s1 = warp_sum(s1);
+  if (mode == 2) s2 = warp_sum(s2);
+  if (lane == 0) {
+    out1[long_seg[l]] = s1;
+    if (mode == 2) out2[long_seg[l]] = s2;
   }
 }
 
 }  // namespace
 
 // mode: 0 single, 1 single with U is V (V is not read), 2 pair (out2
-// required).  Returns the cudaGetLastError() code of the launch.
-extern "C" int ltr_coo_contract_segsum(const void* seg_ptr, const void* rows,
-                                       const void* cols, const void* coef,
-                                       const void* U, const void* V, int m,
-                                       int r, int mode, void* out1,
-                                       void* out2, void* stream) {
+// required).  chunk_ptr holds (start, end) per chunk; long_seg / long_ptr
+// name the cut segments and their chunk ranges; part1 / part2 are scratch of
+// n_chunks doubles (part2 in pair mode).  n_chunks == 0 is the layout with no
+// long segment.  Returns the cudaGetLastError() code of the launches.
+extern "C" int ltr_coo_contract_segsum(
+    const void* seg_ptr, const void* rows, const void* cols, const void* coef,
+    const void* U, const void* V, int m, int r, int mode, void* out1,
+    void* out2, int long_thresh, const void* chunk_ptr, int n_chunks,
+    const void* long_seg, const void* long_ptr, int n_long, void* part1,
+    void* part2, void* stream) {
   if (m <= 0) return 0;
   if (r <= 0 || mode < 0 || mode > 2 || (mode == 2 && out2 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_chunks > 0 &&
+      (chunk_ptr == nullptr || long_seg == nullptr || long_ptr == nullptr ||
+       part1 == nullptr || n_long <= 0 || long_thresh <= 0 ||
+       (mode == 2 && part2 == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int seg_blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int chunk_blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((m + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  coo_contract_segsum_kernel<<<grid, block, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  coo_contract_segsum_kernel<<<dim3(seg_blocks + chunk_blocks), block, 0, s>>>(
       static_cast<const int*>(seg_ptr), static_cast<const int*>(rows),
       static_cast<const int*>(cols), static_cast<const double*>(coef),
       static_cast<const double*>(U), static_cast<const double*>(V), m, r,
-      mode, static_cast<double*>(out1), static_cast<double*>(out2));
+      mode, static_cast<double*>(out1), static_cast<double*>(out2),
+      seg_blocks, long_thresh, static_cast<const int*>(chunk_ptr), n_chunks,
+      static_cast<double*>(part1), static_cast<double*>(part2));
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_chunks == 0) return err;
+  coo_long_reduce_kernel<<<dim3((n_long + kWarpsPerBlock - 1) /
+                                kWarpsPerBlock),
+                           block, 0, s>>>(
+      static_cast<const int*>(long_seg), static_cast<const int*>(long_ptr),
+      n_long, mode, static_cast<const double*>(part1),
+      static_cast<const double*>(part2), static_cast<double*>(out1),
+      static_cast<double*>(out2));
   return static_cast<int>(cudaGetLastError());
 }

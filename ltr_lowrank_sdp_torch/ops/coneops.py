@@ -1,39 +1,56 @@
-"""Conic operators of one SDP cone on the device.
+"""Conic operators of the SDP cones and the LP cone on the device.
 
-The port of ``ltr_lowrank_sdp_tpu/ops/coneops.py`` for a single-block SDP
-with a sparse objective C, in float64.  Two operator paths:
+The port of ``ltr_lowrank_sdp_tpu/ops/coneops.py`` in float64: one
+:class:`ConeOps` per SDP block, one :class:`LPOps` for the LP cone, and the
+whole-problem helpers.  A cone takes one of two constraint paths and one of
+two objective paths.
 
-**diag_identity** — the MaxCut family: every constraint is one diagonal
-entry and each row carries exactly one constraint (cf. ``detectMaxCutProb``,
-``lorads_solver.c:472-497``).  The constraint space is relabeled so
-constraint i lives on row i (``constr_order``), exactly as the JAX package
-does.  Then
+**diag_identity constraints** — the MaxCut family: every constraint is one
+diagonal entry and each row carries exactly one constraint (cf.
+``detectMaxCutProb``, ``lorads_solver.c:472-497``).  The constraint space is
+relabeled so constraint i lives on row i (``constr_order``), exactly as the
+JAX package does, and only where it does: a single SDP cone and no LP cone
+(the constraint space is shared between cones).  Then
 
 * ``constr_vals`` / ``constr_vals_pair`` are row dots (kernel K2),
 * ``cg_normal_matvec`` is a fused row operator (K3),
-* ``apply_c`` / ``apply_a`` / ``apply_w`` are one symmetric CSR SpMM with an
-  optional diagonal row scale (K1),
-* ``obj_value`` is one gathered contraction with a device-side sum (K4).
+* ``apply_a`` is a row scale (K1's diagonal term).
 
-**general** — sparse constraint matrices (``kind_a == "sparse"``: matrix
-completion and the like) and a diag cone that is not one constraint per row
-(the same operator with ``rows = cols = diag_idx``).  The constraint space
-stays in the problem's order (``constr_order is None``).  Then
+**general constraints** — sparse constraint matrices (``kind_a`` ``"sparse"``
+or ``"dense"``: as in the JAX package the dense kind keeps the sparse
+constraint operators, only the objective changes) and a diag cone that is not
+relabeled (the same operator with ``rows = cols = diag_idx``).  The
+constraint space stays in the problem's order.  Then
 
 * ``constr_vals`` / ``constr_vals_pair`` are the per-entry contraction fused
   with the per-constraint segment sum (K5),
 * ``apply_a`` is the constraint-weighted SpMM over the symmetrized pattern
-  (K6); ``apply_w`` is K1 (``obj_coef * C @ Y``) then K6 accumulating onto
-  it, with no elementwise add between,
+  (K6),
 * ``cg_normal_matvec`` is K5 on ``(x, fixed)`` then K6 with the result as
-  its weights, ``fixed`` as Y and ``x`` as the addend,
-* ``apply_c`` and ``obj_value`` are K1 and K4 as above.
+  its weights, ``fixed`` as Y and ``x`` as the addend.
+
+**sparse objective** — ``apply_c`` is the symmetric CSR SpMM (K1),
+``obj_value`` one gathered contraction with a device-side sum (K4), and
+``apply_w`` is one K1 launch under ``diag_identity`` (C and the row scale
+together), else K1 then K6 accumulating onto it.
+
+**dense objective** — whenever ``kind_c`` or ``kind_a`` is dense (Lovasz
+theta, every small or densely coupled block) C is materialized as an (n, n)
+tensor and ``apply_c``, the objective half of ``apply_w`` and ``obj_value``
+(the two-sided ``cvdot`` average of the JAX package) are ``torch.matmul``
+products, which the JAX package also computes outside any kernel; K6 then
+accumulates A*(w) Y onto ``obj_coef * C @ Y``.  No CSR or COO of the n^2
+objective is built.
+
+**LP cone** — ``x_j = u_j v_j`` over nonnegative columns: ``constr_vals`` is
+the segment sum over constraints (K7, with a pair mode for the ALM line
+search), ``weighted_col_sums`` the segment sum over columns with the weight
+gather inside (K8).
 
 The JAX package also relabels the *vertex* space for its ELL layout
 (``spmm_relabel_order``); the CSR kernels need no such order, so factor rows
-stay in the problem's own order on both paths.  Dense constraint cones, a
-dense objective, the LP cone, multi-block problems and float32 compute are
-later slices of the port and raise ``NotImplementedError``.
+stay in the problem's own order on every path.  float32 compute is a later
+slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,27 +60,24 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..problem import ConeData, SDPProblem
+from ..problem import ConeData, LPConeData, SDPProblem
 from . import kernels as K
+from .compsum import cvdot
 
 _LATER = "is a later slice of the port, see ROADMAP.md"
 
 
 class ConeOps:
-    """Device-resident operator bundle for one SDP cone with sparse or diag
-    constraints and a sparse objective."""
+    """Device-resident operator bundle for one SDP cone.
 
-    def __init__(self, cone: ConeData, device, dtype=torch.float64):
+    ``constr_relabel`` grants the ``diag_identity`` relabeling of the
+    constraint space (:func:`build_cone_ops_internal` does for a single cone
+    with no LP cone)."""
+
+    def __init__(self, cone: ConeData, device, dtype=torch.float64,
+                 constr_relabel: bool = True):
         if dtype != torch.float64:
             raise NotImplementedError(f"float32 compute {_LATER}")
-        if cone.kind_a not in ("diag", "sparse"):
-            raise NotImplementedError(
-                f"a {cone.kind_a!r} constraint cone (the dense-S path: "
-                f"materialized C + A*(w) and GEMM) {_LATER}")
-        if cone.kind_c != "sparse":
-            raise NotImplementedError(
-                f"a {cone.kind_c!r} objective (the dense-C GEMM path) "
-                f"{_LATER}")
         n = cone.n
         self.n = n
         self.m = cone.m
@@ -81,12 +95,13 @@ class ConeOps:
         self.constr_order = None
         self.diag_val = None
         self.a_seg = self.a_csr = None      # general path: K5 / K6 layouts
-        self.a_nnz = 0                      # entries of a sparse-A cone
+        self.a_nnz = 0                      # entries of a non-diag cone
         if cone.kind_a == "diag":
             didx = np.asarray(cone.diag_idx, np.int64)
             dval = np.asarray(cone.diag_val, np.float64)
             dcid = np.asarray(cone.diag_cid, np.int64)
-            if (didx.size == n and cone.m == n and np.unique(didx).size == n
+            if (constr_relabel and didx.size == n and cone.m == n
+                    and np.unique(didx).size == n
                     and np.unique(dcid).size == n):
                 # constraint i == row i
                 by_row = np.argsort(didx)
@@ -101,20 +116,35 @@ class ConeOps:
                                 cone.a_cid)
             self.a_nnz = int(np.asarray(cone.a_rows).size)
 
-        # ---- objective C: full symmetric CSR for K1, upper-triangle COO
-        # with off-diagonal entries doubled for K4
+        # ---- objective C ----
         rows = np.asarray(cone.c_rows, np.int64)
         cols = np.asarray(cone.c_cols, np.int64)
         vals = np.asarray(cone.c_vals, np.float64)
         self.c_nnz = int(rows.size)
-        self.c_csr = (K.SymCSR.from_upper_coo(rows, cols, vals, n,
-                                              self.device, dtype)
-                      if self.c_nnz else None)
-        self.c_rows = torch.tensor(rows, dtype=torch.int32, device=self.device)
-        self.c_cols = torch.tensor(cols, dtype=torch.int32, device=self.device)
-        self.c_double_coef = torch.tensor(
-            np.where(rows != cols, 2.0 * vals, vals), dtype=dtype,
-            device=self.device)
+        # the JAX package materializes C under this rule (and counts its
+        # GEMM in apply_flops even when C has no entry)
+        self.dense_obj = cone.kind_c == "dense" or cone.kind_a == "dense"
+        self.c_dense = None
+        self.c_csr = None
+        self.c_rows = self.c_cols = self.c_double_coef = None
+        if self.dense_obj and self.c_nnz:
+            C = np.zeros((n, n))
+            np.add.at(C, (rows, cols), vals)
+            off = rows != cols
+            np.add.at(C, (cols[off], rows[off]), vals[off])
+            self.c_dense = torch.tensor(C, dtype=dtype, device=self.device)
+        elif self.c_nnz:
+            # full symmetric CSR for K1, upper-triangle COO with off-diagonal
+            # entries doubled for K4
+            self.c_csr = K.SymCSR.from_upper_coo(rows, cols, vals, n,
+                                                 self.device, dtype)
+            self.c_rows = torch.tensor(rows, dtype=torch.int32,
+                                       device=self.device)
+            self.c_cols = torch.tensor(cols, dtype=torch.int32,
+                                       device=self.device)
+            self.c_double_coef = torch.tensor(
+                np.where(rows != cols, 2.0 * vals, vals), dtype=dtype,
+                device=self.device)
 
     def _build_general(self, rows, cols, vals, cid) -> None:
         """The two static layouts of the general path; none when the cone
@@ -170,11 +200,21 @@ class ConeOps:
         """<C, sym(U V^T)> as a 0-dim device tensor."""
         if not self.c_nnz:
             return torch.zeros((), dtype=self.dtype, device=self.device)
+        if self.c_dense is not None:
+            # C symmetric: tr(C sym(U V^T)) = <U, C V>, averaged with its
+            # transpose pair as the JAX package does (the two terms are the
+            # same number when U is V, and x == 0.5 * (x + x) exactly)
+            uv = cvdot(U, torch.matmul(self.c_dense, V))
+            if U is V:
+                return uv
+            return 0.5 * (uv + cvdot(V, torch.matmul(self.c_dense, U)))
         return K.sym_contract_sum(self.c_rows, self.c_cols,
                                   self.c_double_coef, U, V)
 
     def apply_c(self, Y):
         """C @ Y."""
+        if self.c_dense is not None:
+            return torch.matmul(self.c_dense, Y)
         if self.c_csr is None:
             return torch.zeros_like(Y)
         return K.spmm_sym_csr(self.c_csr, Y, 1.0)
@@ -189,17 +229,20 @@ class ConeOps:
         return K.spmm_constr_csr(self.a_csr, w, Y)
 
     def apply_w(self, w, Y, obj_coef=1.0, include_obj=True):
-        """(obj_coef * C + A*(w)) @ Y (``mul_rk``): one kernel under
-        ``diag_identity``, else K1 then K6 accumulating onto its output."""
-        with_c = include_obj and self.c_csr is not None
-        if self.diag_identity:
-            d = self.diag_val * w
-            if not with_c:
-                return K.spmm_sym_csr(None, Y, 0.0, d=d)
-            return K.spmm_sym_csr(self.c_csr, Y, float(obj_coef), d=d)
-        if not with_c:
+        """(obj_coef * C + A*(w)) @ Y (``mul_rk``).  Sparse C: one kernel
+        under ``diag_identity``, else K1 then K6 accumulating onto its
+        output.  Dense C: the GEMM, then K6 accumulating onto it."""
+        if not (include_obj and self.c_nnz):
             return self.apply_a(w, Y)
-        cy = K.spmm_sym_csr(self.c_csr, Y, float(obj_coef))
+        if self.c_dense is not None:
+            cy = float(obj_coef) * torch.matmul(self.c_dense, Y)
+            if self.diag_identity:
+                return self.apply_a(w, Y) + cy
+        elif self.diag_identity:
+            return K.spmm_sym_csr(self.c_csr, Y, float(obj_coef),
+                                  d=self.diag_val * w)
+        else:
+            cy = K.spmm_sym_csr(self.c_csr, Y, float(obj_coef))
         if self.a_csr is None:
             return cy
         return K.spmm_constr_csr(self.a_csr, w, Y, Z=cy, beta=1.0)
@@ -212,24 +255,95 @@ class ConeOps:
         return 6 * self.a_nnz * rank
 
     def apply_flops(self, rank: int) -> int:
-        return (4 * self.a_nnz * rank + 4 * self.c_nnz * rank
-                + 2 * self.n * rank)
+        obj = (2 * self.n * self.n * rank if self.dense_obj
+               else 4 * self.c_nnz * rank)
+        return 4 * self.a_nnz * rank + obj + 2 * self.n * rank
+
+
+class LPOps:
+    """LP cone operators: x_j = u_j v_j over nonnegative columns."""
+
+    def __init__(self, lp: LPConeData, device, dtype=torch.float64):
+        if dtype != torch.float64:
+            raise NotImplementedError(f"float32 compute {_LATER}")
+        self.n_cols = lp.n_cols
+        self.m = lp.m
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.entries = K.LPEntries.from_coo(lp.c, lp.col, lp.cid, lp.vals,
+                                            lp.m, lp.n_cols, self.device,
+                                            dtype)
+        self.c = self.entries.c
+        self.nrm2sq = torch.tensor(np.asarray(lp.nrm2sq, np.float64),
+                                   dtype=dtype, device=self.device)
+
+    def constr_vals(self, u, v):
+        """A_lp(diag(u v)) as a global (m,) vector (K7)."""
+        return K.lp_constr_segsum(self.entries, u, v)
+
+    def constr_vals_pair(self, r, d):
+        """(2 A_lp(r o d), A_lp(d o d)) in one pass (the ALM line search)."""
+        return K.lp_constr_segsum(self.entries, r, d, pair=True)
+
+    def obj_value(self, u, v):
+        return cvdot(self.c, u * v)
+
+    def weighted_col_sums(self, w, obj_coef=1.0):
+        """Per-column (obj_coef*c_j + sum_i w_i A_ij), the LP analog of
+        C + A*(w) (K8)."""
+        return K.lp_col_wsum(self.entries, w, float(obj_coef))
+
+
+def build_cone_ops(prob: SDPProblem, device, dtype=torch.float64
+                   ) -> Tuple[List[ConeOps], Optional[LPOps]]:
+    """Operator bundles with every constraint in the problem's order."""
+    cones = [ConeOps(c, device, dtype, constr_relabel=False)
+             for c in prob.cones]
+    lp = LPOps(prob.lp, device, dtype) if prob.lp is not None else None
+    return cones, lp
 
 
 def build_cone_ops_internal(prob: SDPProblem, device,
                             dtype=torch.float64
-                            ) -> Tuple[List[ConeOps], None,
+                            ) -> Tuple[List[ConeOps], Optional[LPOps],
                                        Optional[np.ndarray]]:
     """Operator bundles for the solver's internal state: ``(cones, lp,
     constr_order)``.  ``constr_order`` is None (constraints in the problem's
     order) or the (m,) map internal -> original constraint id; the caller
-    then permutes ``b`` by it and un-permutes duals at egress."""
-    if prob.lp is not None:
-        raise NotImplementedError(
-            f"the LP cone (LPOps.constr_vals, weighted_col_sums) {_LATER}")
-    if len(prob.cones) != 1:
-        raise NotImplementedError(
-            f"multi-block problems ({len(prob.cones)} SDP cones sharing one "
-            f"constraint space) {_LATER}")
-    cones = [ConeOps(prob.cones[0], device, dtype)]
-    return cones, None, cones[0].constr_order
+    then permutes ``b`` by it and un-permutes duals at egress.  The
+    constraint relabeling is granted only to a single SDP cone with no LP
+    cone (the constraint space is shared across cones)."""
+    allow_constr = len(prob.cones) == 1 and prob.lp is None
+    cones = [ConeOps(c, device, dtype, constr_relabel=allow_constr)
+             for c in prob.cones]
+    lp = LPOps(prob.lp, device, dtype) if prob.lp is not None else None
+    constr_order = cones[0].constr_order if allow_constr and cones else None
+    return cones, lp, constr_order
+
+
+# --------------------------------------------------------------------------- #
+# Whole-problem helpers
+# --------------------------------------------------------------------------- #
+
+
+def all_constr_vals(cones: List[ConeOps], lp: Optional[LPOps], U, V,
+                    ulp=None, vlp=None):
+    """Sum of per-cone A(sym(U_k V_k^T)) (+ LP part) -> (m,)."""
+    ref = cones[0] if cones else lp
+    out = torch.zeros(ref.m, dtype=ref.dtype, device=ref.device)
+    for ops, u, v in zip(cones, U, V):
+        out = out + ops.constr_vals(u, v)
+    if lp is not None and ulp is not None:
+        out = out + lp.constr_vals(ulp, vlp)
+    return out
+
+
+def all_obj_value(cones: List[ConeOps], lp: Optional[LPOps], U, V, ulp=None,
+                  vlp=None):
+    ref = cones[0] if cones else lp
+    total = torch.zeros((), dtype=ref.dtype, device=ref.device)
+    for ops, u, v in zip(cones, U, V):
+        total = total + ops.obj_value(u, v)
+    if lp is not None and ulp is not None:
+        total = total + lp.obj_value(ulp, vlp)
+    return total

@@ -1,4 +1,4 @@
-"""The port's six CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's eight CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -33,11 +33,17 @@ K6     spmm_constr_csr       ops/gatherseg.py EllSpMM.apply_constr via
                              ConeOps.apply_a / apply_w (sparse A and
                              non-identity diag), and the second half of
                              their ConeOps.cg_normal_matvec
+K7     lp_constr_segsum      ops/coneops.py LPOps.constr_vals (the LP cone's
+                             A_lp(u o v), an EllSegSum over constraints)
+K8     lp_col_wsum           ops/coneops.py LPOps.weighted_col_sums (the LP
+                             cone's c0 c + A_lp^T w, an EllSegSum over
+                             columns)
 =====  ====================  ==============================================
 
-K1-K4 carry the MaxCut family (one diagonal constraint per row); K1, K4, K5
-and K6 carry every other single-block cone with sparse constraints and a
-sparse objective.
+K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
+carry every other SDP cone (sparse or dense constraint kind), with K1 and K4
+for a sparse objective and ``torch.matmul`` for a dense one; K7 and K8 carry
+the LP cone.
 """
 
 from __future__ import annotations
@@ -121,10 +127,17 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P)),
     Kernel("coo_contract_segsum",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:143",
-           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
+           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+            _I, _P, _I, _P, _P, _I, _P, _P, _P)),
     Kernel("spmm_constr_csr",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:256",
            (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P)),
+    Kernel("lp_constr_segsum",
+           "ltr_lowrank_sdp_tpu/ops/coneops.py:435",
+           (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P)),
+    Kernel("lp_col_wsum",
+           "ltr_lowrank_sdp_tpu/ops/coneops.py:443",
+           (_P, _P, _P, _P, _P, _D, _I, _P, _P)),
 )}
 
 
@@ -466,12 +479,22 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+K5_LONG_SEGMENT = 32     # a segment of at least this many entries is cut
+K5_CHUNK = 8             # into chunks of at most this many entries
+
+
 @dataclasses.dataclass
 class SegCOO:
     """The upper-triangle entries of a cone's constraint matrices, sorted by
     constraint id on the host: the entries of constraint i are the segment
     ``seg_ptr[i]:seg_ptr[i+1]``.  ``coef`` counts an off-diagonal entry twice
-    (``<A, X>`` for symmetric X)."""
+    (``<A, X>`` for symmetric X).
+
+    A segment of at least ``long_thresh`` entries (a trace constraint) is cut
+    into chunks of at most ``K5_CHUNK`` entries that the kernel reduces with
+    one warp each and then adds in chunk order: ``chunk_ptr[c]`` is chunk c's
+    (start, end), ``long_seg`` the cut segments and ``long_ptr`` their chunk
+    ranges.  All three are None when no segment is that long."""
 
     n: int
     m: int
@@ -479,10 +502,18 @@ class SegCOO:
     rows: torch.Tensor       # (nnz,) int32
     cols: torch.Tensor       # (nnz,) int32
     coef: torch.Tensor       # (nnz,) float64
+    long_thresh: int = K5_LONG_SEGMENT
+    chunk_ptr: Optional[torch.Tensor] = None    # (n_chunks, 2) int32
+    long_seg: Optional[torch.Tensor] = None     # (n_long,) int32
+    long_ptr: Optional[torch.Tensor] = None     # (n_long+1,) int32
 
     @property
     def nnz(self) -> int:
         return int(self.rows.numel())
+
+    @property
+    def n_chunks(self) -> int:
+        return 0 if self.chunk_ptr is None else int(self.chunk_ptr.shape[0])
 
     @functools.cached_property
     def seg_ids(self) -> torch.Tensor:
@@ -491,7 +522,12 @@ class SegCOO:
 
     @staticmethod
     def from_coo(rows, cols, vals, cid, n: int, m: int, device,
-                 dtype=torch.float64) -> "SegCOO":
+                 dtype=torch.float64,
+                 long_thresh: Optional[int] = K5_LONG_SEGMENT) -> "SegCOO":
+        """``long_thresh=None`` builds the layout without the long-segment
+        split (every segment one warp's walk).  No solver path asks for
+        that: it is a hook for the tests and the smoke run, which hold the
+        split against the unsplit walk and time both."""
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         vals = np.asarray(vals, np.float64)
@@ -503,12 +539,32 @@ class SegCOO:
         seg_ptr = np.zeros(m + 1, np.int64)
         np.cumsum(np.bincount(cid, minlength=m), out=seg_ptr[1:])
         coef = np.where(rows != cols, 2.0 * vals, vals)
-        return SegCOO(
+        seg = SegCOO(
             n=n, m=m,
             seg_ptr=torch.tensor(seg_ptr, dtype=torch.int32, device=device),
             rows=torch.tensor(rows, dtype=torch.int32, device=device),
             cols=torch.tensor(cols, dtype=torch.int32, device=device),
             coef=torch.tensor(coef, dtype=dtype, device=device))
+        lens = np.diff(seg_ptr)
+        long_seg = (np.flatnonzero(lens >= long_thresh) if long_thresh
+                    else np.zeros(0, np.int64))
+        if long_seg.size:
+            per = -(-lens[long_seg] // K5_CHUNK)
+            long_ptr = np.zeros(long_seg.size + 1, np.int64)
+            np.cumsum(per, out=long_ptr[1:])
+            which = np.repeat(np.arange(long_seg.size), per)
+            start = (seg_ptr[long_seg][which]
+                     + (np.arange(long_ptr[-1]) - long_ptr[:-1][which])
+                     * K5_CHUNK)
+            end = np.minimum(start + K5_CHUNK, seg_ptr[long_seg + 1][which])
+            seg.long_thresh = int(long_thresh)
+            seg.chunk_ptr = torch.tensor(np.stack([start, end], axis=1),
+                                         dtype=torch.int32, device=device)
+            seg.long_seg = torch.tensor(long_seg, dtype=torch.int32,
+                                        device=device)
+            seg.long_ptr = torch.tensor(long_ptr, dtype=torch.int32,
+                                        device=device)
+        return seg
 
 
 def coo_contract_segsum_plain(seg: SegCOO, U, V, pair: bool = False):
@@ -555,9 +611,20 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
     mode = 2 if pair else (1 if U is V else 0)
     o1 = torch.empty(seg.m, dtype=torch.float64, device=dev)
     o2 = torch.empty(seg.m, dtype=torch.float64, device=dev) if pair else None
+    nc = seg.n_chunks
+    n_long = 0
+    part = None
+    if nc:
+        n_long = int(seg.long_seg.numel())
+        _check(seg.chunk_ptr, "chunk_ptr", torch.int32, (nc, 2), dev)
+        _check(seg.long_seg, "long_seg", torch.int32, (n_long,), dev)
+        _check(seg.long_ptr, "long_ptr", torch.int32, (n_long + 1,), dev)
+        part = torch.empty((2, nc), dtype=torch.float64, device=dev)
     k.launch(seg.seg_ptr.data_ptr(), seg.rows.data_ptr(), seg.cols.data_ptr(),
              seg.coef.data_ptr(), U.data_ptr(), V.data_ptr(), seg.m, r, mode,
-             o1.data_ptr(), _ptr(o2), _stream(dev))
+             o1.data_ptr(), _ptr(o2), seg.long_thresh, _ptr(seg.chunk_ptr),
+             nc, _ptr(seg.long_seg), _ptr(seg.long_ptr), n_long,
+             _ptr(part), part[1].data_ptr() if nc else None, _stream(dev))
     return (o1, o2) if pair else o1
 
 
@@ -652,4 +719,134 @@ def spmm_constr_csr(csr: ConstrCSR, w: torch.Tensor, Y: torch.Tensor,
              csr.vals.data_ptr(), csr.cid.data_ptr(), w.data_ptr(),
              Y.data_ptr(), _ptr(Z), out.data_ptr(), n, r, float(beta),
              _stream(dev))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K7 / K8: the LP cone's two segment sums
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class LPEntries:
+    """The LP cone's constraint entries (column, constraint, value) in two
+    static orders built once on the host, each a stable sort of the problem's
+    own entry order: by constraint (a CSR over the m constraints, for K7) and
+    by column (a CSC over the n_cols columns, for K8), with the LP objective
+    ``c``."""
+
+    m: int
+    n_cols: int
+    c: torch.Tensor          # (n_cols,) float64
+    row_ptr: torch.Tensor    # (m+1,) int32
+    row_col: torch.Tensor    # (nnz,) int32, column of each entry, CSR order
+    row_val: torch.Tensor    # (nnz,) float64
+    col_ptr: torch.Tensor    # (n_cols+1,) int32
+    col_cid: torch.Tensor    # (nnz,) int32, constraint of each entry, CSC order
+    col_val: torch.Tensor    # (nnz,) float64
+
+    @property
+    def nnz(self) -> int:
+        return int(self.row_col.numel())
+
+    @functools.cached_property
+    def row_ids(self) -> torch.Tensor:
+        """(nnz,) int64 constraint of each CSR entry (plain version only)."""
+        return _ids_from_ptr(self.row_ptr)
+
+    @functools.cached_property
+    def col_ids(self) -> torch.Tensor:
+        """(nnz,) int64 column of each CSC entry (plain version only)."""
+        return _ids_from_ptr(self.col_ptr)
+
+    @staticmethod
+    def from_coo(c, col, cid, vals, m: int, n_cols: int, device,
+                 dtype=torch.float64) -> "LPEntries":
+        col = np.asarray(col, np.int64)
+        cid = np.asarray(cid, np.int64)
+        vals = np.asarray(vals, np.float64)
+        _i32(max(col.size, m + 1, n_cols + 1), "nnz of the LP cone")
+
+        def ptr(ids, size):
+            out = np.zeros(size + 1, np.int64)
+            np.cumsum(np.bincount(ids, minlength=size), out=out[1:])
+            return torch.tensor(out, dtype=torch.int32, device=device)
+
+        by_cid = np.argsort(cid, kind="stable")
+        by_col = np.argsort(col, kind="stable")
+        return LPEntries(
+            m=m, n_cols=n_cols,
+            c=torch.tensor(np.asarray(c, np.float64), dtype=dtype,
+                           device=device),
+            row_ptr=ptr(cid, m),
+            row_col=torch.tensor(col[by_cid], dtype=torch.int32,
+                                 device=device),
+            row_val=torch.tensor(vals[by_cid], dtype=dtype, device=device),
+            col_ptr=ptr(col, n_cols),
+            col_cid=torch.tensor(cid[by_col], dtype=torch.int32,
+                                 device=device),
+            col_val=torch.tensor(vals[by_col], dtype=dtype, device=device))
+
+
+def lp_constr_segsum_plain(lp: LPEntries, u, v, pair: bool = False):
+    """Plain version of K7."""
+    cols = lp.row_col.long()
+
+    def segsum(x):
+        return torch.zeros(lp.m, dtype=x.dtype, device=x.device).index_add_(
+            0, lp.row_ids, lp.row_val * x[cols])
+
+    if pair:
+        return 2.0 * segsum(u * v), segsum(v * v)
+    return segsum(u * v)
+
+
+def lp_constr_segsum(lp: LPEntries, u: torch.Tensor, v: torch.Tensor,
+                     pair: bool = False):
+    """K7: per constraint i, ``sum_e val_e * u[col_e] * v[col_e]`` over its LP
+    entries -> (m,); with ``pair`` the two vectors ``(2 A_lp(u o v),
+    A_lp(v o v))`` from one pass."""
+    k = KERNELS["lp_constr_segsum"]
+    if _is_cpu(u):
+        k.plain_calls += 1
+        return lp_constr_segsum_plain(lp, u, v, pair)
+    dev = u.device
+    _check(u, "u", torch.float64, (lp.n_cols,), dev)
+    _check(v, "v", torch.float64, (lp.n_cols,), dev)
+    _check(lp.row_ptr, "row_ptr", torch.int32, (lp.m + 1,), dev)
+    _check(lp.row_col, "row_col", torch.int32, (lp.nnz,), dev)
+    _check(lp.row_val, "row_val", torch.float64, (lp.nnz,), dev)
+    o1 = torch.empty(lp.m, dtype=torch.float64, device=dev)
+    o2 = torch.empty(lp.m, dtype=torch.float64, device=dev) if pair else None
+    k.launch(lp.row_ptr.data_ptr(), lp.row_col.data_ptr(),
+             lp.row_val.data_ptr(), u.data_ptr(), v.data_ptr(), lp.m,
+             2 if pair else 0, o1.data_ptr(), _ptr(o2), _stream(dev))
+    return (o1, o2) if pair else o1
+
+
+def lp_col_wsum_plain(lp: LPEntries, w, c0: float = 1.0):
+    """Plain version of K8."""
+    s = torch.zeros(lp.n_cols, dtype=w.dtype, device=w.device).index_add_(
+        0, lp.col_ids, lp.col_val * w[lp.col_cid.long()])
+    return c0 * lp.c + s
+
+
+def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
+                c0: float = 1.0) -> torch.Tensor:
+    """K8: per LP column j, ``c0 * c[j] + sum_e val_e * w[cid_e]`` over its
+    entries -> (n_cols,), the weight gather inside the kernel."""
+    k = KERNELS["lp_col_wsum"]
+    if _is_cpu(w):
+        k.plain_calls += 1
+        return lp_col_wsum_plain(lp, w, c0)
+    dev = w.device
+    _check(w, "w", torch.float64, (lp.m,), dev)
+    _check(lp.c, "c", torch.float64, (lp.n_cols,), dev)
+    _check(lp.col_ptr, "col_ptr", torch.int32, (lp.n_cols + 1,), dev)
+    _check(lp.col_cid, "col_cid", torch.int32, (lp.nnz,), dev)
+    _check(lp.col_val, "col_val", torch.float64, (lp.nnz,), dev)
+    out = torch.empty(lp.n_cols, dtype=torch.float64, device=dev)
+    k.launch(lp.col_ptr.data_ptr(), lp.col_cid.data_ptr(),
+             lp.col_val.data_ptr(), w.data_ptr(), lp.c.data_ptr(), float(c0),
+             lp.n_cols, out.data_ptr(), _stream(dev))
     return out

@@ -15,9 +15,9 @@ solver's per-cone operator data, choosing a compute path per cone:
   ``lorads_sdp_conic.c:1201,1305-1392``), with an additional dimension cap
   since an n x n temporary must fit in memory.
 
-The classification is kept identical to the JAX package so both build the
-same ``SDPProblem``; the port's operators cover the diag and sparse cones
-with a sparse C (the dense kinds raise in :mod:`.ops.coneops`).
+The objective C has an independent dense/sparse choice (a dense C with sparse
+constraints is common: Lovasz theta).  The classification is kept identical
+to the JAX package so both build the same ``SDPProblem``.
 """
 
 from __future__ import annotations
@@ -144,9 +144,12 @@ def _classify_cone(blk: SDPABlock, m: int) -> ConeData:
 
     # --- dense path decision for A*(w) (reference presolve rule) ---
     if n <= DENSE_DIM_HARD_CAP:
-        union = set(zip(blk.a_rows.tolist(), blk.a_cols.tolist()))
-        union.update(zip(blk.c_rows.tolist(), blk.c_cols.tolist()))
-        sp_ratio = 2.0 * len(union) / (n * (n + 1))
+        # the union pattern of C and all A_i, counted on (row, col) keys
+        # (the JAX package builds the same set from Python tuples)
+        keys = np.concatenate([
+            blk.a_rows.astype(np.int64) * n + blk.a_cols,
+            blk.c_rows.astype(np.int64) * n + blk.c_cols])
+        sp_ratio = 2.0 * np.unique(keys).size / (n * (n + 1))
         if n < DENSE_SMALL_DIM or sp_ratio >= DENSE_SP_RATIO:
             cone.kind_a = "dense"
     return _classify_c(cone)

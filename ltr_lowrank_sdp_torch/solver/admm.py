@@ -2,15 +2,19 @@
 
 The port of ``ltr_lowrank_sdp_tpu/solver/admm.py`` (reference
 ``LORADSADMMOptimize``, ``lorads_admm.c:84-209``, and the variable update
-``LORADSUpdateSDPVarOne:564`` / ``linSysProduct:471``) for this slice: the
-Gauss-Seidel cone sweep (``admm.py:176-214``), the averaged-iterate metrics
-(``_metrics``), the divergence/bad-iteration exits and the rho plateau
-schedule.  The Jacobi sweep and the LP sweep are later slices of the port.
+``LORADSUpdateSDPVarOne:564`` / ``LORADSUpdateLPVarOne:759`` /
+``linSysProduct:471``): the Gauss-Seidel cone sweep, the under-relaxed Jacobi
+sweep (``admm_jacobi``), the closed-form LP sweep, the averaged-iterate
+metrics, the divergence/bad-iteration exits and the rho plateau schedule.
 
 * The U update solves (I + A*_V A_V) u = -M2/rho with A_V(x) = A(sym(x V^T))
   by CG (:func:`~..ops.cg.cg_solve`); M1/M2/b_linsys match the reference.
 * The per-iteration DIMACS update overwrites the running constraint values
   with those of the averaged factor (U+V)/2, as the reference does.
+* ``constr_sum`` is kept by subtracting a cone's old ``constr_val`` and
+  adding its new one, never recomputed inside a sweep (the rounding of the
+  JAX package).
+* LP columns use the closed-form update as one vectorized sweep per side.
 
 The JAX package runs chunks of iterations in one XLA program and reads a
 stats blob per chunk; here every iteration reads its metrics (with the
@@ -60,6 +64,9 @@ class ADMMCarry:
     pinf_inf: float = BIG
     gap: float = BIG
     grams: Optional[List[np.ndarray]] = None   # ((U+V)/2)^T((U+V)/2)
+    ulp: Optional[torch.Tensor] = None         # LP factors, x_lp = ulp o vlp
+    vlp: Optional[torch.Tensor] = None
+    constr_lp: Optional[torch.Tensor] = None   # LP cone contribution (m,)
 
     def replace(self, **kw) -> "ADMMCarry":
         return dataclasses.replace(self, **kw)
@@ -96,8 +103,10 @@ class ADMMInfo:
 
 class ADMMPhase:
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
-                 params: SolverParams, shapes, sync: HostSync):
+                 params: SolverParams, shapes, sync: HostSync, lp=None):
         self.cones = cones
+        self.lp = lp
+        self.has_lp = lp is not None
         self.b = b
         self.consts = consts
         self.params = params
@@ -122,7 +131,10 @@ class ADMMPhase:
 
     def _iteration(self, carry: ADMMCarry, rho: float, cg_tol: float,
                    want_grams: bool) -> Tuple[ADMMCarry, int]:
-        """One Gauss-Seidel ADMM iteration: cone sweep + metrics."""
+        """One ADMM iteration: cone sweep (Gauss-Seidel, or Jacobi with
+        ``admm_jacobi`` on several cones) + LP sweep + metrics."""
+        if self.params.admm_jacobi and len(self.cones) > 1:
+            return self._iteration_jacobi(carry, rho, cg_tol, want_grams)
         cg_total = 0
         U = list(carry.U)
         V = list(carry.V)
@@ -151,8 +163,76 @@ class ADMMPhase:
             carry = carry.replace(constr_val=tuple(constr_val))
             cg_total += it1 + it2
             CU.append(C_u)
+        if self.has_lp:
+            carry = self._lp_sweep(carry, rho)
         carry = self.metrics(carry, CU=tuple(CU), want_grams=want_grams)
         return carry, cg_total
+
+    def _iteration_jacobi(self, carry: ADMMCarry, rho: float, cg_tol: float,
+                          want_grams: bool) -> Tuple[ADMMCarry, int]:
+        """Jacobi (parallel) cone sweep: every U update solves against the
+        entry snapshot of the constraint sum, then every V update against
+        the refreshed one, each under-relaxed by the block count,
+        U <- U + (U* - U) / K (plain Jacobi diverges when blocks couple
+        strongly through shared constraints)."""
+        cg_total = 0
+        alpha = 1.0 / len(self.cones)
+
+        def csum_of(constr_val):
+            return sum(constr_val) + (carry.constr_lp if self.has_lp
+                                      else 0.0)
+
+        new_U = []
+        for i in range(len(self.cones)):
+            u_new, it1 = self._cone_update(i, carry.U[i], carry.V[i],
+                                           carry.CV[i], carry, rho, cg_tol)
+            new_U.append(carry.U[i] + alpha * (u_new - carry.U[i]))
+            cg_total += it1
+        constr_val = [ops.constr_vals(u, v) for ops, u, v in
+                      zip(self.cones, new_U, carry.V)]
+        carry = carry.replace(U=tuple(new_U), constr_val=tuple(constr_val),
+                              constr_sum=csum_of(constr_val))
+
+        CU = [ops.apply_c(u) for ops, u in zip(self.cones, carry.U)]
+        new_V = []
+        for i in range(len(self.cones)):
+            v_new, it2 = self._cone_update(i, carry.V[i], carry.U[i], CU[i],
+                                           carry, rho, cg_tol)
+            new_V.append(carry.V[i] + alpha * (v_new - carry.V[i]))
+            cg_total += it2
+        constr_val = [ops.constr_vals(u, v) for ops, u, v in
+                      zip(self.cones, carry.U, new_V)]
+        carry = carry.replace(V=tuple(new_V), constr_val=tuple(constr_val),
+                              constr_sum=csum_of(constr_val))
+
+        if self.has_lp:
+            carry = self._lp_sweep(carry, rho)
+        carry = self.metrics(carry, CU=tuple(CU), want_grams=want_grams)
+        return carry, cg_total
+
+    def _lp_sweep(self, carry: ADMMCarry, rho: float) -> ADMMCarry:
+        """Closed-form update of every LP column, u side then v side
+        (``LORADSUpdateLPVarOne``, ``lorads_admm.c:759-792``)."""
+        lp = self.lp
+
+        def one_side(x_upd, x_fix, carry):
+            M1g = rho * (carry.constr_sum - self.b) - carry.dual
+            x_old = x_upd * x_fix
+            base = lp.weighted_col_sums(M1g, obj_coef=carry.obj_scale)
+            lpw = base - rho * x_old * lp.nrm2sq
+            M2 = lpw * x_fix - rho * x_fix
+            return (-M2 / rho) / (1.0 + lp.nrm2sq * x_fix * x_fix)
+
+        ulp = one_side(carry.ulp, carry.vlp, carry)
+        new_lp = lp.constr_vals(ulp, carry.vlp)
+        carry = carry.replace(
+            ulp=ulp, constr_sum=carry.constr_sum - carry.constr_lp + new_lp,
+            constr_lp=new_lp)
+        vlp = one_side(carry.vlp, carry.ulp, carry)
+        new_lp = lp.constr_vals(carry.ulp, vlp)
+        return carry.replace(
+            vlp=vlp, constr_sum=carry.constr_sum - carry.constr_lp + new_lp,
+            constr_lp=new_lp)
 
     def metrics(self, carry: ADMMCarry, CU=None,
                 want_grams: bool = False) -> ADMMCarry:
@@ -161,6 +241,7 @@ class ADMMPhase:
         semantics).  <C, Ravg Ravg^T> = 0.25 <U+V, CU + CV>; C·V is carried
         into the next U update.  One host read."""
         Ravg = tuple(0.5 * (u + v) for u, v in zip(carry.U, carry.V))
+        rlp_avg = 0.5 * (carry.ulp + carry.vlp) if self.has_lp else None
         CV = tuple(ops.apply_c(v) for ops, v in zip(self.cones, carry.V))
         if CU is None:
             CU = tuple(ops.apply_c(u) for ops, u in zip(self.cones, carry.U))
@@ -170,7 +251,11 @@ class ADMMPhase:
                                         CV, Ravg):
             obj = obj + 0.25 * cvdot(u + v, cu + cv)
             cvals.append(ops.constr_vals(r, r))
-        csum = sum(cvals)
+        constr_lp = carry.constr_lp
+        if self.has_lp:
+            obj = obj + self.lp.obj_value(rlp_avg, rlp_avg)
+            constr_lp = self.lp.constr_vals(rlp_avg, rlp_avg)
+        csum = sum(cvals) + (constr_lp if self.has_lp else 0.0)
         dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
         pinf_t = primal_infeas_l1(csum, self.b, self.consts.b_nrm1)
         grams = ([torch.matmul(r.T, r) for r in Ravg] if want_grams else [])
@@ -185,18 +270,25 @@ class ADMMPhase:
         pinf_inf = pinf * (1.0 + self.consts.b_nrm1) / (
             1.0 + self.consts.b_nrminf)
         gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
-        return carry.replace(CV=CV, constr_val=tuple(cvals), constr_sum=csum,
+        return carry.replace(CV=CV, constr_val=tuple(cvals),
+                             constr_lp=constr_lp, constr_sum=csum,
                              pobj=pobj, dobj=dobj, pinf_l1=pinf,
                              pinf_inf=pinf_inf, gap=gap, grams=gram_h)
 
-    def init_carry(self, U, V, dual, obj_scale: float) -> ADMMCarry:
-        carry = ADMMCarry(
-            U=U, V=V, dual=dual,
+    def blank_carry(self, U, V, dual, obj_scale: float, ulp=None,
+                    vlp=None) -> ADMMCarry:
+        """A carry with zeroed bookkeeping; :meth:`metrics` fills it."""
+        return ADMMCarry(
+            U=U, V=V, ulp=ulp, vlp=vlp, dual=dual,
             constr_val=tuple(torch.zeros_like(self.b) for _ in self.cones),
+            constr_lp=torch.zeros_like(self.b) if self.has_lp else None,
             constr_sum=torch.zeros_like(self.b),
             CV=tuple(torch.zeros_like(v) for v in V),
             obj_scale=float(obj_scale))
-        return self.metrics(carry)
+
+    def init_carry(self, U, V, dual, obj_scale: float, ulp=None,
+                   vlp=None) -> ADMMCarry:
+        return self.metrics(self.blank_carry(U, V, dual, obj_scale, ulp, vlp))
 
     def make_ctrl(self, rho: float, rho_max: float,
                   iter_start: int = 0) -> ADMMCtrl:

@@ -61,10 +61,12 @@ BIG = 1e30
 @dataclasses.dataclass
 class ALMCarry:
     R: Factors
+    rlp: Optional[torch.Tensor]     # LP factor vector (x_lp = rlp o rlp)
     dual: torch.Tensor
     constr_sum: torch.Tensor
     CR: Factors                     # C @ R_k per cone, maintained incrementally
     grad: Factors
+    grad_lp: Optional[torch.Tensor]
     hist: lbfgs_mod.LBFGSHistory
     rho: float
     obj_scale: float                # scaleObjHis: C enters as obj_scale * C
@@ -140,15 +142,17 @@ def make_outer_ctrl(params: SolverParams, outer_iter: int,
 
 def make_alm_carry(R: Factors, m: int, n_elems: int, rho0: float,
                    params: SolverParams, dual=None,
-                   obj_scale: float = 1.0) -> ALMCarry:
-    dev, dt = R[0].device, R[0].dtype
+                   obj_scale: float = 1.0, rlp=None) -> ALMCarry:
+    ref = R[0] if R else rlp
+    dev, dt = ref.device, ref.dtype
     return ALMCarry(
-        R=R,
+        R=R, rlp=rlp,
         dual=(torch.zeros(m, dtype=dt, device=dev) if dual is None
               else dual),
         constr_sum=torch.zeros(m, dtype=dt, device=dev),
         CR=tuple(torch.zeros_like(r) for r in R),      # prepare() fills it
         grad=tuple(torch.zeros_like(r) for r in R),
+        grad_lp=torch.zeros_like(rlp) if rlp is not None else None,
         hist=lbfgs_mod.init_history(n_elems, params.lbfgs_list_length,
                                     dev, dt),
         rho=float(rho0), obj_scale=float(obj_scale),
@@ -159,14 +163,17 @@ class ALMPhase:
     """The ALM phase for a fixed rank signature."""
 
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
-                 params: SolverParams, shapes, sync: HostSync):
+                 params: SolverParams, shapes, sync: HostSync, lp=None):
         self.cones = cones
+        self.lp = lp
+        self.has_lp = lp is not None
         self.b = b
         self.consts = consts
         self.params = params
         self.shapes = tuple(tuple(s) for s in shapes)
         self.sync = sync
-        self.n_elems = int(sum(np.prod(s) for s in shapes))
+        self.n_elems = int(sum(np.prod(s) for s in shapes)) + (
+            lp.n_cols if self.has_lp else 0)
         work = 1.0
         for ops, (n, r) in zip(cones, self.shapes):
             work += 3.0 * ops.constr_flops(r) + ops.apply_flops(r)
@@ -175,19 +182,36 @@ class ALMPhase:
 
     # ------------------------------------------------------------------ #
 
-    def _constr_only(self, U, V):
-        c = torch.zeros_like(self.b)
+    def _obj_and_constr(self, U, V, ulp, vlp):
+        """(<C, X>, A(X)) summed LP cone first, then cone by cone (the JAX
+        package's order)."""
+        if self.has_lp:
+            o = self.lp.obj_value(ulp, vlp)
+            c = self.lp.constr_vals(ulp, vlp)
+        else:
+            o = torch.zeros((), dtype=self.b.dtype, device=self.b.device)
+            c = torch.zeros_like(self.b)
+        for ops, u, v in zip(self.cones, U, V):
+            o = o + ops.obj_value(u, v)
+            c = c + ops.constr_vals(u, v)
+        return o, c
+
+    def _constr_only(self, U, V, ulp, vlp):
+        if self.has_lp:
+            c = self.lp.constr_vals(ulp, vlp)
+        else:
+            c = torch.zeros_like(self.b)
         for ops, u, v in zip(self.cones, U, V):
             c = c + ops.constr_vals(u, v)
         return c
 
     def _grad_cert(self, carry: ALMCarry) -> ALMCarry:
-        grads, gsq = alm_gradient(self.cones, carry.R, carry.dual,
-                                  carry.constr_sum, self.b, carry.rho,
-                                  carry.obj_scale, carry.CR)
+        grads, grad_lp, gsq = alm_gradient(
+            self.cones, self.lp, carry.R, carry.rlp, carry.dual,
+            carry.constr_sum, self.b, carry.rho, carry.obj_scale, carry.CR)
         (gsq_h,) = self.sync(gsq)
         cert = math.sqrt(gsq_h) / (1.0 + self.consts.c_nrminf)
-        return carry.replace(grad=grads, cert_val=cert)
+        return carry.replace(grad=grads, grad_lp=grad_lp, cert_val=cert)
 
     def _dual_and_grad(self, carry: ALMCarry) -> ALMCarry:
         dual = carry.dual + carry.rho * (self.b - carry.constr_sum)
@@ -197,11 +221,8 @@ class ALMPhase:
                  ) -> ALMCarry:
         """Fresh objective / constraint values / DIMACS errors (one host
         read).  pObj = <C, X>, dObj = b'lambda / obj_scale."""
-        obj = torch.zeros((), dtype=self.b.dtype, device=self.b.device)
-        cvals = torch.zeros_like(self.b)
-        for ops, r in zip(self.cones, carry.R):
-            obj = obj + ops.obj_value(r, r)
-            cvals = cvals + ops.constr_vals(r, r)
+        obj, cvals = self._obj_and_constr(carry.R, carry.R, carry.rlp,
+                                          carry.rlp)
         dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
         pinf_t = primal_infeas_l1(cvals, self.b, self.consts.b_nrm1)
         grams = ([torch.matmul(r.T, r) for r in carry.R]
@@ -243,7 +264,7 @@ class ALMPhase:
                and not (num_err or tau_small or early)):
             if local_iter % 300 == 0:
                 clear = 0
-            grad_flat = flatten_factors(c.grad)
+            grad_flat = flatten_factors(c.grad, c.grad_lp)
             D_flat = lbfgs_mod.direction(c.hist, grad_flat, n_valid=clear)
             # normalize the direction (as the JAX package does for float32
             # range); the search interval [0, ||D||] keeps the math of the
@@ -252,7 +273,7 @@ class ALMPhase:
             d_safe_t = torch.where(d_nrm_t > 0.0, d_nrm_t,
                                    torch.ones_like(d_nrm_t))
             D_flat = D_flat / d_safe_t
-            D = unflatten_factors(D_flat, self.shapes)
+            D, dlp = unflatten_factors(D_flat, self.shapes, self.has_lp)
 
             q0 = b - c.constr_sum
             # one C·D per cone gives both objective line-search terms and
@@ -260,8 +281,13 @@ class ALMPhase:
             CD = tuple(ops.apply_c(d) for ops, d in zip(self.cones, D))
             oRD = sum(cvdot(r, cd) for r, cd in zip(c.R, CD))
             oDD = sum(cvdot(d, cd) for d, cd in zip(D, CD))
-            q1 = torch.zeros_like(b)
-            q2 = torch.zeros_like(b)
+            if self.has_lp:
+                oRD = oRD + self.lp.obj_value(c.rlp, dlp)
+                oDD = oDD + self.lp.obj_value(dlp, dlp)
+                q1, q2 = self.lp.constr_vals_pair(c.rlp, dlp)
+            else:
+                q1 = torch.zeros_like(b)
+                q2 = torch.zeros_like(b)
             for ops, r, d in zip(self.cones, c.R, D):
                 rd2, dd = ops.constr_vals_pair(r, d)
                 q1 = q1 + rd2
@@ -280,21 +306,23 @@ class ALMPhase:
             tau_eff = tau if do_update else 0.0
 
             R_new = tuple(r + tau_eff * d for r, d in zip(c.R, D))
+            rlp_new = c.rlp + tau_eff * dlp if self.has_lp else None
             # cheap exact update A((R+tD)(R+tD)^T) = A(RR^T) + t q1 + t^2 q2
             # (lorads_alm.c:1351-1353), refreshed from scratch periodically
             refresh = (local_iter % p.constr_refresh_every
                        ) == p.constr_refresh_every - 1
             if refresh:
-                cvals = self._constr_only(R_new, R_new)
+                cvals = self._constr_only(R_new, R_new, rlp_new, rlp_new)
                 CR_new = tuple(ops.apply_c(r)
                                for ops, r in zip(self.cones, R_new))
             else:
                 cvals = c.constr_sum + tau_eff * q1 + (tau_eff * tau_eff) * q2
                 CR_new = tuple(cr + tau_eff * cd for cr, cd in zip(c.CR, CD))
 
-            grads, gsq = alm_gradient(self.cones, R_new, c.dual, cvals, b,
-                                      c.rho, c.obj_scale, CR_new)
-            grad_flat_new = flatten_factors(grads)
+            grads, grad_lp, gsq = alm_gradient(
+                self.cones, self.lp, R_new, rlp_new, c.dual, cvals, b, c.rho,
+                c.obj_scale, CR_new)
+            grad_flat_new = flatten_factors(grads, grad_lp)
             lbfgs_mod.push_pair(c.hist, tau_eff * D_flat,
                                 grad_flat_new - grad_flat)
             pinf_t = primal_infeas_l1(cvals, b, self.consts.b_nrm1)
@@ -309,8 +337,9 @@ class ALMPhase:
                          and (c.gap <= p.phase1_tol or not p.high_acc_mode))
             early = early and do_update
 
-            c = c.replace(R=R_new, constr_sum=cvals, CR=CR_new, grad=grads,
-                          cert_val=cert, pinf_l1=pinf, pinf_inf=pinf_inf)
+            c = c.replace(R=R_new, rlp=rlp_new, constr_sum=cvals, CR=CR_new,
+                          grad=grads, grad_lp=grad_lp, cert_val=cert,
+                          pinf_l1=pinf, pinf_inf=pinf_inf)
             local_iter += 1
             clear += 1
 

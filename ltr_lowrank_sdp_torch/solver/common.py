@@ -1,13 +1,14 @@
 """Shared solver machinery: factors, gradients, DIMACS metrics, host reads.
 
 The port of ``ltr_lowrank_sdp_tpu/solver/common.py``.  The solver variables
-are tuples of per-cone (n_k, r_k) float64 factor tensors on the device.
+are tuples of per-cone (n_k, r_k) float64 factor tensors on the device, plus
+an optional (n_lp,) LP factor vector.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,34 +61,40 @@ class HostSync:
         return torch.cat([x.reshape(-1) for x in xs]).tolist()
 
 
-def flatten_factors(R: Factors) -> torch.Tensor:
+def flatten_factors(R: Factors, rlp=None) -> torch.Tensor:
+    """One vector of all factors, cone by cone, the LP vector last (the
+    order fixes the rounding of the L-BFGS dot products)."""
     parts = [r.reshape(-1) for r in R]
+    if rlp is not None:
+        parts.append(rlp.reshape(-1))
     return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
-def unflatten_factors(flat: torch.Tensor, shapes) -> Factors:
+def unflatten_factors(flat: torch.Tensor, shapes, has_lp: bool = False):
+    """``(factors, rlp)``; ``rlp`` is None without an LP cone."""
     out = []
     idx = 0
     for shp in shapes:
         size = int(np.prod(shp))
         out.append(flat[idx: idx + size].reshape(shp))
         idx += size
-    return tuple(out)
+    return tuple(out), (flat[idx:] if has_lp else None)
 
 
-def init_factors(ranks: Sequence[int], dims: Sequence[int],
+def init_factors(ranks: Sequence[int], dims: Sequence[int], n_lp: int,
                  generator: torch.Generator, device,
-                 dtype=torch.float64) -> Factors:
-    """Difference of two uniforms on [0, 1) per entry (the distribution of
-    ``LORADS_RANDOM_rk_MAT``, ``lorads_solver.c:527``).  Drawn on the CPU
-    generator and then moved, so a seed gives the same factors on every
-    device."""
-    R = []
-    for n, r in zip(dims, ranks):
-        a = torch.rand((n, r), generator=generator, dtype=dtype)
-        b = torch.rand((n, r), generator=generator, dtype=dtype)
-        R.append((a - b).to(device))
-    return tuple(R)
+                 dtype=torch.float64):
+    """``(R, rlp)``: difference of two uniforms on [0, 1) per entry (the
+    distribution of ``LORADS_RANDOM_rk_MAT``, ``lorads_solver.c:527``), the
+    LP start vector drawn last.  Drawn on the CPU generator and then moved,
+    so a seed gives the same factors on every device."""
+    def draw(shape):
+        a = torch.rand(shape, generator=generator, dtype=dtype)
+        b = torch.rand(shape, generator=generator, dtype=dtype)
+        return (a - b).to(device)
+
+    R = tuple(draw((n, r)) for n, r in zip(dims, ranks))
+    return R, (draw((n_lp,)) if n_lp > 0 else None)
 
 
 def pad_rank_columns(F: torch.Tensor, new_rank: int) -> torch.Tensor:
@@ -110,17 +117,23 @@ def pad_rank_columns(F: torch.Tensor, new_rank: int) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def alm_gradient(cones, R: Factors, dual, constr_sum, b, rho: float,
+def alm_gradient(cones, lp, R: Factors, rlp, dual, constr_sum, b, rho: float,
                  obj_scale: float, CR: Factors):
     """grad of L_rho = 2 (obj_scale*C + A*(w)) R, w = -lambda + rho(A(X)-b)
     (``ALMSetGrad``, ``lorads_alm.c:32-61``), with the objective term taken
-    from the carried C·R.  Returns (grads, ||grad||^2 as a 0-dim tensor)."""
+    from the carried C·R; the LP factor's gradient is 2 (obj_scale*c +
+    A_lp^T w) o r_lp.  Returns (grads, grad_lp, ||grad||^2 as a 0-dim
+    tensor)."""
     w = -dual + rho * (constr_sum - b)
     grads = tuple(
         2.0 * (obj_scale * cr + ops.apply_w(w, r, include_obj=False))
         for ops, r, cr in zip(cones, R, CR))
     norm_sq = sum(torch.dot(g.reshape(-1), g.reshape(-1)) for g in grads)
-    return grads, norm_sq
+    grad_lp = None
+    if lp is not None and rlp is not None:
+        grad_lp = 2.0 * lp.weighted_col_sums(w, obj_coef=obj_scale) * rlp
+        norm_sq = norm_sq + torch.dot(grad_lp, grad_lp)
+    return grads, grad_lp, norm_sq
 
 
 def primal_infeas_l1(constr_sum, b, b_nrm1: float) -> torch.Tensor:

@@ -10,9 +10,10 @@ JAX driver (``driver.py:600-1129``):
    rhoMax clamp law of ``LORADS_ALMtoADMM``, ``lorads_solver.c:1351-1387``),
 4. Phase II ADMM,
 5. reopt level 1 (objective rescaling by 5 + short ALM + ADMM),
-6. dual-infeasibility certification by Lanczos min-eig of the slack
-   S = obj_scale*C - A*(lambda), restarted with a doubled k while the Ritz
-   residual fails ARPACK's 1e-2 acceptance,
+6. dual-infeasibility certification by Lanczos min-eig of each block of
+   the slack S = obj_scale*C - A*(lambda), restarted with a doubled k while
+   the Ritz residual fails ARPACK's 1e-2 acceptance, plus the LP cone's
+   negative dual column sums,
 7. reopt level 2 (rounds driven by dual infeasibility, U/V averaged),
 8. status classification + trajectory JSON.
 
@@ -21,7 +22,8 @@ Left out on purpose: the JAX driver's speculative chained dispatches
 certification is computed once, where its result is needed, on the same
 iterate), and the float64 polish (``driver.py:776-836``): it rescues a
 float32 plateau and never fires under the port's float64 compute.  The
-C = 0 feasibility path, float32 compute and the mesh modes are later slices.
+C = 0 feasibility path, float32 compute and the mesh modes are later slices
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -70,8 +72,9 @@ class SolveResult:
     oracle_rank: int
     logger: Optional[TrajectoryLogger] = None
     stage_times: Optional[Dict[str, float]] = None
-    # primal factors per cone (X_k = sym(U_k V_k^T)) and the dual
-    # multipliers of the returned iterate, as numpy in the problem's order
+    # primal factors per cone (X_k = sym(U_k V_k^T)), the LP column factors
+    # (x_lp = ulp o vlp) and the dual multipliers of the returned iterate,
+    # as numpy in the problem's order
     U: Optional[Tuple] = None
     V: Optional[Tuple] = None
     ulp: Optional[object] = None
@@ -112,7 +115,7 @@ class Solver:
                 "the C = 0 feasibility path is a later slice of the port "
                 "(ROADMAP.md)")
         self.dtype = _resolve_dtype(self.params)
-        self.cones, _, self.constr_order = build_cone_ops_internal(
+        self.cones, self.lp, self.constr_order = build_cone_ops_internal(
             prob, self.device, self.dtype)
         self.consts = ProblemConsts.from_problem(prob)
         b_np = np.asarray(prob.b, np.float64)
@@ -130,9 +133,9 @@ class Solver:
     def _phases(self, ranks, sync: HostSync) -> Tuple[ALMPhase, ADMMPhase]:
         shapes = [(n, r) for n, r in zip(self.prob.block_dims, ranks)]
         return (ALMPhase(self.cones, self.b, self.consts, self.params,
-                         shapes, sync),
+                         shapes, sync, lp=self.lp),
                 ADMMPhase(self.cones, self.b, self.consts, self.params,
-                          shapes, sync))
+                          shapes, sync, lp=self.lp))
 
     # ------------------------------------------------------------------ #
     # dual certificate
@@ -154,14 +157,21 @@ class Solver:
                            starts: Sequence[torch.Tensor], sync: HostSync):
         """l1 dual infeasibility via Lanczos min-eig of each slack block
         (``calculate_dual_infeasibility_solver``, ``lorads_solver.c:1396``)
-        and the per-cone (U+V)/2 Gram matrices for the final oracle rank.
-        Restarts with doubled k (up to 4x / 400) while a cone's Ritz
-        residual fails the acceptance test."""
+        plus the LP cone's sum |min(obj_scale*c - A_lp^T lambda, 0)|, and the
+        per-cone (U+V)/2 Gram matrices for the final oracle rank.  Restarts
+        with doubled k (up to 4x / 400) while a cone's Ritz residual fails
+        the acceptance test."""
         neg_lam = -dual
         floor = (0.1 * self.params.phase2_tol * obj_scale
                  * (self.consts.c_nrm1 + 1.0))
         grams = [torch.matmul((0.5 * (u + v)).T, 0.5 * (u + v))
                  for u, v in zip(U, V)]
+        lp_term = (
+            torch.sum(torch.abs(torch.clamp(
+                self.lp.weighted_col_sums(neg_lam, obj_coef=obj_scale),
+                max=0.0)))
+            if self.lp is not None
+            else torch.zeros((), dtype=self.dtype, device=self.device))
         k_scale = 1
         while True:
             parts = []
@@ -171,7 +181,7 @@ class Solver:
                                        obj_coef=obj_scale)[:, 0]
                 parts.extend(lanczos_tridiag(
                     mv, ops.n, v0, num_iters=self._lanczos_k(ops, k_scale)))
-            blob = np.asarray(sync.flat(*parts, *grams))
+            blob = np.asarray(sync.flat(*parts, lp_term, *grams))
             total, off, tight = 0.0, 0, True
             for ops in self.cones:
                 k = min(self._lanczos_k(ops, k_scale), ops.n)
@@ -181,6 +191,8 @@ class Solver:
                 if k < ops.n and resid > max(1e-2 * abs(lam_min), floor):
                     tight = False
                 total += abs(min(lam_min, 0.0))
+            total += float(blob[off])
+            off += 1
             if tight or k_scale >= 4:
                 gram_h = []
                 for u in U:
@@ -196,11 +208,13 @@ class Solver:
 
     def solve(self, logger: Optional[TrajectoryLogger] = None,
               json_path: Optional[str] = None, init_factors=None,
-              lanczos_start=None) -> SolveResult:
+              lanczos_start=None, init_lp=None) -> SolveResult:
         """Solve the problem.
 
         ``init_factors``: optional per-cone numpy (n, r0) starting factors
         (default: drawn from ``torch.Generator(params.seed)``).
+        ``init_lp``: optional numpy (n_lp,) starting LP factor vector
+        (default: drawn from the same generator, after the cone factors).
         ``lanczos_start``: optional per-cone numpy (n,) Lanczos start vectors
         (default: :meth:`lanczos_start`)."""
         prob, params, dtype, dev = (self.prob, self.params, self.dtype,
@@ -222,13 +236,16 @@ class Solver:
 
         rank_state = make_rank_state(prob, params)
         dims = prob.block_dims
-        if init_factors is None:
-            g = torch.Generator().manual_seed(int(params.seed))
-            R = draw_init_factors(rank_state.ranks, dims, g, dev, dtype)
-        else:
+        g = torch.Generator().manual_seed(int(params.seed))
+        R, rlp = draw_init_factors(rank_state.ranks, dims, prob.n_lp_cols, g,
+                                   dev, dtype)
+        if init_factors is not None:
             R = tuple(torch.tensor(np.asarray(f, np.float64), dtype=dtype,
                                    device=dev) for f in init_factors)
             rank_state.ranks = [int(r.shape[1]) for r in R]
+        if init_lp is not None and self.lp is not None:
+            rlp = torch.tensor(np.asarray(init_lp, np.float64), dtype=dtype,
+                               device=dev)
         if lanczos_start is None:
             starts = self.lanczos_start()
         else:
@@ -239,7 +256,7 @@ class Solver:
         want_grams = not p.disable_oracle
 
         alm, admm = self._phases(rank_state.ranks, sync)
-        carry = make_alm_carry(R, prob.m, alm.n_elems, rho0, params)
+        carry = make_alm_carry(R, prob.m, alm.n_elems, rho0, params, rlp=rlp)
 
         alm_outer = alm_inner_total = admm_it = cg_total = 0
         rho_max_cur = p.rho_max
@@ -291,7 +308,8 @@ class Solver:
                     alm, admm = self._phases(rank_state.ranks, sync)
                     carry = make_alm_carry(R_new, prob.m, alm.n_elems, rho_h,
                                            params, dual=carry.dual,
-                                           obj_scale=obj_scale_h)
+                                           obj_scale=obj_scale_h,
+                                           rlp=carry.rlp)
                     carry = alm.prepare(carry)
                 else:
                     # at the rank cap: disable further escalation requests
@@ -319,13 +337,14 @@ class Solver:
         admm_rho = min(admm_rho, rho_max_cur)
         entry_done = (carry.gap <= p.phase2_tol
                       and carry.pinf_l1 <= p.phase2_tol)
-        admm_carry = admm_mod.ADMMCarry(
-            U=carry.R, V=tuple(r.clone() for r in carry.R), dual=carry.dual,
-            constr_val=tuple(torch.zeros_like(self.b) for _ in self.cones),
-            constr_sum=torch.zeros_like(self.b),
-            CV=tuple(torch.zeros_like(r) for r in carry.R),
-            obj_scale=obj_scale_h, pobj=carry.pobj, dobj=carry.dobj,
-            pinf_l1=carry.pinf_l1, pinf_inf=carry.pinf_inf, gap=carry.gap)
+        def clone_lp(x):
+            return None if x is None else x.clone()
+
+        admm_carry = admm.blank_carry(
+            carry.R, tuple(r.clone() for r in carry.R), carry.dual,
+            obj_scale_h, carry.rlp, clone_lp(carry.rlp)).replace(
+            pobj=carry.pobj, dobj=carry.dobj, pinf_l1=carry.pinf_l1,
+            pinf_inf=carry.pinf_inf, gap=carry.gap)
         admm_bad_iter = False
         # host mirrors of the final metrics: the ALM's when ADMM is skipped
         # because ALM already met the phase-2 tolerances, unknown (None:
@@ -366,8 +385,11 @@ class Solver:
         # ================= reopt rounds ================================= #
         def sync_alm_from_admm(c_alm, c_admm):
             Ravg = tuple(0.5 * (u + v) for u, v in zip(c_admm.U, c_admm.V))
+            rlp_avg = (0.5 * (c_admm.ulp + c_admm.vlp)
+                       if c_admm.ulp is not None else None)
             return c_alm.replace(
-                R=Ravg, dual=c_admm.dual, obj_scale=c_admm.obj_scale,
+                R=Ravg, rlp=rlp_avg, dual=c_admm.dual,
+                obj_scale=c_admm.obj_scale,
                 pinf_l1=c_admm.pinf_l1, pinf_inf=c_admm.pinf_inf,
                 gap=c_admm.gap, pobj=c_admm.pobj, dobj=c_admm.dobj)
 
@@ -410,7 +432,8 @@ class Solver:
                 alm, admm = self._phases(rank_state.ranks, sync)
                 c_alm = make_alm_carry(R_new, prob.m, alm.n_elems, alm_rho2,
                                        params, dual=carry2.dual,
-                                       obj_scale=obj_scale_h)
+                                       obj_scale=obj_scale_h,
+                                       rlp=carry2.rlp)
             alm_gap_h, alm_pinf_h = rinfo.gap, rinfo.pinf_l1
             rho_max_cur = max(
                 np.sqrt(max(admm_rho, alm_rho2) / admm_rho) * admm_rho,
@@ -422,7 +445,8 @@ class Solver:
                 rho_max_cur = rho2
             c_admm = admm.init_carry(carry2.R,
                                      tuple(r.clone() for r in carry2.R),
-                                     carry2.dual, obj_scale_h)
+                                     carry2.dual, obj_scale_h, carry2.rlp,
+                                     clone_lp(carry2.rlp))
             if (not admm_bad_iter) or level < 2:
                 ceiling = min(admm_it * 4, admm_it + p.max_admm_iter)
                 ceiling = max(ceiling, admm_it + reopt_admm_iter)
@@ -486,7 +510,11 @@ class Solver:
                 carry, admm_carry = do_reopt(carry, admm_carry, 3, 50, 2)
                 Ravg = tuple(0.5 * (u + v)
                              for u, v in zip(admm_carry.U, admm_carry.V))
-                admm_carry = admm.metrics(admm_carry.replace(U=Ravg, V=Ravg))
+                admm_carry = admm_carry.replace(U=Ravg, V=Ravg)
+                if admm_carry.ulp is not None:
+                    lp_avg = 0.5 * (admm_carry.ulp + admm_carry.vlp)
+                    admm_carry = admm_carry.replace(ulp=lp_avg, vlp=lp_avg)
+                admm_carry = admm.metrics(admm_carry)
                 admm_gap_h = admm_pinf_h = None
                 admm_pinfinf_h = admm_pobj_h = admm_dobj_h = None
                 dinf_l1, final_grams = self.dual_infeasibility(
@@ -509,10 +537,13 @@ class Solver:
         else:
             gap, pinf_l1 = admm_gap_h, admm_pinf_h
             pinf_inf, pobj, dobj = admm_pinfinf_h, admm_pobj_h, admm_dobj_h
-        U_h = V_h = dual_h = None
+        U_h = V_h = ulp_h = vlp_h = dual_h = None
         if params.return_factors:
             U_h = tuple(u.cpu().numpy() for u in admm_carry.U)
             V_h = tuple(v.cpu().numpy() for v in admm_carry.V)
+            if admm_carry.ulp is not None:
+                ulp_h = admm_carry.ulp.cpu().numpy()
+                vlp_h = admm_carry.vlp.cpu().numpy()
             dual_h = self._dual_out(admm_carry.dual.cpu().numpy())
 
         if dinf_l1 <= 5 * p.phase2_tol and gap <= 5 * p.phase2_tol and \
@@ -546,7 +577,8 @@ class Solver:
             alm_inner_iters=alm_inner_total, admm_iters=admm_it,
             cg_iters=cg_total, final_ranks=list(rank_state.ranks),
             oracle_rank=oracle, logger=logger, stage_times=stages,
-            U=U_h, V=V_h, dual=dual_h, obj_scale=obj_scale_h,
+            U=U_h, V=V_h, ulp=ulp_h, vlp=vlp_h, dual=dual_h,
+            obj_scale=obj_scale_h,
             host_syncs=sync.count)
 
 

@@ -10,6 +10,13 @@ objective = graph Laplacian scaled, constraints diag(X) = 1.
 draw, built in memory; ``write_sdpa`` writes the same instance as a
 ``.dat-s`` file that reads back to identical arrays.  ``random_sparse_cone``
 follows the random cone of the JAX package's ``tests/test_coneops.py``.
+
+``random_multiblock_problem`` is a copy of the JAX package's generator (the
+same draws in the same order).  ``multiblock_lp_sdpa`` keeps its construction
+(C_k = G G^T + I as a full upper triangle, three random entries per constraint
+per block, b = A(X0) for a random PSD X0) at any size and adds an LP cone;
+``theta_sdpa`` is ``scripts/gen_instances.py`` ``gen_theta`` (C all ones, one
+trace constraint, one X_ij = 0 per edge) built as arrays.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import numpy as np
 import scipy.sparse
 import scipy.spatial
 
-from .io.sdpa import SDPAData, SDPABlock, _postprocess
+from .io.sdpa import SDPAData, SDPABlock, _dedupe_sum, _postprocess
 from .problem import ConeData, SDPProblem, canonicalize
 
 
@@ -119,15 +126,17 @@ def matcomp_problem(n1: int, n2: int, rank: int = 3,
 
 
 def write_sdpa(path, data: SDPAData) -> None:
-    """Write SDP blocks (no LP block) in SDPA sparse format.  Objective
-    values are negated back to the file's convention and every number is
-    written with 17 significant digits, so :func:`..io.sdpa.read_sdpa`
-    returns arrays identical to ``data``."""
+    """Write the SDP blocks and, last, the LP block (as a block of negative
+    dimension) in SDPA sparse format.  Objective values are negated back to
+    the file's convention and every number is written with 17 significant
+    digits, so :func:`..io.sdpa.read_sdpa` returns arrays identical to
+    ``data`` (constraint entries in the reader's sorted order)."""
+    dims = [str(d) for d in data.block_dims]
     if data.n_lp_cols:
-        raise ValueError("write_sdpa writes SDP blocks only")
+        dims.append(str(-data.n_lp_cols))
     with open(path, "w") as f:
-        f.write(f"{data.n_constrs}\n{len(data.blocks)}\n")
-        f.write(" ".join(str(d) for d in data.block_dims) + "\n")
+        f.write(f"{data.n_constrs}\n{len(dims)}\n")
+        f.write(" ".join(dims) + "\n")
         f.write(" ".join(f"{x:.17g}" for x in data.b.tolist()) + "\n")
         for k, blk in enumerate(data.blocks, start=1):
             f.writelines(
@@ -138,6 +147,156 @@ def write_sdpa(path, data: SDPAData) -> None:
                 f"{c + 1} {k} {i + 1} {j + 1} {v:.17g}\n" for c, i, j, v in
                 zip(blk.a_cid.tolist(), blk.a_rows.tolist(),
                     blk.a_cols.tolist(), blk.a_vals.tolist()))
+        if data.n_lp_cols:
+            k = len(data.blocks) + 1
+            f.writelines(
+                f"0 {k} {j + 1} {j + 1} {-v:.17g}\n"
+                for j, v in enumerate(data.lp_c.tolist()) if v != 0.0)
+            f.writelines(
+                f"{c + 1} {k} {j + 1} {j + 1} {v:.17g}\n" for c, j, v in
+                zip(data.lp_cid.tolist(), data.lp_col.tolist(),
+                    data.lp_vals.tolist()))
+
+
+def random_multiblock_problem(dims=(14, 14, 10), m=12, seed=23,
+                              name="synthetic_multiblock") -> SDPProblem:
+    """Bounded, strictly feasible multi-block SDP (a copy of the JAX
+    package's generator).
+
+    C_k is PSD (G G^T + I) so min <C, X> over X >= 0 is bounded below;
+    b = A(X0) for random PSD X0 makes the problem strictly feasible.
+    Blocks couple through the shared constraint space (every constraint
+    touches every block): the stress case for the Gauss-Seidel and Jacobi
+    ADMM sweeps.
+    """
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for n in dims:
+        G = rng.normal(size=(n, 3)) / np.sqrt(n)
+        C = G @ G.T + np.eye(n)
+        iu = np.triu_indices(n)
+        c_rows, c_cols, c_vals = iu[0], iu[1], C[iu]
+        rows, cols, vals, cids = [], [], [], []
+        for i in range(m):
+            for _ in range(3):
+                r = int(rng.integers(0, n))
+                c = int(rng.integers(r, n))
+                rows.append(r)
+                cols.append(c)
+                vals.append(float(rng.normal()))
+                cids.append(i)
+        blocks.append(SDPABlock(
+            dim=n,
+            c_rows=c_rows.astype(np.int32), c_cols=c_cols.astype(np.int32),
+            c_vals=c_vals,
+            a_rows=np.array(rows, np.int32), a_cols=np.array(cols, np.int32),
+            a_vals=np.array(vals), a_cid=np.array(cids, np.int32)))
+    prob0 = canonicalize(SDPAData(n_constrs=m, blocks=blocks, b=np.zeros(m)))
+    b = np.zeros(m)
+    for cone in prob0.cones:
+        F = rng.normal(size=(cone.n, 4))
+        X0 = F @ F.T / 4.0
+        A = dense_constraint_matrices(cone)
+        b += np.einsum("mij,ij->m", A, X0)
+    return canonicalize(SDPAData(n_constrs=m, blocks=blocks, b=b),
+                        name=name)
+
+
+def multiblock_lp_sdpa(dims=(100, 80, 60), m: int = 240, n_lp: int = 2000,
+                       seed: int = 0) -> SDPAData:
+    """Bounded, strictly feasible multi-block SDP with an LP cone, in the
+    construction of :func:`random_multiblock_problem` at any size.
+
+    Per block: C_k = G G^T + I with G of shape (n, 3) / sqrt(n), written as
+    a full upper triangle (so every block is classified dense), and three
+    random upper-triangle entries per constraint, every constraint touching
+    every block.  The LP cone has ``n_lp`` columns, each with a cost drawn
+    from U(0.5, 1.5) and N(0, 1) entries in three random constraints.
+    b = A(X0) + A_lp x0 for random PSD X0_k = F F^T / 4 and x0 ~ U(0.5,
+    1.5), computed by a sparse contraction: the problem is strictly feasible
+    and bounded below by 0."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    b = np.zeros(m)
+    for n in dims:
+        G = rng.normal(size=(n, 3)) / np.sqrt(n)
+        C = G @ G.T + np.eye(n)
+        iu = np.triu_indices(n)
+        rows = rng.integers(0, n, size=3 * m)
+        cols = rng.integers(rows, n)
+        vals = rng.normal(size=3 * m)
+        cid = np.repeat(np.arange(m), 3)
+        F = rng.normal(size=(n, 4))
+        # <A_i, X0> with X0 = F F^T / 4: off-diagonal entries count twice
+        x0 = np.einsum("ij,ij->i", F[rows], F[cols]) / 4.0
+        np.add.at(b, cid, np.where(rows != cols, 2.0, 1.0) * vals * x0)
+        # the reader's order and duplicate handling: sorted by (constraint,
+        # row, col), equal positions summed
+        a_rows, a_cols, a_vals, a_cid = _dedupe_sum(
+            rows.astype(np.int32), cols.astype(np.int32), vals,
+            extra=cid.astype(np.int32))
+        blocks.append(SDPABlock(
+            dim=n, c_rows=iu[0].astype(np.int32),
+            c_cols=iu[1].astype(np.int32), c_vals=C[iu],
+            a_rows=a_rows, a_cols=a_cols, a_vals=a_vals,
+            a_cid=a_cid.astype(np.int32)))
+    data = SDPAData(n_constrs=m, blocks=blocks, b=b)
+    if n_lp:
+        lp_c = rng.uniform(0.5, 1.5, size=n_lp)
+        lp_col = np.repeat(np.arange(n_lp), 3)
+        lp_cid = rng.integers(0, m, size=3 * n_lp)
+        lp_vals = rng.normal(size=3 * n_lp)
+        x0 = rng.uniform(0.5, 1.5, size=n_lp)
+        np.add.at(b, lp_cid, lp_vals * x0[lp_col])
+        # the reader keeps LP entries in file order; write_sdpa writes them
+        # as they stand here
+        data.n_lp_cols = n_lp
+        data.lp_c = lp_c
+        data.lp_col = lp_col.astype(np.int32)
+        data.lp_cid = lp_cid.astype(np.int32)
+        data.lp_vals = lp_vals
+    return data
+
+
+def multiblock_lp_problem(dims=(100, 80, 60), m: int = 240, n_lp: int = 2000,
+                          seed: int = 0,
+                          name: str = "synthetic_multiblock_lp") -> SDPProblem:
+    """:func:`multiblock_lp_sdpa` canonicalized."""
+    return canonicalize(multiblock_lp_sdpa(dims, m, n_lp, seed), name=name)
+
+
+def theta_sdpa(n: int, avg_degree: int, seed: int) -> SDPAData:
+    """Lovasz theta SDP of a random G(n, avg_degree) graph: max <J, X> s.t.
+    tr X = 1, X_ij = 0 for every edge, X >= 0.  The draws of
+    ``scripts/gen_instances.py`` ``gen_theta``, passed through the SDPA
+    reader's conventions: the objective is the full upper triangle of J,
+    negated (the solver minimizes), constraint 0 is the trace and constraint
+    1 + k the k-th edge."""
+    rng = np.random.default_rng(seed)
+    m_edges = n * avg_degree // 2
+    u = rng.integers(0, n, size=m_edges)
+    v = rng.integers(0, n, size=m_edges)
+    keep = u != v
+    u, v = u[keep], v[keep]
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    uniq = np.unique(lo.astype(np.int64) * n + hi)
+    lo, hi = uniq // n, uniq % n
+    iu = np.triu_indices(n)
+    diag = np.arange(n, dtype=np.int64)
+    n_obj, n_e = iu[0].size, lo.size
+    cid = np.concatenate([np.zeros(n_obj, np.int64), np.ones(n, np.int64),
+                          np.arange(2, n_e + 2)])
+    row = np.concatenate([iu[0], diag, lo])
+    col = np.concatenate([iu[1], diag, hi])
+    b = np.concatenate([[1.0], np.zeros(n_e)])
+    return _postprocess([n], 0, b, cid, np.zeros_like(cid), row, col,
+                        np.ones(cid.size))
+
+
+def theta_problem(n: int, avg_degree: int, seed: int,
+                  name: str = "synthetic_theta") -> SDPProblem:
+    """:func:`theta_sdpa` canonicalized."""
+    return canonicalize(theta_sdpa(n, avg_degree, seed), name=name)
 
 
 def random_sparse_cone(rng: np.random.Generator, n: int, m: int,

@@ -1,6 +1,6 @@
 """The port's CLI and readers on the CPU: generated SDPA ``.dat-s`` files
-(MaxCut, matrix completion) and a SuiteSparse-style ``.mat`` MaxCut file
-are read into the same ``SDPProblem`` as the JAX package reads, solved through
+(MaxCut, matrix completion, a multi-block problem with an LP block, Lovasz
+theta) and a SuiteSparse-style ``.mat`` MaxCut file are read into the same ``SDPProblem`` as the JAX package reads, solved through
 ``ltr_lowrank_sdp_torch.cli.main(..., "--device", "cpu")``, and the
 trajectory JSON is written with the schema of the JAX package."""
 
@@ -18,7 +18,9 @@ from ltr_lowrank_sdp_torch.config import SolverStatus
 from ltr_lowrank_sdp_torch.problem import initial_ranks, load_problem
 from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
                                            matcomp_problem, matcomp_sdpa,
-                                           write_sdpa)
+                                           multiblock_lp_problem,
+                                           multiblock_lp_sdpa, theta_problem,
+                                           theta_sdpa, write_sdpa)
 
 CONE_FIELDS = ("c_rows", "c_cols", "c_vals", "a_rows", "a_cols", "a_vals",
                "a_cid", "diag_idx", "diag_val", "diag_cid")
@@ -69,7 +71,27 @@ def mc_dat_s(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("which", ["dat_s", "mat", "mc_dat_s"])
+MB_LP_ARGS = dict(dims=(30, 24, 20), m=40, n_lp=120, seed=4)
+
+
+@pytest.fixture(scope="module")
+def mblp_dat_s(tmp_path_factory):
+    """Three coupled dense-objective blocks and an LP block of 120 columns,
+    written last as a block of dimension -120."""
+    path = tmp_path_factory.mktemp("cli") / "mblp.dat-s"
+    write_sdpa(path, multiblock_lp_sdpa(**MB_LP_ARGS))
+    return path
+
+
+@pytest.fixture(scope="module")
+def theta_dat_s(tmp_path_factory):
+    path = tmp_path_factory.mktemp("cli") / "theta30.dat-s"
+    write_sdpa(path, theta_sdpa(30, 8, seed=30))
+    return path
+
+
+@pytest.mark.parametrize("which", ["dat_s", "mat", "mc_dat_s", "mblp_dat_s",
+                                   "theta_dat_s"])
 def test_reader_matches_jax(which, request):
     path = str(request.getfixturevalue(which))
     jp, tp = jax_load_problem(path), load_problem(path)
@@ -83,6 +105,11 @@ def test_reader_matches_jax(which, request):
     for name in ("c_nrm1", "c_nrm2", "c_nrminf", "b_nrm1", "b_nrminf"):
         assert getattr(tp, name) == getattr(jp, name)
     assert initial_ranks(tp) == initial_ranks(jp)
+    assert tp.n_lp_cols == jp.n_lp_cols
+    if tp.lp is not None:
+        for name in ("c", "col", "cid", "vals", "nrm2sq"):
+            np.testing.assert_array_equal(getattr(tp.lp, name),
+                                          getattr(jp.lp, name))
 
 
 @pytest.mark.parametrize("which", ["dat_s", "mat"])
@@ -132,6 +159,59 @@ def test_cli_solves_matrix_completion_on_cpu(mc_dat_s, tmp_path):
     assert payload["problem_id"] == "mc200"
     assert payload["metrics"]["primal_obj"] == pytest.approx(res.pobj)
     assert set(payload["trajectory"]) == {"phase_1", "phase_2"}
+
+
+@pytest.mark.parametrize("which", ["mblp_dat_s", "theta_dat_s"])
+def test_written_family_file_reads_back_identical(which, request):
+    mem = (multiblock_lp_problem(**MB_LP_ARGS) if which == "mblp_dat_s"
+           else theta_problem(30, 8, seed=30))
+    got = load_problem(str(request.getfixturevalue(which)))
+    np.testing.assert_array_equal(got.b, mem.b)
+    assert got.n_cones == mem.n_cones == (3 if which == "mblp_dat_s" else 1)
+    for gc, mc in zip(got.cones, mem.cones):
+        for name in CONE_FIELDS[:7]:
+            np.testing.assert_array_equal(getattr(gc, name),
+                                          getattr(mc, name))
+        assert (gc.kind_a, gc.kind_c) == ("dense", "dense")
+    if which == "mblp_dat_s":
+        assert got.n_lp_cols == 120
+        for name in ("c", "col", "cid", "vals"):
+            np.testing.assert_array_equal(getattr(got.lp, name),
+                                          getattr(mem.lp, name))
+
+
+def test_cli_solves_multiblock_with_lp_block_on_cpu(mblp_dat_s, tmp_path,
+                                                    capsys):
+    out = tmp_path / "mblp.json"
+    res = cli.main([str(mblp_dat_s), "--device", "cpu", "--jsonfile",
+                    str(out)])
+    assert "sdp nBlks = 3, lp Cols = 120" in capsys.readouterr().out
+    assert res.status in (SolverStatus.PRIMAL_DUAL_OPTIMAL,
+                          SolverStatus.PRIMAL_OPTIMAL)
+    assert res.pinf_l1 <= 1e-5 and res.gap <= 5e-5 and res.dinf_l1 <= 5e-5
+    assert len(res.final_ranks) == len(res.U) == len(res.V) == 3
+    assert res.ulp.shape == res.vlp.shape == (120,)
+    # bounded below by 0: every C_k is positive definite, every LP cost > 0
+    assert res.pobj > 0.0
+    payload = json.loads(out.read_text())
+    assert set(payload) == {"problem_id", "file_path", "metrics",
+                            "trajectory"}
+    assert payload["problem_id"] == "mblp"
+    assert payload["metrics"]["primal_obj"] == pytest.approx(res.pobj)
+    p1 = payload["trajectory"]["phase_1"]
+    # the trajectory carries the summed rank of the blocks, as the JAX one
+    assert p1["curr_rank"][-1] == sum(res.final_ranks)
+    assert len(p1["curr_rank"]) == len(p1["oracle_rank"]) > 0
+
+
+def test_cli_solves_theta_on_cpu(theta_dat_s):
+    """A dense objective through the CLI: Lovasz theta of a 30-vertex graph
+    (the optimum of max <J, X> is at least 1, the solver minimizes -J)."""
+    res = cli.main([str(theta_dat_s), "--device", "cpu"])
+    assert res.status in (SolverStatus.PRIMAL_DUAL_OPTIMAL,
+                          SolverStatus.PRIMAL_OPTIMAL)
+    assert res.pinf_l1 <= 1e-5 and res.gap <= 5e-5 and res.dinf_l1 <= 5e-5
+    assert res.pobj <= -1.0 and res.ulp is None
 
 
 def test_cli_flags_are_the_jax_flags_plus_device():

@@ -1,8 +1,11 @@
 """Parity of the PyTorch port's conic operators with the JAX package's
 ``ConeOps`` (``ltr_lowrank_sdp_tpu/ops/coneops.py``): the MaxCut family
-(``diag_identity``) and the general path (sparse constraints, a diag cone
+(``diag_identity``), the general path (sparse constraints, a diag cone
 that is not one constraint per row, matrix completion, a cone with no
-constraint entry).
+constraint entry), and, in the last section, dense objectives (``c_dense``
+and ``torch.matmul``), several cones sharing one constraint space, and the
+LP cone (``LPOps``), on ``random_multiblock_problem()``, a small Lovasz theta
+problem and the small multi-block + LP instance.
 
 Both packages build the same ``SDPProblem`` from a seed; inputs are numpy
 arrays in the problem's original row and constraint order.  The JAX
@@ -25,15 +28,28 @@ import torch
 from ltr_lowrank_sdp_tpu.io.sdpa import SDPABlock as JaxSDPABlock
 from ltr_lowrank_sdp_tpu.io.sdpa import SDPAData as JaxSDPAData
 from ltr_lowrank_sdp_tpu.ops.coneops import (
+    all_constr_vals as jax_all_constr_vals)
+from ltr_lowrank_sdp_tpu.ops.coneops import (
+    all_obj_value as jax_all_obj_value)
+from ltr_lowrank_sdp_tpu.ops.coneops import (
+    build_cone_ops as jax_build_cone_ops)
+from ltr_lowrank_sdp_tpu.ops.coneops import (
     build_cone_ops_internal as jax_build_cone_ops_internal)
 from ltr_lowrank_sdp_tpu.problem import canonicalize as jax_canonicalize
+from ltr_lowrank_sdp_tpu.problem import initial_ranks as jax_initial_ranks
 from ltr_lowrank_sdp_tpu.testing import (
     random_maxcut_problem as jax_random_maxcut_problem)
+from ltr_lowrank_sdp_tpu.testing import (
+    random_multiblock_problem as jax_random_multiblock_problem)
 from ltr_lowrank_sdp_torch.ops import kernels as K
-from ltr_lowrank_sdp_torch.ops.coneops import ConeOps, build_cone_ops_internal
+from ltr_lowrank_sdp_torch.ops.coneops import (
+    ConeOps, LPOps, all_constr_vals, all_obj_value, build_cone_ops,
+    build_cone_ops_internal)
+from ltr_lowrank_sdp_torch.problem import canonicalize, initial_ranks
 from ltr_lowrank_sdp_torch.testing import (
     dense_constraint_matrices, dense_objective_matrix, matcomp_problem,
-    random_maxcut_problem, random_sparse_cone)
+    multiblock_lp_problem, multiblock_lp_sdpa, random_maxcut_problem,
+    random_multiblock_problem, random_sparse_cone, theta_sdpa)
 
 RTOL = 1e-12
 RANK = 7
@@ -168,21 +184,27 @@ def test_cpu_operators_take_the_plain_path(pair):
 
 
 def test_unported_cones_raise():
+    """What still raises is float32 compute; multi-block problems, dense
+    cones and dense objectives build (they raised before their slice)."""
     from ltr_lowrank_sdp_tpu.testing import random_multiblock_problem
 
     prob = random_multiblock_problem()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_cone_ops_internal(prob, "cpu")
+    cones, lp, order = build_cone_ops_internal(prob, "cpu")
+    assert len(cones) == 3 and lp is None and order is None
     cone = random_sparse_cone(np.random.default_rng(0), 12, 7).cones[0]
     assert (cone.kind_a, cone.kind_c) == ("dense", "dense")
-    with pytest.raises(NotImplementedError, match="dense-S path"):
-        ConeOps(cone, "cpu")
+    ops = ConeOps(cone, "cpu")
+    assert ops.c_dense is not None and ops.c_csr is None
+    assert ops.a_seg is not None and ops.a_csr is not None
     cone.kind_a = "sparse"
-    with pytest.raises(NotImplementedError, match="dense-C GEMM"):
-        ConeOps(cone, "cpu")
+    assert ConeOps(cone, "cpu").c_dense is not None
     cone.kind_c = "sparse"
+    assert ConeOps(cone, "cpu").c_dense is None
     with pytest.raises(NotImplementedError, match="float32"):
         ConeOps(cone, "cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        LPOps(multiblock_lp_problem((6, 5), 8, 10, 0).lp, "cpu",
+              dtype=torch.float32)
 
 
 # --------------------------------------------------------------------------- #
@@ -390,4 +412,240 @@ def test_general_cpu_operators_take_the_plain_path(gpair):
     assert plain == {"spmm_sym_csr": 1, "diag_rowdot": 0,
                      "diag_normal_matvec": 0, "sym_contract_sum": 1,
                      "coo_contract_segsum": 0 if empty else 2,
-                     "spmm_constr_csr": 0 if empty else 2}
+                     "spmm_constr_csr": 0 if empty else 2,
+                     "lp_constr_segsum": 0, "lp_col_wsum": 0}
+
+
+# --------------------------------------------------------------------------- #
+# dense objectives, several cones, the LP cone
+# --------------------------------------------------------------------------- #
+
+MB_LP_SMALL = dict(dims=(100, 80, 60), m=240, n_lp=2000, seed=0)
+FAMILIES = ["multiblock", "theta", "multiblock_lp"]
+
+
+def _family_data(kind):
+    """The raw SDPA arrays both packages canonicalize."""
+    if kind == "multiblock":
+        p = random_multiblock_problem()
+        blocks = [JaxSDPABlock(dim=c.n, c_rows=c.c_rows, c_cols=c.c_cols,
+                               c_vals=c.c_vals, a_rows=c.a_rows,
+                               a_cols=c.a_cols, a_vals=c.a_vals,
+                               a_cid=c.a_cid) for c in p.cones]
+        return JaxSDPAData(n_constrs=p.m, blocks=blocks, b=p.b)
+    if kind == "theta":
+        return theta_sdpa(60, 15, seed=60)
+    return multiblock_lp_sdpa(**MB_LP_SMALL)
+
+
+class _Family:
+    """One multi-cone problem canonicalized by both packages from the same
+    arrays, both packages' internal operator bundles, and seeded inputs in
+    the problem's own row and constraint order."""
+
+    def __init__(self, kind):
+        self.kind = kind
+        data = _family_data(kind)
+        self.jp = jax_canonicalize(data)
+        self.tp = canonicalize(data)
+        self.jc, self.jlp, jorder = jax_build_cone_ops_internal(
+            self.jp, jnp.float64)
+        self.tc, self.tlp, torder = build_cone_ops_internal(self.tp, "cpu")
+        assert jorder is None and torder is None
+        rng = np.random.default_rng(11)
+        self.ranks = initial_ranks(self.tp)[0]
+        self.U = [rng.standard_normal((c.n, r))
+                  for c, r in zip(self.tp.cones, self.ranks)]
+        self.V = [rng.standard_normal((c.n, r))
+                  for c, r in zip(self.tp.cones, self.ranks)]
+        self.w = rng.standard_normal(self.tp.m)
+        n_lp = self.tp.n_lp_cols
+        self.ulp = rng.standard_normal(n_lp) if n_lp else None
+        self.vlp = rng.standard_normal(n_lp) if n_lp else None
+
+    def j_in(self, X):
+        return tuple(jnp.asarray(ops.permute_rows_in(x))
+                     for ops, x in zip(self.jc, X))
+
+    def t_in(self, X):
+        return tuple(torch.tensor(x) for x in X)
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def fam(request):
+    return _Family(request.param)
+
+
+def test_family_problem_is_the_same_on_both_sides(fam):
+    assert len(fam.tp.cones) == len(fam.jp.cones) == (
+        1 if fam.kind == "theta" else 3)
+    for jc, tc in zip(fam.jp.cones, fam.tp.cones):
+        for name in ("c_rows", "c_cols", "c_vals", "a_rows", "a_cols",
+                     "a_vals", "a_cid"):
+            np.testing.assert_array_equal(getattr(jc, name),
+                                          getattr(tc, name))
+        # the vectorized union count classifies as the tuple set does
+        assert (jc.kind_a, jc.kind_c) == (tc.kind_a, tc.kind_c) == (
+            "dense", "dense")
+        assert jc.rank_max == tc.rank_max
+    assert jax_initial_ranks(fam.jp) == initial_ranks(fam.tp)
+    for name in ("c_nrm1", "c_nrm2", "c_nrminf", "b_nrm1", "b_nrm2",
+                 "b_nrminf", "n_lp_cols"):
+        assert getattr(fam.jp, name) == getattr(fam.tp, name)
+    if fam.kind == "multiblock":
+        jp = jax_random_multiblock_problem()
+        np.testing.assert_array_equal(jp.b, fam.tp.b)
+        np.testing.assert_array_equal(jp.cones[2].a_vals,
+                                      fam.tp.cones[2].a_vals)
+    if fam.kind == "multiblock_lp":
+        for name in ("c", "col", "cid", "vals", "nrm2sq"):
+            np.testing.assert_array_equal(getattr(fam.jp.lp, name),
+                                          getattr(fam.tp.lp, name))
+        assert (fam.tp.m, fam.tp.n_lp_cols, fam.tp.lp.col.size) == (
+            240, 2000, 6000)
+
+
+@pytest.mark.parametrize("method", METHODS + ["apply_w_rank1"])
+def test_family_cone_operator_matches_jax(fam, method):
+    """Every cone of the problem, dense C through ``torch.matmul``, the
+    constraints through the general path, against the JAX ``ConeOps``."""
+    for k, (j, t) in enumerate(zip(fam.jc, fam.tc)):
+        assert t.c_dense is not None and not t.diag_identity
+        U, V, w = fam.U[k], fam.V[k], fam.w
+        Uj, Vj = (jnp.asarray(j.permute_rows_in(x)) for x in (U, V))
+        Ut, Vt, wt = torch.tensor(U), torch.tensor(V), torch.tensor(w)
+        wj = jnp.asarray(w)
+        out = j.permute_rows_out
+        if method == "constr_vals":
+            assert _rel(t.constr_vals(Ut, Vt), j.constr_vals(Uj, Vj)) <= RTOL
+        elif method == "constr_vals_pair":
+            for got, want in zip(t.constr_vals_pair(Ut, Vt),
+                                 j.constr_vals_pair(Uj, Vj)):
+                assert _rel(got, want) <= RTOL
+        elif method == "cg_normal_matvec":
+            assert _rel(t.cg_normal_matvec(Vt)(Ut),
+                        out(j.cg_normal_matvec(Vj)(Uj))) <= RTOL
+        elif method == "obj_value":
+            want = float(j.obj_value(Uj, Vj))
+            assert abs(float(t.obj_value(Ut, Vt)) - want) <= RTOL * abs(want)
+        elif method == "obj_value_same":
+            want = float(j.obj_value(Uj, Uj))
+            assert abs(float(t.obj_value(Ut, Ut)) - want) <= RTOL * abs(want)
+        elif method == "apply_c":
+            assert _rel(t.apply_c(Ut), out(j.apply_c(Uj))) <= RTOL
+        elif method == "apply_a":
+            assert _rel(t.apply_a(wt, Ut), out(j.apply_a(wj, Uj))) <= RTOL
+        elif method == "apply_w":
+            for coef in (1.0, 2.5):
+                assert _rel(t.apply_w(wt, Ut, obj_coef=coef), out(j.apply_w(
+                    wj, Uj, obj_coef=coef, include_obj=True))) <= RTOL
+            assert _rel(t.apply_w(wt, Ut, include_obj=False),
+                        out(j.apply_w(wj, Uj, include_obj=False))) <= RTOL
+        elif method == "apply_w_rank1":
+            got = t.apply_w(wt, Ut[:, :1].contiguous(), obj_coef=0.5)
+            assert _rel(got, out(j.apply_w(wj, Uj[:, :1], obj_coef=0.5,
+                                           include_obj=True))) <= RTOL
+        else:
+            raise AssertionError(method)
+        for rank in (1, fam.ranks[k]):
+            assert t.constr_flops(rank) == j.constr_flops(rank)
+            assert t.apply_flops(rank) == j.apply_flops(rank)
+
+
+def test_family_dense_objective_matches_dense_reference(fam):
+    for k, t in enumerate(fam.tc):
+        C = dense_objective_matrix(fam.tp.cones[k])
+        U, V = fam.U[k], fam.V[k]
+        np.testing.assert_array_equal(t.c_dense.numpy(), C)
+        assert _rel(t.apply_c(torch.tensor(U)), C @ U) <= RTOL
+        want = np.sum(C * (0.5 * (U @ V.T + V @ U.T)))
+        got = float(t.obj_value(torch.tensor(U), torch.tensor(V)))
+        assert abs(got - want) <= RTOL * abs(want)
+
+
+@pytest.mark.parametrize("internal", [True, False],
+                         ids=["internal", "public"])
+def test_all_constr_vals_and_obj_value_match_jax(fam, internal):
+    if internal:
+        jc, jlp, tc, tlp = fam.jc, fam.jlp, fam.tc, fam.tlp
+        Uj, Vj = fam.j_in(fam.U), fam.j_in(fam.V)
+    else:
+        jc, jlp = jax_build_cone_ops(fam.jp, jnp.float64)
+        tc, tlp = build_cone_ops(fam.tp, "cpu")
+        Uj = tuple(jnp.asarray(u) for u in fam.U)
+        Vj = tuple(jnp.asarray(v) for v in fam.V)
+    assert (tlp is None) == (jlp is None) == (fam.kind != "multiblock_lp")
+    lp_j = (() if jlp is None
+            else (jnp.asarray(fam.ulp), jnp.asarray(fam.vlp)))
+    lp_t = (() if tlp is None
+            else (torch.tensor(fam.ulp), torch.tensor(fam.vlp)))
+    Ut, Vt = fam.t_in(fam.U), fam.t_in(fam.V)
+    want_c = np.asarray(jax_all_constr_vals(jc, jlp, Uj, Vj, *lp_j))
+    want_o = float(jax_all_obj_value(jc, jlp, Uj, Vj, *lp_j))
+    assert _rel(all_constr_vals(tc, tlp, Ut, Vt, *lp_t), want_c) <= RTOL
+    got_o = float(all_obj_value(tc, tlp, Ut, Vt, *lp_t))
+    assert abs(got_o - want_o) <= RTOL * abs(want_o)
+
+
+@pytest.mark.parametrize("method", ["constr_vals", "constr_vals_pair",
+                                    "obj_value", "weighted_col_sums",
+                                    "nrm2sq"])
+def test_lp_ops_match_jax_and_numpy(method):
+    """``LPOps`` of the small multi-block + LP instance against the JAX
+    ``LPOps`` and against numpy scatter-adds on the problem's own entries."""
+    fam = _Family("multiblock_lp")
+    lp, j, t = fam.tp.lp, fam.jlp, fam.tlp
+    u, v, w = fam.ulp, fam.vlp, fam.w
+    ut, vt, wt = torch.tensor(u), torch.tensor(v), torch.tensor(w)
+    uj, vj, wj = jnp.asarray(u), jnp.asarray(v), jnp.asarray(w)
+
+    def constr(x):
+        out = np.zeros(lp.m)
+        np.add.at(out, lp.cid, lp.vals * x[lp.col])
+        return out
+
+    K.reset_counts()
+    if method == "constr_vals":
+        got = t.constr_vals(ut, vt)
+        assert _rel(got, j.constr_vals(uj, vj)) <= RTOL
+        assert _rel(got, constr(u * v)) <= RTOL
+    elif method == "constr_vals_pair":
+        q1, q2 = t.constr_vals_pair(ut, vt)
+        assert _rel(q1, 2.0 * np.asarray(j.constr_vals(uj, vj))) <= RTOL
+        assert _rel(q2, j.constr_vals(vj, vj)) <= RTOL
+        assert _rel(q1, constr(2.0 * u * v)) <= RTOL
+    elif method == "obj_value":
+        want = float(j.obj_value(uj, vj))
+        assert abs(float(t.obj_value(ut, vt)) - want) <= RTOL * abs(want)
+        assert want == pytest.approx(float(lp.c @ (u * v)), rel=RTOL)
+    elif method == "weighted_col_sums":
+        cols = np.zeros(lp.n_cols)
+        np.add.at(cols, lp.col, lp.vals * w[lp.cid])
+        for coef in (1.0, 5.0):
+            got = t.weighted_col_sums(wt, obj_coef=coef)
+            assert _rel(got, j.weighted_col_sums(wj, obj_coef=coef)) <= RTOL
+            assert _rel(got, coef * lp.c + cols) <= RTOL
+    else:
+        np.testing.assert_array_equal(t.nrm2sq.numpy(), np.asarray(j.nrm2sq))
+        assert (t.n_cols, t.m) == (j.n_cols, j.m)
+    counts = K.counts()
+    assert all(launches == 0 for launches, _ in counts.values())
+    used = {"constr_vals": {"lp_constr_segsum"},
+            "constr_vals_pair": {"lp_constr_segsum"},
+            "weighted_col_sums": {"lp_col_wsum"}}.get(method, set())
+    assert {n for n, (_, plain) in counts.items() if plain} == used
+
+
+def test_constraint_relabel_is_refused_to_shared_constraint_spaces():
+    """A MaxCut cone beside an LP cone keeps the problem's constraint order
+    on both sides (the relabeling is for a single cone with no LP cone) and
+    runs the general path."""
+    p = random_maxcut_problem(30, avg_degree=4, seed=3)
+    alone, _, order = build_cone_ops_internal(p, "cpu")
+    assert alone[0].diag_identity and order is not None
+    public, _ = build_cone_ops(p, "cpu")
+    assert not public[0].diag_identity and public[0].a_seg is not None
+    U = torch.tensor(np.random.default_rng(0).standard_normal((30, 4)))
+    got = np.empty(30)
+    got[order] = alone[0].constr_vals(U, U).numpy()
+    assert _rel(public[0].constr_vals(U, U), got) <= RTOL

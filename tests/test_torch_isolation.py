@@ -80,9 +80,10 @@ def test_cpu_solve_runs_the_plain_versions_only():
     counts = K.counts()
     maxcut = {"spmm_sym_csr", "diag_rowdot", "diag_normal_matvec",
               "sym_contract_sum"}
-    assert set(counts) == maxcut | {"coo_contract_segsum", "spmm_constr_csr"}
+    assert set(counts) == maxcut | {"coo_contract_segsum", "spmm_constr_csr",
+                                    "lp_constr_segsum", "lp_col_wsum"}
     assert all(launches == 0 for launches, _ in counts.values()), counts
-    # the MaxCut family runs K1-K4 and never the general-cone kernels
+    # the MaxCut family runs K1-K4 and never the general-cone or LP kernels
     assert all((plain > 0) == (name in maxcut)
                for name, (_, plain) in counts.items()), counts
     assert res.host_syncs > 0

@@ -17,6 +17,9 @@ the above, exactly like the MaxCut cases; the thinly sampled one, whose
 reopt round amplifies rounding, is the stress case: what it leaves
 reproducible is held exactly and the rest is bounded, with the bounds and
 their reason stated at ``MC_INNER_SLACK``.
+
+Multi-block problems, dense objectives and the LP cone are held to the same
+terms in ``test_torch_families.py``.
 """
 
 import json
