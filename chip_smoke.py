@@ -7,7 +7,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; no CUDA device -> exit 2 before anything else;
-2. build the eight CUDA kernels from ``ltr_lowrank_sdp_torch/csrc`` (nvcc,
+2. build the ten CUDA kernels from ``ltr_lowrank_sdp_torch/csrc`` (nvcc,
    sm_90a, all sources at once);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64, at the main paths' shapes: max relative error <= 1e-12, with the
@@ -73,7 +73,35 @@ Phases, in order; any failed check raises and the script exits nonzero:
    phases: same counts, pobj equal to 1e-6 relative; that the full solves
    lie within their own certified gaps, ``|p - p'| <= (gap + gap') (1 +
    |pobj| + |dobj|) + 1e-6 |pobj|``, is printed as a second check;
-9. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
+9. the rank-schedule predictor's kernels on the card, in float32 at the
+   serve path's shapes: K9 on the first GATv2 layer's inputs of the dataset
+   graphs ``theta_n300_d75`` (N = 9,879, 302,821 edges with the self-loops)
+   and ``MC_600x600_r5`` (N = 85,080, 2,564,916), K10 on the last layer's
+   output of both, on a batch of eight dataset graphs' sizes with an empty
+   graph among them: max |kernel - plain| / max |plain| <= 1e-5 with the
+   plain version evaluated in float64 on the same inputs (in float32 it is
+   itself up to 7e-5 off over one 85,080-node segment), the same bits on
+   two calls, the kernel's, the float32 plain version's and, for K10, two
+   ``torch.segment_reduce`` calls' (sum and max, the part of K10 that one
+   library call computes) times beside the bound;
+10. the serve path: ``ltr_lowrank_sdp_torch.infer.main`` with ``runs/r5_theta``
+   on ``theta_n300_d75`` and with ``--batch`` on the seeded test split, the
+   counters set to 0 just before and read just after: K9 three launches
+   and K10 one per graph, nothing else and no plain version run; the
+   schedules equal to the port's CPU run of the same command.  Then
+   ``predict`` at full width on ``MC_600x600_r5``, cold and warm: K9 three
+   and K10 one launch, the raw schedule within 1e-4 relative of the CPU
+   run's and the rounded schedule equal (a raw value within 1e-3 of a
+   half-integer may round the other way; it is printed), with the peak
+   device memory and the device's busy share under the profiler;
+11. predict, then solve: ``ltr_lowrank_sdp_torch.benchmark.main`` on
+   ``theta_sdpa(95, 23, 95)`` written as ``hansmittel/theta95_gen.dat-s``
+   (no dataset graph has its name, so the processor runs), a default and a
+   scheduled solve on the card: both ``primal_dual_optimal`` or
+   ``primal_optimal`` within phase 7's error limits and inside the
+   benchmark's own solver time limit, the root benchmark's file schema, K9 / K10 once per prediction and K5 / K6 in the solves, no plain
+   version run; the speedup is printed;
+12. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
    row at every main path's shapes), the kernels still to be ported, the
    solver loops carried as plain torch over the kernels, the card line
    and, last, ``{"ok": true, "device": {...}}``.
@@ -105,9 +133,12 @@ import warnings
 
 import torch
 
-# H100 SXM: HBM3 rate and FP64 (non-tensor-core) peak, NVIDIA data sheet
+# H100 SXM: HBM3 rate, FP64 and FP32 (non-tensor-core) peaks, NVIDIA data
+# sheet
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
+FP32_FLOP_PER_S = 67e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_RTOL = 1e-12
 MAIN_N = 2 ** 14
 MAIN_SEED = 14
@@ -150,12 +181,26 @@ THETA_RANKS = (141, 1)           # the solve's rank, Lanczos
 THETA_LIMIT_S = 180.0
 DENSE_KERNELS = ("coo_contract_segsum", "spmm_constr_csr")
 SLEEP_CYCLES = 50_000_000  # about 30 ms at the H100's clocks
+# the rank-schedule predictor: a checkpoint of the repo's one model width
+# (hidden 64, 3 GATv2 layers x 4 heads, LSTM 96 x 2), its serve path's
+# graph, the largest dataset graph and the predict-then-solve instance
+CKPT = os.path.join(ROOT, "runs", "r5_theta")
+DATASET = os.path.join(ROOT, "dataset")
+SERVE_GRAPH = "theta_n300_d75"
+BIG_GRAPH = "MC_600x600_r5"
+POOL_BATCH = ("maxcut_n200_d4", "G11", "theta_n95_d23", "MC_100x100_r2",
+              "maxcut_n3200_d14", "theta_n460_d115", "MC_300x300_r3",
+              "shmup4")
+BENCH_THETA = (95, 23, 95)
+GNN_TOL = 1e-5            # max |kernel - plain| / max |plain|, float32
+LIB_TOL = 1e-4            # K10's float32 library yardstick, same measure
+PREDICT_RTOL = 1e-4       # the raw schedule, card against CPU
+HALF_INTEGER_BAND = 1e-3
+GNN_KERNELS = ("gatv2_softmax_agg", "graph_pool")
 
 UNPORTED = [
     "P  scripts/pallas_gather_probe.py:40-65 kern (pallas_call :57): "
     "gather-sum probe; later an H100 gather micro-benchmark",
-    "14 ltr_lowrank_sdp_tpu/models/gatv2.py:26,94 segment_softmax, "
-    "segment_sum; layers.py:93-99; net.py:90-93 (ML slice)",
     "15 ltr_lowrank_sdp_tpu/hallar/solver.py:179,188 _Ops.AX, _Ops.SY "
     "(HALLaR slice)",
     "16 ltr_lowrank_sdp_tpu/parallel/meshops.py:211,220 _local_reduce, "
@@ -222,9 +267,9 @@ def host_call_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t) / iters * 1e3
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_rate: float = FP64_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -237,12 +282,18 @@ def profile_solve(solver, tag: str = "profile") -> None:
     """One solve under ``torch.profiler``: device busy share of the wall
     time and the kernels that take it.  (A solver whose params carry a time
     limit stops there: the window of a long solve.)"""
+    profile_call(solver.solve, tag, "solve")
+
+
+def profile_call(fn, tag: str, what: str) -> None:
+    """``fn()`` under ``torch.profiler``: device busy share of the wall time
+    and the kernels that take it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        solver.solve()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     kernels = [e for e in prof.events()
@@ -252,17 +303,20 @@ def profile_solve(solver, tag: str = "profile") -> None:
         c, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values()) / 1e6
-    print(f"[{tag}] solve wall {wall:.3f} s under the profiler, device "
+    print(f"[{tag}] {what} wall {wall:.3f} s under the profiler, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
           f"{len(kernels)} device kernels")
     for name, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:12]:
         print(f"[{tag}] {us / 1e3:9.3f} ms {c:6d} x {name[:90]}", flush=True)
 
 
-def _measure(name, tag, kern, plain, nbytes, flops, lib=None, extra=()):
+def _measure(name, tag, kern, plain, nbytes, flops, lib=None, extra=(),
+             lib_ref=None):
     """Hold one kernel call against its plain version (and the ``extra``
     (kernel, plain) pairs: other operand modes, correctness only), then time
-    both and the library yardstick.  Returns the kernels-line fields."""
+    both and the library yardstick, which must agree with the kernel or,
+    where it computes only a part of the kernel's function, with
+    ``lib_ref()``.  Returns the kernels-line fields."""
     out_k, out_p = kern(), plain()
     torch.cuda.synchronize()
     out_k = out_k if isinstance(out_k, tuple) else (out_k,)
@@ -280,7 +334,8 @@ def _measure(name, tag, kern, plain, nbytes, flops, lib=None, extra=()):
     if lib is not None:
         out_l = lib()
         out_l = out_l if isinstance(out_l, tuple) else (out_l,)
-        require(max(rel_err(a, b) for a, b in zip(out_k, out_l))
+        ref = out_k if lib_ref is None else (lib_ref(),)
+        require(max(rel_err(a, b) for a, b in zip(ref, out_l))
                 <= KERNEL_RTOL, f"{name} {tag}: library result differs")
         lib_ms = time_ms(lib)
     b_ms, b_by = bound_ms(nbytes, flops)
@@ -324,11 +379,13 @@ def check_kernels(K, cone, dev):
                 (n + 1) * i4 + nnz_full * (i4 + f8) + 2 * n * r * f8,
                 2.0 * nnz_full * r + n * r,
                 lambda: torch.sparse.mm(c_sparse, Y)),
+            # the yardstick: one call that computes the row dot of U and V
+            # (the kernel also scales it and gives V's row norms)
             "diag_rowdot": (
                 lambda: K.diag_rowdot(U, V, dv, 2.0, second=True),
                 lambda: K.diag_rowdot_plain(U, V, dv, 2.0, second=True),
                 2 * n * r * f8 + n * f8 + 2 * n * f8,
-                4.0 * n * r + 3 * n, None),
+                4.0 * n * r + 3 * n, lambda: torch.linalg.vecdot(U, V)),
             "diag_normal_matvec": (
                 lambda: K.diag_normal_matvec(U, V, dv),
                 lambda: K.diag_normal_matvec_plain(U, V, dv),
@@ -356,9 +413,10 @@ def check_kernels(K, cone, dev):
                 (lambda: K.sym_contract_sum(rows, cols, coef, U, V),
                  lambda: K.sym_contract_sum_plain(rows, cols, coef, U, V))],
         }
+        lib_ref = {"diag_rowdot": lambda: torch.sum(U * V, dim=-1)}
         for name, (kern, plain, nbytes, flops, lib) in cases.items():
             row = _measure(name, f"n={n} r={r}", kern, plain, nbytes, flops,
-                           lib, extra[name])
+                           lib, extra[name], lib_ref.get(name))
             if r == REPORT_RANK:
                 report[name] = row
     return report
@@ -675,6 +733,281 @@ def check_lp_kernels(K, lp, dev, tag):
     return rows
 
 
+def _measure_gnn(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
+                 lib_check=None):
+    """Phase 9: hold one float32 kernel call against its plain version
+    evaluated in float64 on the same inputs (``plain64``; max |kernel -
+    plain| / max |plain| <= GNN_TOL) and check the same bits on a second
+    call, then time the kernel, the float32 plain version and the library
+    yardstick (``lib_check(lib(), plain64())`` holds it to the part of the
+    function it computes).  The float32 plain version's own distance from
+    the float64 one is printed beside: it sums each segment into one
+    accumulator.  Returns the kernels-line fields."""
+    with torch.no_grad():
+        out_k, out_p, ref = kern(), plain(), plain64()
+        torch.cuda.synchronize()
+        scale = max(float(ref.abs().max()), 1e-30)
+        abs_err = float((out_k.double() - ref).abs().max())
+        err = abs_err / scale
+        err_plain = float((out_p.double() - ref).abs().max()) / scale
+        require(err <= GNN_TOL, f"{name} {tag}: max error {err:.3e} of the "
+                                f"largest value > {GNN_TOL}")
+        require(torch.equal(kern(), out_k),
+                f"{name} {tag}: two calls gave different bits")
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        call_ms = host_call_ms(kern)
+        lib_ms = None
+        if lib is not None:
+            lib_check(lib(), ref)
+            lib_ms = time_ms(lib)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+    print(f"[kernel] {name} {tag}: max err / max |plain| {err:.2e} (tol "
+          f"{GNN_TOL:g}; the float32 plain version's {err_plain:.2e}), max "
+          f"abs err {abs_err:.2e}, same bits on two calls, kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"library {lib_txt} ms, {nbytes / ms / 1e6:.1f} GB/s; host-issued "
+          f"call {call_ms:.4f} ms", flush=True)
+    return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def gnn_inputs(model, graph, dev):
+    """What K9 gets in the first GATv2 layer and K10 after the last, for one
+    graph dict on the card: ``((csr, w_src, w_dst, we, we_loop, att), (seg,
+    x, score))``."""
+    import torch.nn.functional as F
+
+    from ltr_lowrank_sdp_torch.models.checkpoint import graph_tensors
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+
+    enc = model.encoder
+    x, ei, ea, batch, _, _ = graph_tensors(graph, dev)
+    csr = K.EdgeCSR.from_edge_index(ei, x.shape[0])
+    seg = K.GraphSegments.from_batch(batch, 1)
+    with torch.no_grad():
+        h = enc.node_encoder(x)
+        e = enc.edge_encoder(ea)
+        conv = enc.convs[0]
+        layer1 = (csr, conv.lin_src(h), conv.lin_dst(h), conv.lin_edge(e),
+                  conv.lin_edge(torch.mean(e, dim=0)), conv.att[0])
+        for conv, norm in zip(enc.convs, enc.norms):
+            h = F.leaky_relu(norm(conv(h, csr, e)), 0.2) + h
+        pool = (seg, h, enc.attn_pool.score(h))
+    return layer1, pool
+
+
+def check_gatv2(K, args, tag):
+    """Phase 9 for K9 at one graph's first-layer shapes."""
+    g, w_src, w_dst, we, we_loop, att = args
+    hc, e_all = w_src.shape[1], g.n_real + g.n
+    f4, i4 = 4, 4
+    # every input read once (the gathered w_src rows at most once each, the
+    # edge terms once), the output written once; about 8 operations per
+    # edge and channel (3 adds, the LeakyReLU, the att product, the
+    # rescaled accumulation)
+    nbytes = ((g.n + 1) * i4 + 2 * e_all * i4 + 3 * g.n * hc * f4
+              + g.n_real * hc * f4 + hc * f4 + att.numel() * f4)
+    return _measure_gnn(
+        "gatv2_softmax_agg", f"{tag} N={g.n} E'={e_all} heads x ch="
+        f"{att.shape[0]}x{att.shape[1]}",
+        lambda: K.gatv2_softmax_agg(*args),
+        lambda: K.gatv2_softmax_agg_plain(*args),
+        lambda: K.gatv2_softmax_agg_plain(g, *(t.double() for t in args[1:])),
+        nbytes, 8.0 * e_all * hc)
+
+
+def check_graph_pool(K, seg, x, score, tag):
+    """Phase 9 for K10 on one set of graphs.  The yardstick is two
+    ``torch.segment_reduce`` calls, sum and max: the mean and max parts of
+    K10's function (no library call computes the attention part)."""
+    n, d = x.shape
+    B = seg.num_graphs
+    counts = (seg.ptr[1:] - seg.ptr[:-1]).long()
+
+    def lib():
+        return (torch.segment_reduce(x, "sum", lengths=counts, axis=0),
+                torch.segment_reduce(x, "max", lengths=counts, axis=0))
+
+    def lib_check(out, ref):
+        # the library sums in float32 in its own order: held at LIB_TOL
+        keep = counts > 0
+        mean = out[0] / counts.clamp_min(1)[:, None]
+        for got, want in ((mean, ref[:, :d]), (out[1], ref[:, d:2 * d])):
+            err = float((got[keep].double() - want[keep]).abs().max()
+                        / want[keep].abs().max())
+            require(err <= LIB_TOL,
+                    f"graph_pool {tag}: segment_reduce differs {err:.2e}")
+
+    nbytes = (n * d + n + 2 * (B + 1) + 2 * seg.n_chunks + 3 * B * d) * 4
+    return _measure_gnn(
+        "graph_pool", f"{tag} B={B} N={n} d={d} chunks={seg.n_chunks}",
+        lambda: K.graph_pool(seg, x, score),
+        lambda: K.graph_pool_plain(seg, x, score),
+        lambda: K.graph_pool_plain(seg, x.double(), score.double()), nbytes,
+        5.0 * n * d + 4.0 * n, lib, lib_check)
+
+
+def require_counts(tag, counts, launched, per_graph=None):
+    """No plain version ran; exactly the kernels ``launched`` were launched,
+    K9 three and K10 one time per graph when ``per_graph`` is given."""
+    print(f"[{tag}] counts {json.dumps(counts)}", flush=True)
+    for name, (launches, plain_calls) in counts.items():
+        require(plain_calls == 0,
+                f"{name}'s plain version ran on the {tag} path")
+        require((launches > 0) == (name in launched),
+                f"{name}: {launches} launches on the {tag} path")
+    if per_graph is not None:
+        require(counts["gatv2_softmax_agg"][0] == 3 * per_graph
+                and counts["graph_pool"][0] == per_graph,
+                f"{tag}: K9 three and K10 one launch per graph")
+
+
+def run_serve_path(K, dev, tmp):
+    """Phase 10.  Returns {path: counts} of the serve path's two runs that
+    the kernels line reports: ``infer`` on SERVE_GRAPH and ``predict`` on
+    BIG_GRAPH."""
+    from ltr_lowrank_sdp_torch import infer
+    from ltr_lowrank_sdp_torch.data.loader import _load_graph_file
+    from ltr_lowrank_sdp_torch.models.checkpoint import (load_model,
+                                                         predict_raw)
+
+    def run(tag, args, device):
+        out = os.path.join(tmp, f"{tag}-{device}.json")
+        K.reset_counts()
+        t = time.perf_counter()
+        require(infer.main(["-c", CKPT, "--root", DATASET, *args, "--output",
+                            out, "--device", device]) == 0,
+                f"{tag}: infer exits 0")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = K.counts()
+        with open(out) as f:
+            payload = json.load(f)
+        print(f"[{tag}] {device}: infer wall {wall:.3f} s", flush=True)
+        return payload, counts
+
+    gpu, serve_counts = run("serve", ["-i", SERVE_GRAPH], "cuda")
+    require_counts("serve", serve_counts, GNN_KERNELS, per_graph=1)
+    cpu, _ = run("serve", ["-i", SERVE_GRAPH], "cpu")
+    print(f"[serve] {SERVE_GRAPH}: card {gpu['schedule']} "
+          f"({gpu['schedule_length']} steps), CPU {cpu['schedule']}")
+    require(gpu == cpu, "serve: the card's schedule is the CPU run's")
+
+    gpu, batch_counts = run("serve-batch", ["--batch"], "cuda")
+    require(len(gpu) > 0, "serve-batch: the test split has graphs")
+    require_counts("serve-batch", batch_counts, GNN_KERNELS,
+                   per_graph=len(gpu))
+    cpu, _ = run("serve-batch", ["--batch"], "cpu")
+    for name, row in gpu.items():
+        print(f"[serve-batch] {name}: card {row['pred']}, CPU "
+              f"{cpu[name]['pred']}, ground truth {row['gt']}")
+    require(gpu == cpu, "serve-batch: the card's predictions are the CPU "
+                        "run's")
+
+    # full width on the largest dataset graph, cold and warm
+    graph = _load_graph_file(os.path.join(DATASET, "proc",
+                                          f"{BIG_GRAPH}.npz"))
+    model, _ = load_model(CKPT, device=dev)
+    K.reset_counts()
+    t = time.perf_counter()
+    raw, L = predict_raw(model, graph)
+    cold = time.perf_counter() - t
+    big_counts = K.counts()
+    require_counts("serve-mc600", big_counts, GNN_KERNELS, per_graph=1)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    raw2, L2 = predict_raw(model, graph)
+    warm = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    require(L2 == L and (raw2 == raw).all(), "serve-mc600: warm == cold")
+    print(f"[serve-mc600] {BIG_GRAPH}: N={graph['x'].shape[0]} E="
+          f"{graph['edge_index'].shape[1]}; predict cold {cold:.4f} s, warm "
+          f"{warm:.4f} s, peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    profile_call(lambda: predict_raw(model, graph), "serve-mc600-profile",
+                 "predict")
+    t = time.perf_counter()
+    raw_cpu, L_cpu = predict_raw(load_model(CKPT, device="cpu")[0], graph)
+    print(f"[serve-mc600] CPU predict {time.perf_counter() - t:.2f} s")
+    rel = float(abs(raw - raw_cpu).max() / abs(raw_cpu).max())
+    print(f"[serve-mc600] raw card {raw.tolist()}")
+    print(f"[serve-mc600] raw CPU  {raw_cpu.tolist()}")
+    print(f"[serve-mc600] length card {L}, CPU {L_cpu}; max rel diff of the "
+          f"raw schedule {rel:.3e} (tol {PREDICT_RTOL:g})", flush=True)
+    require(L == L_cpu, "serve-mc600: the predicted length is the CPU run's")
+    require(bool((abs(raw - raw_cpu) <= PREDICT_RTOL * abs(raw_cpu)).all()),
+            "serve-mc600: the raw schedule is within 1e-4 of the CPU run's")
+    for k, (a, b) in enumerate(zip(raw[:L], raw_cpu[:L])):
+        if round(a) == round(b):
+            continue
+        near_half = abs(abs(b - int(b)) - 0.5) <= HALF_INTEGER_BAND
+        print(f"[serve-mc600] step {k}: card {a:.6f} and CPU {b:.6f} round "
+              f"apart ({'within' if near_half else 'outside'} "
+              f"{HALF_INTEGER_BAND:g} of a half-integer)")
+        require(near_half, "serve-mc600: the rounded schedule differs")
+    return {"serve": serve_counts, "serve_mc600": big_counts}
+
+
+def run_predict_then_solve(K, tmp, optimal):
+    """Phase 11: the benchmark twin on one generated theta instance."""
+    from ltr_lowrank_sdp_torch import benchmark
+    from ltr_lowrank_sdp_torch.testing import theta_sdpa, write_sdpa
+
+    inst_dir = os.path.join(tmp, "bench")
+    name = "theta95_gen"
+    path = os.path.join(inst_dir, "hansmittel", f"{name}.dat-s")
+    os.makedirs(os.path.dirname(path))
+    write_sdpa(path, theta_sdpa(*BENCH_THETA))
+    out = os.path.join(inst_dir, "results")
+    K.reset_counts()
+    t = time.perf_counter()
+    require(benchmark.main(["--checkpoint", CKPT, "--instances", inst_dir,
+                            "--root", DATASET, "--subtypes", "hansmittel",
+                            "--output-dir", out]) == 0,
+            "benchmark exits 0")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.counts()
+    require_counts("predict-solve", counts, GNN_KERNELS + DENSE_KERNELS,
+                   per_graph=1)
+    with open(os.path.join(out, f"{name}_r_sched.json")) as f:
+        sched = json.load(f)
+    require(set(sched) == {"rank_schedule", "schedule_length"},
+            "predict-solve: r_sched.json keys")
+    with open(os.path.join(out, "results.json")) as f:
+        row = json.load(f)[name]
+    require(set(row) == {"name", "subtype", "n", "default", "schedule",
+                         "speedup", "obj_rel_diff"},
+            "predict-solve: results.json row keys")
+    pinf_lim, gap_lim, dinf_lim = (1e-5, 5e-5, 5e-5)
+    for side in ("default", "schedule"):
+        r = row[side]
+        print(f"[predict-solve] {side}: {r['status']} in "
+              f"{r['solve_time_sec']:.3f} s, pobj {r['primal_obj']:.10e}, "
+              f"pinf_l1 {r['pinf_l1']:.3e} gap {r['gap']:.3e} dinf_l1 "
+              f"{r['dinf_l1']:.3e}", flush=True)
+        require(set(r) == {"solve_time_sec", "primal_obj", "gap", "pinf_l1",
+                           "dinf_l1", "status"},
+                f"predict-solve: {side} keys")
+        require(r["status"] in [s.value for s in optimal],
+                f"predict-solve: {side} status {r['status']}")
+        # a primal_optimal solve is one whose dual is not certified: the
+        # dual limit holds where the status claims it
+        require(r["pinf_l1"] <= pinf_lim and r["gap"] <= gap_lim
+                and (r["status"] != "primal_dual_optimal"
+                     or r["dinf_l1"] <= dinf_lim)
+                and r["solve_time_sec"] < benchmark.DEFAULT_TIMEOUT,
+                f"predict-solve: {side} outside phase 7's error limits or "
+                f"stopped by the time limit")
+    print(f"[predict-solve] theta_sdpa{BENCH_THETA}: schedule "
+          f"{sched['rank_schedule']} ({sched['schedule_length']} steps), "
+          f"speedup {row['speedup']:.4f}, obj_rel_diff "
+          f"{row['obj_rel_diff']:.3e}, benchmark wall {wall:.2f} s",
+          flush=True)
+
+
 def run_main_path(tag, path, flags, launched, statuses, limits, dev,
                   n_blocks=1, repeat=True):
     """Drive one main path through the CLI with the launch counters set to 0
@@ -851,9 +1184,9 @@ def main() -> int:
     built = K.build_kernels()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.1f} s "
           f"({', '.join(built)})")
-    require(len(K.KERNELS) == 8 and all(
+    require(len(K.KERNELS) == 10 and all(
         k.lib_path is not None and k.lib_path.exists()
-        for k in K.KERNELS.values()), "eight kernels built")
+        for k in K.KERNELS.values()), "ten kernels built")
     for k in K.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1049,18 +1382,60 @@ def main() -> int:
         require(diff <= gaps + tol,
                 f"{tag}: GPU and CPU pobj differ by more than their gaps")
 
-    # ---- phase 9: report ---------------------------------------------- #
+    # ---- phase 9: the predictor's kernels at the serve path's shapes --- #
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.data.loader import _load_graph_file
+    from ltr_lowrank_sdp_torch.models.checkpoint import load_model
+
+    print(f"[gnn] TF32 in float32 matmuls: "
+          f"{torch.backends.cuda.matmul.allow_tf32} (cudnn, unused: "
+          f"{torch.backends.cudnn.allow_tf32})", flush=True)
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "float32 matrix products run in full float32")
+    gnn_model, _ = load_model(CKPT, device=dev)
+    for path, gname in (("serve", SERVE_GRAPH), ("serve_mc600", BIG_GRAPH)):
+        graph = _load_graph_file(os.path.join(DATASET, "proc",
+                                              f"{gname}.npz"))
+        layer1, (seg, x, score) = gnn_inputs(gnn_model, graph, dev)
+        report[path] = {
+            "gatv2_softmax_agg": check_gatv2(K, layer1, gname),
+            "graph_pool": check_graph_pool(K, seg, x, score, gname)}
+        del layer1, seg, x, score
+    sizes = []
+    for gname in POOL_BATCH:
+        with np.load(os.path.join(DATASET, "proc", f"{gname}.npz")) as z:
+            sizes.append(int(z["x"].shape[0]))
+    sizes.insert(4, 0)          # an empty graph among them
+    g = torch.Generator(device=dev).manual_seed(2030)
+    x = torch.randn((sum(sizes), 64), generator=g, device=dev)
+    score = 3.0 * torch.randn(sum(sizes), generator=g, device=dev)
+    check_graph_pool(K, K.GraphSegments.from_counts(sizes, dev), x, score,
+                     f"batch {sizes}")
+    del gnn_model, x, score
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 10: the serve path through infer ------------------- #
+        serve_counts = run_serve_path(K, dev, tmp)
+        # ---- phase 11: predict, then solve ----------------------------- #
+        run_predict_then_solve(K, tmp, optimal)
+
+    # ---- phase 12: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
     # carried it (MaxCut for K1-K4, the sparse cone for K5 and K6, the
-    # multi-block + LP problem for K7 and K8); under "by_path" the same
-    # fields for every main path that launches it, each measured at that
-    # path's shapes with that path's launch count
+    # multi-block + LP problem for K7 and K8, the serve path's graph for K9
+    # and K10); under "by_path" the same fields for every main path that
+    # launches it, each measured at that path's shapes with that path's
+    # launch count (for K9 and K10 also "serve_mc600", the largest graph)
     path_counts = {"maxcut": counts, "matcomp": mc_counts,
-                   "multiblock_lp": mb_counts, "theta": th_counts}
+                   "multiblock_lp": mb_counts, "theta": th_counts,
+                   **serve_counts}
     first_path = {**{name: "matcomp" for name in SPARSE_KERNELS},
                   **{name: "maxcut" for name in MAXCUT_KERNELS},
                   "lp_constr_segsum": "multiblock_lp",
-                  "lp_col_wsum": "multiblock_lp"}
+                  "lp_col_wsum": "multiblock_lp",
+                  **{name: "serve" for name in GNN_KERNELS}}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {path: {"launches": path_counts[path][name][0], **rows[name]}

@@ -1,4 +1,4 @@
-"""The port's eight CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's ten CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -38,12 +38,17 @@ K7     lp_constr_segsum      ops/coneops.py LPOps.constr_vals (the LP cone's
 K8     lp_col_wsum           ops/coneops.py LPOps.weighted_col_sums (the LP
                              cone's c0 c + A_lp^T w, an EllSegSum over
                              columns)
+K9     gatv2_softmax_agg     models/gatv2.py segment_softmax and the
+                             segment_sum aggregation of GATv2Conv (float32)
+K10    graph_pool            models/net.py mean / max pooling and
+                             models/layers.py AttentionPooling's segment
+                             softmax and weighted sum (float32)
 =====  ====================  ==============================================
 
 K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
 carry every other SDP cone (sparse or dense constraint kind), with K1 and K4
 for a sparse objective and ``torch.matmul`` for a dense one; K7 and K8 carry
-the LP cone.
+the LP cone; K9 and K10 carry the rank-schedule predictor's graph encoder.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_F = ctypes.c_float
 
 
 @dataclasses.dataclass
@@ -138,6 +144,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("lp_col_wsum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:443",
            (_P, _P, _P, _P, _P, _D, _I, _P, _P)),
+    Kernel("gatv2_softmax_agg",
+           "ltr_lowrank_sdp_tpu/models/gatv2.py:26",
+           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P)),
+    Kernel("graph_pool",
+           "ltr_lowrank_sdp_tpu/models/layers.py:93",
+           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
 )}
 
 
@@ -849,4 +861,244 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
     k.launch(lp.col_ptr.data_ptr(), lp.col_cid.data_ptr(),
              lp.col_val.data_ptr(), w.data_ptr(), lp.c.data_ptr(), float(c0),
              lp.n_cols, out.data_ptr(), _stream(dev))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K9: GATv2 edge softmax and aggregation (float32)
+# --------------------------------------------------------------------------- #
+
+K9_CHANNELS = 64        # heads * channels that the kernel takes (kChannels)
+LEAKY_SLOPE = 0.2
+
+
+@dataclasses.dataclass
+class EdgeCSR:
+    """A graph's edges with a self-loop appended for every node, as a CSR over
+    destinations, built on the edges' own device.  The edges of node i are
+    ``indptr[i]:indptr[i+1]`` of ``src`` / ``erow`` in the order of the edge
+    list with the loops last (a stable sort by destination; duplicate edges
+    stay separate edges).  ``erow`` is the edge's row of the edge terms, or
+    ``n_real`` for a self-loop (the one shared loop row)."""
+
+    n: int
+    n_real: int
+    indptr: torch.Tensor     # (n+1,) int32
+    src: torch.Tensor        # (n_real + n,) int32
+    erow: torch.Tensor       # (n_real + n,) int32
+
+    @functools.cached_property
+    def dst_ids(self) -> torch.Tensor:
+        """(n_real + n,) int64 destination of each slot (plain version
+        only)."""
+        return _ids_from_ptr(self.indptr)
+
+    @staticmethod
+    def from_edge_index(edge_index: torch.Tensor, n: int) -> "EdgeCSR":
+        """``edge_index`` (2, E): row 0 the sources, row 1 the
+        destinations."""
+        dev = edge_index.device
+        e = int(edge_index.shape[1])
+        _i32(max(e + n, n + 1), "edges + self-loops")
+        loop = torch.arange(n, device=dev)
+        src = torch.cat([edge_index[0].long(), loop])
+        dst = torch.cat([edge_index[1].long(), loop])
+        erow = torch.cat([torch.arange(e, device=dev),
+                          torch.full((n,), e, device=dev)])
+        order = torch.argsort(dst, stable=True)
+        indptr = torch.zeros(n + 1, dtype=torch.long, device=dev)
+        torch.cumsum(torch.bincount(dst, minlength=n), 0, out=indptr[1:])
+        return EdgeCSR(n=n, n_real=e, indptr=indptr.int(),
+                       src=src[order].int(), erow=erow[order].int())
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Softmax of ``scores`` (E, ...) over the entries of each segment, with
+    the reference's guard (a segment max that is not finite counts as 0) and
+    ``+1e-16`` in the denominator."""
+    shape = (num_segments,) + tuple(scores.shape[1:])
+    idx = segment_ids.reshape((-1,) + (1,) * (scores.dim() - 1)).expand_as(
+        scores)
+    seg_max = torch.full(shape, -torch.inf, dtype=scores.dtype,
+                         device=scores.device).scatter_reduce_(
+        0, idx, scores, "amax")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = torch.exp(scores - seg_max[segment_ids])
+    seg_sum = torch.zeros(shape, dtype=scores.dtype,
+                          device=scores.device).index_add_(0, segment_ids, ex)
+    return ex / (seg_sum[segment_ids] + 1e-16)
+
+
+def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att):
+    """Plain version of K9."""
+    heads, ch = att.shape
+    src, dst = g.src.long(), g.dst_ids
+    xs = w_src[src].view(-1, heads, ch)
+    we_all = torch.cat([we, we_loop[None]])[g.erow.long()]
+    msg = xs + w_dst[dst].view(-1, heads, ch) + we_all.view(-1, heads, ch)
+    act = torch.nn.functional.leaky_relu(msg, LEAKY_SLOPE)
+    scores = torch.sum(act * att, dim=-1)                       # (E', H)
+    alpha = segment_softmax(scores, dst, g.n)
+    return torch.zeros((g.n, heads * ch), dtype=w_src.dtype,
+                       device=w_src.device).index_add_(
+        0, dst, (xs * alpha[..., None]).reshape(-1, heads * ch))
+
+
+def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
+                      we: torch.Tensor, we_loop: torch.Tensor,
+                      att: torch.Tensor) -> torch.Tensor:
+    """K9: per destination node and head, the LeakyReLU-att scores of its
+    incoming edges, their softmax and the alpha-weighted sum of the source
+    rows -> (n, heads * ch).  ``w_src``, ``w_dst`` (n, heads * ch) are the
+    projected nodes, ``we`` (n_real, heads * ch) the projected edge features,
+    ``we_loop`` (heads * ch,) the self-loops' shared row, ``att`` (heads,
+    ch).  The kernel takes heads * ch = 64 with ch an even power of two."""
+    k = KERNELS["gatv2_softmax_agg"]
+    if _is_cpu(w_src):
+        k.plain_calls += 1
+        return gatv2_softmax_agg_plain(g, w_src, w_dst, we, we_loop, att)
+    dev = w_src.device
+    heads, ch = att.shape
+    if heads * ch != K9_CHANNELS or ch < 2 or ch & (ch - 1):
+        raise ValueError(
+            f"K9 takes heads * channels = {K9_CHANNELS} with an even "
+            f"power-of-two channel count, got {heads} x {ch}")
+    hc = K9_CHANNELS
+    _check(w_src, "w_src", torch.float32, (g.n, hc), dev)
+    _check(w_dst, "w_dst", torch.float32, (g.n, hc), dev)
+    _check(we, "we", torch.float32, (g.n_real, hc), dev)
+    _check(we_loop, "we_loop", torch.float32, (hc,), dev)
+    _check(att, "att", torch.float32, (heads, ch), dev)
+    _check(g.indptr, "indptr", torch.int32, (g.n + 1,), dev)
+    _check(g.src, "src", torch.int32, (g.n_real + g.n,), dev)
+    _check(g.erow, "erow", torch.int32, (g.n_real + g.n,), dev)
+    for name, t in (("w_src", w_src), ("w_dst", w_dst), ("we", we),
+                    ("we_loop", we_loop), ("att", att)):
+        if t.numel() and t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned (float2 loads)")
+    _i32(g.n * hc, "n * channels")
+    out = torch.empty((g.n, hc), dtype=torch.float32, device=dev)
+    k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
+             w_src.data_ptr(), w_dst.data_ptr(),
+             we.data_ptr() if g.n_real else None,
+             we_loop.data_ptr(), att.data_ptr(), g.n, g.n_real, ch,
+             LEAKY_SLOPE, out.data_ptr(), _stream(dev))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K10: mean / max / attention pooling per graph (float32)
+# --------------------------------------------------------------------------- #
+
+K10_CHUNK = 256          # nodes per block of the first pass
+K10_MAX_D = 128          # kMaxD in graph_pool.cu
+
+
+@dataclasses.dataclass
+class GraphSegments:
+    """The graphs of a batch as contiguous node ranges ``ptr[b]:ptr[b+1]``,
+    each cut on the host into chunks of at most ``K10_CHUNK`` nodes
+    (``chunk_start`` / ``chunk_end``; graph b owns chunks
+    ``chunk_ptr[b]:chunk_ptr[b+1]``, none when it is empty)."""
+
+    num_graphs: int
+    n_nodes: int
+    ptr: torch.Tensor          # (B+1,) int32
+    chunk_ptr: torch.Tensor    # (B+1,) int32
+    chunk_start: torch.Tensor  # (n_chunks,) int32
+    chunk_end: torch.Tensor    # (n_chunks,) int32
+
+    @property
+    def n_chunks(self) -> int:
+        return int(self.chunk_start.numel())
+
+    @functools.cached_property
+    def batch_ids(self) -> torch.Tensor:
+        """(N,) int64 graph of each node (plain version only)."""
+        return _ids_from_ptr(self.ptr)
+
+    @staticmethod
+    def from_counts(counts, device) -> "GraphSegments":
+        counts = np.asarray(counts, np.int64)
+        ptr = np.zeros(counts.size + 1, np.int64)
+        np.cumsum(counts, out=ptr[1:])
+        _i32(ptr[-1] + 1, "nodes")
+        per = -(-counts // K10_CHUNK)
+        chunk_ptr = np.zeros(counts.size + 1, np.int64)
+        np.cumsum(per, out=chunk_ptr[1:])
+        which = np.repeat(np.arange(counts.size), per)
+        start = ptr[:-1][which] + (np.arange(chunk_ptr[-1])
+                                   - chunk_ptr[:-1][which]) * K10_CHUNK
+        end = np.minimum(start + K10_CHUNK, ptr[1:][which])
+
+        def t(a):
+            return torch.tensor(a, dtype=torch.int32, device=device)
+
+        return GraphSegments(num_graphs=int(counts.size),
+                             n_nodes=int(ptr[-1]), ptr=t(ptr),
+                             chunk_ptr=t(chunk_ptr), chunk_start=t(start),
+                             chunk_end=t(end))
+
+    @staticmethod
+    def from_batch(batch: torch.Tensor, num_graphs: int) -> "GraphSegments":
+        """From the (N,) graph id of every node, which must be sorted."""
+        ids = batch.detach().cpu().numpy()
+        if ids.size and (np.any(np.diff(ids) < 0) or ids[0] < 0
+                         or ids[-1] >= num_graphs):
+            raise ValueError("graph ids must be sorted and in [0, num_graphs)")
+        return GraphSegments.from_counts(
+            np.bincount(ids, minlength=num_graphs), batch.device)
+
+
+def graph_pool_plain(seg: GraphSegments, x, score):
+    """Plain version of K10."""
+    B, d = seg.num_graphs, x.shape[1]
+    batch = seg.batch_ids
+    zeros = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    counts = torch.zeros(B, dtype=x.dtype, device=x.device).index_add_(
+        0, batch, torch.ones_like(score))
+    x_mean = zeros.clone().index_add_(0, batch, x) / torch.clamp(
+        counts, min=1.0)[:, None]
+    x_max = torch.full((B, d), -torch.inf, dtype=x.dtype,
+                       device=x.device).scatter_reduce_(
+        0, batch[:, None].expand_as(x), x, "amax")
+    x_max = torch.where(torch.isfinite(x_max), x_max, 0.0)
+    w = segment_softmax(score, batch, B)
+    x_attn = zeros.index_add_(0, batch, w[:, None] * x)
+    return torch.cat([x_mean, x_max, x_attn], dim=-1)
+
+
+def graph_pool(seg: GraphSegments, x: torch.Tensor,
+               score: torch.Tensor) -> torch.Tensor:
+    """K10: per graph, ``[mean x | max x | softmax(score)-weighted sum of
+    x]`` -> (B, 3 d), from x (N, d) with d <= 128 and the attention scores
+    (N,)."""
+    k = KERNELS["graph_pool"]
+    if _is_cpu(x):
+        k.plain_calls += 1
+        return graph_pool_plain(seg, x, score)
+    dev = x.device
+    if x.dim() != 2 or not 1 <= x.shape[1] <= K10_MAX_D:
+        raise ValueError(f"x must be (N, d) with d <= {K10_MAX_D}, got "
+                         f"{tuple(x.shape)}")
+    n, d = x.shape
+    B, nc = seg.num_graphs, seg.n_chunks
+    if n != seg.n_nodes:
+        raise ValueError(f"the graphs have {seg.n_nodes} nodes, x has {n}")
+    _check(x, "x", torch.float32, (n, d), dev)
+    _check(score, "score", torch.float32, (n,), dev)
+    _check(seg.ptr, "ptr", torch.int32, (B + 1,), dev)
+    _check(seg.chunk_ptr, "chunk_ptr", torch.int32, (B + 1,), dev)
+    _check(seg.chunk_start, "chunk_start", torch.int32, (nc,), dev)
+    _check(seg.chunk_end, "chunk_end", torch.int32, (nc,), dev)
+    _i32(n * d, "N * d")
+    part = torch.empty((max(nc, 1), 2 + 3 * d), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((B, 3 * d), dtype=torch.float32, device=dev)
+    k.launch(seg.ptr.data_ptr(), seg.chunk_ptr.data_ptr(),
+             _ptr(seg.chunk_start) if nc else None,
+             _ptr(seg.chunk_end) if nc else None, x.data_ptr(),
+             score.data_ptr(), B, nc, d, part.data_ptr(), out.data_ptr(),
+             _stream(dev))
     return out

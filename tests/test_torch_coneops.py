@@ -413,7 +413,8 @@ def test_general_cpu_operators_take_the_plain_path(gpair):
                      "diag_normal_matvec": 0, "sym_contract_sum": 1,
                      "coo_contract_segsum": 0 if empty else 2,
                      "spmm_constr_csr": 0 if empty else 2,
-                     "lp_constr_segsum": 0, "lp_col_wsum": 0}
+                     "lp_constr_segsum": 0, "lp_col_wsum": 0,
+                     "gatv2_softmax_agg": 0, "graph_pool": 0}
 
 
 # --------------------------------------------------------------------------- #

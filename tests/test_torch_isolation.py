@@ -11,14 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from ltr_lowrank_sdp_torch import resolve_device
+from ltr_lowrank_sdp_torch import benchmark, infer, resolve_device
+from ltr_lowrank_sdp_torch.models.checkpoint import load_model
 from ltr_lowrank_sdp_torch.ops import kernels as K
 from ltr_lowrank_sdp_torch.solver.driver import Solver
 from ltr_lowrank_sdp_torch.testing import random_maxcut_problem
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ltr_lowrank_sdp_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "ltr_lowrank_sdp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "msgpack",
+             "ltr_lowrank_sdp_tpu")
 
 
 def _port_modules():
@@ -62,7 +64,7 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     prob = random_maxcut_problem(80, avg_degree=4, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -71,6 +73,16 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
     assert Solver(prob, device="cpu").device == torch.device("cpu")
+    ckpt = str(ROOT / "runs" / "r5_theta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(ckpt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["-c", ckpt, "-i", "maxcut_n200_d4",
+                    "--root", str(ROOT / "dataset")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark.main(["--checkpoint", ckpt, "--instances",
+                        str(tmp_path), "--output-dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())     # nothing written, nothing solved
 
 
 def test_cpu_solve_runs_the_plain_versions_only():
@@ -81,7 +93,8 @@ def test_cpu_solve_runs_the_plain_versions_only():
     maxcut = {"spmm_sym_csr", "diag_rowdot", "diag_normal_matvec",
               "sym_contract_sum"}
     assert set(counts) == maxcut | {"coo_contract_segsum", "spmm_constr_csr",
-                                    "lp_constr_segsum", "lp_col_wsum"}
+                                    "lp_constr_segsum", "lp_col_wsum",
+                                    "gatv2_softmax_agg", "graph_pool"}
     assert all(launches == 0 for launches, _ in counts.values()), counts
     # the MaxCut family runs K1-K4 and never the general-cone or LP kernels
     assert all((plain > 0) == (name in maxcut)

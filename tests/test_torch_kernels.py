@@ -1,4 +1,4 @@
-"""The eight CUDA kernels of the port against their plain PyTorch versions,
+"""The ten CUDA kernels of the port against their plain PyTorch versions,
 on the GPU.  Those tests are marked ``cuda``: they build the kernels with
 nvcc and skip on a machine without a GPU.  Run them there with
 
@@ -14,7 +14,11 @@ numpy evaluation on the CPU (unmarked tests; K1-K4's are in
 in ``test_torch_coneops.py``).
 
 Tolerance: 1e-12 relative in the 2-norm (float64; the kernels sum in
-another order than the plain versions).
+another order than the plain versions); K9 and K10, which run in float32,
+max |kernel - plain| / max |plain| <= 1e-5 against the plain version
+evaluated in float64 on the same inputs (the plain version in float32 sums a
+segment with ``index_add_`` into one accumulator: over the 85,080 nodes of
+one graph that alone is 7e-5 off).
 """
 
 import numpy as np
@@ -473,3 +477,109 @@ def test_lp_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.lp_col_wsum(lp, w[:-1].contiguous())
     with pytest.raises(ValueError):
         K.lp_constr_segsum(lp, u, u.cpu())
+
+
+# --------------------------------------------------------------------------- #
+# K9 gatv2_softmax_agg and K10 graph_pool (float32)
+# --------------------------------------------------------------------------- #
+
+F32_TOL = 1e-5    # max |kernel - plain| / max |plain|, float32
+
+
+def _maxrel(a, b) -> float:
+    return float((a.double() - b).abs().max()
+                 / b.abs().max().clamp_min(1e-30))
+
+
+def _f64(args):
+    """The float tensors of ``args`` in float64, the rest as they are."""
+    return tuple(a.double() if torch.is_tensor(a) and a.is_floating_point()
+                 else a for a in args)
+
+
+def _gat_inputs(case, dev):
+    """(EdgeCSR, w_src, w_dst, we, we_loop, att) of a random graph: repeated
+    edges, existing self-loops, a hub node with 100 incoming edges (several
+    32-edge index loads), or no edge at all."""
+    heads, ch = {"4x16": (4, 16), "2x32": (2, 32), "8x8": (8, 8),
+                 "no-edges": (4, 16), "hub": (4, 16)}[case]
+    rng = np.random.default_rng(len(case))
+    n, e = 300, 0 if case == "no-edges" else 2000
+    ei = rng.integers(0, n, size=(2, e))
+    if e:
+        ei[1, :10] = ei[0, :10]              # existing self-loops
+        ei[:, -5:] = ei[:, :5]               # repeated edges
+    if case == "hub":
+        ei[1, :100] = 7
+    g = K.EdgeCSR.from_edge_index(torch.tensor(ei, device=dev), n)
+    gen = torch.Generator(device=dev).manual_seed(e + n)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, dtype=torch.float32,
+                                   device=dev)
+
+    hc = heads * ch
+    return (g, rnd(n, hc), rnd(n, hc), rnd(e, hc), rnd(hc),
+            rnd(heads, ch, scale=2.0))
+
+
+@cuda
+@pytest.mark.parametrize("case", ["4x16", "2x32", "8x8", "no-edges", "hub"])
+def test_gatv2_softmax_agg(dev, case):
+    args = _gat_inputs(case, dev)
+    before = K.KERNELS["gatv2_softmax_agg"].launches
+    got = K.gatv2_softmax_agg(*args)
+    torch.cuda.synchronize()
+    want = K.gatv2_softmax_agg_plain(*_f64(args))
+    assert _maxrel(got, want) <= F32_TOL
+    assert torch.equal(K.gatv2_softmax_agg(*args), got)   # no atomics
+    assert K.KERNELS["gatv2_softmax_agg"].launches == before + 2
+
+
+@cuda
+@pytest.mark.parametrize("counts,d", [
+    ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
+    ((0,), 32), ((1000, 3), 128)])
+def test_graph_pool(dev, counts, d):
+    seg = K.GraphSegments.from_counts(counts, dev)
+    gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
+    n = sum(counts)
+    x = torch.randn((n, d), generator=gen, dtype=torch.float32, device=dev)
+    score = 5.0 * torch.randn(n, generator=gen, dtype=torch.float32,
+                              device=dev)
+    before = K.KERNELS["graph_pool"].launches
+    got = K.graph_pool(seg, x, score)
+    torch.cuda.synchronize()
+    want = K.graph_pool_plain(seg, x.double(), score.double())
+    assert got.shape == (len(counts), 3 * d)
+    if n:
+        for part in range(3):
+            sl = slice(part * d, (part + 1) * d)
+            assert _maxrel(got[:, sl], want[:, sl]) <= F32_TOL
+    for b, c in enumerate(counts):
+        if c == 0:                  # an empty graph pools to zeros
+            assert torch.count_nonzero(got[b]) == 0
+    assert torch.equal(K.graph_pool(seg, x, score), got)
+    assert K.KERNELS["graph_pool"].launches == before + 2
+
+
+@cuda
+def test_gnn_wrappers_reject_what_the_kernels_do_not_take(dev):
+    g, w_src, w_dst, we, we_loop, att = _gat_inputs("4x16", dev)
+    with pytest.raises(TypeError):
+        K.gatv2_softmax_agg(g, w_src.double(), w_dst, we, we_loop, att)
+    with pytest.raises(ValueError, match="heads"):
+        K.gatv2_softmax_agg(g, w_src[:, :32].contiguous(),
+                            w_dst[:, :32].contiguous(),
+                            we[:, :32].contiguous(),
+                            we_loop[:32].contiguous(), att[:2].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        K.gatv2_softmax_agg(g, w_src, w_dst, we,
+                            torch.empty(65, device=dev)[1:], att)
+    seg = K.GraphSegments.from_counts((10, 20), dev)
+    x = torch.zeros((30, 130), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="d <= 128"):
+        K.graph_pool(seg, x, torch.zeros(30, device=dev))
+    with pytest.raises(ValueError, match="nodes"):
+        K.graph_pool(seg, x[:29, :64].contiguous(),
+                     torch.zeros(29, device=dev))
