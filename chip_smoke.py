@@ -7,7 +7,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; no CUDA device -> exit 2 before anything else;
-2. build the ten CUDA kernels from ``ltr_lowrank_sdp_torch/csrc`` (nvcc,
+2. build the twelve CUDA kernels from ``ltr_lowrank_sdp_torch/csrc`` (nvcc,
    sm_90a, all sources at once);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64, at the main paths' shapes: max relative error <= 1e-12, with the
@@ -101,7 +101,34 @@ Phases, in order; any failed check raises and the script exits nonzero:
    ``primal_optimal`` within phase 7's error limits and inside the
    benchmark's own solver time limit, the root benchmark's file schema, K9 / K10 once per prediction and K5 / K6 in the solves, no plain
    version run; the speedup is printed;
-12. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
+12. training: at the shapes of ``theta_n300_d75`` and ``MC_600x600_r5``
+   (the first GATv2 layer's and the poolings' inputs), K9 with its dropout
+   keep-scale and lse output, its backward K11, K10 with its keep-scale,
+   softmax stats and tie counts, and its backward K12, each without and
+   with keep-scales (p = 0.15) and K12 also on features rounded to a grid
+   so that many nodes tie at a column's max: every output against the plain
+   version evaluated in float64 on the kernel's inputs (max |kernel - plain|
+   / max |plain| <= 1e-5, the backward's scale floored at 1e-6 of its
+   largest output), the same bits on two calls, times beside the bound.
+   Then one training step at full width (``runs/r5_theta``'s weights,
+   dropout 0, fixed coins) on a collated batch of the seeded test split, on
+   the card in float32 and on the CPU in float64: loss within 1e-5
+   relative, every gradient leaf within 1e-4 of that leaf's own largest
+   value, the card's optimizer step within 1e-5 of the float64 step from the
+   same gradients, and the parameters within 1e-5 of the float64 step beyond
+   what a gradient within the gradient tolerance makes of Adam's first step.
+   Then the entry point
+   ``ltr_lowrank_sdp_torch.train.main(["--root", "dataset", "--epochs",
+   "2", "--output-dir", ...])``, every other flag at its default (full width,
+   dropout 0.15, all 53 training graphs, ``MC_600x600_r5`` a batch of its
+   own), counters set to 0 just before and read just after: K9 / K11 once
+   per GATv2 layer and K10 / K12 once per batch (K9 / K10 also for the
+   validation and test batches), no plain version run, the five output
+   files, finite losses; its own steps timed (median, max, the
+   ``MC_600x600_r5`` step, epoch wall, peak memory), its second epoch under
+   the profiler (device busy share); ``infer`` on ``theta_n300_d75`` with
+   the checkpoint just written;
+13. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
    row at every main path's shapes), the kernels still to be ported, the
    solver loops carried as plain torch over the kernels, the card line
    and, last, ``{"ok": true, "device": {...}}``.
@@ -124,6 +151,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -197,6 +225,14 @@ LIB_TOL = 1e-4            # K10's float32 library yardstick, same measure
 PREDICT_RTOL = 1e-4       # the raw schedule, card against CPU
 HALF_INTEGER_BAND = 1e-3
 GNN_KERNELS = ("gatv2_softmax_agg", "graph_pool")
+# the training path: the default flags of the train entry point (dropout
+# 0.15) over the whole dataset; the card-against-CPU step's tolerances
+TRAIN_KERNELS = GNN_KERNELS + ("gatv2_softmax_agg_bwd", "graph_pool_bwd")
+TRAIN_EPOCHS = 2
+TRAIN_DROPOUT = 0.15
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+PARAM_TOL = 1e-5
 
 UNPORTED = [
     "P  scripts/pallas_gather_probe.py:40-65 kern (pallas_call :57): "
@@ -296,6 +332,12 @@ def profile_call(fn, tag: str, what: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    print_profile(prof, wall, tag, what)
+
+
+def print_profile(prof, wall: float, tag: str, what: str) -> None:
+    """The device busy share of ``wall`` in a finished profile, and the
+    kernels that take it."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
@@ -735,39 +777,53 @@ def check_lp_kernels(K, lp, dev, tag):
 
 def _measure_gnn(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
                  lib_check=None):
-    """Phase 9: hold one float32 kernel call against its plain version
-    evaluated in float64 on the same inputs (``plain64``; max |kernel -
-    plain| / max |plain| <= GNN_TOL) and check the same bits on a second
-    call, then time the kernel, the float32 plain version and the library
-    yardstick (``lib_check(lib(), plain64())`` holds it to the part of the
-    function it computes).  The float32 plain version's own distance from
-    the float64 one is printed beside: it sums each segment into one
-    accumulator.  Returns the kernels-line fields."""
+    """Phases 9 and 12: hold one float32 kernel call against its plain
+    version evaluated in float64 on the same inputs (``plain64``) and check
+    the same bits on a second call, then time the kernel, the float32 plain
+    version and the library yardstick (``lib_check(lib(), plain64())`` holds
+    it to the part of the function it computes).  A backward kernel returns
+    a tuple: each output is held to GNN_TOL of its largest value, that scale
+    floored at 1e-6 of the largest output (an output whose exact value
+    vanishes, such as K11's d_w_dst where every slot's message has one sign,
+    is rounding).  The float32 plain version's own distance from the float64
+    one is printed beside: it sums each segment into one accumulator.
+    Returns the kernels-line fields."""
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
     with torch.no_grad():
-        out_k, out_p, ref = kern(), plain(), plain64()
+        out_k, out_p, ref = tup(kern()), tup(plain()), tup(plain64())
         torch.cuda.synchronize()
-        scale = max(float(ref.abs().max()), 1e-30)
-        abs_err = float((out_k.double() - ref).abs().max())
-        err = abs_err / scale
-        err_plain = float((out_p.double() - ref).abs().max()) / scale
-        require(err <= GNN_TOL, f"{name} {tag}: max error {err:.3e} of the "
-                                f"largest value > {GNN_TOL}")
-        require(torch.equal(kern(), out_k),
+        keep = [i for i, b in enumerate(ref) if b.numel()]
+        floor = 1e-6 * max(float(ref[i].abs().max()) for i in keep)
+        scale = {i: max(float(ref[i].abs().max()), floor) for i in keep}
+
+        def errs(out):
+            return [float((out[i].double() - ref[i]).abs().max()) / scale[i]
+                    for i in keep]
+
+        err, err_plain = errs(out_k), errs(out_p)
+        abs_err = max(e * scale[i] for e, i in zip(err, keep))
+        require(max(err) <= GNN_TOL,
+                f"{name} {tag}: max error {max(err):.3e} of the largest "
+                f"value > {GNN_TOL}")
+        require(all(torch.equal(a, b) for a, b in zip(tup(kern()), out_k)),
                 f"{name} {tag}: two calls gave different bits")
         ms, plain_ms = time_ms(kern), time_ms(plain)
         call_ms = host_call_ms(kern)
         lib_ms = None
         if lib is not None:
-            lib_check(lib(), ref)
+            lib_check(lib(), ref[0])
             lib_ms = time_ms(lib)
     b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
     lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "none"
-    print(f"[kernel] {name} {tag}: max err / max |plain| {err:.2e} (tol "
-          f"{GNN_TOL:g}; the float32 plain version's {err_plain:.2e}), max "
-          f"abs err {abs_err:.2e}, same bits on two calls, kernel {ms:.4f} "
-          f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"library {lib_txt} ms, {nbytes / ms / 1e6:.1f} GB/s; host-issued "
-          f"call {call_ms:.4f} ms", flush=True)
+    print(f"[kernel] {name} {tag}: max err / max |plain| "
+          f"{', '.join(f'{e:.2e}' for e in err)} (tol {GNN_TOL:g}; the "
+          f"float32 plain version's {', '.join(f'{e:.2e}' for e in err_plain)}"
+          f"), max abs err {abs_err:.2e}, same bits on two calls, kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), library {lib_txt} ms, {nbytes / ms / 1e6:.1f} GB/s; "
+          f"host-issued call {call_ms:.4f} ms", flush=True)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
@@ -846,6 +902,365 @@ def check_graph_pool(K, seg, x, score, tag):
         lambda: K.graph_pool_plain(seg, x, score),
         lambda: K.graph_pool_plain(seg, x.double(), score.double()), nbytes,
         5.0 * n * d + 4.0 * n, lib, lib_check)
+
+
+def _keep(shape, dev, seed):
+    """A dropout keep-scale at the training path's rate."""
+    u = torch.rand(shape, generator=torch.Generator(device=dev).manual_seed(
+        seed), device=dev)
+    return (u < 1.0 - TRAIN_DROPOUT).float() / (1.0 - TRAIN_DROPOUT)
+
+
+@torch.no_grad()
+def check_train_kernels(K, layer1, pool, tag, dev):
+    """Phase 12: K9 with its keep-scale and lse, K11, K10 with its keep-scale
+    and training outputs, and K12 at one graph's shapes, without and with
+    dropout keep-scales and, for K12, on features rounded to a grid of 1/4
+    so that many nodes tie at each column's max.  Returns the kernels-line
+    rows of the dropout case."""
+    g, w_src, w_dst, we, we_loop, att = layer1
+    seg, x, score = pool
+    heads, hc = att.shape[0], w_src.shape[1]
+    f4, e_all, n = 4, g.n_slots, g.n
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    rows = {}
+    for dropout in (False, True):
+        keep = _keep((e_all, heads), dev, 5) if dropout else None
+        keep64 = None if keep is None else keep.double()
+        args64 = tuple(t.double() for t in layer1[1:])
+        out64, lse64 = K._gatv2_plain(g, *args64, keep64)
+        kt = f"{tag}{' dropout' if dropout else ''}"
+        fwd_bytes = ((n + 1) * f4 + 2 * e_all * f4 + 3 * n * hc * f4
+                     + g.n_real * hc * f4 + hc * f4 + att.numel() * f4
+                     + (e_all * heads * f4 if dropout else 0) + n * heads * f4)
+        row9 = _measure_gnn(
+            "gatv2_softmax_agg", f"{kt} train (keep, lse) N={n} E'={e_all}",
+            lambda: K._gatv2_forward(g, *layer1[1:], keep, True)[0],
+            lambda: K._gatv2_plain(g, *layer1[1:], keep)[0],
+            lambda: out64, fwd_bytes, 9.0 * e_all * hc)
+        out, lse = K._gatv2_forward(g, *layer1[1:], keep, True)
+        lse_err = float((lse.double() - lse64).abs().max()
+                        / lse64.abs().max())
+        require(lse_err <= GNN_TOL, f"K9 {kt}: lse error {lse_err:.2e}")
+        dout = torch.randn(out.shape, generator=gen, device=dev)
+        # reads K9's inputs, keep, lse, out, dout and the source CSR once,
+        # writes the five gradients; the (E', 64) scratch rows are not
+        # compulsory.  About 17 operations per slot and channel.
+        bwd_bytes = (fwd_bytes + (n + 1) * f4 + e_all * f4
+                     + n * hc * f4 + 2 * n * hc * f4
+                     + g.n_real * hc * f4 + hc * f4 + att.numel() * f4)
+        row11 = _measure_gnn(
+            "gatv2_softmax_agg_bwd", f"{kt} N={n} E'={e_all}",
+            lambda: K.gatv2_softmax_agg_bwd(g, *layer1[1:], keep, lse, out,
+                                            dout),
+            lambda: K.gatv2_softmax_agg_bwd_plain(g, *layer1[1:], keep, lse,
+                                                  out, dout),
+            lambda: K.gatv2_softmax_agg_bwd_plain(g, *args64, keep64,
+                                                  lse.double(), out.double(),
+                                                  dout.double()),
+            bwd_bytes, 17.0 * e_all * hc)
+        for xt, ttag in ((x, ""), (torch.round(4.0 * x) / 4.0, " ties")):
+            nn_, d = xt.shape
+            keep_p = _keep((nn_,), dev, 6) if dropout else None
+            keep_p64 = None if keep_p is None else keep_p.double()
+            ref = K._graph_pool_plain(seg, xt.double(), score.double(),
+                                      keep_p64)
+            out_p, stats, ties = K._graph_pool_forward(seg, xt, score, keep_p,
+                                                       True)
+            require(torch.equal(ties.double(), ref[2]),
+                    f"K10 {kt}{ttag}: tie counts differ")
+            stat_err = float((stats.double() - ref[1]).abs().max()
+                             / ref[1].abs().max())
+            require(stat_err <= GNN_TOL, f"K10 {kt}{ttag}: stats "
+                                         f"{stat_err:.2e}")
+            print(f"[kernel] graph_pool {kt}{ttag}: most nodes tied at a "
+                  f"column max {int(ties.max())}, stats err {stat_err:.2e}")
+            B = seg.num_graphs
+            pool_bytes = (nn_ * d + nn_ * (2 if dropout else 1) + 2 * (B + 1)
+                          + 3 * seg.n_chunks + 3 * B * d + 2 * B + B * d) * f4
+            row10 = _measure_gnn(
+                "graph_pool", f"{kt}{ttag} train (keep, stats, ties) N={nn_}",
+                lambda: K._graph_pool_forward(seg, xt, score, keep_p,
+                                              True)[0],
+                lambda: K.graph_pool_plain(seg, xt, score, keep_p),
+                lambda: ref[0], pool_bytes, 6.0 * nn_ * d + 4.0 * nn_)
+            dpool = torch.randn(out_p.shape, generator=gen, device=dev)
+            row12 = _measure_gnn(
+                "graph_pool_bwd", f"{kt}{ttag} B={B} N={nn_} d={d}",
+                lambda: K.graph_pool_bwd(seg, xt, score, keep_p, out_p, stats,
+                                         ties, dpool),
+                lambda: K.graph_pool_bwd_plain(seg, xt, score, keep_p, out_p,
+                                               stats, ties, dpool),
+                lambda: K.graph_pool_bwd_plain(
+                    seg, xt.double(), score.double(), keep_p64,
+                    out_p.double(), stats.double(), ties.double(),
+                    dpool.double()),
+                (2 * nn_ * d + nn_ * (3 if dropout else 2) + 2 * (B + 1)
+                 + 3 * seg.n_chunks + 7 * B * d + 2 * B) * f4,
+                6.0 * nn_ * d)
+            if dropout and not ttag:
+                rows = {"gatv2_softmax_agg": row9, "graph_pool": row10,
+                        "gatv2_softmax_agg_bwd": row11,
+                        "graph_pool_bwd": row12}
+    return rows
+
+
+def check_train_step(K, dev):
+    """Phase 12: one training step at full width (the r5_theta weights,
+    dropout 0, fixed coins) on a collated batch of the seeded test split, on
+    the card in float32 and on the CPU in float64 (the plain K9-K12 and
+    every other operation in float64).  Held: the loss to LOSS_RTOL
+    relative; every gradient leaf to GRAD_TOL of that leaf's own largest
+    float64 value (a leaf that is 0 in exact arithmetic, the attention
+    pooling's score bias, to GRAD_TOL of the model's largest gradient); the
+    card's optimizer step to PARAM_TOL of each leaf's largest value against
+    the float64 step from the card's own gradients; and against the float64
+    step from the float64 gradients, every element to PARAM_TOL plus the
+    most that a gradient within the gradient tolerance changes Adam's first
+    step, lr * g / (|g| + eps), whose direction the rounding of a gradient
+    near 0 decides."""
+    from ltr_lowrank_sdp_torch import train
+    from ltr_lowrank_sdp_torch.data.loader import (create_splits,
+                                                   iterate_batches)
+    from ltr_lowrank_sdp_torch.models.checkpoint import load_model
+    from ltr_lowrank_sdp_torch.models.loss import LossWeights
+    from ltr_lowrank_sdp_torch.models.net import RankSchedulePredictor
+    from ltr_lowrank_sdp_torch.optim import TrainOptimizer
+
+    ds, _, _, test_idx = create_splits(DATASET, seed=42)
+    batch = next(iterate_batches(ds, test_idx, 16))
+    base, cfg = load_model(CKPT, device="cpu")
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    coins = torch.rand(cfg.max_seq_len,
+                       generator=torch.Generator().manual_seed(13))
+    lr = 3e-4
+    cpu = torch.device("cpu")
+
+    def step(device, dtype, grads=None):
+        """One step -> (loss, gradients, parameters after the step, counts);
+        with ``grads``, the optimizer step alone from those gradients."""
+        model = RankSchedulePredictor(cfg)
+        model.load_state_dict(base.state_dict())
+        model.to(device=device, dtype=dtype).train()
+        opt = TrainOptimizer(model.parameters(), lr, 1e-4, 1.0)
+        t0 = time.perf_counter()
+        K.reset_counts()
+        loss = float("nan")
+        if grads is None:
+            t = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in train.batch_tensors(batch, device).items()}
+            out, _ = train.train_loss(model, t, batch,
+                                      LossWeights(under_weight=3.67), 0.5,
+                                      coins=coins.to(device, dtype))
+            out.backward()
+            loss = float(out.detach())
+        else:
+            for k, p in model.named_parameters():
+                p.grad = grads[k].to(device, dtype, copy=True)
+        g = {k: p.grad.detach().double().cpu().clone()
+             for k, p in model.named_parameters()}
+        opt.step()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"[train-step] {device} {dtype}"
+              f"{' (given gradients)' if grads is not None else ''}: loss "
+              f"{loss:.9f}, step {time.perf_counter() - t0:.2f} s, counts "
+              f"{json.dumps({k: v for k, v in K.counts().items() if any(v)})}",
+              flush=True)
+        return (loss, g, {k: p.detach().double().cpu() for k, p in
+                          model.named_parameters()}, K.counts())
+
+    l_g, g_g, p_g, c_g = step(dev, torch.float32)
+    l_c, g_c, p_c, _ = step(cpu, torch.float64)
+    _, _, p_s, _ = step(cpu, torch.float64, g_g)
+    require_counts("train-step", c_g, TRAIN_KERNELS)
+    require(c_g["gatv2_softmax_agg_bwd"][0] == cfg.num_gnn_layers
+            and c_g["graph_pool_bwd"][0] == 1,
+            "train-step: K11 once per GATv2 layer, K12 once")
+    rel = abs(l_g - l_c) / abs(l_c)
+    largest = max(float(g.abs().max()) for g in g_c.values())
+    per_leaf, scale = {}, {}
+    for k, g in g_c.items():
+        # the float64 gradient is 0 up to its own rounding: no scale of its
+        # own, so the model's largest gradient is its scale
+        own = float(g.abs().max())
+        scale[k] = own if own > 1e-12 * largest else largest
+        per_leaf[k] = float((g_g[k] - g).abs().max()) / scale[k]
+    opt_err = max(float((p_g[k] - p_s[k]).abs().max())
+                  / max(float(p_s[k].abs().max()), 1e-30) for k in p_s)
+    # Adam's first step moves an element by lr * (u(c g) + wd p), u(c g) =
+    # c g / (|c g| + eps), c the clip factor: its direction is as sensitive
+    # to the gradient as eps / |c g|.  An element may part from the float64
+    # step by PARAM_TOL of its leaf's largest value plus the most that a
+    # gradient within the gradient tolerance, g +- GRAD_TOL * scale, moves
+    # lr * u (u increases with g: the larger of its two one-sided changes).
+    norm = math.sqrt(sum(float(g.square().sum()) for g in g_c.values()))
+    c = 1.0 if norm < 1.0 else 1.0 / norm
+
+    def u(g):
+        return c * g / ((c * g).abs() + 1e-8)
+
+    parted, unexplained = 0, 0
+    for k, g in g_c.items():
+        tol = GRAD_TOL * scale[k]
+        du = torch.maximum(u(g + tol) - u(g), u(g) - u(g - tol))
+        diff = (p_g[k] - p_c[k]).abs()
+        floor = PARAM_TOL * float(p_c[k].abs().max())
+        parted += int((diff > floor).sum())
+        unexplained += int((diff > floor + lr * du).sum())
+    top = sorted(per_leaf.items(), key=lambda kv: -kv[1])
+    print(f"[train-step] card float32 vs CPU float64: loss rel diff {rel:.2e} "
+          f"(tol {LOSS_RTOL:g}); gradient error per leaf, of the leaf's own "
+          f"largest value (tol {GRAD_TOL:g}), worst first: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in top)}", flush=True)
+    print(f"[train-step] parameters after one step: the card's optimizer "
+          f"against the float64 step from the card's gradients "
+          f"{opt_err:.2e} of each leaf's largest (tol {PARAM_TOL:g}); "
+          f"against the float64 step from the float64 gradients {parted} "
+          f"elements part by more than {PARAM_TOL:g} of their leaf's "
+          f"largest, {unexplained} of them by more than that plus what a "
+          f"gradient within the gradient tolerance makes of Adam's first "
+          f"step", flush=True)
+    require(rel <= LOSS_RTOL, "train-step: card and CPU losses differ")
+    require(top[0][1] <= GRAD_TOL,
+            f"train-step: card and CPU gradients differ ({top[0][0]})")
+    require(opt_err <= PARAM_TOL,
+            "train-step: the card's optimizer step differs from the CPU's")
+    require(unexplained == 0,
+            "train-step: card and CPU parameters differ after one step")
+
+
+def run_train_path(K, dev, tmp):
+    """Phase 12: the training entry point, 2 epochs at full width on the
+    whole dataset with every other flag at its default, the counters set to
+    0 just before and read just after; then ``infer`` with the checkpoint it
+    wrote.  The entry point's own steps are timed, each followed by a
+    synchronize (it reads each step's loss on the host anyway); its first
+    epoch runs plain and its second under the profiler.  An epoch's wall
+    runs from the training loop's start to the validation's, batch loading
+    and collating included.  Returns the entry point's counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ltr_lowrank_sdp_torch import infer, train
+    from ltr_lowrank_sdp_torch.data.loader import (create_splits,
+                                                   iterate_batches)
+
+    out = os.path.join(tmp, "train")
+    argv = ["--root", DATASET, "--epochs", str(TRAIN_EPOCHS), "--output-dir",
+            out]
+    args = train.build_argparser().parse_args(argv)
+    ds, tr_idx, va_idx, te_idx = create_splits(DATASET, seed=args.seed)
+    n_train = sum(1 for ep in range(TRAIN_EPOCHS) for _ in iterate_batches(
+        ds, tr_idx, args.batch_size, shuffle=True, seed=args.seed + ep))
+    n_val = sum(1 for _ in iterate_batches(ds, va_idx, args.batch_size))
+    n_test = sum(1 for _ in iterate_batches(ds, te_idx, args.batch_size))
+
+    steps = []              # (epoch, seconds, graph names, edges)
+    loops, evals = [], []   # training loops' and evaluations' start times
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step_fn, eval_fn, batches_fn = (train.train_step, train.evaluate,
+                                    train.iterate_batches)
+
+    def timed_step(model, opt, b, *rest):
+        t0 = time.perf_counter()
+        loss = step_fn(model, opt, b, *rest)
+        torch.cuda.synchronize()
+        steps.append((len(loops) - 1, time.perf_counter() - t0, b.names,
+                      b.edge_index.shape[1]))
+        return loss
+
+    def timed_batches(*a, **kw):
+        if kw.get("shuffle"):               # the training loop of an epoch
+            torch.cuda.synchronize()
+            loops.append(time.perf_counter())
+            if len(loops) == 2:
+                prof.start()
+        return batches_fn(*a, **kw)
+
+    def timed_eval(*a, **kw):
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter())
+        if len(evals) == 2:
+            prof.stop()
+        return eval_fn(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_counts()
+    t = time.perf_counter()
+    train.train_step, train.evaluate, train.iterate_batches = (
+        timed_step, timed_eval, timed_batches)
+    try:
+        rc = train.main(argv)
+    finally:
+        train.train_step, train.evaluate, train.iterate_batches = (
+            step_fn, eval_fn, batches_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.counts()
+    peak = torch.cuda.max_memory_allocated()
+    require(rc == 0, "train exits 0")
+    require_counts("train", counts, TRAIN_KERNELS)
+    layers = args.num_gnn_layers
+    forwards = n_train + TRAIN_EPOCHS * n_val + 2 * n_test
+    print(f"[train] {TRAIN_EPOCHS} epochs, {n_train} training steps, "
+          f"{n_val} val and {n_test} test batches; K9 / K10 launches "
+          f"expected {layers * forwards} / {forwards}, K11 / K12 "
+          f"{layers * n_train} / {n_train}", flush=True)
+    require(len(steps) == n_train and len(loops) == TRAIN_EPOCHS,
+            "train: the entry point ran every training batch")
+    require(counts["gatv2_softmax_agg"][0] == layers * forwards
+            and counts["graph_pool"][0] == forwards
+            and counts["gatv2_softmax_agg_bwd"][0] == layers * n_train
+            and counts["graph_pool_bwd"][0] == n_train,
+            "train: K9 / K11 once per GATv2 layer and batch, K10 / K12 once "
+            "per batch")
+    for name in ("model.msgpack", "config.json", "eval_report.txt",
+                 "eval_predictions.json", "training_log.json"):
+        require(os.path.exists(os.path.join(out, name)), f"train: {name}")
+    with open(os.path.join(out, "training_log.json")) as f:
+        log = json.load(f)
+    losses = [h["train_loss"] for h in log["history"]]
+    require(len(losses) == TRAIN_EPOCHS and all(
+        math.isfinite(v) for v in losses), "train: finite losses")
+    print(f"[train] entry point wall {wall:.2f} s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, train_loss {losses}, val_log_mae "
+          f"{[h['val_log_mae'] for h in log['history']]}, best "
+          f"{log['best_val_log_mae']}", flush=True)
+    for ep in range(TRAIN_EPOCHS):
+        mine = [(s, names, e) for k, s, names, e in steps if k == ep]
+        secs = sorted(s for s, _, _ in mine)
+        big = [s for s, names, _ in mine if BIG_GRAPH in names]
+        require(len(big) == 1, "train: MC_600x600_r5 forms one batch")
+        ep_wall = evals[ep] - loops[ep]
+        print(f"[train-epoch] epoch {ep}"
+              f"{' (under the profiler)' if ep == 1 else ''}: {len(mine)} "
+              f"steps, epoch wall {ep_wall:.3f} s (steps {sum(secs):.3f} s, "
+              f"the rest loading and collating on the host), step median "
+              f"{secs[len(secs) // 2] * 1e3:.1f} ms, max "
+              f"{secs[-1] * 1e3:.1f} ms, the {BIG_GRAPH} step "
+              f"{big[0] * 1e3:.1f} ms", flush=True)
+        for s, names, e in mine:
+            print(f"[train-epoch] epoch {ep} step {s * 1e3:8.1f} ms  "
+                  f"E={e:9d}  {len(names)} graphs")
+    print_profile(prof, evals[1] - loops[1], "train-profile",
+                  f"the entry point's epoch 1 "
+                  f"({sum(1 for k, *_ in steps if k == 1)} steps)")
+
+    # the checkpoint just written serves
+    res = os.path.join(tmp, "train-infer.json")
+    K.reset_counts()
+    require(infer.main(["-c", out, "--root", DATASET, "-i", SERVE_GRAPH,
+                        "--output", res]) == 0, "infer with the new "
+                                                "checkpoint exits 0")
+    require_counts("train-infer", K.counts(), GNN_KERNELS, per_graph=1)
+    with open(res) as f:
+        pred = json.load(f)
+    require(pred["schedule_length"] >= 1
+            and len(pred["schedule"]) == pred["schedule_length"],
+            "train-infer: a schedule")
+    print(f"[train-infer] {SERVE_GRAPH} with the new checkpoint: "
+          f"{pred['schedule']}", flush=True)
+    return counts
 
 
 def require_counts(tag, counts, launched, per_graph=None):
@@ -1184,9 +1599,9 @@ def main() -> int:
     built = K.build_kernels()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.1f} s "
           f"({', '.join(built)})")
-    require(len(K.KERNELS) == 10 and all(
+    require(len(K.KERNELS) == 12 and all(
         k.lib_path is not None and k.lib_path.exists()
-        for k in K.KERNELS.values()), "ten kernels built")
+        for k in K.KERNELS.values()), "twelve kernels built")
     for k in K.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1421,21 +1836,46 @@ def main() -> int:
         # ---- phase 11: predict, then solve ----------------------------- #
         run_predict_then_solve(K, tmp, optimal)
 
-    # ---- phase 12: report --------------------------------------------- #
+    # ---- phase 12: training ------------------------------------------- #
+    # K9 / K11 and K10 / K12 against their plain versions at two dataset
+    # graphs' shapes, a train step on the card against the CPU, then the
+    # entry point for two epochs over the whole dataset
+    t12 = time.perf_counter()
+    gnn_model, _ = load_model(CKPT, device=dev)
+    for gname in (SERVE_GRAPH, BIG_GRAPH):
+        graph = _load_graph_file(os.path.join(DATASET, "proc",
+                                              f"{gname}.npz"))
+        layer1, pool = gnn_inputs(gnn_model, graph, dev)
+        rows = check_train_kernels(K, layer1, pool, gname, dev)
+        del layer1, pool
+    report["train"] = rows               # BIG_GRAPH: the largest batch
+    del gnn_model
+    torch.cuda.empty_cache()
+    check_train_step(K, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts = run_train_path(K, dev, tmp)
+    print(f"[time] phase 12 (training) {time.perf_counter() - t12:.1f} s",
+          flush=True)
+
+    # ---- phase 13: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
     # carried it (MaxCut for K1-K4, the sparse cone for K5 and K6, the
     # multi-block + LP problem for K7 and K8, the serve path's graph for K9
-    # and K10); under "by_path" the same fields for every main path that
-    # launches it, each measured at that path's shapes with that path's
-    # launch count (for K9 and K10 also "serve_mc600", the largest graph)
+    # and K10, the training path's largest batch, MC_600x600_r5 with
+    # dropout, for K11 and K12); under "by_path" the same fields for every
+    # main path that launches it, each measured at that path's shapes with
+    # that path's launch count (for K9 and K10 also "serve_mc600", the
+    # largest graph, and "train", the training path)
     path_counts = {"maxcut": counts, "matcomp": mc_counts,
                    "multiblock_lp": mb_counts, "theta": th_counts,
-                   **serve_counts}
+                   **serve_counts, "train": train_counts}
     first_path = {**{name: "matcomp" for name in SPARSE_KERNELS},
                   **{name: "maxcut" for name in MAXCUT_KERNELS},
                   "lp_constr_segsum": "multiblock_lp",
                   "lp_col_wsum": "multiblock_lp",
-                  **{name: "serve" for name in GNN_KERNELS}}
+                  **{name: "serve" for name in GNN_KERNELS},
+                  "gatv2_softmax_agg_bwd": "train",
+                  "graph_pool_bwd": "train"}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {path: {"launches": path_counts[path][name][0], **rows[name]}

@@ -4,7 +4,14 @@
 //
 //   s_e      = sum_c att[h,c] * leaky_0.2(w_src[j,h,c] + w_dst[i,h,c] + we[e,h,c])
 //   alpha_e  = exp(s_e - max_e' s_e') / (sum_e' exp(s_e' - max_e' s_e') + 1e-16)
-//   out[i,h,:] = sum_e alpha_e * w_src[j,h,:]
+//   out[i,h,:] = sum_e alpha_e * keep[e,h] * w_src[j,h,:]
+//
+// keep (E', H), optional, is the dropout keep-scale of training (0 or
+// 1 / (1 - p) per slot and head, in the CSR's slot order); without it every
+// keep is 1.  lse (n, H), optional, receives max_e s_e + log(sum_e exp(s_e -
+// max) + 1e-16), so that alpha_e = exp(s_e - lse): the backward kernel K11
+// (gatv2_softmax_agg_bwd.cu) recomputes alpha from it.  The serve path passes
+// neither.
 //
 // The edges come as a CSR over destinations: the edges of node i are
 // indptr[i] .. indptr[i+1] of (src, erow), in the order of the edge list with
@@ -46,12 +53,16 @@ __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : slope * v;
 }
 
+// kTrain compiles the keep-scale and the lse output in; the serve path's
+// instance has neither, so it keeps its registers and its speed.
+template <bool kTrain>
 __global__ void gatv2_softmax_agg_kernel(
     const int* __restrict__ indptr, const int* __restrict__ src,
     const int* __restrict__ erow, const float2* __restrict__ w_src,
     const float2* __restrict__ w_dst, const float2* __restrict__ we,
-    const float2* __restrict__ we_loop, const float2* __restrict__ att, int n,
-    int n_real, int lanes_per_head, float slope, float2* __restrict__ out) {
+    const float2* __restrict__ we_loop, const float2* __restrict__ att,
+    const float* __restrict__ keep, int n, int n_real, int lanes_per_head,
+    float slope, float2* __restrict__ out, float* __restrict__ lse) {
   constexpr int kRow = kChannels / 2;   // float2 per row
   const int lane = threadIdx.x & 31;
   const long long i =
@@ -60,6 +71,8 @@ __global__ void gatv2_softmax_agg_kernel(
   const float2 xd = w_dst[i * kRow + lane];
   const float2 a = att[lane];
   const float2 el = we_loop[lane];
+  const int heads = 32 / lanes_per_head;
+  const int head = lane / lanes_per_head;
   float m = -INFINITY;
   float l = 0.f;
   float acc0 = 0.f;
@@ -91,39 +104,49 @@ __global__ void gatv2_softmax_agg_kernel(
       const float mu = m_new == -INFINITY ? 0.f : m_new;
       const float scale = expf(m - mu);
       const float p = expf(s - mu);
+      const float pk =
+          kTrain && keep
+              ? p * keep[static_cast<long long>(base + k) * heads + head]
+              : p;
       l = l * scale + p;
-      acc0 = acc0 * scale + p * xs.x;
-      acc1 = acc1 * scale + p * xs.y;
+      acc0 = acc0 * scale + pk * xs.x;
+      acc1 = acc1 * scale + pk * xs.y;
       m = m_new;
     }
   }
   const float inv = 1.f / (l + 1e-16f);
   out[i * kRow + lane] = make_float2(acc0 * inv, acc1 * inv);
+  if (kTrain && lse && lane % lanes_per_head == 0) {
+    lse[i * heads + head] = (m == -INFINITY ? 0.f : m) + logf(l + 1e-16f);
+  }
 }
 
 }  // namespace
 
 // heads * channels must be 64 and channels (per head) an even power of two
-// up to 64; the wrapper checks shapes.  Returns the cudaGetLastError() code
-// of the launch.
+// up to 64; the wrapper checks shapes.  keep and lse may be null.  Returns
+// the cudaGetLastError() code of the launch.
 extern "C" int ltr_gatv2_softmax_agg(const void* indptr, const void* src,
                                      const void* erow, const void* w_src,
                                      const void* w_dst, const void* we,
                                      const void* we_loop, const void* att,
-                                     int n, int n_real, int channels,
-                                     float slope, void* out, void* stream) {
+                                     const void* keep, int n, int n_real,
+                                     int channels, float slope, void* out,
+                                     void* lse, void* stream) {
   if (n <= 0) return 0;
   if (channels < 2 || channels > kChannels || (channels & (channels - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  gatv2_softmax_agg_kernel<<<grid, block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = keep || lse ? gatv2_softmax_agg_kernel<true>
+                            : gatv2_softmax_agg_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(src),
       static_cast<const int*>(erow), static_cast<const float2*>(w_src),
       static_cast<const float2*>(w_dst), static_cast<const float2*>(we),
-      static_cast<const float2*>(we_loop), static_cast<const float2*>(att), n,
-      n_real, channels / 2, slope, static_cast<float2*>(out));
+      static_cast<const float2*>(we_loop), static_cast<const float2*>(att),
+      static_cast<const float*>(keep), n, n_real, channels / 2, slope,
+      static_cast<float2*>(out), static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,15 @@
 //
 //   out[b, 0:D]   = sum_i x[i] / max(count_b, 1)                     (mean)
 //   out[b, D:2D]  = max_i x[i], 0 where that is not finite           (max)
-//   out[b, 2D:3D] = sum_i softmax_b(score)_i * x[i], the softmax with
-//                   + 1e-16 in its denominator                        (attention)
+//   out[b, 2D:3D] = sum_i softmax_b(score)_i * keep[i] * x[i], the softmax
+//                   with + 1e-16 in its denominator                   (attention)
+//
+// keep (N,), optional, is the dropout keep-scale of training on the attention
+// weights (0 or 1 / (1 - p)); without it every keep is 1.  Training also asks
+// for stats (B, 2) = (mu_b, l_b), the max score (0 where it is not finite) and
+// sum_i exp(score_i - mu_b), so that softmax_b(score)_i = exp(score_i - mu_b)
+// / (l_b + 1e-16), and ties (B, D), the count of nodes at the max of each
+// column: the backward kernel K12 (graph_pool_bwd.cu) reads both.
 //
 // Replaces: ltr_lowrank_sdp_tpu/models/net.py GNNEncoder.__call__ (:89-94: the
 // count, segment_sum and segment_max poolings with their isfinite guard) and
@@ -22,7 +29,7 @@
 // one block per chunk: each warp walks every 8th node of the chunk, lanes over
 // channels, with an online (running-max) softmax; the eight warps are then
 // combined in warp order through shared memory into one partial per chunk
-// (max score, exp-sum, weighted sum, sum, max).  The second launch runs one
+// (max score, exp-sum, weighted sum, sum, max, count at the max).  The second launch runs one
 // block per graph and combines its chunks' partials in chunk order.  No
 // atomics: the same bits on every call.  A graph with no node writes zeros.
 
@@ -35,19 +42,40 @@ constexpr int kWarps = 8;
 constexpr int kMaxPerLane = 4;     // D <= 128
 constexpr int kMaxD = 32 * kMaxPerLane;
 
-// partial layout per chunk: [m, l, wsum (D), xsum (D), xmax (D)]
-__device__ __forceinline__ int part_width(int d) { return 2 + 3 * d; }
+// partial layout per chunk: [m, l, wsum (D), xsum (D), xmax (D)], and xcnt
+// (D) in training; the serve path keeps the shorter stride
+template <bool kTrain>
+__device__ __forceinline__ int part_width(int d) {
+  return 2 + (kTrain ? 4 : 3) * d;
+}
 
+// (max, count at the max) of two (max, count) pairs
+__device__ __forceinline__ void merge_max(float& xm, float& xc, float om,
+                                          float oc) {
+  if (om > xm) {
+    xm = om;
+    xc = oc;
+  } else if (om == xm) {
+    xc += oc;
+  }
+}
+
+// kTrain compiles the keep-scale, the tie counts and the stats in; the serve
+// path's instances have none of them, so they keep their registers, shared
+// memory and speed.
+template <bool kTrain>
 __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
                                          const int* __restrict__ chunk_end,
                                          const float* __restrict__ x,
                                          const float* __restrict__ score,
+                                         const float* __restrict__ keep,
                                          int d, float* __restrict__ part) {
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
   __shared__ float sm_w[kWarps][kMaxD];
   __shared__ float sm_s[kWarps][kMaxD];
   __shared__ float sm_x[kWarps][kMaxD];
+  __shared__ float sm_c[kTrain ? kWarps : 1][kTrain ? kMaxD : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x;
@@ -58,11 +86,13 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
   float ws[kMaxPerLane];
   float xs[kMaxPerLane];
   float xm[kMaxPerLane];
+  float xc[kMaxPerLane];
 #pragma unroll
   for (int k = 0; k < kMaxPerLane; ++k) {
     ws[k] = 0.f;
     xs[k] = 0.f;
     xm[k] = -INFINITY;
+    xc[k] = 0.f;
   }
   for (int node = beg + warp; node < end; node += kWarps) {
     const float s = score[node];
@@ -70,6 +100,7 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
     const float mu = m_new == -INFINITY ? 0.f : m_new;
     const float scale = expf(m - mu);
     const float p = expf(s - mu);
+    const float pk = kTrain && keep ? p * keep[node] : p;
     l = l * scale + p;
     const float* row = x + static_cast<long long>(node) * d;
 #pragma unroll
@@ -77,9 +108,13 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
       const int ch = lane + 32 * k;
       if (ch < d) {
         const float v = row[ch];
-        ws[k] = ws[k] * scale + p * v;
+        ws[k] = ws[k] * scale + pk * v;
         xs[k] += v;
-        xm[k] = fmaxf(xm[k], v);
+        if (kTrain) {
+          merge_max(xm[k], xc[k], v, 1.f);
+        } else {
+          xm[k] = fmaxf(xm[k], v);
+        }
       }
     }
     m = m_new;
@@ -95,25 +130,32 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
       sm_w[warp][ch] = ws[k];
       sm_s[warp][ch] = xs[k];
       sm_x[warp][ch] = xm[k];
+      if (kTrain) sm_c[warp][ch] = xc[k];
     }
   }
   __syncthreads();
   float mt = -INFINITY;
   for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w]);
   const float mu = mt == -INFINITY ? 0.f : mt;
-  float* out = part + static_cast<long long>(c) * part_width(d);
+  float* out = part + static_cast<long long>(c) * part_width<kTrain>(d);
   for (int ch = threadIdx.x; ch < d; ch += blockDim.x) {
     float w_sum = 0.f;
     float x_sum = 0.f;
     float x_max = -INFINITY;
+    float x_cnt = 0.f;
     for (int w = 0; w < kWarps; ++w) {
       w_sum += sm_w[w][ch] * expf(sm_m[w] - mu);
       x_sum += sm_s[w][ch];
-      x_max = fmaxf(x_max, sm_x[w][ch]);
+      if (kTrain) {
+        merge_max(x_max, x_cnt, sm_x[w][ch], sm_c[w][ch]);
+      } else {
+        x_max = fmaxf(x_max, sm_x[w][ch]);
+      }
     }
     out[2 + ch] = w_sum;
     out[2 + d + ch] = x_sum;
     out[2 + 2 * d + ch] = x_max;
+    if (kTrain) out[2 + 3 * d + ch] = x_cnt;
   }
   if (threadIdx.x == 0) {
     float l_sum = 0.f;
@@ -123,15 +165,18 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
   }
 }
 
+template <bool kTrain>
 __global__ void graph_pool_combine_kernel(const int* __restrict__ graph_ptr,
                                           const int* __restrict__ chunk_ptr,
                                           const float* __restrict__ part,
-                                          int d, float* __restrict__ out) {
+                                          int d, float* __restrict__ out,
+                                          float* __restrict__ stats,
+                                          float* __restrict__ ties) {
   const int b = blockIdx.x;
   const int c0 = chunk_ptr[b];
   const int c1 = chunk_ptr[b + 1];
   const float count = static_cast<float>(graph_ptr[b + 1] - graph_ptr[b]);
-  const int pw = part_width(d);
+  const int pw = part_width<kTrain>(d);
   float* o = out + static_cast<long long>(b) * 3 * d;
   for (int ch = threadIdx.x; ch < d; ch += blockDim.x) {
     float m = -INFINITY;
@@ -139,6 +184,7 @@ __global__ void graph_pool_combine_kernel(const int* __restrict__ graph_ptr,
     float w_sum = 0.f;
     float x_sum = 0.f;
     float x_max = -INFINITY;
+    float x_cnt = 0.f;
     for (int c = c0; c < c1; ++c) {
       const float* p = part + static_cast<long long>(c) * pw;
       const float mc = p[0];
@@ -149,40 +195,58 @@ __global__ void graph_pool_combine_kernel(const int* __restrict__ graph_ptr,
       l = l * f_old + p[1] * f_new;
       w_sum = w_sum * f_old + p[2 + ch] * f_new;
       x_sum += p[2 + d + ch];
-      x_max = fmaxf(x_max, p[2 + 2 * d + ch]);
+      if (kTrain) {
+        merge_max(x_max, x_cnt, p[2 + 2 * d + ch], p[2 + 3 * d + ch]);
+      } else {
+        x_max = fmaxf(x_max, p[2 + 2 * d + ch]);
+      }
       m = m_new;
     }
     o[ch] = x_sum / fmaxf(count, 1.f);
     o[d + ch] = isfinite(x_max) ? x_max : 0.f;
     o[2 * d + ch] = w_sum / (l + 1e-16f);
+    if (kTrain && ties) ties[static_cast<long long>(b) * d + ch] = x_cnt;
+    if (kTrain && stats && ch == 0) {
+      stats[2 * b] = m == -INFINITY ? 0.f : m;
+      stats[2 * b + 1] = l;
+    }
   }
 }
 
 }  // namespace
 
 // graph_ptr (B+1), chunk_ptr (B+1: the chunks of graph b), chunk_start /
-// chunk_end (n_chunks), x (N, d), score (N,), part (n_chunks, 2 + 3 d)
-// scratch, out (B, 3 d).  d <= 128.  Returns the cudaGetLastError() code of
-// the launches.
+// chunk_end (n_chunks), x (N, d), score (N,), keep (N,) or null, part
+// (n_chunks, 2 + 4 d) scratch (the serve path uses 2 + 3 d of each row's
+// room), out (B, 3 d), stats (B, 2) or null, ties (B, d) or null.  d <= 128.
+// Returns the cudaGetLastError() code of the launches.
 extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
                               const void* chunk_start, const void* chunk_end,
-                              const void* x, const void* score, int n_graphs,
-                              int n_chunks, int d, void* part, void* out,
-                              void* stream) {
+                              const void* x, const void* score,
+                              const void* keep, int n_graphs, int n_chunks,
+                              int d, void* part, void* out, void* stats,
+                              void* ties, void* stream) {
   if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (n_graphs <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool train = keep || stats || ties;
   if (n_chunks > 0) {
-    graph_pool_chunks_kernel<<<n_chunks, kWarps * 32, 0, s>>>(
+    auto chunks = train ? graph_pool_chunks_kernel<true>
+                        : graph_pool_chunks_kernel<false>;
+    chunks<<<n_chunks, kWarps * 32, 0, s>>>(
         static_cast<const int*>(chunk_start),
         static_cast<const int*>(chunk_end), static_cast<const float*>(x),
-        static_cast<const float*>(score), d, static_cast<float*>(part));
+        static_cast<const float*>(score), static_cast<const float*>(keep), d,
+        static_cast<float*>(part));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int threads = d < 32 ? 32 : ((d + 31) / 32) * 32;
-  graph_pool_combine_kernel<<<n_graphs, threads, 0, s>>>(
+  auto combine = train ? graph_pool_combine_kernel<true>
+                       : graph_pool_combine_kernel<false>;
+  combine<<<n_graphs, threads, 0, s>>>(
       static_cast<const int*>(graph_ptr), static_cast<const int*>(chunk_ptr),
-      static_cast<const float*>(part), d, static_cast<float*>(out));
+      static_cast<const float*>(part), d, static_cast<float*>(out),
+      static_cast<float*>(stats), static_cast<float*>(ties));
   return static_cast<int>(cudaGetLastError());
 }

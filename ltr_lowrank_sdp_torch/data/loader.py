@@ -1,6 +1,6 @@
-"""Dataset of (graph features, oracle-rank schedule) pairs, for inference.
+"""Dataset of (graph features, oracle-rank schedule) pairs + batching.
 
-The inference part of ``ltr_lowrank_sdp_tpu/data/loader.py``, which
+The counterpart of ``ltr_lowrank_sdp_tpu/data/loader.py``, which
 re-implements the reference loader contract (``dataset/loader.py``):
 * label = de-duplicated consecutive ``oracle_rank`` sequence across
   phase_1 + phase_2 of the solver trajectory JSON (``:18-45``);
@@ -12,8 +12,19 @@ re-implements the reference loader contract (``dataset/loader.py``):
 * benchmark-instance exclusion by name.
 
 Graphs are stored as ``.npz`` (the processor's output) or torch ``.pt``
-(reference processor output) -- both load.  The batching of training
-(``collate``, ``iterate_batches``) comes with the training slice.
+(reference processor output) -- both load.
+
+Batching (``collate``, ``iterate_batches``) keeps the JAX package's batch
+membership, size budgets, flush rule and seeded shuffle, and pads the graph
+axis as it does.  It does not pad the node and edge axes: the JAX collate
+pads them to power-of-two envelopes for XLA's static shapes, with every dead
+edge on one dead node, which a one-warp-per-destination kernel would walk
+one edge after another.  A batch records the JAX envelopes (``n_pad``,
+``e_pad``) instead, because the padding changes the numbers: ``GATv2Conv``
+averages the self-loops' edge feature over all ``e_pad`` encoded rows, and
+the model corrects for that (``net.GNNEncoder.edge_fill``).  Dead nodes have
+no effect: each sits in the dead graph, which the segment ops drop, and no
+real node receives an edge from one.
 """
 
 from __future__ import annotations
@@ -182,3 +193,99 @@ def create_splits(
     t_end = int(train_split * n)
     v_end = int((train_split + val_split) * n)
     return ds, idx[:t_end], idx[t_end:v_end], idx[v_end:]
+
+
+# --------------------------------------------------------------------------- #
+# batching
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    x: np.ndarray            # (N, 16) the real nodes only
+    edge_index: np.ndarray   # (2, E) the real edges only
+    edge_attr: np.ndarray    # (E, 5)
+    batch: np.ndarray        # (N,) graph id, sorted
+    global_attr: np.ndarray  # (B, 17); rows past the samples are zeros
+    schedule: np.ndarray     # (B, T)
+    mask: np.ndarray         # (B, T); zero on the padding rows
+    length: np.ndarray       # (B,)
+    num_graphs: int          # B (the graph axis, padded)
+    n_pad: int               # the JAX collate's node envelope
+    e_pad: int               # the JAX collate's edge envelope
+    names: List[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def envelope(self) -> Tuple[int, int]:
+        return self.n_pad, self.e_pad
+
+
+def collate(samples: List[GraphSample], node_mult: int = 256,
+            edge_mult: int = 512,
+            pad_graphs_to: Optional[int] = None) -> GraphBatch:
+    """Concatenate graphs; pad the graph axis (global_attr / schedule /
+    mask / length) to ``pad_graphs_to`` with empty graphs of mask 0, as the
+    JAX collate does, and record its power-of-two node / edge envelopes
+    (``loader.py:196-197``) without materialising them."""
+    B = len(samples)
+    B_out = max(B, pad_graphs_to or B)
+    n_total = sum(s.x.shape[0] for s in samples)
+    e_total = sum(s.edge_index.shape[1] for s in samples)
+    n_pad = max(node_mult, 1 << int(n_total).bit_length())
+    e_pad = max(edge_mult, 1 << int(max(e_total - 1, 1)).bit_length())
+
+    counts = np.zeros((B_out,), np.int64)      # nodes per graph
+    counts[:B] = [s.x.shape[0] for s in samples]
+    offsets = np.concatenate([[0], np.cumsum(counts[:B])[:-1]])
+    x = np.concatenate([s.x for s in samples]).astype(np.float32)
+    ei = np.concatenate([s.edge_index + off
+                         for s, off in zip(samples, offsets)], axis=1)
+    ea = np.concatenate([s.edge_attr for s in samples]).astype(np.float32)
+    g = np.zeros((B_out, samples[0].global_attr.shape[0]), np.float32)
+    T = samples[0].schedule.shape[0]
+    sched = np.zeros((B_out, T), np.float32)
+    mask = np.zeros((B_out, T), np.float32)
+    length = np.zeros((B_out,), np.int64)
+    for i, s in enumerate(samples):
+        g[i] = s.global_attr
+        sched[i] = s.schedule
+        mask[i] = s.mask
+        length[i] = s.length
+    return GraphBatch(
+        x=x, edge_index=ei.astype(np.int64), edge_attr=ea,
+        batch=np.repeat(np.arange(B_out), counts), global_attr=g,
+        schedule=sched, mask=mask, length=length, num_graphs=B_out,
+        n_pad=n_pad, e_pad=e_pad,
+        names=[s.name for s in samples])
+
+
+def iterate_batches(ds: SDPDataset, indices: Sequence[int], batch_size: int,
+                    shuffle: bool = False, seed: int = 0,
+                    edge_budget: int = 1_500_000,
+                    node_budget: int = 120_000):
+    """Yield collated batches, capped by count AND size budgets.
+
+    A batch flushes before adding a sample that would push it past
+    ``edge_budget`` / ``node_budget``; an oversized sample still forms its
+    own singleton batch (``MC_600x600_r5``, 2.5M edges)."""
+    order = list(indices)
+    if shuffle:
+        random.Random(seed).shuffle(order)
+    buf: List[GraphSample] = []
+    n_tot = e_tot = 0
+    for i in order:
+        s = ds.get(i)
+        if s is None:
+            continue
+        ni, ei = s.x.shape[0], s.edge_index.shape[1]
+        if buf and (n_tot + ni > node_budget or e_tot + ei > edge_budget):
+            yield collate(buf, pad_graphs_to=batch_size)
+            buf, n_tot, e_tot = [], 0, 0
+        buf.append(s)
+        n_tot += ni
+        e_tot += ei
+        if len(buf) == batch_size:
+            yield collate(buf, pad_graphs_to=batch_size)
+            buf, n_tot, e_tot = [], 0, 0
+    if buf:
+        yield collate(buf, pad_graphs_to=batch_size)

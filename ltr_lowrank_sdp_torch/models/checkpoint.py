@@ -1,13 +1,14 @@
-"""Checkpoint loading for the rank predictor: Flax msgpack + config.json.
+"""Checkpoints of the rank predictor: Flax msgpack + config.json.
 
 The counterpart of ``ltr_lowrank_sdp_tpu/models/checkpoint.py``: the same
 checkpoint directories (``runs/*/model.msgpack`` and ``config.json``) load
-into the port's :class:`~.net.RankSchedulePredictor`.  Neither ``flax`` nor
-``msgpack`` is needed: :func:`read_flax_msgpack` reads the subset of msgpack
-that ``flax.serialization.to_bytes`` writes, and :func:`params_from_flax`
-maps the Flax parameter tree onto the port's ``state_dict``.  Every leaf
-becomes float32, as the JAX loader normalises them.  Writing checkpoints
-comes with the training slice.
+into the port's :class:`~.net.RankSchedulePredictor`, and the port writes
+them.  Neither ``flax`` nor ``msgpack`` is needed: :func:`read_flax_msgpack`
+reads the subset of msgpack that ``flax.serialization.to_bytes`` writes and
+:func:`write_flax_msgpack` writes it, byte for byte as Flax does;
+:func:`params_from_flax` maps the Flax parameter tree onto the port's
+``state_dict`` and :func:`params_to_flax` back.  Every leaf becomes float32,
+as the JAX loader normalises them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import json
 import os
 import re
 import struct
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ from .net import ModelConfig, RankSchedulePredictor
 
 # flax.serialization's msgpack extension type of an ndarray
 _EXT_NDARRAY = 1
+_MSGPACK_CHUNK_LIMIT = 2 ** 30   # flax splits a larger array into chunks
 
 
 class _Reader:
@@ -121,6 +123,104 @@ def read_flax_msgpack(path_or_bytes) -> dict:
     return tree
 
 
+class _Writer:
+    """The msgpack encoder of ``msgpack.packb(..., use_bin_type=True)`` for
+    the values a Flax parameter tree holds: dicts with str keys, ndarray
+    leaves (as Flax's ext type 1 of a packed (shape, dtype name, C-order
+    bytes)), and inside those tuples, ints, str and bytes."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def put(self, fmt: str, *vals) -> None:
+        self.out += struct.pack(">" + fmt, *vals)
+
+    def sized(self, n: int, small, codes) -> None:
+        """A length header: the fix form ``small | n`` when ``small`` is
+        given and fits, else the smallest of ``codes`` (8, 16, 32 bits)."""
+        fix_limit, fix_base = small if small else (0, 0)
+        if n < fix_limit:
+            self.put("B", fix_base | n)
+        elif codes[0] is not None and n <= 0xff:
+            self.put("BB", codes[0], n)
+        elif n <= 0xffff:
+            self.put("BH", codes[1], n)
+        else:
+            self.put("BI", codes[2], n)
+
+    def value(self, v) -> None:
+        if isinstance(v, dict):
+            # keys sorted, as Flax's trees (and JAX's tree_map) hold them
+            self.sized(len(v), (16, 0x80), (None, 0xde, 0xdf))
+            for k in sorted(v):
+                if not isinstance(k, str):
+                    raise TypeError(f"msgpack map key {k!r} is not a str")
+                self.value(k)
+                self.value(v[k])
+        elif isinstance(v, (list, tuple)):
+            self.sized(len(v), (16, 0x90), (None, 0xdc, 0xdd))
+            for x in v:
+                self.value(x)
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            self.sized(len(b), (32, 0xa0), (0xd9, 0xda, 0xdb))
+            self.out += b
+        elif isinstance(v, (bytes, bytearray)):
+            self.sized(len(v), None, (0xc4, 0xc5, 0xc6))
+            self.out += v
+        elif isinstance(v, bool) or v is None:
+            self.put("B", {None: 0xc0, False: 0xc2, True: 0xc3}[v])
+        elif isinstance(v, int):
+            self.int(v)
+        elif isinstance(v, np.ndarray):
+            self.ndarray(v)
+        else:
+            raise TypeError(f"msgpack cannot write {type(v).__name__}")
+
+    def int(self, v: int) -> None:
+        if 0 <= v < 0x80 or -0x20 <= v < 0:
+            self.put("b" if v < 0 else "B", v)
+            return
+        for lo, hi, fmt, code in ((0, 0xff, "B", 0xcc),
+                                  (-0x80, -1, "b", 0xd0),
+                                  (0, 0xffff, "H", 0xcd),
+                                  (-0x8000, -1, "h", 0xd1),
+                                  (0, 0xffffffff, "I", 0xce),
+                                  (-0x80000000, -1, "i", 0xd2),
+                                  (0, 2 ** 64 - 1, "Q", 0xcf),
+                                  (-2 ** 63, -1, "q", 0xd3)):
+            if lo <= v <= hi:
+                self.put("B" + fmt, code, v)
+                return
+        raise OverflowError(f"msgpack int out of range: {v}")
+
+    def ndarray(self, a: np.ndarray) -> None:
+        if a.dtype.hasobject or a.nbytes > _MSGPACK_CHUNK_LIMIT:
+            raise ValueError("object arrays and arrays over 1 GiB are not "
+                             "written")
+        inner = _Writer()
+        inner.value((tuple(int(d) for d in a.shape), a.dtype.name,
+                     a.tobytes("C")))
+        data = bytes(inner.out)
+        n = len(data)
+        fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        if n in fixed:
+            self.put("B", fixed[n])
+        else:
+            self.sized(n, None, (0xc7, 0xc8, 0xc9))
+        self.put("b", _EXT_NDARRAY)
+        self.out += data
+
+
+def write_flax_msgpack(tree: dict) -> bytes:
+    """The bytes that ``flax.serialization.msgpack_serialize`` writes for a
+    tree of dicts with numpy array leaves (and ``to_bytes`` for a Flax
+    parameter tree, whose keys are sorted)."""
+    w = _Writer()
+    w.value(tree)
+    return bytes(w.out)
+
+
 # --------------------------------------------------------------------------- #
 # Flax parameter tree -> the port's state_dict
 # --------------------------------------------------------------------------- #
@@ -194,6 +294,89 @@ def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     _convert(tree, "", out)
     return out
+
+
+def _flax_path(key: str):
+    """The Flax path of a port ``state_dict`` key, with the leaf's name and
+    whether it is a kernel (transposed) -> (path, leaf, transpose)."""
+    parts = key.split(".")
+    tokens = []
+    for part in parts:
+        if part.isdigit():
+            tokens[-1] += "." + part
+        else:
+            tokens.append(part)
+    names = {"node_encoder": "NodeEncoder_0", "edge_encoder": "EdgeEncoder_0",
+             "global_encoder": "GlobalEncoder_0", "mlp": "MLPBlock_0",
+             "attn_pool": "AttentionPooling_0", "norm": "LayerNorm_0"}
+    path = []
+    for tok in tokens[:-1]:
+        base, _, idx = tok.partition(".")
+        if tok in names:
+            path.append(names[tok])
+        elif re.fullmatch(r"dense_\d+", tok):
+            path.append("Dense_" + tok[len("dense_"):])
+        elif base == "convs":
+            path.append(f"GATv2Conv_{idx}")
+        elif base == "norms":
+            path.append(f"LayerNorm_{idx}")
+        elif base == "cells":
+            path.append(f"lstm_{idx}")
+        elif base == "embed_rank":
+            path += ["embed_rank", f"layers_{idx}"]
+        else:
+            path.append(tok)
+    leaf = tokens[-1]
+    if leaf != "weight":
+        return path, leaf, False
+    is_norm = tokens[-2] == "norm" or tokens[-2].startswith("norms.")
+    return path, ("scale" if is_norm else "kernel"), not is_norm
+
+
+def _sorted_tree(tree):
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def params_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The Flax parameter tree (without the top-level ``"params"``, keys in
+    Flax's sorted order, float32 numpy leaves) of a port ``state_dict``: the
+    exact inverse of :func:`params_from_flax`, the LSTM cells' stacked
+    products split back into Flax's eight gate kernels."""
+    tree: dict = {}
+
+    def put(path, leaf, arr):
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = arr
+
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        path, leaf, transpose = _flax_path(key)
+        if path and path[-1] in ("ih", "hh"):
+            kind, cell = path[-1][0], path[:-1]
+            for g, rows in zip(_GATES, np.split(a, 4, axis=0)):
+                put(cell + [kind + g], leaf,
+                    np.ascontiguousarray(rows.T) if transpose else rows.copy())
+        else:
+            put(path, leaf, np.ascontiguousarray(a.T) if transpose else a)
+    return _sorted_tree(tree)
+
+
+def save_checkpoint(path_dir: str, model: RankSchedulePredictor,
+                    cfg: ModelConfig, extra: Optional[dict] = None) -> None:
+    """Write ``model.msgpack`` (the bytes Flax's ``to_bytes`` writes for the
+    same parameters) and ``config.json`` into ``path_dir``."""
+    os.makedirs(path_dir, exist_ok=True)
+    with open(os.path.join(path_dir, "model.msgpack"), "wb") as f:
+        f.write(write_flax_msgpack(
+            {"params": params_to_flax(model.state_dict())}))
+    payload = {"model_config": cfg.to_dict()}
+    if extra:
+        payload.update(extra)
+    with open(os.path.join(path_dir, "config.json"), "w") as f:
+        json.dump(payload, f, indent=2)
 
 
 def load_model(ckpt: str, device=None

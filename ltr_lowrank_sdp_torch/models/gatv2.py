@@ -11,14 +11,18 @@ PyG's: per directed edge j -> i,
 
 A self-loop is appended for every node (existing loops and duplicate edges
 stay), with the mean of the encoded edge features as its feature (zeros when
-there is no edge); the three projections are Dense layers with bias and there
-is no output bias.  The projections are matrix products; the scores, the
-softmax and the aggregation are one launch of K9 on the GPU
-(:func:`~ltr_lowrank_sdp_torch.ops.kernels.gatv2_softmax_agg`), its plain
-version on the CPU.
+there is no edge; in training the encoder passes the mean over the JAX
+package's padded edge envelope instead, see ``net.GNNEncoder``); the three
+projections are Dense layers with bias and there is no output bias.  The
+projections are matrix products; the scores, the softmax, the attention
+dropout and the aggregation are one launch of K9 on the GPU
+(:func:`~ltr_lowrank_sdp_torch.ops.kernels.gatv2_softmax_agg`), whose backward
+is K11; their plain versions on the CPU.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -40,16 +44,17 @@ class GATv2Conv(nn.Module):
         self.att = nn.Parameter(torch.empty(1, heads, out_channels))
 
     def forward(self, x: torch.Tensor, graph: EdgeCSR,
-                edge_attr: torch.Tensor) -> torch.Tensor:
+                edge_attr: torch.Tensor,
+                fill: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (n, in_dim), ``graph`` the edges with their self-loops,
-        edge_attr (E, edge_dim) the encoded edge features -> (n, heads *
-        out_channels)."""
-        if edge_attr.shape[0] > 0:
-            fill = torch.mean(edge_attr, dim=0)
-        else:
-            fill = torch.zeros(edge_attr.shape[1], dtype=edge_attr.dtype,
-                               device=edge_attr.device)
-        we = self.lin_edge(edge_attr)
-        we_loop = self.lin_edge(fill)
+        edge_attr (E, edge_dim) the encoded edge features, ``fill``
+        (edge_dim,) the self-loops' feature (default: the mean of edge_attr),
+        ``keep`` (E + n, heads) the attention dropout's keep-scale in the
+        CSR's slot order -> (n, heads * out_channels)."""
+        if fill is None:
+            fill = (torch.mean(edge_attr, dim=0) if edge_attr.shape[0] > 0
+                    else edge_attr.new_zeros(edge_attr.shape[1]))
         return K.gatv2_softmax_agg(graph, self.lin_src(x), self.lin_dst(x),
-                                   we, we_loop, self.att[0])
+                                   self.lin_edge(edge_attr),
+                                   self.lin_edge(fill), self.att[0], keep)

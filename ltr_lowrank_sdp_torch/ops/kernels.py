@@ -1,4 +1,4 @@
-"""The port's ten CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's twelve CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -43,12 +43,19 @@ K9     gatv2_softmax_agg     models/gatv2.py segment_softmax and the
 K10    graph_pool            models/net.py mean / max pooling and
                              models/layers.py AttentionPooling's segment
                              softmax and weighted sum (float32)
+K11    gatv2_softmax_agg_bwd the VJP of K9's function, which
+                             jax.value_and_grad takes in train.py (float32)
+K12    graph_pool_bwd        the VJP of K10's function (float32)
 =====  ====================  ==============================================
 
 K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
 carry every other SDP cone (sparse or dense constraint kind), with K1 and K4
 for a sparse objective and ``torch.matmul`` for a dense one; K7 and K8 carry
-the LP cone; K9 and K10 carry the rank-schedule predictor's graph encoder.
+the LP cone; K9 and K10 carry the rank-schedule predictor's graph encoder,
+and K11 and K12 its training backward pass: K9 + K11 and K10 + K12 are each
+one ``torch.autograd.Function`` (:func:`gatv2_softmax_agg`, :func:`graph_pool`
+when an input requires a gradient), with a plain backward beside the plain
+forward for the CPU.
 """
 
 from __future__ import annotations
@@ -146,10 +153,16 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P, _P, _P, _P, _P, _D, _I, _P, _P)),
     Kernel("gatv2_softmax_agg",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26",
-           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P)),
+           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P)),
     Kernel("graph_pool",
            "ltr_lowrank_sdp_tpu/models/layers.py:93",
-           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P)),
+           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
+    Kernel("gatv2_softmax_agg_bwd",
+           "ltr_lowrank_sdp_tpu/models/gatv2.py:26 (VJP, train.py:250)",
+           (_P,) * 14 + (_I, _I, _I, _F) + (_P,) * 8),
+    Kernel("graph_pool_bwd",
+           "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
+           (_P,) * 11 + (_I, _I) + (_P,) * 3),
 )}
 
 
@@ -865,10 +878,11 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# K9: GATv2 edge softmax and aggregation (float32)
+# K9: GATv2 edge softmax and aggregation, K11: its backward (float32)
 # --------------------------------------------------------------------------- #
 
 K9_CHANNELS = 64        # heads * channels that the kernel takes (kChannels)
+K11_MAX_PARTS = 1024    # block partials of K11's first launch (kMaxBlocks)
 LEAKY_SLOPE = 0.2
 
 
@@ -887,11 +901,29 @@ class EdgeCSR:
     src: torch.Tensor        # (n_real + n,) int32
     erow: torch.Tensor       # (n_real + n,) int32
 
+    @property
+    def n_slots(self) -> int:
+        return self.n_real + self.n
+
     @functools.cached_property
     def dst_ids(self) -> torch.Tensor:
         """(n_real + n,) int64 destination of each slot (plain version
         only)."""
         return _ids_from_ptr(self.indptr)
+
+    @functools.cached_property
+    def by_src(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The same slots as a CSR over sources, for K11: ``(src_ptr (n+1,),
+        src_slot (n_real + n,))`` int32, the slots of source j in increasing
+        slot order at ``src_slot[src_ptr[j]:src_ptr[j+1]]``.  Built at first
+        use and shared by the layers of one batch."""
+        src = self.src.long()
+        src_ptr = torch.zeros(self.n + 1, dtype=torch.long,
+                              device=src.device)
+        torch.cumsum(torch.bincount(src, minlength=self.n), 0,
+                     out=src_ptr[1:])
+        return (src_ptr.int(),
+                torch.argsort(src, stable=True).int())
 
     @staticmethod
     def from_edge_index(edge_index: torch.Tensor, n: int) -> "EdgeCSR":
@@ -917,6 +949,13 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
     """Softmax of ``scores`` (E, ...) over the entries of each segment, with
     the reference's guard (a segment max that is not finite counts as 0) and
     ``+1e-16`` in the denominator."""
+    return _segment_softmax(scores, segment_ids, num_segments)[0]
+
+
+def _segment_softmax(scores, segment_ids, num_segments):
+    """:func:`segment_softmax` and the log-sum-exp of each segment, ``max +
+    log(sum exp(s - max) + 1e-16)``, so that the softmax is ``exp(s -
+    lse[segment])``."""
     shape = (num_segments,) + tuple(scores.shape[1:])
     idx = segment_ids.reshape((-1,) + (1,) * (scores.dim() - 1)).expand_as(
         scores)
@@ -927,38 +966,71 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
     ex = torch.exp(scores - seg_max[segment_ids])
     seg_sum = torch.zeros(shape, dtype=scores.dtype,
                           device=scores.device).index_add_(0, segment_ids, ex)
-    return ex / (seg_sum[segment_ids] + 1e-16)
+    return (ex / (seg_sum[segment_ids] + 1e-16),
+            seg_max + torch.log(seg_sum + 1e-16))
 
 
-def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att):
-    """Plain version of K9."""
+def _gatv2_messages(g: EdgeCSR, w_src, w_dst, we, we_loop, att):
+    """Per slot and head: the gathered source rows (E', H, C), the messages
+    before the LeakyReLU and the scores (E', H)."""
     heads, ch = att.shape
-    src, dst = g.src.long(), g.dst_ids
-    xs = w_src[src].view(-1, heads, ch)
+    xs = w_src[g.src.long()].view(-1, heads, ch)
     we_all = torch.cat([we, we_loop[None]])[g.erow.long()]
-    msg = xs + w_dst[dst].view(-1, heads, ch) + we_all.view(-1, heads, ch)
-    act = torch.nn.functional.leaky_relu(msg, LEAKY_SLOPE)
-    scores = torch.sum(act * att, dim=-1)                       # (E', H)
-    alpha = segment_softmax(scores, dst, g.n)
-    return torch.zeros((g.n, heads * ch), dtype=w_src.dtype,
-                       device=w_src.device).index_add_(
-        0, dst, (xs * alpha[..., None]).reshape(-1, heads * ch))
+    msg = xs + w_dst[g.dst_ids].view(-1, heads, ch) + we_all.view(
+        -1, heads, ch)
+    act = torch.where(msg >= 0, msg, LEAKY_SLOPE * msg)
+    return xs, msg, torch.sum(act * att, dim=-1)
 
 
-def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
-                      we: torch.Tensor, we_loop: torch.Tensor,
-                      att: torch.Tensor) -> torch.Tensor:
-    """K9: per destination node and head, the LeakyReLU-att scores of its
-    incoming edges, their softmax and the alpha-weighted sum of the source
-    rows -> (n, heads * ch).  ``w_src``, ``w_dst`` (n, heads * ch) are the
-    projected nodes, ``we`` (n_real, heads * ch) the projected edge features,
-    ``we_loop`` (heads * ch,) the self-loops' shared row, ``att`` (heads,
-    ch).  The kernel takes heads * ch = 64 with ch an even power of two."""
-    k = KERNELS["gatv2_softmax_agg"]
-    if _is_cpu(w_src):
-        k.plain_calls += 1
-        return gatv2_softmax_agg_plain(g, w_src, w_dst, we, we_loop, att)
-    dev = w_src.device
+def _gatv2_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep=None):
+    """Plain version of K9 -> (out (n, H C), lse (n, H))."""
+    heads, ch = att.shape
+    xs, _, scores = _gatv2_messages(g, w_src, w_dst, we, we_loop, att)
+    alpha, lse = _segment_softmax(scores, g.dst_ids, g.n)
+    if keep is not None:
+        alpha = alpha * keep
+    out = torch.zeros((g.n, heads * ch), dtype=w_src.dtype,
+                      device=w_src.device).index_add_(
+        0, g.dst_ids, (xs * alpha[..., None]).reshape(-1, heads * ch))
+    return out, lse
+
+
+def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
+                            keep=None):
+    """Plain version of K9."""
+    return _gatv2_plain(g, w_src, w_dst, we, we_loop, att, keep)[0]
+
+
+def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
+                                keep, lse, out, dout):
+    """Plain version of K11: explicit formulas of K9's VJP, with the
+    LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it."""
+    heads, ch = att.shape
+    hc = heads * ch
+    dst = g.dst_ids
+    xs, msg, scores = _gatv2_messages(g, w_src, w_dst, we, we_loop, att)
+    alpha = torch.exp(scores - lse[dst])                       # (E', H)
+    kp = torch.ones_like(alpha) if keep is None else keep
+    go = dout.view(-1, heads, ch)
+    dalpha = kp * torch.sum(go[dst] * xs, dim=-1)
+    dd = torch.sum(go * out.view(-1, heads, ch), dim=-1)       # (n, H)
+    ds = alpha * (dalpha - dd[dst])
+    act = torch.where(msg >= 0, msg, LEAKY_SLOPE * msg)
+    dmsg = (ds[..., None] * att * torch.where(msg >= 0, 1.0, LEAKY_SLOPE)
+            ).reshape(-1, hc)
+    d_att = torch.sum(ds[..., None] * act, dim=0)
+    zeros = torch.zeros((g.n, hc), dtype=w_src.dtype, device=w_src.device)
+    d_w_dst = zeros.clone().index_add_(0, dst, dmsg)
+    d_w_src = zeros.index_add_(
+        0, g.src.long(),
+        ((alpha * kp)[..., None] * go[dst]).reshape(-1, hc) + dmsg)
+    erow = g.erow.long()
+    real = erow < g.n_real
+    d_we = torch.zeros_like(we).index_add_(0, erow[real], dmsg[real])
+    return d_w_src, d_w_dst, d_we, torch.sum(dmsg[~real], dim=0), d_att
+
+
+def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev):
     heads, ch = att.shape
     if heads * ch != K9_CHANNELS or ch < 2 or ch & (ch - 1):
         raise ValueError(
@@ -971,24 +1043,120 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
     _check(we_loop, "we_loop", torch.float32, (hc,), dev)
     _check(att, "att", torch.float32, (heads, ch), dev)
     _check(g.indptr, "indptr", torch.int32, (g.n + 1,), dev)
-    _check(g.src, "src", torch.int32, (g.n_real + g.n,), dev)
-    _check(g.erow, "erow", torch.int32, (g.n_real + g.n,), dev)
+    _check(g.src, "src", torch.int32, (g.n_slots,), dev)
+    _check(g.erow, "erow", torch.int32, (g.n_slots,), dev)
+    if keep is not None:
+        _check(keep, "keep", torch.float32, (g.n_slots, heads), dev)
     for name, t in (("w_src", w_src), ("w_dst", w_dst), ("we", we),
                     ("we_loop", we_loop), ("att", att)):
         if t.numel() and t.data_ptr() % 8:
             raise ValueError(f"{name} must be 8-byte aligned (float2 loads)")
     _i32(g.n * hc, "n * channels")
-    out = torch.empty((g.n, hc), dtype=torch.float32, device=dev)
+
+
+def _gatv2_forward(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
+                   with_lse: bool):
+    """K9 or, for CPU tensors, its plain version -> (out, lse or None)."""
+    k = KERNELS["gatv2_softmax_agg"]
+    if _is_cpu(w_src):
+        k.plain_calls += 1
+        out, lse = _gatv2_plain(g, w_src, w_dst, we, we_loop, att, keep)
+        return out, lse if with_lse else None
+    dev = w_src.device
+    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
+    heads, ch = att.shape
+    out = torch.empty((g.n, K9_CHANNELS), dtype=torch.float32, device=dev)
+    lse = (torch.empty((g.n, heads), dtype=torch.float32, device=dev)
+           if with_lse else None)
     k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
              w_src.data_ptr(), w_dst.data_ptr(),
              we.data_ptr() if g.n_real else None,
-             we_loop.data_ptr(), att.data_ptr(), g.n, g.n_real, ch,
-             LEAKY_SLOPE, out.data_ptr(), _stream(dev))
-    return out
+             we_loop.data_ptr(), att.data_ptr(), _ptr(keep), g.n, g.n_real,
+             ch, LEAKY_SLOPE, out.data_ptr(), _ptr(lse), _stream(dev))
+    return out, lse
+
+
+def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
+                          lse, out, dout):
+    """K11: the gradients ``(d_w_src, d_w_dst, d_we, d_we_loop, d_att)`` of
+    K9's inputs from ``dout`` (n, heads * ch), the gradient of its output,
+    given K9's ``lse`` and ``out`` for the same inputs (and ``keep``)."""
+    k = KERNELS["gatv2_softmax_agg_bwd"]
+    if _is_cpu(dout):
+        k.plain_calls += 1
+        return gatv2_softmax_agg_bwd_plain(g, w_src, w_dst, we, we_loop, att,
+                                           keep, lse, out, dout)
+    dev = dout.device
+    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
+    heads, ch = att.shape
+    hc = K9_CHANNELS
+    _check(lse, "lse", torch.float32, (g.n, heads), dev)
+    _check(out, "out", torch.float32, (g.n, hc), dev)
+    _check(dout, "dout", torch.float32, (g.n, hc), dev)
+    src_ptr, src_slot = g.by_src
+    _i32(g.n_slots * hc, "slots * channels")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    d_w_src, d_w_dst, d_we = empty(g.n, hc), empty(g.n, hc), empty(
+        g.n_real, hc)
+    d_we_loop, d_att = empty(hc), empty(heads, ch)
+    buf = empty(g.n_slots, hc)
+    part = empty(K11_MAX_PARTS, 2 * hc, dtype=torch.float64)
+    k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
+             src_ptr.data_ptr(), src_slot.data_ptr(), w_src.data_ptr(),
+             w_dst.data_ptr(), we.data_ptr() if g.n_real else None,
+             we_loop.data_ptr(), att.data_ptr(), _ptr(keep), lse.data_ptr(),
+             out.data_ptr(), dout.data_ptr(), g.n, g.n_real, ch, LEAKY_SLOPE,
+             d_w_src.data_ptr(), d_w_dst.data_ptr(),
+             d_we.data_ptr() if g.n_real else None, d_we_loop.data_ptr(),
+             d_att.data_ptr(), buf.data_ptr(), part.data_ptr(), _stream(dev))
+    return d_w_src, d_w_dst, d_we, d_we_loop, d_att
+
+
+class _GATv2SoftmaxAgg(torch.autograd.Function):
+    """K9 forward (with its lse), K11 backward; their plain versions for CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, g, keep, w_src, w_dst, we, we_loop, att):
+        out, lse = _gatv2_forward(g, w_src, w_dst, we, we_loop, att, keep,
+                                  True)
+        ctx.g = g
+        ctx.save_for_backward(w_src, w_dst, we, we_loop, att, keep, lse, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        w_src, w_dst, we, we_loop, att, keep, lse, out = ctx.saved_tensors
+        return (None, None) + gatv2_softmax_agg_bwd(
+            ctx.g, w_src, w_dst, we, we_loop, att, keep, lse, out,
+            dout.contiguous())
+
+
+def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
+                      we: torch.Tensor, we_loop: torch.Tensor,
+                      att: torch.Tensor,
+                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9: per destination node and head, the LeakyReLU-att scores of its
+    incoming edges, their softmax and the alpha-weighted sum of the source
+    rows -> (n, heads * ch).  ``w_src``, ``w_dst`` (n, heads * ch) are the
+    projected nodes, ``we`` (n_real, heads * ch) the projected edge features,
+    ``we_loop`` (heads * ch,) the self-loops' shared row, ``att`` (heads,
+    ch), ``keep`` (n_real + n, heads) an optional dropout keep-scale on alpha
+    in the CSR's slot order.  The kernel takes heads * ch = 64 with ch an even
+    power of two.  When an input requires a gradient, the call is an autograd
+    node whose backward is K11."""
+    tensors = (w_src, w_dst, we, we_loop, att)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _GATv2SoftmaxAgg.apply(g, keep, *tensors)
+    return _gatv2_forward(g, *tensors, keep, False)[0]
 
 
 # --------------------------------------------------------------------------- #
-# K10: mean / max / attention pooling per graph (float32)
+# K10: mean / max / attention pooling per graph, K12: its backward (float32)
 # --------------------------------------------------------------------------- #
 
 K10_CHUNK = 256          # nodes per block of the first pass
@@ -1000,7 +1168,8 @@ class GraphSegments:
     """The graphs of a batch as contiguous node ranges ``ptr[b]:ptr[b+1]``,
     each cut on the host into chunks of at most ``K10_CHUNK`` nodes
     (``chunk_start`` / ``chunk_end``; graph b owns chunks
-    ``chunk_ptr[b]:chunk_ptr[b+1]``, none when it is empty)."""
+    ``chunk_ptr[b]:chunk_ptr[b+1]``, none when it is empty, and
+    ``chunk_graph`` names the graph of each chunk)."""
 
     num_graphs: int
     n_nodes: int
@@ -1008,6 +1177,7 @@ class GraphSegments:
     chunk_ptr: torch.Tensor    # (B+1,) int32
     chunk_start: torch.Tensor  # (n_chunks,) int32
     chunk_end: torch.Tensor    # (n_chunks,) int32
+    chunk_graph: torch.Tensor  # (n_chunks,) int32
 
     @property
     def n_chunks(self) -> int:
@@ -1038,7 +1208,7 @@ class GraphSegments:
         return GraphSegments(num_graphs=int(counts.size),
                              n_nodes=int(ptr[-1]), ptr=t(ptr),
                              chunk_ptr=t(chunk_ptr), chunk_start=t(start),
-                             chunk_end=t(end))
+                             chunk_end=t(end), chunk_graph=t(which))
 
     @staticmethod
     def from_batch(batch: torch.Tensor, num_graphs: int) -> "GraphSegments":
@@ -1051,8 +1221,8 @@ class GraphSegments:
             np.bincount(ids, minlength=num_graphs), batch.device)
 
 
-def graph_pool_plain(seg: GraphSegments, x, score):
-    """Plain version of K10."""
+def _graph_pool_plain(seg: GraphSegments, x, score, keep=None):
+    """Plain version of K10 -> (out (B, 3 d), stats (B, 2), ties (B, d))."""
     B, d = seg.num_graphs, x.shape[1]
     batch = seg.batch_ids
     zeros = torch.zeros((B, d), dtype=x.dtype, device=x.device)
@@ -1063,22 +1233,50 @@ def graph_pool_plain(seg: GraphSegments, x, score):
     x_max = torch.full((B, d), -torch.inf, dtype=x.dtype,
                        device=x.device).scatter_reduce_(
         0, batch[:, None].expand_as(x), x, "amax")
+    ties = zeros.clone().index_add_(0, batch, (x == x_max[batch]).to(x.dtype))
     x_max = torch.where(torch.isfinite(x_max), x_max, 0.0)
     w = segment_softmax(score, batch, B)
+    if keep is not None:
+        w = w * keep
     x_attn = zeros.index_add_(0, batch, w[:, None] * x)
-    return torch.cat([x_mean, x_max, x_attn], dim=-1)
+    # the softmax's (mu, l): w = exp(score - mu) / (l + 1e-16)
+    mu = torch.full_like(counts, -torch.inf).scatter_reduce_(
+        0, batch, score, "amax")
+    mu = torch.where(torch.isfinite(mu), mu, 0.0)
+    l_sum = torch.zeros_like(counts).index_add_(0, batch,
+                                                torch.exp(score - mu[batch]))
+    return (torch.cat([x_mean, x_max, x_attn], dim=-1),
+            torch.stack([mu, l_sum], dim=1), ties)
 
 
-def graph_pool(seg: GraphSegments, x: torch.Tensor,
-               score: torch.Tensor) -> torch.Tensor:
-    """K10: per graph, ``[mean x | max x | softmax(score)-weighted sum of
-    x]`` -> (B, 3 d), from x (N, d) with d <= 128 and the attention scores
-    (N,)."""
-    k = KERNELS["graph_pool"]
-    if _is_cpu(x):
-        k.plain_calls += 1
-        return graph_pool_plain(seg, x, score)
-    dev = x.device
+def graph_pool_plain(seg: GraphSegments, x, score, keep=None):
+    """Plain version of K10."""
+    return _graph_pool_plain(seg, x, score, keep)[0]
+
+
+def graph_pool_bwd_plain(seg: GraphSegments, x, score, keep, out, stats,
+                         ties, dout):
+    """Plain version of K12: explicit formulas of K10's VJP (the max's
+    gradient split equally among tied nodes, as ``jax.ops.segment_max``'s
+    is)."""
+    d = x.shape[1]
+    batch = seg.batch_ids
+    counts = (seg.ptr[1:] - seg.ptr[:-1]).to(x.dtype)
+    dmean = dout[:, :d] / torch.clamp(counts, min=1.0)[:, None]
+    dmax = dout[:, d:2 * d] / torch.clamp(ties, min=1.0)
+    dattn = dout[:, 2 * d:]
+    w = torch.exp(score - stats[batch, 0]) / (stats[batch, 1] + 1e-16)
+    kw = w if keep is None else keep * w
+    a = torch.sum(x * dattn[batch], dim=1)
+    dot = torch.sum(dattn * out[:, 2 * d:], dim=1)
+    dx = (dmean[batch]
+          + torch.where(x == out[batch, d:2 * d], dmax[batch], 0.0)
+          + kw[:, None] * dattn[batch])
+    dscore = w * ((a if keep is None else keep * a) - dot[batch])
+    return dx, dscore
+
+
+def _check_pool(seg: GraphSegments, x, score, keep, dev):
     if x.dim() != 2 or not 1 <= x.shape[1] <= K10_MAX_D:
         raise ValueError(f"x must be (N, d) with d <= {K10_MAX_D}, got "
                          f"{tuple(x.shape)}")
@@ -1088,17 +1286,99 @@ def graph_pool(seg: GraphSegments, x: torch.Tensor,
         raise ValueError(f"the graphs have {seg.n_nodes} nodes, x has {n}")
     _check(x, "x", torch.float32, (n, d), dev)
     _check(score, "score", torch.float32, (n,), dev)
+    if keep is not None:
+        _check(keep, "keep", torch.float32, (n,), dev)
     _check(seg.ptr, "ptr", torch.int32, (B + 1,), dev)
     _check(seg.chunk_ptr, "chunk_ptr", torch.int32, (B + 1,), dev)
     _check(seg.chunk_start, "chunk_start", torch.int32, (nc,), dev)
     _check(seg.chunk_end, "chunk_end", torch.int32, (nc,), dev)
+    _check(seg.chunk_graph, "chunk_graph", torch.int32, (nc,), dev)
     _i32(n * d, "N * d")
-    part = torch.empty((max(nc, 1), 2 + 3 * d), dtype=torch.float32,
+
+
+def _graph_pool_forward(seg: GraphSegments, x, score, keep, train: bool):
+    """K10 or, for CPU tensors, its plain version -> (out, stats, ties), the
+    last two only with ``train``."""
+    k = KERNELS["graph_pool"]
+    if _is_cpu(x):
+        k.plain_calls += 1
+        out, stats, ties = _graph_pool_plain(seg, x, score, keep)
+        return (out, stats, ties) if train else (out, None, None)
+    dev = x.device
+    _check_pool(seg, x, score, keep, dev)
+    n, d = x.shape
+    B, nc = seg.num_graphs, seg.n_chunks
+    part = torch.empty((max(nc, 1), 2 + 4 * d), dtype=torch.float32,
                        device=dev)
     out = torch.empty((B, 3 * d), dtype=torch.float32, device=dev)
+    stats = ties = None
+    if train:
+        stats = torch.empty((B, 2), dtype=torch.float32, device=dev)
+        ties = torch.empty((B, d), dtype=torch.float32, device=dev)
     k.launch(seg.ptr.data_ptr(), seg.chunk_ptr.data_ptr(),
              _ptr(seg.chunk_start) if nc else None,
              _ptr(seg.chunk_end) if nc else None, x.data_ptr(),
-             score.data_ptr(), B, nc, d, part.data_ptr(), out.data_ptr(),
+             score.data_ptr(), _ptr(keep), B, nc, d, part.data_ptr(),
+             out.data_ptr(), _ptr(stats), _ptr(ties), _stream(dev))
+    return out, stats, ties
+
+
+def graph_pool_bwd(seg: GraphSegments, x, score, keep, out, stats, ties,
+                   dout):
+    """K12: the gradients ``(dx (N, d), dscore (N,))`` of K10's inputs from
+    ``dout`` (B, 3 d), given K10's ``out``, ``stats`` and ``ties`` for the
+    same inputs (and ``keep``)."""
+    k = KERNELS["graph_pool_bwd"]
+    if _is_cpu(dout):
+        k.plain_calls += 1
+        return graph_pool_bwd_plain(seg, x, score, keep, out, stats, ties,
+                                    dout)
+    dev = dout.device
+    _check_pool(seg, x, score, keep, dev)
+    n, d = x.shape
+    B, nc = seg.num_graphs, seg.n_chunks
+    _check(out, "out", torch.float32, (B, 3 * d), dev)
+    _check(stats, "stats", torch.float32, (B, 2), dev)
+    _check(ties, "ties", torch.float32, (B, d), dev)
+    _check(dout, "dout", torch.float32, (B, 3 * d), dev)
+    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
+    dscore = torch.empty(n, dtype=torch.float32, device=dev)
+    k.launch(seg.ptr.data_ptr(), _ptr(seg.chunk_start) if nc else None,
+             _ptr(seg.chunk_end) if nc else None,
+             _ptr(seg.chunk_graph) if nc else None, x.data_ptr(),
+             score.data_ptr(), _ptr(keep), out.data_ptr(), stats.data_ptr(),
+             ties.data_ptr(), dout.data_ptr(), nc, d,
+             dx.data_ptr() if n else None, dscore.data_ptr() if n else None,
              _stream(dev))
-    return out
+    return dx, dscore
+
+
+class _GraphPool(torch.autograd.Function):
+    """K10 forward (with its stats and tie counts), K12 backward; their
+    plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, seg, keep, x, score):
+        out, stats, ties = _graph_pool_forward(seg, x, score, keep, True)
+        ctx.seg = seg
+        ctx.save_for_backward(x, score, keep, out, stats, ties)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        x, score, keep, out, stats, ties = ctx.saved_tensors
+        return (None, None) + graph_pool_bwd(
+            ctx.seg, x, score, keep, out, stats, ties, dout.contiguous())
+
+
+def graph_pool(seg: GraphSegments, x: torch.Tensor, score: torch.Tensor,
+               keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K10: per graph, ``[mean x | max x | softmax(score)-weighted sum of
+    x]`` -> (B, 3 d), from x (N, d) with d <= 128, the attention scores (N,)
+    and an optional dropout keep-scale (N,) on the attention weights.  When
+    an input requires a gradient, the call is an autograd node whose
+    backward is K12."""
+    if torch.is_grad_enabled() and (x.requires_grad or score.requires_grad):
+        return _GraphPool.apply(seg, keep, x, score)
+    return _graph_pool_forward(seg, x, score, keep, False)[0]

@@ -414,7 +414,8 @@ def test_general_cpu_operators_take_the_plain_path(gpair):
                      "coo_contract_segsum": 0 if empty else 2,
                      "spmm_constr_csr": 0 if empty else 2,
                      "lp_constr_segsum": 0, "lp_col_wsum": 0,
-                     "gatv2_softmax_agg": 0, "graph_pool": 0}
+                     "gatv2_softmax_agg": 0, "graph_pool": 0,
+                     "gatv2_softmax_agg_bwd": 0, "graph_pool_bwd": 0}
 
 
 # --------------------------------------------------------------------------- #

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from ltr_lowrank_sdp_torch import benchmark, infer, resolve_device
+from ltr_lowrank_sdp_torch import benchmark, infer, resolve_device, train
 from ltr_lowrank_sdp_torch.models.checkpoint import load_model
 from ltr_lowrank_sdp_torch.ops import kernels as K
 from ltr_lowrank_sdp_torch.solver.driver import Solver
@@ -82,6 +82,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         benchmark.main(["--checkpoint", ckpt, "--instances",
                         str(tmp_path), "--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--root", str(ROOT / "dataset"), "--epochs", "1",
+                    "--output-dir", str(tmp_path / "run")])
     assert not any(tmp_path.iterdir())     # nothing written, nothing solved
 
 
@@ -94,7 +97,9 @@ def test_cpu_solve_runs_the_plain_versions_only():
               "sym_contract_sum"}
     assert set(counts) == maxcut | {"coo_contract_segsum", "spmm_constr_csr",
                                     "lp_constr_segsum", "lp_col_wsum",
-                                    "gatv2_softmax_agg", "graph_pool"}
+                                    "gatv2_softmax_agg", "graph_pool",
+                                    "gatv2_softmax_agg_bwd",
+                                    "graph_pool_bwd"}
     assert all(launches == 0 for launches, _ in counts.values()), counts
     # the MaxCut family runs K1-K4 and never the general-cone or LP kernels
     assert all((plain > 0) == (name in maxcut)
@@ -153,3 +158,37 @@ def test_plain_versions_match_dense_references():
                              torch.tensor(hi, dtype=torch.int32),
                              torch.tensor(coef), Ut, Ut)
     assert float(got) == pytest.approx(np.sum(C * (U @ U.T)), rel=1e-12)
+
+
+def test_cpu_training_step_runs_the_plain_versions_only():
+    """One training step of a small predictor on a collated dataset batch,
+    with dropout: every GATv2 layer's forward and backward and the poolings'
+    go through the plain versions of K9 / K11 and K10 / K12."""
+    from ltr_lowrank_sdp_torch.data.loader import create_splits, iterate_batches
+    from ltr_lowrank_sdp_torch.models.loss import LossWeights
+    from ltr_lowrank_sdp_torch.models.net import (ModelConfig,
+                                                  RankSchedulePredictor,
+                                                  init_params)
+    from ltr_lowrank_sdp_torch.optim import TrainOptimizer
+
+    ds, train_idx, _, _ = create_splits(str(ROOT / "dataset"), seed=42)
+    small = [i for i in train_idx if ds.samples[i][0].startswith(
+        "maxcut_n200")]
+    batch = next(iterate_batches(ds, small, 4))
+    model = RankSchedulePredictor(ModelConfig(
+        hidden_dim=16, edge_dim=8, global_dim=8, num_gnn_layers=2,
+        num_heads=2, decoder_hidden_dim=16, dropout=0.15))
+    init_params(model, torch.Generator().manual_seed(0))
+    before = [p.detach().clone() for p in model.parameters()]
+    opt = TrainOptimizer(model.parameters(), 1e-3, 1e-4, 1.0)
+    K.reset_counts()
+    loss = train.train_step(model, opt, batch, LossWeights(), 0.5,
+                            torch.Generator().manual_seed(1), "cpu")
+    counts = K.counts()
+    assert bool(torch.isfinite(loss))
+    assert all(launches == 0 for launches, _ in counts.values()), counts
+    assert counts["gatv2_softmax_agg"][1] == counts[
+        "gatv2_softmax_agg_bwd"][1] == 2
+    assert counts["graph_pool"][1] == counts["graph_pool_bwd"][1] == 1
+    assert all(not torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))

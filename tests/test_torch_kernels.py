@@ -1,4 +1,4 @@
-"""The ten CUDA kernels of the port against their plain PyTorch versions,
+"""The twelve CUDA kernels of the port against their plain PyTorch versions,
 on the GPU.  Those tests are marked ``cuda``: they build the kernels with
 nvcc and skip on a machine without a GPU.  Run them there with
 
@@ -18,7 +18,13 @@ another order than the plain versions); K9 and K10, which run in float32,
 max |kernel - plain| / max |plain| <= 1e-5 against the plain version
 evaluated in float64 on the same inputs (the plain version in float32 sums a
 segment with ``index_add_`` into one accumulator: over the 85,080 nodes of
-one graph that alone is 7e-5 off).
+one graph that alone is 7e-5 off).  Their backward kernels K11 and K12 are
+held the same way, output by output, against the plain backward evaluated
+in float64 on the kernel's own inputs (K9's lse and out, K10's out, stats and
+tie counts included), with and without dropout keep-scales and with tied
+maxima, each output's scale floored at 1e-6 of the largest output (an output
+whose exact value vanishes is rounding); the plain backwards themselves pass
+``torch.autograd.gradcheck`` in float64 on the CPU (unmarked tests).
 """
 
 import numpy as np
@@ -583,3 +589,158 @@ def test_gnn_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="nodes"):
         K.graph_pool(seg, x[:29, :64].contiguous(),
                      torch.zeros(29, device=dev))
+
+
+# --------------------------------------------------------------------------- #
+# K11 gatv2_softmax_agg_bwd and K12 graph_pool_bwd (float32), and the plain
+# backwards they are held to
+# --------------------------------------------------------------------------- #
+
+
+def _keep(shape, gen, dev, p=0.15):
+    u = torch.rand(shape, generator=gen, device=dev)
+    return (u < 1 - p).float() / (1 - p)
+
+
+@pytest.fixture
+def one_thread():
+    """gradcheck runs thousands of tiny ops: on one thread, so that test
+    workers sharing the cores do not spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("heads,ch", [(4, 2), (2, 4)])
+@pytest.mark.parametrize("dropout", [False, True])
+def test_k9_plain_backward_gradcheck(one_thread, heads, ch, dropout):
+    """The plain backward takes any heads x channels (the kernel 64, held
+    on the card): eight channels keep the numerical Jacobian small."""
+    rng = np.random.default_rng(heads * 10 + dropout)
+    n, e = 10, 30
+    ei = rng.integers(0, n, size=(2, e))
+    ei[1, :2] = ei[0, :2]                   # existing self-loops
+    ei[:, -1] = ei[:, 3]                    # a repeated edge
+    g = K.EdgeCSR.from_edge_index(torch.tensor(ei), n)
+    hc = heads * ch
+    args = [torch.tensor(rng.standard_normal(shape), requires_grad=True)
+            for shape in ((n, hc), (n, hc), (e, hc), (hc,), (heads, ch))]
+    keep = (torch.tensor((rng.random((e + n, heads)) < 0.8) / 0.8)
+            if dropout else None)
+    K.reset_counts()
+    assert torch.autograd.gradcheck(
+        lambda *t: K.gatv2_softmax_agg(g, *t, keep=keep), args)
+    assert K.counts()["gatv2_softmax_agg_bwd"][1] > 0
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_k10_plain_backward_gradcheck_with_ties(one_thread, dropout):
+    """A graph whose column max is tied by two nodes: the central difference
+    and the equal split both give each node half of the max's gradient."""
+    rng = np.random.default_rng(3 + dropout)
+    counts = (5, 0, 7, 3)
+    seg = K.GraphSegments.from_counts(counts, "cpu")
+    n, d = sum(counts), 6
+    x = rng.standard_normal((n, d))
+    x[1, 2] = x[3, 2] = 5.0                 # a tie at graph 0's max
+    xt = torch.tensor(x, requires_grad=True)
+    score = torch.tensor(rng.standard_normal(n), requires_grad=True)
+    keep = (torch.tensor((rng.random(n) < 0.8) / 0.8) if dropout else None)
+    _, _, ties = K._graph_pool_plain(seg, xt.detach(), score.detach())
+    assert ties[0, 2] == 2
+    K.reset_counts()
+    assert torch.autograd.gradcheck(
+        lambda a, b: K.graph_pool(seg, a, b, keep=keep), (xt, score))
+    assert K.counts()["graph_pool_bwd"][1] > 0
+
+
+def _check_outputs(got, want):
+    """Each output within F32_TOL of its largest value, that scale floored
+    at 1e-6 of the largest value of all outputs (an output whose exact value
+    vanishes, such as d_w_dst where every slot's message has one sign, is
+    rounding)."""
+    floor = 1e-6 * max(float(b.abs().max()) for b in want if b.numel())
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        if b.numel():
+            scale = max(float(b.abs().max()), floor)
+            assert float((a.double() - b).abs().max()) <= F32_TOL * scale
+
+
+@cuda
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("case", ["4x16", "2x32", "8x8", "no-edges", "hub"])
+def test_gatv2_softmax_agg_bwd(dev, case, dropout):
+    g, *args = _gat_inputs(case, dev)
+    heads = args[-1].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    keep = _keep((g.n_slots, heads), gen, dev) if dropout else None
+    out, lse = K._gatv2_forward(g, *args, keep, True)
+    want_out, want_lse = K._gatv2_plain(g, *_f64(args), None if keep is None
+                                        else keep.double())
+    assert _maxrel(out, want_out) <= F32_TOL
+    assert _maxrel(lse, want_lse) <= F32_TOL
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    before = K.KERNELS["gatv2_softmax_agg_bwd"].launches
+    got = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout)
+    torch.cuda.synchronize()
+    # the plain backward in float64 on the kernel's own inputs (K9's lse and
+    # out included); with no edge every slot is a self-loop, alpha = 1 and
+    # d_w_dst, d_we_loop and d_att vanish
+    want = K.gatv2_softmax_agg_bwd_plain(
+        g, *_f64(args), None if keep is None else keep.double(),
+        lse.double(), out.double(), dout.double())
+    _check_outputs(got, want)
+    again = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
+    assert K.KERNELS["gatv2_softmax_agg_bwd"].launches == before + 2
+
+
+@cuda
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("counts,d", [
+    ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
+    ((1000, 3), 128)])
+def test_graph_pool_bwd(dev, counts, d, dropout):
+    seg = K.GraphSegments.from_counts(counts, dev)
+    gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
+    n = sum(counts)
+    # values on a coarse grid: many nodes tie at each graph's column max
+    x = torch.round(2.0 * torch.randn((n, d), generator=gen, device=dev))
+    score = 5.0 * torch.randn(n, generator=gen, device=dev)
+    keep = _keep((n,), gen, dev) if dropout else None
+    out, stats, ties = K._graph_pool_forward(seg, x, score, keep, True)
+    want = K._graph_pool_plain(seg, x.double(), score.double(),
+                               None if keep is None else keep.double())
+    _check_outputs((out, stats), want[:2])
+    assert torch.equal(ties.double(), want[2])
+    assert float(ties.max()) > 1
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    before = K.KERNELS["graph_pool_bwd"].launches
+    got = K.graph_pool_bwd(seg, x, score, keep, out, stats, ties, dout)
+    torch.cuda.synchronize()
+    _check_outputs(got, K.graph_pool_bwd_plain(
+        seg, x.double(), score.double(),
+        None if keep is None else keep.double(), out.double(),
+        stats.double(), ties.double(), dout.double()))
+    again = K.graph_pool_bwd(seg, x, score, keep, out, stats, ties, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert K.KERNELS["graph_pool_bwd"].launches == before + 2
+
+
+@cuda
+def test_autograd_functions_launch_forward_and_backward_kernels(dev):
+    g, *args = _gat_inputs("4x16", dev)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    K.reset_counts()
+    out = K.gatv2_softmax_agg(g, *leaves)
+    seg = K.GraphSegments.from_counts((100, 200), dev)
+    pooled = K.graph_pool(seg, out, out[:, 0].contiguous())
+    pooled.square().sum().backward()
+    torch.cuda.synchronize()
+    counts = K.counts()
+    for name in ("gatv2_softmax_agg", "gatv2_softmax_agg_bwd", "graph_pool",
+                 "graph_pool_bwd"):
+        assert counts[name] == (1, 0), (name, counts[name])
+    assert all(leaf.grad is not None for leaf in leaves)

@@ -8,8 +8,12 @@ layer and the poolings run through the plain versions of K9 and K10, which
 are also held directly against the JAX ``segment_softmax`` / ``segment_sum``
 / ``segment_max`` they replace.  The checkpoint reader is held against
 ``flax.serialization.msgpack_restore`` on the three checkpoints of
-``runs/``, and the whole ``predict`` of ``runs/r5_theta`` against the JAX
-package's on two dataset graphs.
+``runs/``, the writer byte for byte against ``flax.serialization.to_bytes``,
+and the whole ``predict`` of ``runs/r5_theta`` against the JAX package's on
+two dataset graphs; a checkpoint the port writes loads in the JAX package
+and predicts its schedule.  ``init_params`` draws every leaf from the
+distribution Flax's initialiser gives it, and the decoder's teacher-forced
+modes match the JAX decoder with the JAX coins injected.
 
 Tolerances: modules rtol 1e-5 / atol 1e-6 (float32 on both sides, sums in
 other orders); whole predictions 1e-4 relative on the raw schedule (three
@@ -302,3 +306,163 @@ def test_predict_matches_jax(r5_theta, name):
     want = np.maximum(np.round(want_raw[:L]), 1).astype(int).tolist()
     assert checkpoint.predict_schedule_for_graph(model, graph) == (want, L)
     assert net.get_valid_schedule(raw[None], [L]) == [want]
+
+
+# --------------------------------------------------------------------------- #
+# training: checkpoint writer, initialisers, teacher-forced decode, dropout
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("name", ["r3", "r5", "r5_theta"])
+def test_msgpack_writer_and_inverse_map(name):
+    """params_to_flax inverts params_from_flax (whose leaves are float32:
+    r3 was saved with float64 ``att`` leaves), and the writer gives
+    flax.serialization.to_bytes's bytes, which for the float32 checkpoints
+    are the file's own."""
+    raw = (ROOT / "runs" / name / "model.msgpack").read_bytes()
+    tree = checkpoint.read_flax_msgpack(raw)
+    back = checkpoint.params_to_flax(checkpoint.params_from_flax(tree))
+    flat_back = jax.tree_util.tree_flatten_with_path(back)[0]
+    flat_tree = jax.tree_util.tree_flatten_with_path(tree["params"])[0]
+    assert [p for p, _ in flat_back] == [p for p, _ in flat_tree]
+    for (p, a), (_, b) in zip(flat_back, flat_tree):
+        assert a.dtype == np.float32 and a.shape == b.shape, p
+        np.testing.assert_array_equal(a, b.astype(np.float32), err_msg=str(p))
+    mine = checkpoint.write_flax_msgpack({"params": back})
+    assert mine == serialization.to_bytes({"params": back})
+    if all(b.dtype == np.float32 for _, b in flat_tree):
+        assert mine == raw
+
+
+def test_msgpack_writer_scalars_and_containers():
+    tree = {"a": np.arange(6, dtype=np.int32).reshape(2, 3),
+            "b": {"c": np.array(2.5, np.float32),
+                  "d": np.ones((300,), np.float64),
+                  "e": np.zeros((0, 4), np.float32),
+                  "f": np.arange(70000, dtype=np.int8)},
+            "x" * 40: {str(i): np.full((i,), i, np.int64) for i in range(20)}}
+    assert (checkpoint.write_flax_msgpack(tree)
+            == serialization.msgpack_serialize(tree))
+    got = checkpoint.read_flax_msgpack(checkpoint.write_flax_msgpack(tree))
+    np.testing.assert_array_equal(got["b"]["f"], tree["b"]["f"])
+
+
+def test_port_checkpoint_predicts_jax_schedule(r5_theta, tmp_path):
+    jax_model, params, model = r5_theta
+    checkpoint.save_checkpoint(str(tmp_path), model, model.cfg,
+                               {"epoch": 3})
+    _, got_params, cfg = jax_ckpt.load_model(str(tmp_path))
+    assert cfg.to_dict() == model.cfg.to_dict()
+    graph = _load_graph_file(str(ROOT / "dataset" / "proc" /
+                                 "maxcut_n200_d4.npz"))
+    n = graph["x"].shape[0]
+    inputs = (jnp.asarray(graph["x"], jnp.float32),
+              jnp.asarray(graph["edge_index"], jnp.int32),
+              jnp.asarray(graph["edge_attr"], jnp.float32),
+              jnp.zeros((n,), jnp.int32),
+              jnp.asarray(graph["global_attr"], jnp.float32).reshape(1, -1),
+              1)
+    got = jax_model.apply(got_params, *inputs,
+                          method=jax_net.RankSchedulePredictor.predict)
+    want = jax_model.apply(params, *inputs,
+                           method=jax_net.RankSchedulePredictor.predict)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+    raw, L = checkpoint.predict_raw(model, graph)
+    assert L == int(want[1][0])
+    np.testing.assert_allclose(raw, np.asarray(want[0])[0],
+                               rtol=PREDICT_RTOL)
+
+
+def test_init_params_follows_flax_initialisers():
+    """Every leaf of a fresh port model against the same leaf of a fresh
+    JAX model at the repo's width: biases 0, LayerNorm scales 1, truncated
+    normal kernels inside +-2 standard deviations with the same spread,
+    orthogonal LSTM hidden kernels, att inside the Glorot bound."""
+    cfg = jax_net.ModelConfig(hidden_dim=64, edge_dim=32, global_dim=32,
+                              num_gnn_layers=3, num_heads=4,
+                              decoder_hidden_dim=96, decoder_num_layers=2)
+    z = np.zeros
+    jparams = jax_net.RankSchedulePredictor(cfg).init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        z((4, 16), np.float32), z((2, 6), np.int32), z((6, 5), np.float32),
+        z((4,), np.int32), z((1, 17), np.float32), 1)
+    want = checkpoint.params_from_flax(jax.tree.map(np.asarray, jparams))
+    model = net.RankSchedulePredictor(net.ModelConfig(**cfg.to_dict()))
+    net.init_params(model, torch.Generator().manual_seed(0))
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if k.endswith("bias") or (k.endswith("weight") and w.dim() == 1):
+            assert torch.equal(g, w), k        # zeros, or LayerNorm ones
+            continue
+        if k.endswith("att"):
+            limit = float(np.sqrt(6.0 / (w.shape[1] + w.shape[2])))
+            assert float(g.abs().max()) <= limit
+            assert float(w.abs().max()) <= limit
+            continue
+        if ".hh." in k:                        # four orthogonal blocks
+            h = w.shape[1]
+            for blk in (g.reshape(4, h, h), w.reshape(4, h, h)):
+                eye = torch.eye(h).expand(4, h, h)
+                assert torch.allclose(blk @ blk.transpose(1, 2), eye,
+                                      atol=1e-5), k
+            continue
+        fan_in = w.shape[1]                    # (out, in), per gate block
+        std = 1.0 / np.sqrt(fan_in)
+        bound = 2.0 * std / .87962566103423978
+        assert float(g.abs().max()) <= bound * (1 + 1e-6), k
+        assert float(w.abs().max()) <= bound * (1 + 1e-6), k
+        if w.numel() >= 2000:
+            tol = 6.0 / np.sqrt(2.0 * w.numel())
+            assert abs(float(g.std()) / std - 1) <= tol, k
+            assert abs(float(w.std()) / std - 1) <= tol, k
+
+
+@pytest.mark.parametrize("mode", ["coin", "teacher"])
+def test_sequence_decoder_teacher_forced_matches_jax(mode):
+    rng = np.random.default_rng(12)
+    B, ctx, T = 4, 20, 8
+    context = rng.standard_normal((B, ctx)).astype(np.float32)
+    target = rng.integers(1, 40, (B, T)).astype(np.float32)
+    mod = jax_layers.SequenceDecoder(context_dim=ctx, hidden_dim=16,
+                                     num_layers=2, max_seq_len=T)
+    params = mod.init(jax.random.PRNGKey(13), jnp.asarray(context),
+                      jnp.asarray(target))
+    tf_rng = jax.random.PRNGKey(14) if mode == "coin" else None
+    want = mod.apply(params, jnp.asarray(context), jnp.asarray(target),
+                     teacher_forcing_ratio=0.5, tf_rng=tf_rng)
+    ours = _port(layers.SequenceDecoder(ctx, 16, 2, T), params)
+    coins = None
+    if mode == "coin":
+        coins = torch.tensor(np.asarray(jax.vmap(
+            lambda t: jax.random.uniform(jax.random.fold_in(tf_rng, t)))(
+            jnp.arange(T))))
+        assert (coins < 0.5).any() and (coins >= 0.5).any()
+    with torch.no_grad():
+        got = ours(torch.tensor(context), torch.tensor(target),
+                   teacher_forcing_ratio=0.5, coins=coins)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_dropout_keep_scale_is_flax_dropout():
+    gen = torch.Generator().manual_seed(0)
+    assert layers.keep_scale((5,), 0.0, gen, "cpu") is None
+    assert torch.count_nonzero(layers.keep_scale((5,), 1.0, gen, "cpu")) == 0
+    k = layers.keep_scale((200_000,), 0.15, gen, "cpu")
+    values = torch.unique(k)
+    assert values.numel() == 2 and values[0] == 0.0
+    assert float(values[1]) == pytest.approx(1 / 0.85, rel=1e-6)
+    assert abs(float((k > 0).float().mean()) - 0.85) < 0.005
+    again = layers.keep_scale((200_000,), 0.15,
+                              torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(k, again)                 # the generator decides
+    x = torch.randn(50, 7)
+    y = layers.dropout(x, 0.3, torch.Generator().manual_seed(1))
+    assert torch.all((y == 0) | torch.isclose(y, x / 0.7))
+    # a module in eval mode applies none
+    block = layers.MLPBlock(7, 8, 3, dropout=0.5).eval()
+    assert torch.equal(block(x, gen), block(x, gen))
