@@ -35,7 +35,16 @@ Phases, in order; any failed check raises and the script exits nonzero:
    dense C @ Y product timed beside them; K7 and K8 at that path's LP
    shapes (60,000 entries, 20,000 columns, m = 2,400) and at ten times
    that.  A final rank of phase 6 or 7 that phase 3 did not cover is held
-   right after its solve;
+   right after its solve.  Then the float32 kernel phase: K1-K4 on the
+   MaxCut C at rank 20, K5 (pair) and K6 on the matrix-completion cone at
+   rank 19, K7 (pair) and K8 on the multi-block + LP path's LP cone, each
+   on float32 values against its plain version evaluated in float64 on the
+   same float32 inputs (max error over the output's largest magnitude <=
+   1e-5; K4, which forms its products and sums in float64, within 1e-10 of
+   the sum of its terms' magnitudes), the same bits on two calls, the
+   kernel's, the float32 plain version's and a float32 library call's
+   time (``torch.sparse.mm`` for K1, K6, K7, K8, ``torch.linalg.vecdot``
+   for K2) beside the bound at 4-byte values;
 4. the MaxCut main path: ``ltr_lowrank_sdp_torch.cli.main`` on the Delaunay
    graph (n = 2^14, seed 14; the kind of SuiteSparse ``delaunay_n14``, solved
    with the LoRADS MaxCut row's flags ``--phase1Tol 1e+1 --heuristicFactor
@@ -63,6 +72,15 @@ Phases, in order; any failed check raises and the script exits nonzero:
    through the CLI (dense objective, rank 141 from the start): K5 and K6
    launched, nothing else, the same limits, inside ``THETA_LIMIT_S`` (no
    warm solve and no profiler window: the solve is a long one);
+   7b. the ``[main-f32]``, ``[matcomp-f32]`` and ``[multiblock_lp-f32]``
+   solves: phases 4-6's files through the CLI again with ``--dtype
+   float32`` (the JAX package's TPU configuration), counters as above:
+   the same status and one final rank per block as the float64 run, pinf
+   <= 1e-5 and gap <= 5e-5 recomputed in float64 on the host, pobj within
+   5e-5 relative of the float64 run's, every kernel of the path launched
+   on float32 values (``kernels.counts_f32``; a float64 polish adds
+   float64 launches, and its runs are printed) and no plain version run;
+   then a warm solve;
 8. GPU against CPU on a G11-sized random MaxCut (n = 800), a small matrix
    completion (n = 400), ``random_multiblock_problem()`` with the
    Gauss-Seidel and the Jacobi sweep, the 1/10-scale multi-block + LP
@@ -117,6 +135,14 @@ Phases, in order; any failed check raises and the script exits nonzero:
    value, the card's optimizer step within 1e-5 of the float64 step from the
    same gradients, and the parameters within 1e-5 of the float64 step beyond
    what a gradient within the gradient tolerance makes of Adam's first step.
+   The width phase: K9 (serve, and with keep-scale and lse) and K11 on
+   ``theta_n300_d75``'s edges at heads x channels 2x16, 4x12, 4x20, 2x48,
+   4x24 and 4x64 (every width ``tune.py`` samples, channel counts that are
+   not powers of two, and the widest row K9 takes), K10 and K12 on its
+   nodes at d = 96 and 256, seeded inputs, each against the plain version
+   evaluated in float64 as above; then the same training step at
+   ``--hidden-dim 96`` (4 heads of 24 channels, weights from
+   ``init_params``), held to the same tolerances.
    Then the entry point
    ``ltr_lowrank_sdp_torch.train.main(["--root", "dataset", "--epochs",
    "2", "--output-dir", ...])``, every other flag at its default (full width,
@@ -129,7 +155,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
    the profiler (device busy share); ``infer`` on ``theta_n300_d75`` with
    the checkpoint just written;
 13. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
-   row at every main path's shapes), the kernels still to be ported, the
+   row at every main path's shapes; K9-K12's rows at the width phase's
+   widths under ``widths``; a ``NAME[float32]`` row for each of K1-K8 with
+   its float32 launches on the float32 run of its path), the kernels still
+   to be ported, the
    solver loops carried as plain torch over the kernels, the card line
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -141,8 +170,8 @@ until the solver's first time-limit check after S seconds (one per ALM outer
 iteration) and prints the device's busy share of that window (the profiler
 needs minutes to digest some 10^5 device kernels):
 
-    python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S [--logfile PATH]
-    python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S --profile
+    python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S [--logfile PATH] [--dtype float32]
+    python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S --profile [--dtype float32]
 """
 
 from __future__ import annotations
@@ -233,12 +262,28 @@ TRAIN_DROPOUT = 0.15
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 PARAM_TOL = 1e-5
+# the float32 slice: K1-K8 in float32 against their plain versions evaluated
+# in float64 on the same float32 inputs (K4 sums in float64: held to the sum
+# of its terms' magnitudes), the three main paths through the CLI with
+# --dtype float32, and K9-K12 at the GNN widths the tuner samples
+F32_KERNEL_TOL = 1e-5     # max |kernel - plain64| / max |plain64|
+K4_F32_TOL = 1e-10        # |kernel - plain64| / sum_k |coef_k e_k|
+F32_LIB_TOL = 1e-4        # a float32 library yardstick, same measure
+F32_POBJ_RTOL = 5e-5      # float32 pobj against the float64 run's
+F32_DEVICE_POBJ_RTOL = 1e-5   # device pobj against the host recomputation
+F32_FLAGS = ("--dtype", "float32")
+# heads x channels per head: every width tune.py samples, with channel
+# counts that are not powers of two (12, 20, 24, 48), and the widest row K9
+# takes; the poolings' widths
+GNN_WIDTHS = ((2, 16), (4, 12), (4, 20), (2, 48), (4, 24), (4, 64))
+POOL_WIDTHS = (96, 256)
+WIDE_HIDDEN = 96          # the full-width training step at --hidden-dim 96
 
 UNPORTED = [
     "P  scripts/pallas_gather_probe.py:40-65 kern (pallas_call :57): "
     "gather-sum probe; later an H100 gather micro-benchmark",
-    "15 ltr_lowrank_sdp_tpu/hallar/solver.py:179,188 _Ops.AX, _Ops.SY "
-    "(HALLaR slice)",
+    "15 ltr_lowrank_sdp_tpu/hallar/solver.py:179,184,188 _Ops.AX, _Ops.CX, "
+    "_Ops.SY (HALLaR slice, the next)",
     "16 ltr_lowrank_sdp_tpu/parallel/meshops.py:211,220 _local_reduce, "
     "_local_spmm (parallel slice)",
 ]
@@ -1005,11 +1050,13 @@ def check_train_kernels(K, layer1, pool, tag, dev):
     return rows
 
 
-def check_train_step(K, dev):
+def check_train_step(K, dev, hidden_dim=None):
     """Phase 12: one training step at full width (the r5_theta weights,
     dropout 0, fixed coins) on a collated batch of the seeded test split, on
     the card in float32 and on the CPU in float64 (the plain K9-K12 and
-    every other operation in float64).  Held: the loss to LOSS_RTOL
+    every other operation in float64).  With ``hidden_dim`` the step runs
+    at that GNN width (r5_theta's config otherwise, the weights drawn by
+    ``init_params`` from a seed).  Held: the loss to LOSS_RTOL
     relative; every gradient leaf to GRAD_TOL of that leaf's own largest
     float64 value (a leaf that is 0 in exact arithmetic, the attention
     pooling's score bias, to GRAD_TOL of the model's largest gradient); the
@@ -1024,13 +1071,20 @@ def check_train_step(K, dev):
                                                    iterate_batches)
     from ltr_lowrank_sdp_torch.models.checkpoint import load_model
     from ltr_lowrank_sdp_torch.models.loss import LossWeights
-    from ltr_lowrank_sdp_torch.models.net import RankSchedulePredictor
+    from ltr_lowrank_sdp_torch.models.net import (RankSchedulePredictor,
+                                                   init_params)
     from ltr_lowrank_sdp_torch.optim import TrainOptimizer
 
     ds, _, _, test_idx = create_splits(DATASET, seed=42)
     batch = next(iterate_batches(ds, test_idx, 16))
     base, cfg = load_model(CKPT, device="cpu")
     cfg = dataclasses.replace(cfg, dropout=0.0)
+    tag = "train-step"
+    if hidden_dim is not None:
+        cfg = dataclasses.replace(cfg, hidden_dim=hidden_dim)
+        base = RankSchedulePredictor(cfg)
+        init_params(base, torch.Generator().manual_seed(hidden_dim))
+        tag = f"train-step-h{hidden_dim}"
     coins = torch.rand(cfg.max_seq_len,
                        generator=torch.Generator().manual_seed(13))
     lr = 3e-4
@@ -1062,7 +1116,7 @@ def check_train_step(K, dev):
         opt.step()
         if device.type == "cuda":
             torch.cuda.synchronize()
-        print(f"[train-step] {device} {dtype}"
+        print(f"[{tag}] {device} {dtype}"
               f"{' (given gradients)' if grads is not None else ''}: loss "
               f"{loss:.9f}, step {time.perf_counter() - t0:.2f} s, counts "
               f"{json.dumps({k: v for k, v in K.counts().items() if any(v)})}",
@@ -1073,10 +1127,10 @@ def check_train_step(K, dev):
     l_g, g_g, p_g, c_g = step(dev, torch.float32)
     l_c, g_c, p_c, _ = step(cpu, torch.float64)
     _, _, p_s, _ = step(cpu, torch.float64, g_g)
-    require_counts("train-step", c_g, TRAIN_KERNELS)
+    require_counts(tag, c_g, TRAIN_KERNELS)
     require(c_g["gatv2_softmax_agg_bwd"][0] == cfg.num_gnn_layers
             and c_g["graph_pool_bwd"][0] == 1,
-            "train-step: K11 once per GATv2 layer, K12 once")
+            f"{tag}: K11 once per GATv2 layer, K12 once")
     rel = abs(l_g - l_c) / abs(l_c)
     largest = max(float(g.abs().max()) for g in g_c.values())
     per_leaf, scale = {}, {}
@@ -1109,11 +1163,11 @@ def check_train_step(K, dev):
         parted += int((diff > floor).sum())
         unexplained += int((diff > floor + lr * du).sum())
     top = sorted(per_leaf.items(), key=lambda kv: -kv[1])
-    print(f"[train-step] card float32 vs CPU float64: loss rel diff {rel:.2e} "
+    print(f"[{tag}] card float32 vs CPU float64: loss rel diff {rel:.2e} "
           f"(tol {LOSS_RTOL:g}); gradient error per leaf, of the leaf's own "
           f"largest value (tol {GRAD_TOL:g}), worst first: "
           f"{', '.join(f'{k} {v:.2e}' for k, v in top)}", flush=True)
-    print(f"[train-step] parameters after one step: the card's optimizer "
+    print(f"[{tag}] parameters after one step: the card's optimizer "
           f"against the float64 step from the card's gradients "
           f"{opt_err:.2e} of each leaf's largest (tol {PARAM_TOL:g}); "
           f"against the float64 step from the float64 gradients {parted} "
@@ -1121,13 +1175,303 @@ def check_train_step(K, dev):
           f"largest, {unexplained} of them by more than that plus what a "
           f"gradient within the gradient tolerance makes of Adam's first "
           f"step", flush=True)
-    require(rel <= LOSS_RTOL, "train-step: card and CPU losses differ")
+    require(rel <= LOSS_RTOL, f"{tag}: card and CPU losses differ")
     require(top[0][1] <= GRAD_TOL,
-            f"train-step: card and CPU gradients differ ({top[0][0]})")
+            f"{tag}: card and CPU gradients differ ({top[0][0]})")
     require(opt_err <= PARAM_TOL,
-            "train-step: the card's optimizer step differs from the CPU's")
+            f"{tag}: the card's optimizer step differs from the CPU's")
     require(unexplained == 0,
-            "train-step: card and CPU parameters differ after one step")
+            f"{tag}: card and CPU parameters differ after one step")
+
+
+def as_dtype(layout, dtype):
+    """A kernel layout (``SymCSR``, ``SegCOO``, ``ConstrCSR``,
+    ``LPEntries``) with its values in ``dtype``; the index arrays are
+    shared."""
+    def cast(v):
+        return (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+                else v)
+
+    return type(layout)(**{f.name: cast(getattr(layout, f.name))
+                           for f in dataclasses.fields(layout)})
+
+
+def _measure32(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
+               lib_check=None, scale=None):
+    """The float32 kernel phase: hold one float32 kernel call against its
+    plain version evaluated in float64 on the same float32 inputs
+    (``plain64``): max |kernel - plain64| / max |plain64| <= F32_KERNEL_TOL
+    per output, or, for K4's float64 scalar, |kernel - plain64| / ``scale``
+    (the sum of its terms' magnitudes) <= K4_F32_TOL; the same bits on two
+    calls.  Then time the kernel, the float32 plain version and the float32
+    library yardstick (``lib_check(lib())`` holds it to F32_LIB_TOL of the
+    float64 evaluation), the bound at 4-byte values and the FP32 rate.
+    Returns the kernels-line fields."""
+    def tup(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    out_k, ref = tup(kern()), tup(plain64())
+    torch.cuda.synchronize()
+    diffs = [float((a.double() - b).abs().max()) for a, b in zip(out_k, ref)]
+    if scale is None:
+        errs = [d / max(float(b.abs().max()), 1e-300)
+                for d, b in zip(diffs, ref)]
+        tol = F32_KERNEL_TOL
+    else:
+        errs, tol = [diffs[0] / scale], K4_F32_TOL
+    require(max(errs) <= tol,
+            f"{name} {tag}: float32 error {max(errs):.3e} > {tol:g}")
+    require(all(torch.equal(a, b) for a, b in zip(tup(kern()), out_k)),
+            f"{name} {tag}: two calls gave different bits")
+    ms, plain_ms, call_ms = time_ms(kern), time_ms(plain), host_call_ms(kern)
+    lib_ms = None
+    if lib is not None:
+        lib_check(lib())
+        lib_ms = time_ms(lib)
+    b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    lib_txt = f"{lib_ms:.4f}" if lib_ms is not None else "null"
+    print(f"[kernel-f32] {name} {tag}: max err / "
+          f"{'sum |terms|' if scale is not None else 'max |plain64|'} "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (tol {tol:g}), max abs "
+          f"err {max(diffs):.2e}, same bits on two calls, kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library "
+          f"{lib_txt} ms, {nbytes / ms / 1e6:.1f} GB/s; host-issued call "
+          f"{call_ms:.4f} ms", flush=True)
+    return {"max_abs_err": max(diffs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def _lib_close(name, ref):
+    """A check that a float32 library result is within F32_LIB_TOL of the
+    float64 evaluation ``ref`` (a tensor or a tuple of them)."""
+    def check(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err = max(float((a.double() - b).abs().max() / b.abs().max())
+                  for a, b in zip(outs, refs))
+        require(err <= F32_LIB_TOL,
+                f"{name}: float32 library result differs {err:.2e}")
+    return check
+
+
+def check_f32_kernels(K, cone, mc_cone, lp, dev):
+    """The float32 kernel phase: K1-K4 on the MaxCut main path's C at rank
+    REPORT_RANK, K5 (pair mode) and K6 on the matrix-completion cone at
+    MC_REPORT_RANK, K7 (pair) and K8 on the multi-block + LP path's LP cone,
+    each in float32.  The yardsticks are float32 library calls:
+    ``torch.sparse.mm`` for K1, K6, K7 and K8, ``torch.linalg.vecdot`` (the
+    row dot alone) for K2.  Returns {name: row}."""
+    f4, i4 = 4, 4
+    f32, f64 = torch.float32, torch.float64
+    g = torch.Generator(device=dev).manual_seed(2032)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=f32, device=dev)
+
+    def sparse_csr(ptr, idx, vals, size):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # "sparse CSR is beta"
+            return torch.sparse_csr_tensor(ptr, idx, vals, size=size)
+
+    rows = {}
+    # ---- K1-K4: the MaxCut C, n = 2^14, rank 20 ----
+    n, r = cone.n, REPORT_RANK
+    csr32 = as_dtype(cone.c_csr, f32)
+    csr64 = as_dtype(csr32, f64)
+    dv = cone.diag_val.to(f32)
+    crows, ccols = cone.c_rows, cone.c_cols
+    coef = cone.c_double_coef.to(f32)
+    nnz_full, nnz_up = csr32.nnz, cone.c_nnz
+    Y, U, V = rnd(n, r), rnd(n, r), rnd(n, r)
+    Y64, U64, V64 = Y.double(), U.double(), V.double()
+    c_sp = sparse_csr(csr32.indptr, csr32.indices, csr32.vals, (n, n))
+    ref1 = K.spmm_sym_csr_plain(csr64, Y64, 1.0)
+    shape = f"n={n} r={r}"
+    rows["spmm_sym_csr"] = _measure32(
+        "spmm_sym_csr", shape,
+        lambda: K.spmm_sym_csr(csr32, Y, 1.0),
+        lambda: K.spmm_sym_csr_plain(csr32, Y, 1.0), lambda: ref1,
+        (n + 1) * i4 + nnz_full * (i4 + f4) + 2 * n * r * f4,
+        2.0 * nnz_full * r + n * r, lambda: torch.sparse.mm(c_sp, Y),
+        _lib_close("spmm_sym_csr", ref1))
+    ref2 = K.diag_rowdot_plain(U64, V64, dv.double(), 2.0, second=True)
+    rows["diag_rowdot"] = _measure32(
+        "diag_rowdot", shape,
+        lambda: K.diag_rowdot(U, V, dv, 2.0, second=True),
+        lambda: K.diag_rowdot_plain(U, V, dv, 2.0, second=True),
+        lambda: ref2, 2 * n * r * f4 + n * f4 + 2 * n * f4,
+        4.0 * n * r + 3 * n, lambda: torch.linalg.vecdot(U, V),
+        _lib_close("diag_rowdot", torch.sum(U64 * V64, dim=-1)))
+    ref3 = K.diag_normal_matvec_plain(U64, V64, dv.double())
+    rows["diag_normal_matvec"] = _measure32(
+        "diag_normal_matvec", shape,
+        lambda: K.diag_normal_matvec(U, V, dv),
+        lambda: K.diag_normal_matvec_plain(U, V, dv), lambda: ref3,
+        3 * n * r * f4 + n * f4, 4.0 * n * r + 2 * n)
+    coef64 = coef.double()
+    ref4 = K.sym_contract_sum_plain(crows, ccols, coef64, U64, U64)
+    terms = torch.sum(torch.abs(coef64 * torch.sum(
+        U64[crows.long()] * U64[ccols.long()], dim=-1)))
+    rows["sym_contract_sum"] = _measure32(
+        "sym_contract_sum", shape,
+        lambda: K.sym_contract_sum(crows, ccols, coef, U, U),
+        lambda: K.sym_contract_sum_plain(crows, ccols, coef, U, U),
+        lambda: ref4, nnz_up * (2 * i4 + f4) + n * r * f4 + 8,
+        (2.0 * r + 1) * nnz_up, scale=float(terms))
+    # ---- K5, K6: the matrix-completion cone, n = 10^4, rank 19 ----
+    seg32, acsr32 = as_dtype(mc_cone.a_seg, f32), as_dtype(mc_cone.a_csr, f32)
+    seg64, acsr64 = as_dtype(seg32, f64), as_dtype(acsr32, f64)
+    n, m, r = seg32.n, seg32.m, MC_REPORT_RANK
+    nnz, slots = seg32.nnz, acsr32.nnz
+    U, V, w = rnd(n, r), rnd(n, r), rnd(m)
+    U64, V64 = U.double(), V.double()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        s_w = torch.sparse_coo_tensor(
+            torch.stack([acsr32.row_ids, acsr32.indices.long()]),
+            w[acsr32.cid.long()] * acsr32.vals,
+            size=(n, n)).coalesce().to_sparse_csr()
+    shape = f"matcomp n={n} m={m} nnz={nnz} r={r}"
+    ref5 = K.coo_contract_segsum_plain(seg64, U64, V64, pair=True)
+    rows["coo_contract_segsum"] = _measure32(
+        "coo_contract_segsum", f"pair {shape}",
+        lambda: K.coo_contract_segsum(seg32, U, V, pair=True),
+        lambda: K.coo_contract_segsum_plain(seg32, U, V, pair=True),
+        lambda: ref5,
+        (m + 1) * i4 + nnz * (2 * i4 + f4) + 2 * n * r * f4 + 2 * m * f4,
+        6.0 * nnz * r)
+    ref6 = K.spmm_constr_csr_plain(acsr64, w.double(), U64)
+    rows["spmm_constr_csr"] = _measure32(
+        "spmm_constr_csr", f"alone {shape} slots={slots}",
+        lambda: K.spmm_constr_csr(acsr32, w, U),
+        lambda: K.spmm_constr_csr_plain(acsr32, w, U), lambda: ref6,
+        (n + 1) * i4 + slots * (2 * i4 + f4) + m * f4 + 2 * n * r * f4,
+        2.0 * slots * r + slots, lambda: torch.sparse.mm(s_w, U),
+        _lib_close("spmm_constr_csr", ref6))
+    # ---- K7, K8: the multi-block + LP path's LP cone ----
+    lp32 = as_dtype(lp, f32)
+    lp64 = as_dtype(lp32, f64)
+    m, n_cols, nnz = lp32.m, lp32.n_cols, lp32.nnz
+    u, v, w = rnd(n_cols), rnd(n_cols), rnd(m)
+    a_sp = sparse_csr(lp32.row_ptr, lp32.row_col, lp32.row_val, (m, n_cols))
+    at_sp = sparse_csr(lp32.col_ptr, lp32.col_cid, lp32.col_val, (n_cols, m))
+    w1 = w[:, None].contiguous()
+    shape = f"multiblock+lp m={m} cols={n_cols} nnz={nnz}"
+    ref7 = K.lp_constr_segsum_plain(lp64, u.double(), v.double(), pair=True)
+    rows["lp_constr_segsum"] = _measure32(
+        "lp_constr_segsum", f"pair {shape}",
+        lambda: K.lp_constr_segsum(lp32, u, v, pair=True),
+        lambda: K.lp_constr_segsum_plain(lp32, u, v, pair=True),
+        lambda: ref7,
+        (m + 1) * i4 + nnz * (i4 + f4) + 2 * n_cols * f4 + 2 * m * f4,
+        5.0 * nnz,
+        lambda: torch.sparse.mm(
+            a_sp, torch.stack((2.0 * u * v, v * v), dim=1)).unbind(1),
+        _lib_close("lp_constr_segsum", ref7))
+    ref8 = K.lp_col_wsum_plain(lp64, w.double(), 0.37)
+    rows["lp_col_wsum"] = _measure32(
+        "lp_col_wsum", shape,
+        lambda: K.lp_col_wsum(lp32, w, 0.37),
+        lambda: K.lp_col_wsum_plain(lp32, w, 0.37), lambda: ref8,
+        (n_cols + 1) * i4 + nnz * (i4 + f4) + m * f4 + 2 * n_cols * f4,
+        2.0 * nnz + 2 * n_cols,
+        lambda: 0.37 * lp32.c + torch.sparse.mm(at_sp, w1).reshape(-1),
+        _lib_close("lp_col_wsum", ref8))
+    return rows
+
+
+@torch.no_grad()
+def check_gnn_widths(K, edge_index, n, dev):
+    """The width phase: K9 (serve, and with keep-scale and lse) and K11 on
+    the edges of ``theta_n300_d75`` at every GNN_WIDTHS heads x channels,
+    K10 (serve, and with keep-scale, stats and tie counts) and K12 on its
+    nodes at every POOL_WIDTHS, on seeded inputs, each against its plain
+    version evaluated in float64 (phases 9 and 12's GNN_TOL).  Returns
+    {name: {width: row}} (the dropout cases for K9 / K10's training
+    instances, K11 and K12)."""
+    g = K.EdgeCSR.from_edge_index(edge_index.to(dev), n)
+    e_all, n_real = g.n_slots, g.n_real
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    f4 = 4
+    out = {k: {} for k in TRAIN_KERNELS}
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    for heads, ch in GNN_WIDTHS:
+        hc = heads * ch
+        lanes, per_lane = K.gatv2_lanes(heads, ch)
+        args = (rnd(n, hc), rnd(n, hc), rnd(n_real, hc), rnd(hc),
+                rnd(heads, ch, scale=0.5))
+        args64 = tuple(t.double() for t in args)
+        keep = _keep((e_all, heads), dev, 7)
+        tag = (f"width {heads}x{ch} (H*C={hc}, {lanes} lanes per head, "
+               f"{per_lane} channels per lane) N={n} E'={e_all}")
+        fwd_bytes = ((n + 1) * f4 + 2 * e_all * f4 + 3 * n * hc * f4
+                     + n_real * hc * f4 + hc * f4 + hc * f4)
+        _measure_gnn("gatv2_softmax_agg", tag,
+                     lambda: K.gatv2_softmax_agg(g, *args),
+                     lambda: K.gatv2_softmax_agg_plain(g, *args),
+                     lambda: K.gatv2_softmax_agg_plain(g, *args64),
+                     fwd_bytes, 8.0 * e_all * hc)
+        out64, lse64 = K._gatv2_plain(g, *args64, keep.double())
+        train_bytes = fwd_bytes + e_all * heads * f4 + n * heads * f4
+        out["gatv2_softmax_agg"][f"{heads}x{ch}"] = _measure_gnn(
+            "gatv2_softmax_agg", f"{tag} train (keep, lse)",
+            lambda: K._gatv2_forward(g, *args, keep, True)[0],
+            lambda: K._gatv2_plain(g, *args, keep)[0], lambda: out64,
+            train_bytes, 9.0 * e_all * hc)
+        o, lse = K._gatv2_forward(g, *args, keep, True)
+        lse_err = float((lse.double() - lse64).abs().max()
+                        / lse64.abs().max())
+        require(lse_err <= GNN_TOL, f"K9 {tag}: lse error {lse_err:.2e}")
+        dout = rnd(n, hc)
+        bwd_bytes = (train_bytes + (n + 1) * f4 + e_all * f4 + n * hc * f4
+                     + 2 * n * hc * f4 + n_real * hc * f4 + 2 * hc * f4)
+        out["gatv2_softmax_agg_bwd"][f"{heads}x{ch}"] = _measure_gnn(
+            "gatv2_softmax_agg_bwd", tag,
+            lambda: K.gatv2_softmax_agg_bwd(g, *args, keep, lse, o, dout),
+            lambda: K.gatv2_softmax_agg_bwd_plain(g, *args, keep, lse, o,
+                                                  dout),
+            lambda: K.gatv2_softmax_agg_bwd_plain(
+                g, *args64, keep.double(), lse.double(), o.double(),
+                dout.double()),
+            bwd_bytes, 17.0 * e_all * hc)
+    seg = K.GraphSegments.from_counts((n,), dev)
+    for d in POOL_WIDTHS:
+        x, score = rnd(n, d), rnd(n, scale=3.0)
+        keep = _keep((n,), dev, 8)
+        ref = K._graph_pool_plain(seg, x.double(), score.double(),
+                                  keep.double())
+        tag = f"width d={d} N={n} chunks={seg.n_chunks}"
+        pool_bytes = (n * d + 2 * n + 4 + 3 * seg.n_chunks + 4 * d + 2) * f4
+        _measure_gnn("graph_pool", tag,
+                     lambda: K.graph_pool(seg, x, score),
+                     lambda: K.graph_pool_plain(seg, x, score),
+                     lambda: K.graph_pool_plain(seg, x.double(),
+                                                score.double()),
+                     pool_bytes - (n + d) * f4, 5.0 * n * d + 4.0 * n)
+        out["graph_pool"][f"d={d}"] = _measure_gnn(
+            "graph_pool", f"{tag} train (keep, stats, ties)",
+            lambda: K._graph_pool_forward(seg, x, score, keep, True)[0],
+            lambda: K.graph_pool_plain(seg, x, score, keep),
+            lambda: ref[0], pool_bytes, 6.0 * n * d + 4.0 * n)
+        o, stats, ties = K._graph_pool_forward(seg, x, score, keep, True)
+        require(torch.equal(ties.double(), ref[2]),
+                f"K10 {tag}: tie counts differ")
+        dpool = rnd(1, 3 * d)
+        out["graph_pool_bwd"][f"d={d}"] = _measure_gnn(
+            "graph_pool_bwd", tag,
+            lambda: K.graph_pool_bwd(seg, x, score, keep, o, stats, ties,
+                                     dpool),
+            lambda: K.graph_pool_bwd_plain(seg, x, score, keep, o, stats,
+                                           ties, dpool),
+            lambda: K.graph_pool_bwd_plain(
+                seg, x.double(), score.double(), keep.double(), o.double(),
+                stats.double(), ties.double(), dpool.double()),
+            (2 * n * d + 3 * n + 4 + 3 * seg.n_chunks + 7 * d + 2) * f4,
+            6.0 * n * d)
+    return out
 
 
 def run_train_path(K, dev, tmp):
@@ -1424,11 +1768,15 @@ def run_predict_then_solve(K, tmp, optimal):
 
 
 def run_main_path(tag, path, flags, launched, statuses, limits, dev,
-                  n_blocks=1, repeat=True):
+                  n_blocks=1, repeat=True, profile=True, f32=False,
+                  pobj_rtol=1e-8):
     """Drive one main path through the CLI with the launch counters set to 0
     just before and read just after, check the result by the repo's own
-    means, then (with ``repeat``) solve again warm and once under the
-    profiler.  Returns the counts of the CLI run and its result."""
+    means, then (with ``repeat``) solve again warm and (with ``profile``)
+    once under the profiler.  With ``f32`` the flags ask for float32: every
+    kernel of ``launched`` must have float32 launches (a float64 polish adds
+    float64 ones).  Returns the counts of the CLI run, its result and its
+    float32 launches per kernel."""
     from ltr_lowrank_sdp_torch import cli
     from ltr_lowrank_sdp_torch.ops import kernels as K
     from ltr_lowrank_sdp_torch.problem import load_problem
@@ -1442,7 +1790,14 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = K.counts()
+    counts32 = K.counts_f32()
     print(f"[{tag}] counts {json.dumps(counts)}")
+    if f32:
+        print(f"[{tag}] float32 launches {json.dumps(counts32)}, float64 "
+              f"polish runs {res.polish_runs}")
+        for name in launched:
+            require(counts32.get(name, 0) > 0,
+                    f"{name} had no float32 launch on the {tag} path")
     print(f"[{tag}] cli wall {wall:.3f} s, solve {res.solve_time:.3f} s, "
           f"stages {json.dumps({k: round(v, 4) for k, v in res.stage_times.items()})}")
     print(f"[{tag}] status {res.status.value}, ALM outer "
@@ -1474,7 +1829,10 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     pinf_lim, gap_lim, dinf_lim = limits
     require(pinf <= pinf_lim and gap <= gap_lim and res.dinf_l1 <= dinf_lim,
             f"{tag}: DIMACS errors above {limits}")
-    require(abs(pobj - res.pobj) <= 1e-8 * abs(pobj),
+    print(f"[{tag}] device pobj against the host recomputation: "
+          f"{abs(pobj - res.pobj) / abs(pobj):.3e} relative (tol "
+          f"{pobj_rtol:g})")
+    require(abs(pobj - res.pobj) <= pobj_rtol * abs(pobj),
             f"{tag}: device pobj disagrees with the host recomputation")
     with open(jpath) as f:
         payload = json.load(f)
@@ -1483,7 +1841,7 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     require(set(payload["trajectory"]) == {"phase_1", "phase_2"},
             f"{tag}: trajectory phases")
     if not repeat:
-        return counts, res
+        return counts, res, counts32
 
     # the same solve again, warm, then once more under the profiler
     params = cli.params_from_args(cli.build_arg_parser().parse_args(
@@ -1494,7 +1852,10 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     print(f"[{tag}] warm solve {warm_s:.3f} s (status {warm.status.value}, "
-          f"ALM inner {warm.alm_inner_iters}, ADMM {warm.admm_iters})")
+          f"ALM inner {warm.alm_inner_iters}, ADMM {warm.admm_iters}, "
+          f"float64 polish runs {warm.polish_runs})")
+    if not profile:
+        return counts, res, counts32
     ptag = "profile" if tag == "main" else f"{tag}-profile"
     if warm_s > PROFILE_WINDOW_S:
         # a long solve: profile its first PROFILE_WINDOW_S seconds (the
@@ -1504,14 +1865,42 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
         solver = Solver(prob, dataclasses.replace(
             params, time_sec_limit=PROFILE_WINDOW_S), device=dev)
     profile_solve(solver, ptag)
-    return counts, res
+    return counts, res, counts32
 
 
-def theta_solve(spec: str, limit_s: float, profile: bool, logfile) -> int:
-    """``--theta-solve``: one theta instance through the CLI on the card,
-    whatever its status; the solver's rows go to ``logfile`` if one is
-    named.  With ``profile``, a window of the solve under the profiler
-    instead."""
+def run_f32_paths(paths, dev):
+    """Phase 7b, the ``[*-f32]`` solves: each main path again through the
+    CLI with ``--dtype float32`` (the JAX package's TPU configuration), the
+    counters set to 0 just before and read just after: the same status as
+    its float64 run, pinf_l1 <= 1e-5 and gap <= 5e-5 recomputed in float64
+    on the host, pobj within F32_POBJ_RTOL of the float64 run's, every
+    kernel of the path launched on float32 values and no plain version run;
+    then a warm solve.  ``paths``: (key, name, file, flags, kernels, float64
+    result, blocks).  Returns {key: float32 launches per kernel}."""
+    out = {}
+    for key, name, path, flags, launched, res64, n_blocks in paths:
+        tag = f"{name}-f32"
+        _, res, counts32 = run_main_path(
+            tag, path, (*flags, *F32_FLAGS), launched, (res64.status,),
+            (1e-5, 5e-5, 5e-5), dev, n_blocks=n_blocks, profile=False,
+            f32=True, pobj_rtol=F32_DEVICE_POBJ_RTOL)
+        rel = abs(res.pobj - res64.pobj) / abs(res64.pobj)
+        print(f"[{tag}] pobj {res.pobj:.10e} against the float64 run's "
+              f"{res64.pobj:.10e}: {rel:.3e} relative (tol "
+              f"{F32_POBJ_RTOL:g}); solve {res.solve_time:.3f} s against "
+              f"{res64.solve_time:.3f} s in float64", flush=True)
+        require(rel <= F32_POBJ_RTOL,
+                f"{tag}: float32 pobj differs from the float64 run's")
+        out[key] = counts32
+    return out
+
+
+def theta_solve(spec: str, limit_s: float, profile: bool, logfile,
+                dtype: str = "auto") -> int:
+    """``--theta-solve``: one theta instance through the CLI on the card in
+    the compute dtype ``dtype``, whatever its status; the solver's rows go
+    to ``logfile`` if one is named.  With ``profile``, a window of the solve
+    under the profiler instead."""
     from ltr_lowrank_sdp_torch import cli
     from ltr_lowrank_sdp_torch.config import SolverParams
     from ltr_lowrank_sdp_torch.ops import kernels as K
@@ -1526,7 +1915,8 @@ def theta_solve(spec: str, limit_s: float, profile: bool, logfile) -> int:
         print(f"[theta-profile] theta_sdpa({n}, {deg}, {seed}), the window: "
               f"a solve with a time limit of {limit_s:g} s")
         profile_solve(Solver(theta_problem(n, deg, seed),
-                             SolverParams(time_sec_limit=limit_s)),
+                             SolverParams(time_sec_limit=limit_s,
+                                          dtype=dtype)),
                       "theta-profile")
         return 0
     log_flags = ("--logfile", logfile) if logfile else ()
@@ -1538,11 +1928,11 @@ def theta_solve(spec: str, limit_s: float, profile: bool, logfile) -> int:
         with open(os.devnull, "w") as null, \
                 contextlib.redirect_stdout(null):
             res = cli.main([path, "--timeSecLimit", str(limit_s),
-                            *log_flags])
+                            "--dtype", dtype, *log_flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    print(f"[theta-solve] theta_sdpa({n}, {deg}, {seed}) time limit "
-          f"{limit_s:g} s: status {res.status.value}, final ranks "
+    print(f"[theta-solve] theta_sdpa({n}, {deg}, {seed}) dtype {dtype} "
+          f"time limit {limit_s:g} s: status {res.status.value}, final ranks "
           f"{res.final_ranks}, ALM outer {res.alm_outer_iters} inner "
           f"{res.alm_inner_iters}, ADMM {res.admm_iters}, CG "
           f"{res.cg_iters}, host syncs {res.host_syncs}, pobj "
@@ -1566,9 +1956,12 @@ def main() -> int:
         ap.add_argument("--time-limit", type=float, default=600.0)
         ap.add_argument("--profile", action="store_true")
         ap.add_argument("--logfile", default=None)
+        ap.add_argument("--dtype", default="auto",
+                        choices=["auto", "float32", "float64"],
+                        help="the solver's compute dtype (auto: float64)")
         args = ap.parse_args()
         return theta_solve(args.theta_solve, args.time_limit, args.profile,
-                           args.logfile)
+                           args.logfile, args.dtype)
     card = card_line()
     print(f"[card] {card}")
     print(f"[versions] python {sys.version.split()[0]} torch "
@@ -1637,7 +2030,6 @@ def main() -> int:
         K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, tn, tm, dev), dev,
         (19,), 19, "random+trace")
     check_long_segments(K, trace_entries, dev, 19, "random+trace")
-    del mc_cone
 
     # the Lovasz theta cone at the width of Mittelmann theta12: dense C, one
     # 600-entry trace segment, one entry per edge
@@ -1679,15 +2071,23 @@ def main() -> int:
     big_lp = canonicalize(multiblock_lp_sdpa((2,), 10 * MB_M, 10 * MB_NLP,
                                              1)).lp
     check_lp_kernels(K, LPOps(big_lp, dev).entries, dev, "10x LP")
-    del mb_lp, big_lp
+
+    # the float32 kernel phase: K1-K8 on float32 values at the same shapes
+    t = time.perf_counter()
+    report_f32 = check_f32_kernels(K, cone, mc_cone, mb_lp.entries, dev)
+    print(f"[time] float32 kernel phase {time.perf_counter() - t:.1f} s",
+          flush=True)
+    del mb_lp, big_lp, mc_cone
 
     optimal = (SolverStatus.PRIMAL_DUAL_OPTIMAL, SolverStatus.PRIMAL_OPTIMAL)
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 4: the MaxCut main path through the CLI ------------- #
         path = os.path.join(tmp, f"delaunay_n14_seed{MAIN_SEED}.mat")
         scipy.io.savemat(path, {"Problem": {"A": adj}})
-        counts, _ = run_main_path("main", path, MAIN_FLAGS, MAXCUT_KERNELS,
-                                  optimal[:1], (1e-5, 1e-5, 1e-5), dev)
+        maxcut_path = path
+        counts, main_res, _ = run_main_path(
+            "main", path, MAIN_FLAGS, MAXCUT_KERNELS, optimal[:1],
+            (1e-5, 1e-5, 1e-5), dev)
 
         # ---- phase 5: the sparse-cone main path through the CLI -------- #
         path = os.path.join(tmp, f"mc{2 * MC_N1}.dat-s")
@@ -1695,9 +2095,10 @@ def main() -> int:
         write_sdpa(path, mc_data)
         print(f"[matcomp] wrote {os.path.getsize(path) / 1e6:.1f} MB .dat-s "
               f"in {time.perf_counter() - t:.1f} s", flush=True)
-        mc_counts, _ = run_main_path("matcomp", path, MC_FLAGS,
-                                     SPARSE_KERNELS, optimal,
-                                     (1e-5, 5e-5, 5e-5), dev)
+        mc_path = path
+        mc_counts, mc_res, _ = run_main_path("matcomp", path, MC_FLAGS,
+                                             SPARSE_KERNELS, optimal,
+                                             (1e-5, 5e-5, 5e-5), dev)
 
         # ---- phase 6: the multi-block + LP main path through the CLI --- #
         path = os.path.join(tmp, "multiblock_lp.dat-s")
@@ -1705,7 +2106,8 @@ def main() -> int:
         write_sdpa(path, mb_data)
         print(f"[multiblock_lp] wrote {os.path.getsize(path) / 1e6:.1f} MB "
               f".dat-s in {time.perf_counter() - t:.1f} s", flush=True)
-        mb_counts, mb_res = run_main_path(
+        mb_path = path
+        mb_counts, mb_res, _ = run_main_path(
             "multiblock_lp", path, (), MB_KERNELS, optimal,
             (1e-5, 5e-5, 5e-5), dev, n_blocks=len(MB_DIMS))
         for k, (c, r0, r) in enumerate(zip(mb_prob.cones, mb_ranks,
@@ -1716,7 +2118,7 @@ def main() -> int:
         # ---- phase 7: the Lovasz theta path through the CLI ------------ #
         path = os.path.join(tmp, f"theta{THETA_N}.dat-s")
         write_sdpa(path, th_data)
-        th_counts, th_res = run_main_path(
+        th_counts, th_res, _ = run_main_path(
             "theta", path, ("--timeSecLimit", str(THETA_LIMIT_S)),
             DENSE_KERNELS, optimal, (1e-5, 5e-5, 5e-5), dev, repeat=False)
         require(th_res.solve_time <= THETA_LIMIT_S,
@@ -1725,6 +2127,18 @@ def main() -> int:
             check_dense_cone(K, th_prob.cones[0], dev, th_res.final_ranks,
                              th_res.final_ranks[0], f"theta{THETA_N} final",
                              relabel=True)
+
+        # ---- phase 7b: the three main paths in float32 ----------------- #
+        t7b = time.perf_counter()
+        f32_counts = run_f32_paths(
+            (("maxcut", "main", maxcut_path, MAIN_FLAGS, MAXCUT_KERNELS,
+              main_res, 1),
+             ("matcomp", "matcomp", mc_path, MC_FLAGS, SPARSE_KERNELS,
+              mc_res, 1),
+             ("multiblock_lp", "multiblock_lp", mb_path, (), MB_KERNELS,
+              mb_res, len(MB_DIMS))), dev)
+        print(f"[time] phase 7b (float32 main paths) "
+              f"{time.perf_counter() - t7b:.1f} s", flush=True)
 
     # ---- phase 8: GPU and CPU agree on small problems ------------------ #
     for tag, small, params in (
@@ -1852,6 +2266,15 @@ def main() -> int:
     del gnn_model
     torch.cuda.empty_cache()
     check_train_step(K, dev)
+    # the GNN widths the tuner samples: K9-K12 on theta_n300_d75's edges at
+    # every GNN_WIDTHS / POOL_WIDTHS, and one step at --hidden-dim 96
+    t = time.perf_counter()
+    with np.load(os.path.join(DATASET, "proc", f"{SERVE_GRAPH}.npz")) as z:
+        width_rows = check_gnn_widths(
+            K, torch.tensor(z["edge_index"], dtype=torch.long),
+            int(z["x"].shape[0]), dev)
+    check_train_step(K, dev, hidden_dim=WIDE_HIDDEN)
+    print(f"[time] width phase {time.perf_counter() - t:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = run_train_path(K, dev, tmp)
     print(f"[time] phase 12 (training) {time.perf_counter() - t12:.1f} s",
@@ -1886,6 +2309,20 @@ def main() -> int:
             "replaces": k.replaces,
             **by_path[first_path[name]],
             "by_path": by_path})
+        if name in width_rows:
+            # K9-K12 at the GNN widths (training instances, dropout on)
+            kernels[-1]["widths"] = width_rows[name]
+    # K1-K8 on float32 values: launches from the float32 run of the path
+    # whose shapes the row was measured at
+    for name, row in report_f32.items():
+        k = K.KERNELS[name]
+        kernels.append({
+            "name": f"{name}[float32]", "route": "cuda",
+            "source": f"ltr_lowrank_sdp_torch/csrc/{name}.cu",
+            "replaces": k.replaces,
+            "launches": f32_counts[first_path[name]][name], **row,
+            "launches_by_path": {path: c[name]
+                                 for path, c in f32_counts.items()}})
     for row in UNPORTED:
         print(f"[unported] {row}")
     for row in LOOPS:

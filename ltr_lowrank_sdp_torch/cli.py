@@ -60,8 +60,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--disableOracle", action="store_true")
     ap.add_argument("--dtype", default="auto",
                     choices=["auto", "float32", "float64"],
-                    help="auto = float64 on every device; float32 is not "
-                         "ported yet")
+                    help="compute dtype. auto = float64 on every device; "
+                         "float32 stores the factors, the operators and "
+                         "their kernels' arithmetic in float32 (the JAX "
+                         "package's TPU configuration), accumulates the "
+                         "objective and the gap in float64, and polishes "
+                         "an iterate stuck just above the tolerance with a "
+                         "bounded float64 ADMM")
     ap.add_argument("--seed", type=int, default=925)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the solve runs (default: the first GPU)")
@@ -155,7 +160,9 @@ def main(argv=None):
     print(f"\t 6.Dual Infeasibility(Inf)      : {res.dinf_inf:10.6e}")
     print("-" * 71)
     print(f"status: {res.status.value}  solve_time: {res.solve_time:.3f}s  "
-          f"final ranks: {res.final_ranks}  host syncs: {res.host_syncs}")
+          f"final ranks: {res.final_ranks}  host syncs: {res.host_syncs}"
+          + (f"  float64 polish runs: {res.polish_runs}"
+             if res.polish_runs else ""))
     return res
 
 

@@ -8,9 +8,10 @@ the rank-schedule flags of the released binary (``--rankSchedule``,
 
 The one semantic difference: ``dtype="auto"`` resolves to float64 on every
 device, because the H100 has native FP64 (the JAX package picks float32 on a
-TPU only because the TPU emulates float64).  The JAX package's float32-only
-knobs (``host_f64_verify``, ``f64_polish``) have no effect on this port's
-float64 path and are left out until the float32 slice.
+TPU only because the TPU emulates float64).  ``dtype="float32"`` runs the JAX
+package's TPU configuration, and its float32-only knobs ``host_f64_verify``
+and ``f64_polish`` act on it as they do there; under float64 they do
+nothing.
 """
 
 from __future__ import annotations
@@ -94,14 +95,23 @@ class SolverParams:
 
     # --- knobs of the JAX package (no reference equivalent) ---
     dtype: str = "auto"              # compute dtype; "auto" and "float64"
-                                     # mean float64 on every device, float32
-                                     # is a later slice of the port
+                                     # mean float64 on every device;
+                                     # "float32" stores and computes in
+                                     # float32 and accumulates the objective
+                                     # and gap in float64 (ops/compsum.py)
+    host_f64_verify: bool = False    # float32: re-check a near-converged
+                                     # ADMM iterate and recompute the final
+                                     # DIMACS errors in float64 on the host
+                                     # (a full factor transfer per check)
     return_factors: bool = True      # include U/V/dual in SolveResult (a
                                      # device->host transfer of the full
                                      # factors; benchmarks that only need
                                      # metrics turn this off)
     cg_restart_freq: int = 20
     cg_max_iter: int = 800
+    f64_polish: bool = True          # float32: when ADMM stops near the
+                                     # tolerance without certifying, rerun a
+                                     # bounded float64 ADMM from the iterate
     constr_refresh_every: int = 25   # recompute A(RR^T) fresh every k inner its
     admm_jacobi: bool = False        # multi-block ADMM: Jacobi (parallel) cone
                                      # sweep instead of Gauss-Seidel, each

@@ -1,5 +1,5 @@
 // K5 coo_contract_segsum: the constraint values A(sym(U V^T)) of a cone with
-// general sparse constraint matrices, float64.
+// general sparse constraint matrices, float64 or float32.
 //
 // The cone's constraint entries are the upper triangles (row <= col) of the
 // A_i, sorted by constraint id on the host, so the entries of constraint i
@@ -46,6 +46,11 @@
 // tree.  The split is fixed by the layout, so the result does not depend on
 // timing.  A layout with no long segment is one launch as before.  A
 // one-entry segment at r < 32 leaves lanes idle, accepted here.
+//
+// Value type: a template on T.  float32 loads, multiplies and accumulates in
+// float32, as XLA does on the TPU (the reference reduces these constraint
+// values in the compute type; only the objective and the gap go through
+// float64); the bytes of the factors, coef and the outputs halve.
 
 #include <cuda_runtime.h>
 
@@ -54,20 +59,22 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
   return v;
 }
 
 // Adds entry (i, j)'s share over this lane's columns lane, lane + 32, ... to
 // the running sums: s1 += ck * e1, s2 += ck * e2 (pair mode only).
+template <typename T>
 __device__ __forceinline__ void add_entry(int mode,
-                                          const double* __restrict__ U,
-                                          const double* __restrict__ V,
+                                          const T* __restrict__ U,
+                                          const T* __restrict__ V,
                                           long long i, long long j, int r,
-                                          int lane, double ck, double& s1,
-                                          double& s2) {
-  double a = 0.0;
+                                          int lane, T ck, T& s1,
+                                          T& s2) {
+  T a = T(0);
   if (mode == 1) {
     for (int c = lane; c < r; c += 32) a += U[i + c] * U[j + c];
     s1 += ck * a;
@@ -79,20 +86,20 @@ __device__ __forceinline__ void add_entry(int mode,
       for (int c = lane; c < r; c += 32) {
         a += U[i + c] * V[j + c] + U[j + c] * V[i + c];
       }
-      s1 += ck * (0.5 * a);
+      s1 += ck * (T(0.5) * a);
     }
   } else {
-    double d = 0.0;
+    T d = T(0);
     if (i == j) {
       for (int c = lane; c < r; c += 32) {
-        const double vi = V[i + c];
-        a += 2.0 * (U[i + c] * vi);
+        const T vi = V[i + c];
+        a += T(2) * (U[i + c] * vi);
         d += vi * vi;
       }
     } else {
       for (int c = lane; c < r; c += 32) {
-        const double vi = V[i + c];
-        const double vj = V[j + c];
+        const T vi = V[i + c];
+        const T vj = V[j + c];
         a += U[i + c] * vj + U[j + c] * vi;
         d += vi * vj;
       }
@@ -104,13 +111,14 @@ __device__ __forceinline__ void add_entry(int mode,
 
 // The whole warp walks entries start .. end in order and leaves the reduced
 // sums in lane 0's s1 (and s2 in pair mode).
+template <typename T>
 __device__ __forceinline__ void walk_entries(
     int mode, const int* __restrict__ rows, const int* __restrict__ cols,
-    const double* __restrict__ coef, const double* __restrict__ U,
-    const double* __restrict__ V, int start, int end, int r, int lane,
-    double& s1, double& s2) {
-  s1 = 0.0;
-  s2 = 0.0;
+    const T* __restrict__ coef, const T* __restrict__ U,
+    const T* __restrict__ V, int start, int end, int r, int lane,
+    T& s1, T& s2) {
+  s1 = T(0);
+  s2 = T(0);
   for (int k = start; k < end; ++k) {
     add_entry(mode, U, V, static_cast<long long>(rows[k]) * r,
               static_cast<long long>(cols[k]) * r, r, lane, coef[k], s1, s2);
@@ -125,14 +133,15 @@ __device__ __forceinline__ void walk_entries(
 // of warp pick their entry range and their output slot first and then share
 // one copy of the walk, which keeps the register count of the layout with no
 // long segment.
+template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 coo_contract_segsum_kernel(
     const int* __restrict__ seg_ptr, const int* __restrict__ rows,
-    const int* __restrict__ cols, const double* __restrict__ coef,
-    const double* __restrict__ U, const double* __restrict__ V, int m, int r,
-    int mode, double* __restrict__ out1, double* __restrict__ out2,
+    const int* __restrict__ cols, const T* __restrict__ coef,
+    const T* __restrict__ U, const T* __restrict__ V, int m, int r,
+    int mode, T* __restrict__ out1, T* __restrict__ out2,
     int seg_blocks, int long_thresh, const int* __restrict__ chunk_ptr,
-    int n_chunks, double* __restrict__ part1, double* __restrict__ part2) {
+    int n_chunks, T* __restrict__ part1, T* __restrict__ part2) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int start, end;
@@ -151,7 +160,7 @@ coo_contract_segsum_kernel(
     start = chunk_ptr[2 * slot];
     end = chunk_ptr[2 * slot + 1];
   }
-  double s1, s2;
+  T s1, s2;
   walk_entries(mode, rows, cols, coef, U, V, start, end, r, lane, s1, s2);
   if (lane == 0) {
     (is_chunk ? part1 : out1)[slot] = s1;
@@ -161,20 +170,21 @@ coo_contract_segsum_kernel(
 
 // One warp per long segment: the partials of its chunks long_ptr[l] ..
 // long_ptr[l + 1], lanes striding over them, one shuffle tree.
+template <typename T>
 __global__ void coo_long_reduce_kernel(const int* __restrict__ long_seg,
                                        const int* __restrict__ long_ptr,
                                        int n_long, int mode,
-                                       const double* __restrict__ part1,
-                                       const double* __restrict__ part2,
-                                       double* __restrict__ out1,
-                                       double* __restrict__ out2) {
+                                       const T* __restrict__ part1,
+                                       const T* __restrict__ part2,
+                                       T* __restrict__ out1,
+                                       T* __restrict__ out2) {
   const int lane = threadIdx.x & 31;
   const int l = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (l >= n_long) return;
   const int start = long_ptr[l];
   const int end = long_ptr[l + 1];
-  double s1 = 0.0;
-  double s2 = 0.0;
+  T s1 = T(0);
+  T s2 = T(0);
   for (int c = start + lane; c < end; c += 32) {
     s1 += part1[c];
     if (mode == 2) s2 += part2[c];
@@ -187,16 +197,48 @@ __global__ void coo_long_reduce_kernel(const int* __restrict__ long_seg,
   }
 }
 
+template <typename T>
+int launch(const void* seg_ptr, const void* rows, const void* cols,
+           const void* coef, const void* U, const void* V, int m, int r,
+           int mode, void* out1, void* out2, int long_thresh,
+           const void* chunk_ptr, int n_chunks, const void* long_seg,
+           const void* long_ptr, int n_long, void* part1, void* part2,
+           cudaStream_t s) {
+  const int seg_blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int chunk_blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const dim3 block(kWarpsPerBlock * 32);
+  coo_contract_segsum_kernel<T>
+      <<<dim3(seg_blocks + chunk_blocks), block, 0, s>>>(
+          static_cast<const int*>(seg_ptr), static_cast<const int*>(rows),
+          static_cast<const int*>(cols), static_cast<const T*>(coef),
+          static_cast<const T*>(U), static_cast<const T*>(V), m, r, mode,
+          static_cast<T*>(out1), static_cast<T*>(out2), seg_blocks,
+          long_thresh, static_cast<const int*>(chunk_ptr), n_chunks,
+          static_cast<T*>(part1), static_cast<T*>(part2));
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_chunks == 0) return err;
+  coo_long_reduce_kernel<T><<<dim3((n_long + kWarpsPerBlock - 1) /
+                                   kWarpsPerBlock),
+                              block, 0, s>>>(
+      static_cast<const int*>(long_seg), static_cast<const int*>(long_ptr),
+      n_long, mode, static_cast<const T*>(part1),
+      static_cast<const T*>(part2), static_cast<T*>(out1),
+      static_cast<T*>(out2));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // mode: 0 single, 1 single with U is V (V is not read), 2 pair (out2
 // required).  chunk_ptr holds (start, end) per chunk; long_seg / long_ptr
 // name the cut segments and their chunk ranges; part1 / part2 are scratch of
-// n_chunks doubles (part2 in pair mode).  n_chunks == 0 is the layout with no
-// long segment.  Returns the cudaGetLastError() code of the launches.
+// n_chunks values (part2 in pair mode).  n_chunks == 0 is the layout with no
+// long segment.  f32 != 0: coef, U, V, the outputs and the partials are
+// float32, else float64.  Returns the cudaGetLastError() code of the
+// launches.
 extern "C" int ltr_coo_contract_segsum(
-    const void* seg_ptr, const void* rows, const void* cols, const void* coef,
-    const void* U, const void* V, int m, int r, int mode, void* out1,
+    int f32, const void* seg_ptr, const void* rows, const void* cols,
+    const void* coef, const void* U, const void* V, int m, int r, int mode, void* out1,
     void* out2, int long_thresh, const void* chunk_ptr, int n_chunks,
     const void* long_seg, const void* long_ptr, int n_long, void* part1,
     void* part2, void* stream) {
@@ -211,24 +253,10 @@ extern "C" int ltr_coo_contract_segsum(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int seg_blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int chunk_blocks = (n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const dim3 block(kWarpsPerBlock * 32);
-  coo_contract_segsum_kernel<<<dim3(seg_blocks + chunk_blocks), block, 0, s>>>(
-      static_cast<const int*>(seg_ptr), static_cast<const int*>(rows),
-      static_cast<const int*>(cols), static_cast<const double*>(coef),
-      static_cast<const double*>(U), static_cast<const double*>(V), m, r,
-      mode, static_cast<double*>(out1), static_cast<double*>(out2),
-      seg_blocks, long_thresh, static_cast<const int*>(chunk_ptr), n_chunks,
-      static_cast<double*>(part1), static_cast<double*>(part2));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || n_chunks == 0) return err;
-  coo_long_reduce_kernel<<<dim3((n_long + kWarpsPerBlock - 1) /
-                                kWarpsPerBlock),
-                           block, 0, s>>>(
-      static_cast<const int*>(long_seg), static_cast<const int*>(long_ptr),
-      n_long, mode, static_cast<const double*>(part1),
-      static_cast<const double*>(part2), static_cast<double*>(out1),
-      static_cast<double*>(out2));
-  return static_cast<int>(cudaGetLastError());
+  return f32 ? launch<float>(seg_ptr, rows, cols, coef, U, V, m, r, mode,
+                             out1, out2, long_thresh, chunk_ptr, n_chunks,
+                             long_seg, long_ptr, n_long, part1, part2, s)
+             : launch<double>(seg_ptr, rows, cols, coef, U, V, m, r, mode,
+                              out1, out2, long_thresh, chunk_ptr, n_chunks,
+                              long_seg, long_ptr, n_long, part1, part2, s);
 }

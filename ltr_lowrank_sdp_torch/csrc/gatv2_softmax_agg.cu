@@ -28,17 +28,22 @@
 // reductions; here every edge is read once and nothing per edge is written.
 //
 // Bound on the card: memory.  It must read the w_src rows it gathers (at most
-// N rows of 256 bytes, reused through L2), w_dst, the edge terms `we` (E rows
-// of 256 bytes: 635 MB on the largest dataset graph, the bulk of the
-// traffic), the CSR and write out: about 12 flops per 256-byte edge row, far
-// below the FP32 ridge point.
+// N rows of 4 H C bytes, reused through L2), w_dst, the edge terms `we` (E
+// rows of 4 H C bytes: 635 MB on the largest dataset graph at H C = 64, the
+// bulk of the traffic), the CSR and write out: about 12 flops per edge row
+// element, far below the FP32 ridge point.
 //
-// Design: one warp per destination node, two channels per lane (64 = H * C
-// channels), the C / 2 lanes of one head reduce the att dot by xor shuffles.
-// The lanes load 32 (src, erow) pairs at a time and broadcast them by
-// shuffles.  The softmax is an online (running-max) softmax in one pass over
-// the edges: the accumulators are rescaled whenever the running max grows.
-// No atomics: the same bits on every call.
+// Design: one warp per destination node.  The H heads of a row split the
+// warp's lanes into groups of lph = 32 / (H rounded up to a power of two)
+// lanes; lane q of head h holds channels q*P .. q*P + P - 1 of the head (those
+// below C), P = ceil(C / lph) a template from 1 to 8, so H * C <= 256 (lanes
+// past the last head idle).  Each lane forms its part of the att dot, and
+// xor shuffles within the head's power-of-two lane group add the parts, for
+// any C (12, 20 or 24 channels as well as 64).  The lanes load 32 (src, erow)
+// pairs at a time and broadcast them by shuffles.  The softmax is an online
+// (running-max) softmax in one pass over the edges: the accumulators are
+// rescaled whenever the running max grows.  No atomics: the same bits on
+// every call.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +51,6 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kChannels = 64;   // H * C: two channels per lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float leaky(float v, float slope) {
@@ -55,47 +59,60 @@ __device__ __forceinline__ float leaky(float v, float slope) {
 
 // kTrain compiles the keep-scale and the lse output in; the serve path's
 // instance has neither, so it keeps its registers and its speed.
-template <bool kTrain>
+template <int P, bool kTrain>
 __global__ void gatv2_softmax_agg_kernel(
     const int* __restrict__ indptr, const int* __restrict__ src,
-    const int* __restrict__ erow, const float2* __restrict__ w_src,
-    const float2* __restrict__ w_dst, const float2* __restrict__ we,
-    const float2* __restrict__ we_loop, const float2* __restrict__ att,
-    const float* __restrict__ keep, int n, int n_real, int lanes_per_head,
-    float slope, float2* __restrict__ out, float* __restrict__ lse) {
-  constexpr int kRow = kChannels / 2;   // float2 per row
+    const int* __restrict__ erow, const float* __restrict__ w_src,
+    const float* __restrict__ w_dst, const float* __restrict__ we,
+    const float* __restrict__ we_loop, const float* __restrict__ att,
+    const float* __restrict__ keep, int n, int n_real, int heads, int ch,
+    int lph, float slope, float* __restrict__ out, float* __restrict__ lse) {
   const int lane = threadIdx.x & 31;
   const long long i =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (i >= n) return;
-  const float2 xd = w_dst[i * kRow + lane];
-  const float2 a = att[lane];
-  const float2 el = we_loop[lane];
-  const int heads = 32 / lanes_per_head;
-  const int head = lane / lanes_per_head;
+  const int hc = heads * ch;
+  const int head = lane / lph;
+  const int q = (lane % lph) * P;          // first channel within the head
+  const bool live = head < heads;
+  const int c0 = head * ch + q;             // first channel within the row
+  const int cnt = live ? max(0, min(P, ch - q)) : 0;
+  float xd[P], a[P], el[P], acc[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const bool ok = p < cnt;
+    xd[p] = ok ? w_dst[i * hc + c0 + p] : 0.f;
+    a[p] = ok ? att[c0 + p] : 0.f;
+    el[p] = ok ? we_loop[c0 + p] : 0.f;
+    acc[p] = 0.f;
+  }
   float m = -INFINITY;
   float l = 0.f;
-  float acc0 = 0.f;
-  float acc1 = 0.f;
   const int beg = indptr[i];
   const int end = indptr[i + 1];
   for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);
+    const int cnt_e = min(32, end - base);
     int my_src = 0;
     int my_row = 0;
-    if (lane < cnt) {
+    if (lane < cnt_e) {
       my_src = src[base + lane];
       my_row = erow[base + lane];
     }
-    for (int k = 0; k < cnt; ++k) {
+    for (int k = 0; k < cnt_e; ++k) {
       const int j = __shfl_sync(kFull, my_src, k);
       const int r = __shfl_sync(kFull, my_row, k);
-      const float2 xs = w_src[static_cast<long long>(j) * kRow + lane];
-      const float2 ev =
-          r < n_real ? we[static_cast<long long>(r) * kRow + lane] : el;
-      float s = a.x * leaky(xs.x + xd.x + ev.x, slope) +
-                a.y * leaky(xs.y + xd.y + ev.y, slope);
-      for (int off = lanes_per_head >> 1; off > 0; off >>= 1) {
+      const float* xs_row = w_src + static_cast<long long>(j) * hc + c0;
+      const float* ev_row = we + static_cast<long long>(r) * hc + c0;
+      float xs[P];
+      float s = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const bool ok = p < cnt;
+        xs[p] = ok ? xs_row[p] : 0.f;
+        const float ev = ok ? (r < n_real ? ev_row[p] : el[p]) : 0.f;
+        s += a[p] * leaky(xs[p] + xd[p] + ev, slope);
+      }
+      for (int off = lph >> 1; off > 0; off >>= 1) {
         s += __shfl_xor_sync(kFull, s, off);
       }
       const float m_new = fmaxf(m, s);
@@ -103,50 +120,85 @@ __global__ void gatv2_softmax_agg_kernel(
       // isfinite guard on the segment max does
       const float mu = m_new == -INFINITY ? 0.f : m_new;
       const float scale = expf(m - mu);
-      const float p = expf(s - mu);
+      const float pe = expf(s - mu);
       const float pk =
-          kTrain && keep
-              ? p * keep[static_cast<long long>(base + k) * heads + head]
-              : p;
-      l = l * scale + p;
-      acc0 = acc0 * scale + pk * xs.x;
-      acc1 = acc1 * scale + pk * xs.y;
+          kTrain && keep && live
+              ? pe * keep[static_cast<long long>(base + k) * heads + head]
+              : pe;
+      l = l * scale + pe;
+#pragma unroll
+      for (int p = 0; p < P; ++p) acc[p] = acc[p] * scale + pk * xs[p];
       m = m_new;
     }
   }
   const float inv = 1.f / (l + 1e-16f);
-  out[i * kRow + lane] = make_float2(acc0 * inv, acc1 * inv);
-  if (kTrain && lse && lane % lanes_per_head == 0) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p < cnt) out[i * hc + c0 + p] = acc[p] * inv;
+  }
+  if (kTrain && lse && live && q == 0) {
     lse[i * heads + head] = (m == -INFINITY ? 0.f : m) + logf(l + 1e-16f);
   }
 }
 
+template <int P>
+int launch(const void* indptr, const void* src, const void* erow,
+           const void* w_src, const void* w_dst, const void* we,
+           const void* we_loop, const void* att, const void* keep, int n,
+           int n_real, int heads, int ch, int lph, float slope, void* out,
+           void* lse, cudaStream_t s) {
+  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  auto kernel = keep || lse ? gatv2_softmax_agg_kernel<P, true>
+                            : gatv2_softmax_agg_kernel<P, false>;
+  kernel<<<grid, block, 0, s>>>(
+      static_cast<const int*>(indptr), static_cast<const int*>(src),
+      static_cast<const int*>(erow), static_cast<const float*>(w_src),
+      static_cast<const float*>(w_dst), static_cast<const float*>(we),
+      static_cast<const float*>(we_loop), static_cast<const float*>(att),
+      static_cast<const float*>(keep), n, n_real, heads, ch, lph, slope,
+      static_cast<float*>(out), static_cast<float*>(lse));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// heads * channels must be 64 and channels (per head) an even power of two
-// up to 64; the wrapper checks shapes.  keep and lse may be null.  Returns
-// the cudaGetLastError() code of the launch.
+// heads in 1 .. 32 and channels per head with ceil(channels / lph) <= 8,
+// lph = 32 / (heads rounded up to a power of two): heads * channels <= 256
+// for a power-of-two head count.  The wrapper checks shapes.  keep and lse
+// may be null.  Returns the cudaGetLastError() code of the launch.
 extern "C" int ltr_gatv2_softmax_agg(const void* indptr, const void* src,
                                      const void* erow, const void* w_src,
                                      const void* w_dst, const void* we,
                                      const void* we_loop, const void* att,
                                      const void* keep, int n, int n_real,
-                                     int channels, float slope, void* out,
-                                     void* lse, void* stream) {
+                                     int heads, int channels, float slope,
+                                     void* out, void* lse, void* stream) {
   if (n <= 0) return 0;
-  if (channels < 2 || channels > kChannels || (channels & (channels - 1))) {
+  int hp = 1;
+  while (hp < heads) hp <<= 1;
+  if (heads < 1 || hp > 32 || channels < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  auto kernel = keep || lse ? gatv2_softmax_agg_kernel<true>
-                            : gatv2_softmax_agg_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(indptr), static_cast<const int*>(src),
-      static_cast<const int*>(erow), static_cast<const float2*>(w_src),
-      static_cast<const float2*>(w_dst), static_cast<const float2*>(we),
-      static_cast<const float2*>(we_loop), static_cast<const float2*>(att),
-      static_cast<const float*>(keep), n, n_real, channels / 2, slope,
-      static_cast<float2*>(out), static_cast<float*>(lse));
-  return static_cast<int>(cudaGetLastError());
+  const int lph = 32 / hp;
+  const int per_lane = (channels + lph - 1) / lph;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LTR_K9_CASE(P)                                                       \
+  case P:                                                                    \
+    return launch<P>(indptr, src, erow, w_src, w_dst, we, we_loop, att,     \
+                     keep, n, n_real, heads, channels, lph, slope, out, lse, \
+                     s);
+  switch (per_lane) {
+    LTR_K9_CASE(1)
+    LTR_K9_CASE(2)
+    LTR_K9_CASE(3)
+    LTR_K9_CASE(4)
+    LTR_K9_CASE(5)
+    LTR_K9_CASE(6)
+    LTR_K9_CASE(7)
+    LTR_K9_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LTR_K9_CASE
 }

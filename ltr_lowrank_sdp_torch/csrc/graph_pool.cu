@@ -32,6 +32,12 @@
 // (max score, exp-sum, weighted sum, sum, max, count at the max).  The second launch runs one
 // block per graph and combines its chunks' partials in chunk order.  No
 // atomics: the same bits on every call.  A graph with no node writes zeros.
+//
+// Width: each lane holds kPerLane channels of a row (lane, lane + 32, ...),
+// a template instantiated for kPerLane = 4 (D <= 128) and
+// 8 (D <= 256).  The chunk kernel's shared arrays come to 8 warps x kPerLane
+// x 32 channels x 4 bytes each, 32 KiB for the four of training at D = 256,
+// under the 48 KiB of static shared memory a block may use.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,8 +45,7 @@
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxPerLane = 4;     // D <= 128
-constexpr int kMaxD = 32 * kMaxPerLane;
+constexpr int kMaxD = 256;         // 8 channels per lane
 
 // partial layout per chunk: [m, l, wsum (D), xsum (D), xmax (D)], and xcnt
 // (D) in training; the serve path keeps the shorter stride
@@ -63,7 +68,7 @@ __device__ __forceinline__ void merge_max(float& xm, float& xc, float om,
 // kTrain compiles the keep-scale, the tie counts and the stats in; the serve
 // path's instances have none of them, so they keep their registers, shared
 // memory and speed.
-template <bool kTrain>
+template <int kPerLane, bool kTrain>
 __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
                                          const int* __restrict__ chunk_end,
                                          const float* __restrict__ x,
@@ -72,10 +77,13 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
                                          int d, float* __restrict__ part) {
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
-  __shared__ float sm_w[kWarps][kMaxD];
-  __shared__ float sm_s[kWarps][kMaxD];
-  __shared__ float sm_x[kWarps][kMaxD];
-  __shared__ float sm_c[kTrain ? kWarps : 1][kTrain ? kMaxD : 1];
+  constexpr int kD = 32 * kPerLane;
+  static_assert((kTrain ? 4 : 3) * kWarps * kD * sizeof(float) <= 48 * 1024,
+                "static shared memory of a block");
+  __shared__ float sm_w[kWarps][kD];
+  __shared__ float sm_s[kWarps][kD];
+  __shared__ float sm_x[kWarps][kD];
+  __shared__ float sm_c[kTrain ? kWarps : 1][kTrain ? kD : 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x;
@@ -83,12 +91,12 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
   const int end = chunk_end[c];
   float m = -INFINITY;
   float l = 0.f;
-  float ws[kMaxPerLane];
-  float xs[kMaxPerLane];
-  float xm[kMaxPerLane];
-  float xc[kMaxPerLane];
+  float ws[kPerLane];
+  float xs[kPerLane];
+  float xm[kPerLane];
+  float xc[kPerLane];
 #pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
+  for (int k = 0; k < kPerLane; ++k) {
     ws[k] = 0.f;
     xs[k] = 0.f;
     xm[k] = -INFINITY;
@@ -104,7 +112,7 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
     l = l * scale + p;
     const float* row = x + static_cast<long long>(node) * d;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
+    for (int k = 0; k < kPerLane; ++k) {
       const int ch = lane + 32 * k;
       if (ch < d) {
         const float v = row[ch];
@@ -124,7 +132,7 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
     sm_l[warp] = l;
   }
 #pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
+  for (int k = 0; k < kPerLane; ++k) {
     const int ch = lane + 32 * k;
     if (ch < d) {
       sm_w[warp][ch] = ws[k];
@@ -218,7 +226,7 @@ __global__ void graph_pool_combine_kernel(const int* __restrict__ graph_ptr,
 // graph_ptr (B+1), chunk_ptr (B+1: the chunks of graph b), chunk_start /
 // chunk_end (n_chunks), x (N, d), score (N,), keep (N,) or null, part
 // (n_chunks, 2 + 4 d) scratch (the serve path uses 2 + 3 d of each row's
-// room), out (B, 3 d), stats (B, 2) or null, ties (B, d) or null.  d <= 128.
+// room), out (B, 3 d), stats (B, 2) or null, ties (B, d) or null.  d <= 256.
 // Returns the cudaGetLastError() code of the launches.
 extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
                               const void* chunk_start, const void* chunk_end,
@@ -231,8 +239,10 @@ extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = keep || stats || ties;
   if (n_chunks > 0) {
-    auto chunks = train ? graph_pool_chunks_kernel<true>
-                        : graph_pool_chunks_kernel<false>;
+    auto chunks = d <= 128 ? (train ? graph_pool_chunks_kernel<4, true>
+                                    : graph_pool_chunks_kernel<4, false>)
+                           : (train ? graph_pool_chunks_kernel<8, true>
+                                    : graph_pool_chunks_kernel<8, false>);
     chunks<<<n_chunks, kWarps * 32, 0, s>>>(
         static_cast<const int*>(chunk_start),
         static_cast<const int*>(chunk_end), static_cast<const float*>(x),

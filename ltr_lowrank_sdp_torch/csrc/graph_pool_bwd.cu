@@ -29,6 +29,9 @@
 // per-graph terms are loaded once per warp.  Every output element is written
 // by one thread, the dot products are reduced by xor shuffles in a fixed
 // order: the same bits on every call.
+//
+// Width: each lane holds kPerLane channels of a row (lane, lane + 32, ...),
+// a template instantiated for kPerLane = 4 (D <= 128) and 8 (D <= 256).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,8 +39,7 @@
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxPerLane = 4;     // D <= 128
-constexpr int kMaxD = 32 * kMaxPerLane;
+constexpr int kMaxD = 256;         // 8 channels per lane
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -45,6 +47,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int kPerLane>
 __global__ void graph_pool_bwd_kernel(
     const int* __restrict__ graph_ptr, const int* __restrict__ chunk_start,
     const int* __restrict__ chunk_end, const int* __restrict__ chunk_graph,
@@ -63,13 +66,13 @@ __global__ void graph_pool_bwd_kernel(
   const float* go = dout + static_cast<long long>(b) * 3 * d;
   const float* o = out + static_cast<long long>(b) * 3 * d;
   const float* tb = ties + static_cast<long long>(b) * d;
-  float dmean[kMaxPerLane];
-  float dmax[kMaxPerLane];
-  float xmax[kMaxPerLane];
-  float dattn[kMaxPerLane];
+  float dmean[kPerLane];
+  float dmax[kPerLane];
+  float xmax[kPerLane];
+  float dattn[kPerLane];
   float dot = 0.f;
 #pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
+  for (int k = 0; k < kPerLane; ++k) {
     const int ch = lane + 32 * k;
     dmean[k] = dmax[k] = xmax[k] = dattn[k] = 0.f;
     if (ch < d) {
@@ -88,10 +91,10 @@ __global__ void graph_pool_bwd_kernel(
     const float kp = keep ? keep[node] : 1.f;
     const float* row = x + static_cast<long long>(node) * d;
     float* drow = dx + static_cast<long long>(node) * d;
-    float v[kMaxPerLane];
+    float v[kPerLane];
     float a = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
+    for (int k = 0; k < kPerLane; ++k) {
       const int ch = lane + 32 * k;
       v[k] = ch < d ? row[ch] : 0.f;
       a += dattn[k] * v[k];
@@ -99,7 +102,7 @@ __global__ void graph_pool_bwd_kernel(
     a = warp_sum(a);
     const float kw = kp * w;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
+    for (int k = 0; k < kPerLane; ++k) {
       const int ch = lane + 32 * k;
       if (ch < d) {
         drow[ch] = dmean[k] + (v[k] == xmax[k] ? dmax[k] : 0.f) +
@@ -115,7 +118,7 @@ __global__ void graph_pool_bwd_kernel(
 // graph_ptr (B+1), chunk_start / chunk_end / chunk_graph (n_chunks): K10's
 // chunk layout and the graph of each chunk; x (N, d), score (N,), keep (N,)
 // or null; out (B, 3 d), stats (B, 2), ties (B, d): K10's outputs; dout
-// (B, 3 d).  Outputs dx (N, d), dscore (N,).  d <= 128.  Returns the
+// (B, 3 d).  Outputs dx (N, d), dscore (N,).  d <= 256.  Returns the
 // cudaGetLastError() code of the launch.
 extern "C" int ltr_graph_pool_bwd(const void* graph_ptr,
                                   const void* chunk_start,
@@ -128,8 +131,9 @@ extern "C" int ltr_graph_pool_bwd(const void* graph_ptr,
                                   void* stream) {
   if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks <= 0) return 0;
-  graph_pool_bwd_kernel<<<n_chunks, kWarps * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = d <= 128 ? graph_pool_bwd_kernel<4>
+                         : graph_pool_bwd_kernel<8>;
+  kernel<<<n_chunks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(graph_ptr),
       static_cast<const int*>(chunk_start), static_cast<const int*>(chunk_end),
       static_cast<const int*>(chunk_graph), static_cast<const float*>(x),

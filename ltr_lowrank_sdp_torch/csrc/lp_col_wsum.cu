@@ -1,6 +1,6 @@
 // K8 lp_col_wsum: the weighted column sums of the LP cone,
 //   out[j] = c0 * c[j] + sum_{e: col_e = j} val_e * w[cid_e],
-// the LP analog of (c0 C + A*(w)), float64.
+// the LP analog of (c0 C + A*(w)), float64 or float32.
 //
 // The LP cone's entries are sorted by column on the host into a CSC: the
 // entries of column j are col_ptr[j] .. col_ptr[j+1] of (cid, val), in the
@@ -23,6 +23,9 @@
 // atomics, a fixed sum order, the same bits on every run; a column with no
 // entry writes c0 * c[j].  A column with very many entries is one thread's
 // serial loop, accepted here.
+//
+// Value type: a template on T.  float32 loads, multiplies and accumulates in
+// float32, as XLA does on the TPU; the value bytes halve.
 
 #include <cuda_runtime.h>
 
@@ -30,35 +33,48 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename T>
 __global__ void lp_col_wsum_kernel(const int* __restrict__ col_ptr,
                                    const int* __restrict__ cid,
-                                   const double* __restrict__ val,
-                                   const double* __restrict__ w,
-                                   const double* __restrict__ c, double c0,
-                                   int n_cols, double* __restrict__ out) {
+                                   const T* __restrict__ val,
+                                   const T* __restrict__ w,
+                                   const T* __restrict__ c, T c0,
+                                   int n_cols, T* __restrict__ out) {
   const long long j =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (j >= n_cols) return;
   const int start = col_ptr[j];
   const int end = col_ptr[j + 1];
-  double s = 0.0;
+  T s = T(0);
   for (int k = start; k < end; ++k) s += val[k] * w[cid[k]];
   out[j] = c0 * c[j] + s;
 }
 
-}  // namespace
-
-// Returns the cudaGetLastError() code of the launch.
-extern "C" int ltr_lp_col_wsum(const void* col_ptr, const void* cid,
-                               const void* val, const void* w, const void* c,
-                               double c0, int n_cols, void* out,
-                               void* stream) {
-  if (n_cols <= 0) return 0;
+template <typename T>
+int launch(const void* col_ptr, const void* cid, const void* val,
+           const void* w, const void* c, double c0, int n_cols, void* out,
+           void* stream) {
   const dim3 block(kThreads);
   const dim3 grid((n_cols + kThreads - 1) / kThreads);
-  lp_col_wsum_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  lp_col_wsum_kernel<T><<<grid, block, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(col_ptr), static_cast<const int*>(cid),
-      static_cast<const double*>(val), static_cast<const double*>(w),
-      static_cast<const double*>(c), c0, n_cols, static_cast<double*>(out));
+      static_cast<const T*>(val), static_cast<const T*>(w),
+      static_cast<const T*>(c), static_cast<T>(c0), n_cols,
+      static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 != 0: every value array is float32, else float64.  Returns the
+// cudaGetLastError() code of the launch.
+extern "C" int ltr_lp_col_wsum(int f32, const void* col_ptr,
+                               const void* cid, const void* val,
+                               const void* w, const void* c, double c0,
+                               int n_cols, void* out, void* stream) {
+  if (n_cols <= 0) return 0;
+  return f32 ? launch<float>(col_ptr, cid, val, w, c, c0, n_cols, out, stream)
+             : launch<double>(col_ptr, cid, val, w, c, c0, n_cols, out,
+                              stream);
 }

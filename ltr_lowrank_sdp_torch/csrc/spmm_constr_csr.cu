@@ -1,6 +1,6 @@
 // K6 spmm_constr_csr: the constraint-weighted SpMM
 //   out[i, :] = beta * Z[i, :] + sum_{slots k of row i} w[cid_k] * val_k * Y[col_k, :]
-// i.e. out = beta * Z + (sum_i w_i A_i) Y, float64.
+// i.e. out = beta * Z + (sum_i w_i A_i) Y, float64 or float32.
 //
 // The pattern is the full symmetric CSR of all constraint entries of the
 // cone (both triangles, a diagonal entry once), built once on the host; a
@@ -30,6 +30,9 @@
 // stride over the r columns of each gathered Y row.  For r = 1 (the Lanczos
 // matvec) the lanes instead own slots and a fixed shuffle tree adds them.
 // A row with no slot writes beta * Z (or 0).
+//
+// Value type: a template on T.  float32 loads, multiplies and accumulates in
+// float32, as XLA does on the TPU; the value bytes halve.
 
 #include <cuda_runtime.h>
 
@@ -38,15 +41,16 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
+template <typename T>
 __global__ void spmm_constr_csr_kernel(const int* __restrict__ indptr,
                                        const int* __restrict__ col,
-                                       const double* __restrict__ val,
+                                       const T* __restrict__ val,
                                        const int* __restrict__ cid,
-                                       const double* __restrict__ w,
-                                       const double* __restrict__ Y,
-                                       const double* __restrict__ Z,
-                                       double* __restrict__ out,
-                                       int n, int r, double beta) {
+                                       const T* __restrict__ w,
+                                       const T* __restrict__ Y,
+                                       const T* __restrict__ Z,
+                                       T* __restrict__ out,
+                                       int n, int r, T beta) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n) return;
@@ -55,7 +59,7 @@ __global__ void spmm_constr_csr_kernel(const int* __restrict__ indptr,
   const long long base = static_cast<long long>(row) * r;
 
   if (r == 1) {
-    double acc = 0.0;
+    T acc = T(0);
     for (int k = start + lane; k < end; k += 32) {
       acc += (w[cid[k]] * val[k]) * Y[col[k]];
     }
@@ -69,11 +73,11 @@ __global__ void spmm_constr_csr_kernel(const int* __restrict__ indptr,
   for (int c0 = 0; c0 < r; c0 += 32) {
     const int c = c0 + lane;
     const bool live = c < r;
-    double acc = 0.0;
+    T acc = T(0);
     for (int k0 = start; k0 < end; k0 += 32) {
       const int k = k0 + lane;
       int my_col = 0;
-      double my_wt = 0.0;
+      T my_wt = T(0);
       if (k < end) {
         my_col = col[k];
         my_wt = w[cid[k]] * val[k];
@@ -81,7 +85,7 @@ __global__ void spmm_constr_csr_kernel(const int* __restrict__ indptr,
       const int cnt = min(32, end - k0);
       for (int t = 0; t < cnt; ++t) {
         const int j = __shfl_sync(kFull, my_col, t);
-        const double wt = __shfl_sync(kFull, my_wt, t);
+        const T wt = __shfl_sync(kFull, my_wt, t);
         if (live) acc += wt * Y[static_cast<long long>(j) * r + c];
       }
     }
@@ -91,21 +95,34 @@ __global__ void spmm_constr_csr_kernel(const int* __restrict__ indptr,
   }
 }
 
-}  // namespace
-
-// Z may be null.  Returns the cudaGetLastError() code of the launch.
-extern "C" int ltr_spmm_constr_csr(const void* indptr, const void* col,
-                                   const void* val, const void* cid,
-                                   const void* w, const void* Y,
-                                   const void* Z, void* out, int n, int r,
-                                   double beta, void* stream) {
-  if (n <= 0 || r <= 0) return 0;
+template <typename T>
+int launch(const void* indptr, const void* col, const void* val,
+           const void* cid, const void* w, const void* Y, const void* Z,
+           void* out, int n, int r, double beta, void* stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  spmm_constr_csr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  spmm_constr_csr_kernel<T><<<grid, block, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(col),
-      static_cast<const double*>(val), static_cast<const int*>(cid),
-      static_cast<const double*>(w), static_cast<const double*>(Y),
-      static_cast<const double*>(Z), static_cast<double*>(out), n, r, beta);
+      static_cast<const T*>(val), static_cast<const int*>(cid),
+      static_cast<const T*>(w), static_cast<const T*>(Y),
+      static_cast<const T*>(Z), static_cast<T*>(out), n, r,
+      static_cast<T>(beta));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 != 0: every value array is float32, else float64.  Z may be null.
+// Returns the cudaGetLastError() code of the launch.
+extern "C" int ltr_spmm_constr_csr(int f32, const void* indptr,
+                                   const void* col, const void* val,
+                                   const void* cid, const void* w,
+                                   const void* Y, const void* Z, void* out,
+                                   int n, int r, double beta, void* stream) {
+  if (n <= 0 || r <= 0) return 0;
+  return f32 ? launch<float>(indptr, col, val, cid, w, Y, Z, out, n, r, beta,
+                             stream)
+             : launch<double>(indptr, col, val, cid, w, Y, Z, out, n, r,
+                              beta, stream);
 }

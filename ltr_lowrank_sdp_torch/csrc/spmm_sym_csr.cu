@@ -1,4 +1,4 @@
-// K1 spmm_sym_csr: out = alpha * C * Y (+ diag(d) * Y), float64.
+// K1 spmm_sym_csr: out = alpha * C * Y (+ diag(d) * Y), float64 or float32.
 //
 // Replaces: ltr_lowrank_sdp_tpu/ops/gatherseg.py EllSpMM.apply (:248, with
 // _reduce :232), reached through ConeOps.apply_c (coneops.py:344) and
@@ -21,6 +21,10 @@
 // sum runs in CSR order, so the result is the same on every run.  Rows are
 // short (degree about 6 on a Delaunay graph), so the neighbour rows of one
 // warp mostly come from L2 (the 50 MB L2 holds Y at the slice's widths).
+//
+// Value type: the kernel is a template on T.  float32 (the solver's
+// --dtype float32) loads, multiplies and accumulates in float32, as XLA does
+// on the TPU; the bytes of Y, the values and the output halve.
 
 #include <cuda_runtime.h>
 
@@ -28,13 +32,14 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 
+template <typename T>
 __global__ void spmm_sym_csr_kernel(const int* __restrict__ indptr,
                                     const int* __restrict__ indices,
-                                    const double* __restrict__ vals,
-                                    const double* __restrict__ Y,
-                                    const double* __restrict__ d,
-                                    double* __restrict__ out,
-                                    int n, int r, double alpha) {
+                                    const T* __restrict__ vals,
+                                    const T* __restrict__ Y,
+                                    const T* __restrict__ d,
+                                    T* __restrict__ out,
+                                    int n, int r, T alpha) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= n) return;
@@ -45,11 +50,11 @@ __global__ void spmm_sym_csr_kernel(const int* __restrict__ indptr,
     start = indptr[row];
     end = indptr[row + 1];
   }
-  const double drow = (d != nullptr) ? d[row] : 0.0;
+  const T drow = (d != nullptr) ? d[row] : T(0);
   for (int c = lane; c < r; c += 32) {
-    double o = 0.0;
+    T o = T(0);
     if (indptr != nullptr) {
-      double acc = 0.0;
+      T acc = T(0);
       for (int k = start; k < end; ++k) {
         acc += vals[k] * Y[static_cast<long long>(indices[k]) * r + c];
       }
@@ -60,21 +65,34 @@ __global__ void spmm_sym_csr_kernel(const int* __restrict__ indptr,
   }
 }
 
-}  // namespace
-
-// indptr/indices/vals may all be null (then only the diagonal term is
-// applied); d may be null (then only the sparse term).  Returns the
-// cudaGetLastError() code of the launch.
-extern "C" int ltr_spmm_sym_csr(const void* indptr, const void* indices,
-                                const void* vals, const void* Y,
-                                const void* d, void* out, int n, int r,
-                                double alpha, void* stream) {
-  if (n <= 0 || r <= 0) return 0;
+template <typename T>
+int launch(const void* indptr, const void* indices, const void* vals,
+           const void* Y, const void* d, void* out, int n, int r,
+           double alpha, void* stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((n + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  spmm_sym_csr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  spmm_sym_csr_kernel<T><<<grid, block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(indices),
-      static_cast<const double*>(vals), static_cast<const double*>(Y),
-      static_cast<const double*>(d), static_cast<double*>(out), n, r, alpha);
+      static_cast<const T*>(vals), static_cast<const T*>(Y),
+      static_cast<const T*>(d), static_cast<T*>(out), n, r,
+      static_cast<T>(alpha));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 != 0: every value array is float32, else float64.  indptr/indices/vals
+// may all be null (then only the diagonal term is applied); d may be null
+// (then only the sparse term).  Returns the cudaGetLastError() code of the
+// launch.
+extern "C" int ltr_spmm_sym_csr(int f32, const void* indptr,
+                                const void* indices, const void* vals,
+                                const void* Y, const void* d, void* out,
+                                int n, int r, double alpha, void* stream) {
+  if (n <= 0 || r <= 0) return 0;
+  return f32 ? launch<float>(indptr, indices, vals, Y, d, out, n, r, alpha,
+                             stream)
+             : launch<double>(indptr, indices, vals, Y, d, out, n, r, alpha,
+                              stream);
 }

@@ -20,6 +20,13 @@
 // block into a partials array, and a second single-block launch adds the
 // partials in a fixed tree: no atomics, so the result is the same on every
 // run for the same grid.
+//
+// Value type: U, V and coef are float64 or float32 (a template on T).  Every
+// product is formed in float64 from the loaded values (exact for float32
+// operands) and every sum runs in float64, in both launches; the result is
+// always a float64 scalar.  This is the contract of the reference's csum on
+// float32 (ops/compsum.py:78-92: cast to float64, then reduce), which the
+// caller rounds back to the compute type.
 
 #include <cuda_runtime.h>
 
@@ -28,11 +35,12 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kFinishThreads = 256;
 
+template <typename T>
 __global__ void sym_contract_partial_kernel(const int* __restrict__ rows,
                                             const int* __restrict__ cols,
-                                            const double* __restrict__ coef,
-                                            const double* __restrict__ U,
-                                            const double* __restrict__ V,
+                                            const T* __restrict__ coef,
+                                            const T* __restrict__ U,
+                                            const T* __restrict__ V,
                                             int nnz, int r, int same,
                                             double* __restrict__ partials) {
   __shared__ double warp_sums[kWarpsPerBlock];
@@ -47,18 +55,22 @@ __global__ void sym_contract_partial_kernel(const int* __restrict__ rows,
     double a = 0.0;
     double b = 0.0;
     if (same) {
-      for (int c = lane; c < r; c += 32) a += U[i + c] * U[j + c];
+      for (int c = lane; c < r; c += 32) {
+        a += static_cast<double>(U[i + c]) * static_cast<double>(U[j + c]);
+      }
     } else {
       for (int c = lane; c < r; c += 32) {
-        a += U[i + c] * V[j + c];
-        b += U[j + c] * V[i + c];
+        a += static_cast<double>(U[i + c]) * static_cast<double>(V[j + c]);
+        b += static_cast<double>(U[j + c]) * static_cast<double>(V[i + c]);
       }
     }
     for (int off = 16; off > 0; off >>= 1) {
       a += __shfl_down_sync(0xffffffffu, a, off);
       b += __shfl_down_sync(0xffffffffu, b, off);
     }
-    if (lane == 0) wsum += coef[e] * (same ? a : 0.5 * (a + b));
+    if (lane == 0) {
+      wsum += static_cast<double>(coef[e]) * (same ? a : 0.5 * (a + b));
+    }
   }
   if (lane == 0) warp_sums[warp] = wsum;
   __syncthreads();
@@ -84,21 +96,14 @@ __global__ void sym_contract_finish_kernel(const double* __restrict__ partials,
   if (threadIdx.x == 0) out[0] = sh[0];
 }
 
-}  // namespace
-
-// partials must hold nblocks doubles (the caller's scratch); V may equal U
-// (pass same = 1 to read U only).  Returns cudaGetLastError().
-extern "C" int ltr_sym_contract_sum(const void* rows, const void* cols,
-                                    const void* coef, const void* U,
-                                    const void* V, int nnz, int r, int same,
-                                    void* partials, int nblocks, void* out,
-                                    void* stream) {
-  if (nblocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sym_contract_partial_kernel<<<nblocks, kWarpsPerBlock * 32, 0, s>>>(
+template <typename T>
+int launch(const void* rows, const void* cols, const void* coef,
+           const void* U, const void* V, int nnz, int r, int same,
+           void* partials, int nblocks, void* out, cudaStream_t s) {
+  sym_contract_partial_kernel<T><<<nblocks, kWarpsPerBlock * 32, 0, s>>>(
       static_cast<const int*>(rows), static_cast<const int*>(cols),
-      static_cast<const double*>(coef), static_cast<const double*>(U),
-      static_cast<const double*>(V), nnz, r, same,
+      static_cast<const T*>(coef), static_cast<const T*>(U),
+      static_cast<const T*>(V), nnz, r, same,
       static_cast<double*>(partials));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -106,4 +111,22 @@ extern "C" int ltr_sym_contract_sum(const void* rows, const void* cols,
       static_cast<const double*>(partials), nblocks,
       static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 != 0: coef, U and V are float32, else float64; partials (nblocks
+// doubles, the caller's scratch) and out are float64 either way.  V may
+// equal U (pass same = 1 to read U only).  Returns cudaGetLastError().
+extern "C" int ltr_sym_contract_sum(int f32, const void* rows,
+                                    const void* cols, const void* coef,
+                                    const void* U, const void* V, int nnz,
+                                    int r, int same, void* partials,
+                                    int nblocks, void* out, void* stream) {
+  if (nblocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? launch<float>(rows, cols, coef, U, V, nnz, r, same, partials,
+                             nblocks, out, s)
+             : launch<double>(rows, cols, coef, U, V, nnz, r, same, partials,
+                              nblocks, out, s);
 }

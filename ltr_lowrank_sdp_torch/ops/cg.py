@@ -10,6 +10,17 @@ The port of ``ltr_lowrank_sdp_tpu/ops/cg.py`` (reference ``CGSolve``,
 * the iteration count is returned for the cgIter statistics.
 
 Each iteration reads one scalar (the stopping ratio) on the host.
+
+float32 adds a safeguard that the reference lacks (a deviation, see
+``ROADMAP.md``).  The ADMM asks for a relative residual of
+min(pinf * 1e-2, 1e-8), which float32 often cannot reach; the reference's
+CG then keeps iterating on rounding noise, and its recurrence can diverge
+(on the multi-block + LP family the residual climbs from 4e-9 to 1e-2 in
+800 iterations and the next ADMM iteration is NaN, in both packages).  In
+float32 the solve therefore stops once its residual ratio has set no new
+minimum for ``2 * restart_freq`` iterations, and returns the iterate of the
+smallest residual ratio it saw.  A solve that converges never reaches
+either rule, so it is the reference's.
 """
 
 from __future__ import annotations
@@ -44,7 +55,11 @@ def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
     res_t = torch.linalg.vector_norm(r)
     ratio = read(res_t / bnorm1)[0]
     k = 0
+    guard = b.dtype == torch.float32
+    best_x, best_ratio, best_k = x, ratio, 0
     while ratio >= tol and k < max_iter:
+        if guard and k - best_k >= 2 * restart_freq:
+            break
         Q = matvec(p)
         qtr_cur = torch.dot(r.reshape(-1), r.reshape(-1))
         ptq = torch.dot(p.reshape(-1), Q.reshape(-1))
@@ -60,5 +75,9 @@ def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
         res_t = torch.linalg.vector_norm(r)
         k += 1
         ratio = read(res_t / bnorm1)[0]
+        if guard and ratio < best_ratio:
+            best_x, best_ratio, best_k = x, ratio, k
+    if guard and not ratio <= best_ratio:
+        x, ratio = best_x, best_ratio
     return CGResult(x=x, iters=k, resid=float(ratio),
                     converged=ratio < tol)

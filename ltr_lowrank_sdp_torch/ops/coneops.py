@@ -1,7 +1,7 @@
 """Conic operators of the SDP cones and the LP cone on the device.
 
-The port of ``ltr_lowrank_sdp_tpu/ops/coneops.py`` in float64: one
-:class:`ConeOps` per SDP block, one :class:`LPOps` for the LP cone, and the
+The port of ``ltr_lowrank_sdp_tpu/ops/coneops.py`` in float64 or float32
+(the compute dtype of the solver): one :class:`ConeOps` per SDP block, one :class:`LPOps` for the LP cone, and the
 whole-problem helpers.  A cone takes one of two constraint paths and one of
 two objective paths.
 
@@ -49,8 +49,16 @@ gather inside (K8).
 
 The JAX package also relabels the *vertex* space for its ELL layout
 (``spmm_relabel_order``); the CSR kernels need no such order, so factor rows
-stay in the problem's own order on every path.  float32 compute is a later
-slice of the port and raises ``NotImplementedError``.
+stay in the problem's own order on every path.
+
+**float32** — every layout carries float32 values and K1-K3 and K5-K8 load,
+multiply and accumulate in float32, as XLA does on the TPU.  The objective
+and the duality gap accumulate in float64 where the reference calls ``csum``
+/ ``cvdot``: K4 (float64 products and sums, rounded back), the LP objective
+and the dense-C ``obj_value``.  The dense-C products stay ``torch.matmul``
+in full float32: a float32 ConeOps turns TF32 off for matrix products and
+cuDNN (:func:`full_fp32_matmul`), since TF32 keeps about three decimal
+digits where the solver needs float32's seven.
 """
 
 from __future__ import annotations
@@ -64,7 +72,13 @@ from ..problem import ConeData, LPConeData, SDPProblem
 from . import kernels as K
 from .compsum import cvdot
 
-_LATER = "is a later slice of the port, see ROADMAP.md"
+
+
+def full_fp32_matmul() -> None:
+    """Keep float32 matrix products (and cuDNN) in full float32 on the card:
+    no TF32.  Called for every float32 operator bundle."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 class ConeOps:
@@ -76,8 +90,10 @@ class ConeOps:
 
     def __init__(self, cone: ConeData, device, dtype=torch.float64,
                  constr_relabel: bool = True):
-        if dtype != torch.float64:
-            raise NotImplementedError(f"float32 compute {_LATER}")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"compute dtype {dtype}: float32 or float64")
+        if dtype == torch.float32:
+            full_fp32_matmul()
         n = cone.n
         self.n = n
         self.m = cone.m
@@ -208,8 +224,9 @@ class ConeOps:
             if U is V:
                 return uv
             return 0.5 * (uv + cvdot(V, torch.matmul(self.c_dense, U)))
+        # K4 sums in float64; rounded to the compute dtype like csum's
         return K.sym_contract_sum(self.c_rows, self.c_cols,
-                                  self.c_double_coef, U, V)
+                                  self.c_double_coef, U, V).to(self.dtype)
 
     def apply_c(self, Y):
         """C @ Y."""
@@ -264,8 +281,8 @@ class LPOps:
     """LP cone operators: x_j = u_j v_j over nonnegative columns."""
 
     def __init__(self, lp: LPConeData, device, dtype=torch.float64):
-        if dtype != torch.float64:
-            raise NotImplementedError(f"float32 compute {_LATER}")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"compute dtype {dtype}: float32 or float64")
         self.n_cols = lp.n_cols
         self.m = lp.m
         self.device = torch.device(device)

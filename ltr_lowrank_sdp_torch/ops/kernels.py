@@ -11,7 +11,9 @@ Every wrapper takes the plain PyTorch version for tensors on the CPU (the
 tests' path) and launches its kernel for CUDA tensors on PyTorch's current
 stream; it never falls back from one to the other.  Each :class:`Kernel`
 counts its launches (``launches``) and its plain calls (``plain_calls``), so
-a run can show which path it took.
+a run can show which path it took; K1-K8 take float32 or float64 values (the
+solver's compute dtype) and also count their float32 launches
+(``launches_f32``, :func:`counts_f32`).
 
 =====  ====================  ==============================================
 K      kernel                replaces (ltr_lowrank_sdp_tpu/...)
@@ -51,7 +53,10 @@ K12    graph_pool_bwd        the VJP of K10's function (float32)
 K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
 carry every other SDP cone (sparse or dense constraint kind), with K1 and K4
 for a sparse objective and ``torch.matmul`` for a dense one; K7 and K8 carry
-the LP cone; K9 and K10 carry the rank-schedule predictor's graph encoder,
+the LP cone.  K1-K8 are templates on the value type: float64, or float32 for
+the solver's ``dtype="float32"`` (K4 then still forms its products and sums
+in float64).  K9 and K10 carry the rank-schedule predictor's graph encoder
+at any width up to 256 channels (:func:`gatv2_lanes`, ``K10_MAX_D``),
 and K11 and K12 its training backward pass: K9 + K11 and K10 + K12 are each
 one ``torch.autograd.Function`` (:func:`gatv2_softmax_agg`, :func:`graph_pool`
 when an input requires a gradient), with a plain backward beside the plain
@@ -93,7 +98,9 @@ class Kernel:
     name: str
     replaces: str           # file:line of the TPU kernel it replaces
     argtypes: Tuple
+    typed: bool = False     # first C argument: 1 for float32 values (K1-K8)
     launches: int = 0       # kernel launches (CUDA tensors)
+    launches_f32: int = 0   # of which on float32 values
     plain_calls: int = 0    # plain PyTorch version calls (CPU tensors)
     lib_path: Optional[pathlib.Path] = None
     build_log: str = ""
@@ -123,43 +130,46 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: cudaError {err}")
         self.launches += 1
+        if self.typed and args[0]:
+            self.launches_f32 += 1
 
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("spmm_sym_csr",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:248",
-           (_P, _P, _P, _P, _P, _P, _I, _I, _D, _P)),
+           (_I, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P), typed=True),
     Kernel("diag_rowdot",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:231",
-           (_P, _P, _P, _D, _P, _P, _I, _I, _P)),
+           (_I, _P, _P, _P, _D, _P, _P, _I, _I, _P), typed=True),
     Kernel("diag_normal_matvec",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:272",
-           (_P, _P, _P, _P, _I, _I, _P)),
+           (_I, _P, _P, _P, _P, _I, _I, _P), typed=True),
     Kernel("sym_contract_sum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:332",
-           (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P)),
+           (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P), typed=True),
     Kernel("coo_contract_segsum",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:143",
-           (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-            _I, _P, _I, _P, _P, _I, _P, _P, _P)),
+           (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+            _I, _P, _I, _P, _P, _I, _P, _P, _P), typed=True),
     Kernel("spmm_constr_csr",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:256",
-           (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P)),
+           (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P), typed=True),
     Kernel("lp_constr_segsum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:435",
-           (_P, _P, _P, _P, _P, _I, _I, _P, _P, _P)),
+           (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P), typed=True),
     Kernel("lp_col_wsum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:443",
-           (_P, _P, _P, _P, _P, _D, _I, _P, _P)),
+           (_I, _P, _P, _P, _P, _P, _D, _I, _P, _P), typed=True),
     Kernel("gatv2_softmax_agg",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26",
-           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P)),
+           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+            _P)),
     Kernel("graph_pool",
            "ltr_lowrank_sdp_tpu/models/layers.py:93",
            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
     Kernel("gatv2_softmax_agg_bwd",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26 (VJP, train.py:250)",
-           (_P,) * 14 + (_I, _I, _I, _F) + (_P,) * 8),
+           (_P,) * 14 + (_I, _I, _I, _I, _F) + (_P,) * 8),
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
            (_P,) * 11 + (_I, _I) + (_P,) * 3),
@@ -169,12 +179,18 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_f32 = 0
         k.plain_calls = 0
 
 
 def counts() -> Dict[str, Tuple[int, int]]:
     """``{name: (launches, plain_calls)}``."""
     return {k.name: (k.launches, k.plain_calls) for k in KERNELS.values()}
+
+
+def counts_f32() -> Dict[str, int]:
+    """``{name: launches on float32 values}`` of K1-K8."""
+    return {k.name: k.launches_f32 for k in KERNELS.values() if k.typed}
 
 
 # --------------------------------------------------------------------------- #
@@ -251,6 +267,20 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _value_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The value type K1-K8 take, float32 or float64; every other value
+    operand of the call is then checked against it."""
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected float32 or "
+                        "float64")
+    return t.dtype
+
+
+def _f32(dtype: torch.dtype) -> int:
+    """The C entry points' first argument: 1 for float32 values."""
+    return int(dtype == torch.float32)
+
+
 def _is_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -299,7 +329,7 @@ class SymCSR:
     n: int
     indptr: torch.Tensor     # (n+1,) int32
     indices: torch.Tensor    # (nnz,) int32
-    vals: torch.Tensor       # (nnz,) float64
+    vals: torch.Tensor       # (nnz,) float64 or float32
 
     @property
     def nnz(self) -> int:
@@ -362,18 +392,19 @@ def spmm_sym_csr(csr: Optional[SymCSR], Y: torch.Tensor, alpha: float = 1.0,
     if Y.dim() != 2:
         raise ValueError(f"Y must be (n, r), got {tuple(Y.shape)}")
     n, r = Y.shape
-    _check(Y, "Y", torch.float64, (n, r), dev)
+    dt = _value_dtype(Y, "Y")
+    _check(Y, "Y", dt, (n, r), dev)
     _i32(n * max(r, 1), "n * r")
     if csr is not None:
         if csr.n != n:
             raise ValueError(f"C is {csr.n} x {csr.n}, Y has {n} rows")
         _check(csr.indptr, "indptr", torch.int32, (n + 1,), dev)
         _check(csr.indices, "indices", torch.int32, (csr.nnz,), dev)
-        _check(csr.vals, "vals", torch.float64, (csr.nnz,), dev)
+        _check(csr.vals, "vals", dt, (csr.nnz,), dev)
     if d is not None:
-        _check(d, "d", torch.float64, (n,), dev)
-    out = torch.empty((n, r), dtype=torch.float64, device=dev)
-    k.launch(_ptr(csr.indptr) if csr else None,
+        _check(d, "d", dt, (n,), dev)
+    out = torch.empty((n, r), dtype=dt, device=dev)
+    k.launch(_f32(dt), _ptr(csr.indptr) if csr else None,
              _ptr(csr.indices) if csr else None,
              _ptr(csr.vals) if csr else None,
              Y.data_ptr(), _ptr(d), out.data_ptr(), n, r, float(alpha),
@@ -406,13 +437,14 @@ def diag_rowdot(U: torch.Tensor, V: torch.Tensor, dv: torch.Tensor,
     if U.dim() != 2:
         raise ValueError(f"U must be (n, r), got {tuple(U.shape)}")
     n, r = U.shape
-    _check(U, "U", torch.float64, (n, r), dev)
-    _check(V, "V", torch.float64, (n, r), dev)
-    _check(dv, "dv", torch.float64, (n,), dev)
+    dt = _value_dtype(U, "U")
+    _check(U, "U", dt, (n, r), dev)
+    _check(V, "V", dt, (n, r), dev)
+    _check(dv, "dv", dt, (n,), dev)
     _i32(n * max(r, 1), "n * r")
-    o1 = torch.empty(n, dtype=torch.float64, device=dev)
-    o2 = torch.empty(n, dtype=torch.float64, device=dev) if second else None
-    k.launch(U.data_ptr(), V.data_ptr(), dv.data_ptr(), float(s),
+    o1 = torch.empty(n, dtype=dt, device=dev)
+    o2 = torch.empty(n, dtype=dt, device=dev) if second else None
+    k.launch(_f32(dt), U.data_ptr(), V.data_ptr(), dv.data_ptr(), float(s),
              o1.data_ptr(), _ptr(o2), n, r, _stream(dev))
     return (o1, o2) if second else o1
 
@@ -439,12 +471,13 @@ def diag_normal_matvec(x: torch.Tensor, F: torch.Tensor,
     if x.dim() != 2:
         raise ValueError(f"x must be (n, r), got {tuple(x.shape)}")
     n, r = x.shape
-    _check(x, "x", torch.float64, (n, r), dev)
-    _check(F, "F", torch.float64, (n, r), dev)
-    _check(dv, "dv", torch.float64, (n,), dev)
+    dt = _value_dtype(x, "x")
+    _check(x, "x", dt, (n, r), dev)
+    _check(F, "F", dt, (n, r), dev)
+    _check(dv, "dv", dt, (n,), dev)
     _i32(n * max(r, 1), "n * r")
-    y = torch.empty((n, r), dtype=torch.float64, device=dev)
-    k.launch(x.data_ptr(), F.data_ptr(), dv.data_ptr(), y.data_ptr(), n, r,
+    y = torch.empty((n, r), dtype=dt, device=dev)
+    k.launch(_f32(dt), x.data_ptr(), F.data_ptr(), dv.data_ptr(), y.data_ptr(), n, r,
              _stream(dev))
     return y
 
@@ -458,10 +491,13 @@ _K4_MAX_BLOCKS = 1024
 
 
 def sym_contract_sum_plain(rows, cols, coef, U, V):
-    """Plain version of K4."""
+    """Plain version of K4: float64 products and sums of the (float32 or
+    float64) inputs -> a 0-dim float64 tensor."""
     rows = rows.long()
     cols = cols.long()
-    if U is V:
+    same = U is V
+    U, V, coef = U.double(), V.double(), coef.double()
+    if same:
         e = torch.sum(U[rows] * U[cols], dim=-1)
     else:
         e = 0.5 * (torch.sum(U[rows] * V[cols], dim=-1)
@@ -473,7 +509,10 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
                      coef: torch.Tensor, U: torch.Tensor,
                      V: torch.Tensor) -> torch.Tensor:
     """K4: ``sum_k coef_k * sym(U V^T)[rows_k, cols_k]`` as a 0-dim float64
-    tensor on U's device (``U is V`` reads U only)."""
+    tensor on U's device (``U is V`` reads U only).  float32 inputs are
+    multiplied and summed in float64 (the contract of the reference's
+    ``csum`` on float32, ``ltr_lowrank_sdp_tpu/ops/compsum.py:78``); the
+    caller rounds the result to its compute type."""
     k = KERNELS["sym_contract_sum"]
     if _is_cpu(U):
         k.plain_calls += 1
@@ -483,17 +522,19 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"U must be (n, r), got {tuple(U.shape)}")
     n, r = U.shape
     nnz = int(rows.numel())
-    _check(U, "U", torch.float64, (n, r), dev)
-    _check(V, "V", torch.float64, (n, r), dev)
+    dt = _value_dtype(U, "U")
+    _check(U, "U", dt, (n, r), dev)
+    _check(V, "V", dt, (n, r), dev)
     _check(rows, "rows", torch.int32, (nnz,), dev)
     _check(cols, "cols", torch.int32, (nnz,), dev)
-    _check(coef, "coef", torch.float64, (nnz,), dev)
+    _check(coef, "coef", dt, (nnz,), dev)
     _i32(n * max(r, 1), "n * r")
     nblocks = max(1, min(_K4_MAX_BLOCKS,
                          -(-nnz // _K4_WARPS_PER_BLOCK)))
     partials = torch.empty(nblocks, dtype=torch.float64, device=dev)
     out = torch.empty((), dtype=torch.float64, device=dev)
-    k.launch(rows.data_ptr(), cols.data_ptr(), coef.data_ptr(), U.data_ptr(),
+    k.launch(_f32(dt), rows.data_ptr(), cols.data_ptr(), coef.data_ptr(),
+             U.data_ptr(),
              V.data_ptr(), _i32(nnz, "nnz"), r, 1 if U is V else 0,
              partials.data_ptr(), nblocks, out.data_ptr(), _stream(dev))
     return out
@@ -526,7 +567,7 @@ class SegCOO:
     seg_ptr: torch.Tensor    # (m+1,) int32
     rows: torch.Tensor       # (nnz,) int32
     cols: torch.Tensor       # (nnz,) int32
-    coef: torch.Tensor       # (nnz,) float64
+    coef: torch.Tensor       # (nnz,) float64 or float32
     long_thresh: int = K5_LONG_SEGMENT
     chunk_ptr: Optional[torch.Tensor] = None    # (n_chunks, 2) int32
     long_seg: Optional[torch.Tensor] = None     # (n_long,) int32
@@ -626,16 +667,17 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
     n, r = U.shape
     if n != seg.n or r < 1:
         raise ValueError(f"the cone has {seg.n} rows, U is {tuple(U.shape)}")
-    _check(U, "U", torch.float64, (n, r), dev)
-    _check(V, "V", torch.float64, (n, r), dev)
+    dt = _value_dtype(U, "U")
+    _check(U, "U", dt, (n, r), dev)
+    _check(V, "V", dt, (n, r), dev)
     _check(seg.seg_ptr, "seg_ptr", torch.int32, (seg.m + 1,), dev)
     _check(seg.rows, "rows", torch.int32, (seg.nnz,), dev)
     _check(seg.cols, "cols", torch.int32, (seg.nnz,), dev)
-    _check(seg.coef, "coef", torch.float64, (seg.nnz,), dev)
+    _check(seg.coef, "coef", dt, (seg.nnz,), dev)
     _i32(n * r, "n * r")
     mode = 2 if pair else (1 if U is V else 0)
-    o1 = torch.empty(seg.m, dtype=torch.float64, device=dev)
-    o2 = torch.empty(seg.m, dtype=torch.float64, device=dev) if pair else None
+    o1 = torch.empty(seg.m, dtype=dt, device=dev)
+    o2 = torch.empty(seg.m, dtype=dt, device=dev) if pair else None
     nc = seg.n_chunks
     n_long = 0
     part = None
@@ -644,8 +686,8 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
         _check(seg.chunk_ptr, "chunk_ptr", torch.int32, (nc, 2), dev)
         _check(seg.long_seg, "long_seg", torch.int32, (n_long,), dev)
         _check(seg.long_ptr, "long_ptr", torch.int32, (n_long + 1,), dev)
-        part = torch.empty((2, nc), dtype=torch.float64, device=dev)
-    k.launch(seg.seg_ptr.data_ptr(), seg.rows.data_ptr(), seg.cols.data_ptr(),
+        part = torch.empty((2, nc), dtype=dt, device=dev)
+    k.launch(_f32(dt), seg.seg_ptr.data_ptr(), seg.rows.data_ptr(), seg.cols.data_ptr(),
              seg.coef.data_ptr(), U.data_ptr(), V.data_ptr(), seg.m, r, mode,
              o1.data_ptr(), _ptr(o2), seg.long_thresh, _ptr(seg.chunk_ptr),
              nc, _ptr(seg.long_seg), _ptr(seg.long_ptr), n_long,
@@ -669,7 +711,7 @@ class ConstrCSR:
     m: int
     indptr: torch.Tensor     # (n+1,) int32
     indices: torch.Tensor    # (nnz,) int32
-    vals: torch.Tensor       # (nnz,) float64
+    vals: torch.Tensor       # (nnz,) float64 or float32
     cid: torch.Tensor        # (nnz,) int32
 
     @property
@@ -730,17 +772,18 @@ def spmm_constr_csr(csr: ConstrCSR, w: torch.Tensor, Y: torch.Tensor,
     n, r = Y.shape
     if n != csr.n or r < 1:
         raise ValueError(f"the cone has {csr.n} rows, Y is {tuple(Y.shape)}")
-    _check(Y, "Y", torch.float64, (n, r), dev)
-    _check(w, "w", torch.float64, (csr.m,), dev)
+    dt = _value_dtype(Y, "Y")
+    _check(Y, "Y", dt, (n, r), dev)
+    _check(w, "w", dt, (csr.m,), dev)
     if Z is not None:
-        _check(Z, "Z", torch.float64, (n, r), dev)
+        _check(Z, "Z", dt, (n, r), dev)
     _check(csr.indptr, "indptr", torch.int32, (n + 1,), dev)
     _check(csr.indices, "indices", torch.int32, (csr.nnz,), dev)
-    _check(csr.vals, "vals", torch.float64, (csr.nnz,), dev)
+    _check(csr.vals, "vals", dt, (csr.nnz,), dev)
     _check(csr.cid, "cid", torch.int32, (csr.nnz,), dev)
     _i32(n * r, "n * r")
-    out = torch.empty((n, r), dtype=torch.float64, device=dev)
-    k.launch(csr.indptr.data_ptr(), csr.indices.data_ptr(),
+    out = torch.empty((n, r), dtype=dt, device=dev)
+    k.launch(_f32(dt), csr.indptr.data_ptr(), csr.indices.data_ptr(),
              csr.vals.data_ptr(), csr.cid.data_ptr(), w.data_ptr(),
              Y.data_ptr(), _ptr(Z), out.data_ptr(), n, r, float(beta),
              _stream(dev))
@@ -762,13 +805,13 @@ class LPEntries:
 
     m: int
     n_cols: int
-    c: torch.Tensor          # (n_cols,) float64
+    c: torch.Tensor          # (n_cols,) float64 or float32
     row_ptr: torch.Tensor    # (m+1,) int32
     row_col: torch.Tensor    # (nnz,) int32, column of each entry, CSR order
-    row_val: torch.Tensor    # (nnz,) float64
+    row_val: torch.Tensor    # (nnz,) float64 or float32
     col_ptr: torch.Tensor    # (n_cols+1,) int32
     col_cid: torch.Tensor    # (nnz,) int32, constraint of each entry, CSC order
-    col_val: torch.Tensor    # (nnz,) float64
+    col_val: torch.Tensor    # (nnz,) float64 or float32
 
     @property
     def nnz(self) -> int:
@@ -836,14 +879,15 @@ def lp_constr_segsum(lp: LPEntries, u: torch.Tensor, v: torch.Tensor,
         k.plain_calls += 1
         return lp_constr_segsum_plain(lp, u, v, pair)
     dev = u.device
-    _check(u, "u", torch.float64, (lp.n_cols,), dev)
-    _check(v, "v", torch.float64, (lp.n_cols,), dev)
+    dt = _value_dtype(u, "u")
+    _check(u, "u", dt, (lp.n_cols,), dev)
+    _check(v, "v", dt, (lp.n_cols,), dev)
     _check(lp.row_ptr, "row_ptr", torch.int32, (lp.m + 1,), dev)
     _check(lp.row_col, "row_col", torch.int32, (lp.nnz,), dev)
-    _check(lp.row_val, "row_val", torch.float64, (lp.nnz,), dev)
-    o1 = torch.empty(lp.m, dtype=torch.float64, device=dev)
-    o2 = torch.empty(lp.m, dtype=torch.float64, device=dev) if pair else None
-    k.launch(lp.row_ptr.data_ptr(), lp.row_col.data_ptr(),
+    _check(lp.row_val, "row_val", dt, (lp.nnz,), dev)
+    o1 = torch.empty(lp.m, dtype=dt, device=dev)
+    o2 = torch.empty(lp.m, dtype=dt, device=dev) if pair else None
+    k.launch(_f32(dt), lp.row_ptr.data_ptr(), lp.row_col.data_ptr(),
              lp.row_val.data_ptr(), u.data_ptr(), v.data_ptr(), lp.m,
              2 if pair else 0, o1.data_ptr(), _ptr(o2), _stream(dev))
     return (o1, o2) if pair else o1
@@ -865,13 +909,14 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
         k.plain_calls += 1
         return lp_col_wsum_plain(lp, w, c0)
     dev = w.device
-    _check(w, "w", torch.float64, (lp.m,), dev)
-    _check(lp.c, "c", torch.float64, (lp.n_cols,), dev)
+    dt = _value_dtype(w, "w")
+    _check(w, "w", dt, (lp.m,), dev)
+    _check(lp.c, "c", dt, (lp.n_cols,), dev)
     _check(lp.col_ptr, "col_ptr", torch.int32, (lp.n_cols + 1,), dev)
     _check(lp.col_cid, "col_cid", torch.int32, (lp.nnz,), dev)
-    _check(lp.col_val, "col_val", torch.float64, (lp.nnz,), dev)
-    out = torch.empty(lp.n_cols, dtype=torch.float64, device=dev)
-    k.launch(lp.col_ptr.data_ptr(), lp.col_cid.data_ptr(),
+    _check(lp.col_val, "col_val", dt, (lp.nnz,), dev)
+    out = torch.empty(lp.n_cols, dtype=dt, device=dev)
+    k.launch(_f32(dt), lp.col_ptr.data_ptr(), lp.col_cid.data_ptr(),
              lp.col_val.data_ptr(), w.data_ptr(), lp.c.data_ptr(), float(c0),
              lp.n_cols, out.data_ptr(), _stream(dev))
     return out
@@ -881,7 +926,8 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
 # K9: GATv2 edge softmax and aggregation, K11: its backward (float32)
 # --------------------------------------------------------------------------- #
 
-K9_CHANNELS = 64        # heads * channels that the kernel takes (kChannels)
+K9_MAX_WIDTH = 256      # heads * channels: 8 channels per lane, 32 lanes
+K9_MAX_PER_LANE = 8
 K11_MAX_PARTS = 1024    # block partials of K11's first launch (kMaxBlocks)
 LEAKY_SLOPE = 0.2
 
@@ -1030,13 +1076,28 @@ def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
     return d_w_src, d_w_dst, d_we, torch.sum(dmsg[~real], dim=0), d_att
 
 
+def gatv2_lanes(heads: int, ch: int) -> Tuple[int, int]:
+    """K9 / K11's lane layout for ``heads`` x ``ch``: ``(lanes per head,
+    channels per lane)``.  The heads split a warp's 32 lanes into groups of
+    32 / (heads rounded up to a power of two) lanes and a lane holds at most
+    8 channels, so heads * channels <= 256 for a power-of-two head count.
+    Raises ValueError for a width past that limit."""
+    hp = 1 << max(0, int(heads) - 1).bit_length()
+    if heads >= 1 and ch >= 1 and hp <= 32:
+        lph = 32 // hp
+        per_lane = -(-int(ch) // lph)
+        if per_lane <= K9_MAX_PER_LANE:
+            return lph, per_lane
+    raise ValueError(
+        f"K9 / K11 take heads * channels <= {K9_MAX_WIDTH}: at most 32 heads "
+        f"and {K9_MAX_PER_LANE} channels per lane, 32 / (heads rounded up to "
+        f"a power of two) lanes per head; got {heads} heads x {ch} channels")
+
+
 def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev):
     heads, ch = att.shape
-    if heads * ch != K9_CHANNELS or ch < 2 or ch & (ch - 1):
-        raise ValueError(
-            f"K9 takes heads * channels = {K9_CHANNELS} with an even "
-            f"power-of-two channel count, got {heads} x {ch}")
-    hc = K9_CHANNELS
+    gatv2_lanes(heads, ch)
+    hc = heads * ch
     _check(w_src, "w_src", torch.float32, (g.n, hc), dev)
     _check(w_dst, "w_dst", torch.float32, (g.n, hc), dev)
     _check(we, "we", torch.float32, (g.n_real, hc), dev)
@@ -1047,11 +1108,7 @@ def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev):
     _check(g.erow, "erow", torch.int32, (g.n_slots,), dev)
     if keep is not None:
         _check(keep, "keep", torch.float32, (g.n_slots, heads), dev)
-    for name, t in (("w_src", w_src), ("w_dst", w_dst), ("we", we),
-                    ("we_loop", we_loop), ("att", att)):
-        if t.numel() and t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned (float2 loads)")
-    _i32(g.n * hc, "n * channels")
+    _i32(max(g.n, g.n_slots) * hc, "slots * channels")
 
 
 def _gatv2_forward(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
@@ -1065,14 +1122,14 @@ def _gatv2_forward(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
     dev = w_src.device
     _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
     heads, ch = att.shape
-    out = torch.empty((g.n, K9_CHANNELS), dtype=torch.float32, device=dev)
+    out = torch.empty((g.n, heads * ch), dtype=torch.float32, device=dev)
     lse = (torch.empty((g.n, heads), dtype=torch.float32, device=dev)
            if with_lse else None)
     k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
              w_src.data_ptr(), w_dst.data_ptr(),
              we.data_ptr() if g.n_real else None,
              we_loop.data_ptr(), att.data_ptr(), _ptr(keep), g.n, g.n_real,
-             ch, LEAKY_SLOPE, out.data_ptr(), _ptr(lse), _stream(dev))
+             heads, ch, LEAKY_SLOPE, out.data_ptr(), _ptr(lse), _stream(dev))
     return out, lse
 
 
@@ -1089,12 +1146,11 @@ def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
     dev = dout.device
     _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
     heads, ch = att.shape
-    hc = K9_CHANNELS
+    hc = heads * ch
     _check(lse, "lse", torch.float32, (g.n, heads), dev)
     _check(out, "out", torch.float32, (g.n, hc), dev)
     _check(dout, "dout", torch.float32, (g.n, hc), dev)
     src_ptr, src_slot = g.by_src
-    _i32(g.n_slots * hc, "slots * channels")
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -1108,7 +1164,8 @@ def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
              src_ptr.data_ptr(), src_slot.data_ptr(), w_src.data_ptr(),
              w_dst.data_ptr(), we.data_ptr() if g.n_real else None,
              we_loop.data_ptr(), att.data_ptr(), _ptr(keep), lse.data_ptr(),
-             out.data_ptr(), dout.data_ptr(), g.n, g.n_real, ch, LEAKY_SLOPE,
+             out.data_ptr(), dout.data_ptr(), g.n, g.n_real, heads, ch,
+             LEAKY_SLOPE,
              d_w_src.data_ptr(), d_w_dst.data_ptr(),
              d_we.data_ptr() if g.n_real else None, d_we_loop.data_ptr(),
              d_att.data_ptr(), buf.data_ptr(), part.data_ptr(), _stream(dev))
@@ -1146,9 +1203,9 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
     projected nodes, ``we`` (n_real, heads * ch) the projected edge features,
     ``we_loop`` (heads * ch,) the self-loops' shared row, ``att`` (heads,
     ch), ``keep`` (n_real + n, heads) an optional dropout keep-scale on alpha
-    in the CSR's slot order.  The kernel takes heads * ch = 64 with ch an even
-    power of two.  When an input requires a gradient, the call is an autograd
-    node whose backward is K11."""
+    in the CSR's slot order.  The kernel takes heads * ch <= 256 (see
+    :func:`gatv2_lanes`).  When an input requires a gradient, the call is an
+    autograd node whose backward is K11."""
     tensors = (w_src, w_dst, we, we_loop, att)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _GATv2SoftmaxAgg.apply(g, keep, *tensors)
@@ -1160,7 +1217,7 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 K10_CHUNK = 256          # nodes per block of the first pass
-K10_MAX_D = 128          # kMaxD in graph_pool.cu
+K10_MAX_D = 256          # kMaxD in graph_pool.cu and graph_pool_bwd.cu
 
 
 @dataclasses.dataclass
@@ -1375,7 +1432,7 @@ class _GraphPool(torch.autograd.Function):
 def graph_pool(seg: GraphSegments, x: torch.Tensor, score: torch.Tensor,
                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: per graph, ``[mean x | max x | softmax(score)-weighted sum of
-    x]`` -> (B, 3 d), from x (N, d) with d <= 128, the attention scores (N,)
+    x]`` -> (B, 3 d), from x (N, d) with d <= 256, the attention scores (N,)
     and an optional dropout keep-scale (N,) on the attention weights.  When
     an input requires a gradient, the call is an autograd node whose
     backward is K12."""

@@ -20,6 +20,19 @@ The JAX package runs chunks of iterations in one XLA program and reads a
 stats blob per chunk; here every iteration reads its metrics (with the
 oracle-rank Gram) in one host sync, and every CG iteration reads its
 stopping ratio.
+
+float32 compute adds the JAX package's float32-only logic: the penalty
+ceiling min(rho_ceiling_admm, 3e5) (CG inner products overflow float32 past
+it, ``admm.py:448-453``), the host float64 re-check ``f64_check``
+(``admm.py:576-590``, :654-672) and, in main mode, the precision-plateau
+exit (``admm.py:613-619``, :674-690) that hands the iterate to the driver's
+float64 polish.  The JAX package makes both host decisions only between the
+chunks it dispatches (the driver's first main-mode chunk of
+``HANDOFF_CHUNK`` iterations, then ``CHUNK`` iterations, or 4 x ``CHUNK``
+without the oracle Grams), so :meth:`ADMMPhase.loop` evaluates them after
+the same iterations.  (A JAX chunk also ends early at a CG-iteration budget
+per dispatch, ``admm.py:126-135``, a bound on one TPU program that the
+port has no use for; where it binds, the two boundaries part.)
 """
 
 from __future__ import annotations
@@ -47,6 +60,10 @@ CODE_DONE = 5         # overall while-condition turned false
 CODE_CEILING = 6
 
 BIG = 1e30
+
+CHUNK = 25           # the JAX ADMMPhase's chunk_size
+HANDOFF_CHUNK = 50   # the JAX driver's fused first main-mode chunk
+F32_RHO_CEILING = 3e5
 
 
 @dataclasses.dataclass
@@ -99,6 +116,8 @@ class ADMMInfo:
     last_pinf_inf: Optional[float] = None
     last_pobj: Optional[float] = None
     last_dobj: Optional[float] = None
+    plateau: bool = False    # float32 near-feasible plateau (main mode): the
+                             # driver's float64 polish signal
 
 
 class ADMMPhase:
@@ -112,6 +131,11 @@ class ADMMPhase:
         self.params = params
         self.shapes = tuple(tuple(s) for s in shapes)
         self.sync = sync
+        self.f32 = b.dtype == torch.float32
+        # float32: CG inner products at rho >~ 1e6 overflow float32 range,
+        # so the penalty stops where the normal operator is representable
+        self.rho_ceiling = (min(params.rho_ceiling_admm, F32_RHO_CEILING)
+                            if self.f32 else params.rho_ceiling_admm)
 
     # ------------------------------------------------------------------ #
 
@@ -322,7 +346,7 @@ class ADMMPhase:
         if plateau_tick:
             ctrl.old_mean = mean
         ctrl.it = it1
-        ctrl.rho = min(rho, p.rho_ceiling_admm)
+        ctrl.rho = min(rho, self.rho_ceiling)
         return carry
 
     def step(self, carry: ADMMCarry, ctrl: ADMMCtrl, mode: str,
@@ -373,11 +397,28 @@ class ADMMPhase:
 
     def loop(self, carry: ADMMCarry, ctrl: ADMMCtrl, *, mode: str,
              iter_ceiling: int, time_start: float, info: ADMMInfo,
-             record_cb=None, want_grams: bool = False) -> ADMMCarry:
+             record_cb=None, want_grams: bool = False, f64_check=None,
+             chunk_from: Optional[int] = None) -> ADMMCarry:
         """Iterate until a terminal code, the wall-clock limit or SIGINT;
         sets ``ctrl.code`` (CODE_DONE / CODE_CEILING on the natural exits)
-        and the ``info`` flags."""
+        and the ``info`` flags.
+
+        ``f64_check(carry) -> (pobj, dobj, pinf_l1, pinf_inf, gap)`` is the
+        driver's float64 host re-evaluation of the averaged iterate.  It and
+        the float32 plateau detector run where the JAX package's host sees a
+        chunk end: after every ``CHUNK`` (4 ``CHUNK`` without Grams)
+        iterations counted from iteration ``chunk_from`` (default: where
+        this loop starts)."""
         p = self.params
+        if chunk_from is None:
+            chunk_from = ctrl.it
+        chunk = CHUNK if want_grams else 4 * CHUNK
+        checks = f64_check is not None or (self.f32 and mode == "main")
+        last_f64_it = -10**9
+        f64_every = 0
+        plateau_chunks = 0
+        plateau_prev_pinf = None
+        f64_exit = False
         while (ctrl.code == CODE_RUN and self._overall(carry, ctrl)
                and ctrl.it < iter_ceiling):
             it_before = ctrl.it
@@ -386,21 +427,58 @@ class ADMMPhase:
                 record_cb(row, carry.grams or [], it_before)
             if ctrl.code != CODE_RUN:
                 break
+            if (checks and ctrl.it > chunk_from
+                    and (ctrl.it - chunk_from) % chunk == 0
+                    and self._overall(carry, ctrl)
+                    and ctrl.it < iter_ceiling):
+                if (f64_check is not None
+                        and carry.pinf_l1 <= p.phase2_tol
+                        and carry.gap <= 1e4 * p.phase2_tol
+                        and ctrl.it - last_f64_it >= f64_every):
+                    # plausibly converged, but the float32 device gap may
+                    # not resolve it: re-evaluate the iterate in float64
+                    pobj64, dobj64, pinf64, pinfi64, gap64 = f64_check(carry)
+                    last_f64_it = ctrl.it
+                    if gap64 <= p.phase2_tol and pinf64 <= p.phase2_tol:
+                        f64_exit = True
+                        break
+                    f64_every = CHUNK if gap64 <= 10 * p.phase2_tol \
+                        else 4 * CHUNK
+                if self.f32 and mode == "main":
+                    # precision plateau: near-feasible chunks whose pinf
+                    # stopped improving, never certifying
+                    near = carry.pinf_l1 <= 1e2 * p.phase2_tol
+                    non_improving = (plateau_prev_pinf is not None
+                                     and carry.pinf_l1
+                                     >= 0.98 * plateau_prev_pinf)
+                    plateau_chunks = (plateau_chunks + 1
+                                      if near and non_improving else 0)
+                    plateau_prev_pinf = carry.pinf_l1
+                    if plateau_chunks >= max(2, (6 * 25) // chunk):
+                        info.plateau = True
+                        break
             if time.time() - time_start >= p.time_sec_limit:
                 info.time_limit = True
                 break
             if interrupt.interrupted():
                 info.interrupted = True
                 break
-        if ctrl.code == CODE_RUN and not (info.time_limit
-                                          or info.interrupted):
+        if ctrl.code == CODE_RUN and not (info.time_limit or info.interrupted
+                                          or info.plateau or f64_exit):
             ctrl.code = (CODE_DONE if not self._overall(carry, ctrl)
                          else CODE_CEILING)
         info.iters = ctrl.it
         info.cg_iters_total = ctrl.cg_total
-        info.last_gap, info.last_pinf = carry.gap, carry.pinf_l1
-        info.last_pinf_inf = carry.pinf_inf
-        info.last_pobj, info.last_dobj = carry.pobj, carry.dobj
+        if f64_exit:
+            # the whole host-mirror metric set in one precision
+            info.converged = True
+            info.last_pobj, info.last_dobj = pobj64, dobj64
+            info.last_pinf, info.last_pinf_inf = pinf64, pinfi64
+            info.last_gap = gap64
+        else:
+            info.last_gap, info.last_pinf = carry.gap, carry.pinf_l1
+            info.last_pinf_inf = carry.pinf_inf
+            info.last_pobj, info.last_dobj = carry.pobj, carry.dobj
         info.num_err = ctrl.code == CODE_NUM_ERR
         info.bad_iter = ctrl.code == CODE_BAD_ITER
         return carry
@@ -409,7 +487,8 @@ class ADMMPhase:
             iter_ceiling: int, time_start: float, mode: str = "main",
             record_cb=None, rho_max: Optional[float] = None,
             entry_gap: Optional[float] = None,
-            entry_pinf: Optional[float] = None, want_grams: bool = False):
+            entry_pinf: Optional[float] = None, want_grams: bool = False,
+            f64_check=None):
         """The reopt-round entry (``ADMMPhase.run``): returns
         (carry, last rho, iteration counter, info)."""
         p = self.params
@@ -427,7 +506,8 @@ class ADMMPhase:
         ctrl = self.make_ctrl(min(rho, rho_max), rho_max, iter_start)
         carry = self.loop(carry, ctrl, mode=mode, iter_ceiling=iter_ceiling,
                           time_start=time_start, info=info,
-                          record_cb=record_cb, want_grams=want_grams)
+                          record_cb=record_cb, want_grams=want_grams,
+                          f64_check=f64_check)
         code = ctrl.code
         if code in (CODE_CONVERGED, CODE_PINF_OK, CODE_DONE):
             info.converged = (info.last_gap <= p.phase2_tol

@@ -20,9 +20,12 @@ Python and each decision reads its device scalars through one
 :class:`~.common.HostSync` call: two per inner iteration (the line-search
 coefficients; the new gradient norm with the primal infeasibility) and one
 per metrics evaluation.  The float32-only branches of the JAX package
-(``_p1_guard``: the l_inf-floor escape and tau-stall grading) never fire in
-float64 and are left out, as is the ``min_k`` gate, which the JAX driver
-never sets.
+(``_p1_guard``, on when the compute dtype is float32) are kept: the
+pinf_l1 <= phase2_tol alternative to the phase-1 l_inf exit once three outer
+iterations in a row failed to improve l_inf by 5 % (the floor-gated exit,
+``alm.py:389-402``, :651-672), and the grading of a tau-too-small pass
+(``alm.py:556-575``).  The ``min_k`` gate is left out: the JAX driver never
+sets it.
 """
 
 from __future__ import annotations
@@ -101,6 +104,8 @@ class OuterCtrl:
     rho_factor_flag: int = 0
     inner_total: int = 0
     code: int = CODE_CONTINUE
+    best_pinf_inf: float = math.inf   # float32 floor detector: best l_inf
+    p1_stall: int = 0                 # outers in a row with < 5 % l_inf gain
 
 
 @dataclasses.dataclass
@@ -179,6 +184,8 @@ class ALMPhase:
             work += 3.0 * ops.constr_flops(r) + ops.apply_flops(r)
         inner_budget = int(min(max(DISPATCH_FLOP_BUDGET / work, 64), 200_000))
         self.inner_pass_cap = int(min(800, inner_budget))
+        # float32-only phase-1 over-tightness guard (see _inner_pass)
+        self._p1_guard = b.dtype == torch.float32
 
     # ------------------------------------------------------------------ #
 
@@ -251,8 +258,8 @@ class ALMPhase:
 
     # ---------------- inner descent loop (one sub-loop pass) ----------- #
 
-    def _inner_pass(self, carry: ALMCarry, early_variant: bool
-                    ) -> Tuple[ALMCarry, PassStats]:
+    def _inner_pass(self, carry: ALMCarry, early_variant: bool,
+                    p1_floor: bool = False) -> Tuple[ALMCarry, PassStats]:
         p = self.params
         c = carry
         local_iter = 0
@@ -279,8 +286,11 @@ class ALMPhase:
             # one C·D per cone gives both objective line-search terms and
             # the incremental C·R update
             CD = tuple(ops.apply_c(d) for ops, d in zip(self.cones, D))
-            oRD = sum(cvdot(r, cd) for r, cd in zip(c.R, CD))
-            oDD = sum(cvdot(d, cd) for d, cd in zip(D, CD))
+            # plain dots in the compute dtype, as the reference's jnp.vdot
+            oRD = sum(torch.dot(r.reshape(-1), cd.reshape(-1))
+                      for r, cd in zip(c.R, CD))
+            oDD = sum(torch.dot(d.reshape(-1), cd.reshape(-1))
+                      for d, cd in zip(D, CD))
             if self.has_lp:
                 oRD = oRD + self.lp.obj_value(c.rlp, dlp)
                 oDD = oDD + self.lp.obj_value(dlp, dlp)
@@ -332,8 +342,14 @@ class ALMPhase:
                 1.0 + self.consts.b_nrminf)
             if not early_variant:
                 # main-phase early exit inside the inner loop
-                # (lorads_alm.c:1344-1357); gap is the stale outer value
-                early = (pinf_inf <= p.phase1_tol
+                # (lorads_alm.c:1344-1357); gap is the stale outer value.
+                # float32 only: the pinf_l1 <= phase2_tol alternative once
+                # p1_floor certifies that l_inf stopped improving across rho
+                # escalations (an l_inf bar below the float32 optimization
+                # floor when |b|_1 / |b|_inf is skewed)
+                early = ((pinf_inf <= p.phase1_tol
+                          or (self._p1_guard and p1_floor
+                              and pinf <= p.phase2_tol))
                          and (c.gap <= p.phase1_tol or not p.high_acc_mode))
             early = early and do_update
 
@@ -378,24 +394,30 @@ class ALMPhase:
         if stop_ema or stop_iters or stop_rank or stop_cert:
             return carry, False
 
-        carry, st = self._inner_pass(carry, early_variant)
+        carry, st = self._inner_pass(carry, early_variant,
+                                     p1_floor=ctrl.p1_stall >= 3)
         local = st.local_iter
         ctrl.cur_iter_counter += local
         ctrl.inner_total += local
         if ctrl.code == CODE_CONTINUE:
             ctrl.code = (CODE_NUM_ERR if st.num_err else
                          CODE_CONVERGED if st.early_exit else CODE_CONTINUE)
-        # a tau-too-small exit is ungraded (goto UpdateRho,
-        # lorads_alm.c:1066-1073)
-        graded = not (st.num_err or st.early_exit or st.tau_small)
-        easy = local <= 20
+        # A tau-too-small exit is ungraded in the reference (goto UpdateRho,
+        # lorads_alm.c:1066-1073).  float32 only: the line search collapses
+        # to tau ~ 0 routinely, so such a pass is graded by the same
+        # brackets (a long grind accumulates difficulty) but never resets
+        # the flag, and it still ends the difficulty loop.
+        tau_stall = st.tau_small and self._p1_guard
+        graded = not (st.num_err or st.early_exit
+                      or (st.tau_small and not tau_stall))
+        easy = local <= 20 and not tau_stall
         add = 0 if local <= 20 else 2 if local <= 100 else 3 if local < 400 \
             else 4
         if graded and easy:
             ctrl.rank_flag = 0
         elif graded:
             ctrl.rank_flag += add
-        return carry, graded and not easy
+        return carry, graded and not easy and not tau_stall
 
     def _update_rho(self, carry: ALMCarry, ctrl: OuterCtrl) -> ALMCarry:
         """UpdateRho do-while and factor dampening (lorads_alm.c:1410-1419)."""
@@ -430,10 +452,18 @@ class ALMPhase:
             carry = self._update_rho(carry, ctrl)
         ctrl.k += 1
         carry = self._metrics(carry, want_grams=want_grams)
+        # float32 floor tracking: three outer iterations in a row without a
+        # 5 % l_inf gain certify that the phase-1 bar is out of reach at
+        # this precision (see _inner_pass)
+        improved = carry.pinf_inf <= 0.95 * ctrl.best_pinf_inf
+        ctrl.p1_stall = 0 if improved else ctrl.p1_stall + 1
+        ctrl.best_pinf_inf = min(ctrl.best_pinf_inf, carry.pinf_inf)
 
         code = ctrl.code
         if mode == "main":
-            conv = (carry.pinf_inf <= p.phase1_tol
+            conv = ((carry.pinf_inf <= p.phase1_tol
+                     or (self._p1_guard and ctrl.p1_stall >= 3
+                         and carry.pinf_l1 <= p.phase2_tol))
                     and (carry.gap <= p.phase1_tol or not p.high_acc_mode))
             conv = conv or (carry.gap <= p.phase1_tol * 1e-3
                             and carry.pinf_l1 <= p.phase1_tol * 1e-3)
@@ -468,7 +498,9 @@ class ALMPhase:
         if mode == "main":
             head_done = ctrl.k > max_alm_iter
         else:
-            cond_ok = (carry.pinf_inf <= p.phase1_tol) and (
+            cond_ok = (carry.pinf_inf <= p.phase1_tol
+                       or (self._p1_guard
+                           and carry.pinf_l1 <= p.phase2_tol)) and (
                 carry.gap <= max(p.phase1_tol, p.phase2_tol * 5)
                 or not p.high_acc_mode)
             head_done = (ctrl.k > max_alm_iter and cond_ok) or (

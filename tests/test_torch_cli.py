@@ -236,8 +236,12 @@ def test_cli_needs_a_gpu_unless_asked_for_the_cpu(dat_s, monkeypatch):
 
 
 def test_cli_float32_is_a_later_slice(dat_s):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main([str(dat_s), "--device", "cpu", "--dtype", "float32"])
+    """float32 was a later slice of the port and is ported now: the CLI
+    solves in float32 and certifies (the parity with the JAX package's
+    float32 solve is held in ``test_torch_float32.py``)."""
+    res = cli.main([str(dat_s), "--device", "cpu", "--dtype", "float32"])
+    assert res.status.value == "primal_dual_optimal"
+    assert res.pinf_l1 <= 1e-5 and res.gap <= 5e-5
 
 
 def test_delaunay_adjacency_is_a_planar_triangulation():

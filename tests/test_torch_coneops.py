@@ -184,8 +184,9 @@ def test_cpu_operators_take_the_plain_path(pair):
 
 
 def test_unported_cones_raise():
-    """What still raises is float32 compute; multi-block problems, dense
-    cones and dense objectives build (they raised before their slice)."""
+    """Multi-block problems, dense cones, dense objectives and float32
+    compute all build now (each raised before its slice); what raises is a
+    compute dtype other than float32 or float64."""
     from ltr_lowrank_sdp_tpu.testing import random_multiblock_problem
 
     prob = random_multiblock_problem()
@@ -200,11 +201,15 @@ def test_unported_cones_raise():
     assert ConeOps(cone, "cpu").c_dense is not None
     cone.kind_c = "sparse"
     assert ConeOps(cone, "cpu").c_dense is None
-    with pytest.raises(NotImplementedError, match="float32"):
-        ConeOps(cone, "cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LPOps(multiblock_lp_problem((6, 5), 8, 10, 0).lp, "cpu",
-              dtype=torch.float32)
+    # float32 operators carry float32 values in every layout
+    ops32 = ConeOps(cone, "cpu", dtype=torch.float32)
+    assert ops32.c_dense is None and ops32.c_csr.vals.dtype == torch.float32
+    assert ops32.a_seg.coef.dtype == ops32.a_csr.vals.dtype == torch.float32
+    lp32 = LPOps(multiblock_lp_problem((6, 5), 8, 10, 0).lp, "cpu",
+                 dtype=torch.float32)
+    assert lp32.entries.row_val.dtype == lp32.c.dtype == torch.float32
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ConeOps(cone, "cpu", dtype=torch.float16)
 
 
 # --------------------------------------------------------------------------- #

@@ -27,6 +27,8 @@ whose exact value vanishes is rounding); the plain backwards themselves pass
 ``torch.autograd.gradcheck`` in float64 on the CPU (unmarked tests).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -506,9 +508,11 @@ def _f64(args):
 def _gat_inputs(case, dev):
     """(EdgeCSR, w_src, w_dst, we, we_loop, att) of a random graph: repeated
     edges, existing self-loops, a hub node with 100 incoming edges (several
-    32-edge index loads), or no edge at all."""
-    heads, ch = {"4x16": (4, 16), "2x32": (2, 32), "8x8": (8, 8),
-                 "no-edges": (4, 16), "hub": (4, 16)}[case]
+    32-edge index loads), or no edge at all; heads x channels from the case
+    name (every width the tuner samples, channel counts that are not powers
+    of two, 3 heads, and the widest row K9 takes, 4 x 64)."""
+    heads, ch = {"no-edges": (4, 16), "hub": (4, 16)}.get(case) or tuple(
+        int(v) for v in case.split("x"))
     rng = np.random.default_rng(len(case))
     n, e = 300, 0 if case == "no-edges" else 2000
     ei = rng.integers(0, n, size=(2, e))
@@ -529,8 +533,12 @@ def _gat_inputs(case, dev):
             rnd(heads, ch, scale=2.0))
 
 
+GAT_CASES = ["4x16", "2x32", "8x8", "no-edges", "hub", "2x16", "4x12",
+             "4x20", "2x48", "4x24", "3x32", "4x64"]
+
+
 @cuda
-@pytest.mark.parametrize("case", ["4x16", "2x32", "8x8", "no-edges", "hub"])
+@pytest.mark.parametrize("case", GAT_CASES)
 def test_gatv2_softmax_agg(dev, case):
     args = _gat_inputs(case, dev)
     before = K.KERNELS["gatv2_softmax_agg"].launches
@@ -545,7 +553,8 @@ def test_gatv2_softmax_agg(dev, case):
 @cuda
 @pytest.mark.parametrize("counts,d", [
     ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
-    ((0,), 32), ((1000, 3), 128)])
+    ((0,), 32), ((1000, 3), 128), ((700, 256, 257), 96),
+    ((1000, 3), 200), ((85080,), 256)])
 def test_graph_pool(dev, counts, d):
     seg = K.GraphSegments.from_counts(counts, dev)
     gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
@@ -574,17 +583,24 @@ def test_gnn_wrappers_reject_what_the_kernels_do_not_take(dev):
     g, w_src, w_dst, we, we_loop, att = _gat_inputs("4x16", dev)
     with pytest.raises(TypeError):
         K.gatv2_softmax_agg(g, w_src.double(), w_dst, we, we_loop, att)
-    with pytest.raises(ValueError, match="heads"):
+    with pytest.raises(ValueError, match="shape"):
         K.gatv2_softmax_agg(g, w_src[:, :32].contiguous(),
                             w_dst[:, :32].contiguous(),
                             we[:, :32].contiguous(),
-                            we_loop[:32].contiguous(), att[:2].contiguous())
-    with pytest.raises(ValueError, match="aligned"):
-        K.gatv2_softmax_agg(g, w_src, w_dst, we,
-                            torch.empty(65, device=dev)[1:], att)
+                            we_loop[:32].contiguous(), att)
+    # wider than K9 takes: 4 x 72 = 288, and 3 heads x 72 channels (three
+    # heads take 8 lanes each, so at most 64 channels)
+    for heads, ch in ((4, 72), (3, 72)):
+        wide = torch.zeros((g.n, heads * ch), device=dev)
+        with pytest.raises(ValueError, match="heads \\* channels <= 256"):
+            K.gatv2_softmax_agg(
+                g, wide, wide, torch.zeros((g.n_real, heads * ch),
+                                           device=dev),
+                torch.zeros(heads * ch, device=dev),
+                torch.zeros((heads, ch), device=dev))
     seg = K.GraphSegments.from_counts((10, 20), dev)
-    x = torch.zeros((30, 130), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="d <= 128"):
+    x = torch.zeros((30, 260), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="d <= 256"):
         K.graph_pool(seg, x, torch.zeros(30, device=dev))
     with pytest.raises(ValueError, match="nodes"):
         K.graph_pool(seg, x[:29, :64].contiguous(),
@@ -670,7 +686,7 @@ def _check_outputs(got, want):
 
 @cuda
 @pytest.mark.parametrize("dropout", [False, True])
-@pytest.mark.parametrize("case", ["4x16", "2x32", "8x8", "no-edges", "hub"])
+@pytest.mark.parametrize("case", GAT_CASES)
 def test_gatv2_softmax_agg_bwd(dev, case, dropout):
     g, *args = _gat_inputs(case, dev)
     heads = args[-1].shape[0]
@@ -701,7 +717,8 @@ def test_gatv2_softmax_agg_bwd(dev, case, dropout):
 @pytest.mark.parametrize("dropout", [False, True])
 @pytest.mark.parametrize("counts,d", [
     ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
-    ((1000, 3), 128)])
+    ((1000, 3), 128), ((700, 256, 257), 96), ((1000, 3), 200),
+    ((5, 0, 300, 1), 256)])
 def test_graph_pool_bwd(dev, counts, d, dropout):
     seg = K.GraphSegments.from_counts(counts, dev)
     gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
@@ -744,3 +761,112 @@ def test_autograd_functions_launch_forward_and_backward_kernels(dev):
                  "graph_pool_bwd"):
         assert counts[name] == (1, 0), (name, counts[name])
     assert all(leaf.grad is not None for leaf in leaves)
+
+
+# --------------------------------------------------------------------------- #
+# K1-K8 on float32 values (the solver's --dtype float32)
+# --------------------------------------------------------------------------- #
+
+KERNEL_TOL = 1e-5     # float32 kernel / plain vs the float64 evaluation,
+                      # relative to the output's largest magnitude
+
+
+def _kernel_cases(dev, dtype):
+    """``{name: (wrapper, plain, args)}`` for K1-K8 on one device in one
+    value type, from numpy draws (the same numbers for either type)."""
+    rng = np.random.default_rng(11)
+    n, r = 600, 13
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    rows, cols, vals = _upper(n, 5)
+    csr = K.SymCSR.from_upper_coo(rows, cols, vals, n, dev, dtype)
+    Y, Z = t(rng.standard_normal((n, r))), t(rng.standard_normal((n, r)))
+    d = t(rng.standard_normal(n))
+    coef = t(np.where(rows != cols, 2.0 * vals, vals))
+    ri = torch.tensor(rows, dtype=torch.int32, device=dev)
+    ci = torch.tensor(cols, dtype=torch.int32, device=dev)
+    m = 700
+    arows = rng.integers(0, n, 3 * m)
+    acols = np.maximum(arows, rng.integers(0, n, 3 * m))
+    acid = np.concatenate([np.zeros(100, int), rng.integers(1, m, 3 * m - 100)])
+    avals = rng.standard_normal(3 * m)
+    seg = K.SegCOO.from_coo(arows, acols, avals, acid, n, m, dev, dtype)
+    ccsr = K.ConstrCSR.from_upper_coo(arows, acols, avals, acid, n, m, dev,
+                                      dtype)
+    w = t(rng.standard_normal(m))
+    n_lp = 900
+    col = np.repeat(np.arange(n_lp), 3)
+    lcid = rng.integers(0, m, col.size)
+    lp = K.LPEntries.from_coo(rng.uniform(0.5, 1.5, n_lp), col, lcid,
+                              rng.standard_normal(col.size), m, n_lp, dev,
+                              dtype)
+    u, v = t(rng.standard_normal(n_lp)), t(rng.standard_normal(n_lp))
+    return {
+        "spmm_sym_csr": (K.spmm_sym_csr, K.spmm_sym_csr_plain,
+                         (csr, Y, 0.7, d)),
+        "diag_rowdot": (K.diag_rowdot, K.diag_rowdot_plain,
+                        (Y, Z, d, 2.0, True)),
+        "diag_normal_matvec": (K.diag_normal_matvec,
+                               K.diag_normal_matvec_plain, (Y, Z, d)),
+        "sym_contract_sum": (K.sym_contract_sum, K.sym_contract_sum_plain,
+                             (ri, ci, coef, Y, Z)),
+        "coo_contract_segsum": (K.coo_contract_segsum,
+                                K.coo_contract_segsum_plain,
+                                (seg, Y, Z, True)),
+        "spmm_constr_csr": (K.spmm_constr_csr, K.spmm_constr_csr_plain,
+                            (ccsr, w, Y, Z, 1.0)),
+        "lp_constr_segsum": (K.lp_constr_segsum, K.lp_constr_segsum_plain,
+                             (lp, u, v, True)),
+        "lp_col_wsum": (K.lp_col_wsum, K.lp_col_wsum_plain, (lp, w, 1.5)),
+    }
+
+
+def _outs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _rel_to_scale(got, want) -> float:
+    return max(float((g.double().cpu() - w.double().cpu()).abs().max())
+               / max(float(w.abs().max()), 1e-300)
+               for g, w in zip(_outs(got), _outs(want)))
+
+
+K1_K8 = ["spmm_sym_csr", "diag_rowdot", "diag_normal_matvec",
+         "sym_contract_sum", "coo_contract_segsum", "spmm_constr_csr",
+         "lp_constr_segsum", "lp_col_wsum"]
+
+
+def _f64(args):
+    """``args`` with every float tensor, and every float tensor of a layout,
+    in float64: the float64 evaluation of the same float32 inputs."""
+    def up(v):
+        return v.double() if torch.is_tensor(v) and v.is_floating_point() \
+            else v
+
+    out = []
+    for a in args:
+        if dataclasses.is_dataclass(a):
+            a = type(a)(**{f.name: up(getattr(a, f.name))
+                           for f in dataclasses.fields(a)})
+        out.append(up(a))
+    return tuple(out)
+
+
+@cuda
+@pytest.mark.parametrize("name", K1_K8)
+def test_float32_kernels_on_the_card(dev, name):
+    """Each of K1-K8 on float32 values against its plain version evaluated
+    in float64 on the same inputs (K4, whose sums are float64, to 1e-10),
+    the same bits on two calls."""
+    wrapper, plain, args = _kernel_cases(dev, torch.float32)[name]
+    before = K.KERNELS[name].launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    f64 = _f64(args)
+    tol = 1e-10 if name == "sym_contract_sum" else KERNEL_TOL
+    assert _rel_to_scale(got, plain(*f64)) <= tol
+    again = wrapper(*args)
+    assert all(torch.equal(a, b) for a, b in zip(_outs(got), _outs(again)))
+    assert K.KERNELS[name].launches == before + 2

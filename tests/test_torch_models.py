@@ -225,6 +225,75 @@ def test_k10_pooling_matches_jax(counts):
            jax.ops.segment_sum(w[:, None] * x, batch, B))
 
 
+@pytest.mark.parametrize("heads,ch", [(2, 16), (4, 12), (4, 24), (2, 48)],
+                         ids=["32=2x16", "48=4x12", "96=4x24", "96=2x48"])
+def test_gatv2_and_pooling_gradients_at_tuner_widths(heads, ch):
+    """One GATv2 layer and the three poolings of its output at widths the
+    tuner samples (``tune.py:24-27``; channel counts that are not powers of
+    two), forward and gradients in float64 against ``jax.grad`` of the JAX
+    layers: the loss to 1e-12, every parameter and both inputs to 1e-6 of
+    the leaf's largest value (the two sides part by up to 5e-8 of a leaf at
+    these widths, as in ``test_torch_train.py``).  On the CPU the port runs
+    K9 / K10's plain versions and their plain backwards (K11 / K12); the
+    checkpoint map takes every width."""
+    rng = np.random.default_rng(heads * ch)
+    n, e, d_in, d_e, hc = 40, 160, 12, 8, heads * ch
+    x = rng.standard_normal((n, d_in))
+    ei = _graph(rng, n, e)
+    ea = rng.standard_normal((e, d_e))
+    counts = (15, 25)
+    batch = np.repeat(np.arange(2), counts)
+    w_out = rng.standard_normal((n, hc))
+    w_pool = rng.standard_normal((2, 3 * hc))
+    gat = jax_gatv2.GATv2Conv(out_channels=ch, heads=heads, edge_dim=d_e)
+    pool = jax_layers.AttentionPooling(hidden_dim=hc // 2)
+    f64 = jax.tree_util.Partial(jax.tree.map, lambda p: p.astype(jnp.float64))
+    gp = f64(jax.tree.map(lambda p: p + 0.1 if p.ndim == 1 else p, gat.init(
+        jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(ei),
+        jnp.asarray(ea))))
+    pp = f64(pool.init(jax.random.PRNGKey(2), jnp.zeros((n, hc)), batch, 2))
+
+    def jax_loss(gp, pp, x, ea):
+        h = gat.apply(gp, x, jnp.asarray(ei), ea)
+        cnt = jax.ops.segment_sum(jnp.ones(n), batch, 2)
+        mean = jax.ops.segment_sum(h, batch, 2) / cnt[:, None]
+        mx = jax.ops.segment_max(h, batch, 2)
+        att = pool.apply(pp, h, batch, 2)
+        pooled = jnp.concatenate([mean, mx, att], axis=1)
+        return jnp.sum(h * w_out) + jnp.sum(pooled * w_pool)
+
+    want_loss, grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2, 3))(
+        gp, pp, jnp.asarray(x), jnp.asarray(ea))
+    ours = _port(gatv2.GATv2Conv(d_in, ch, heads, d_e), gp).double()
+    opool = _port(layers.AttentionPooling(hc, hc // 2), pp).double()
+    xt = torch.tensor(x, requires_grad=True)
+    et = torch.tensor(ea, requires_grad=True)
+    seg = K.GraphSegments.from_counts(counts, "cpu")
+    h = ours(xt, K.EdgeCSR.from_edge_index(torch.tensor(ei), n), et)
+    pooled = K.graph_pool(seg, h, opool.score(h))
+    loss = (torch.sum(h * torch.tensor(w_out))
+            + torch.sum(pooled * torch.tensor(w_pool)))
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(want_loss), rel=1e-12)
+    want = {**{"gat." + k: v for k, v in checkpoint.params_from_flax(
+        jax.tree.map(np.asarray, grads[0])).items()},
+        **{"pool." + k: v for k, v in checkpoint.params_from_flax(
+            jax.tree.map(np.asarray, grads[1])).items()},
+        "x": torch.tensor(np.asarray(grads[2])),
+        "edge_attr": torch.tensor(np.asarray(grads[3]))}
+    got = {**{"gat." + k: p.grad for k, p in ours.named_parameters()},
+           **{"pool." + k: p.grad for k, p in opool.named_parameters()},
+           "x": xt.grad, "edge_attr": et.grad}
+    assert set(got) == set(want)
+    largest = max(float(v.abs().max()) for v in want.values())
+    for k, w in want.items():
+        err = float((got[k] - w.double()).abs().max())
+        # the score bias's exact gradient is 0 (a softmax ignores a shift)
+        scale = (largest if k == "pool.dense_1.bias"
+                 else float(w.abs().max()))
+        assert err <= 1e-6 * scale, (k, err)
+
+
 def test_lstm_stack_step():
     rng = np.random.default_rng(8)
     B, d_in, h, L = 3, 10, 16, 2

@@ -217,5 +217,12 @@ def test_compsum_matches_jax():
     assert float(compsum.cvdot(torch.tensor(x), torch.tensor(y))) == \
         pytest.approx(float(jax_compsum.cvdot(jnp.asarray(x),
                                               jnp.asarray(y))), rel=1e-12)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        compsum.csum(torch.zeros(3, dtype=torch.float32))
+    # float32: reduced in float64 and returned in float32, as the JAX
+    # package's csum / cvdot do
+    x32, y32 = x.astype(np.float32), y.astype(np.float32)
+    got = compsum.cvdot(torch.tensor(x32), torch.tensor(y32))
+    assert got.dtype == torch.float32
+    assert float(got) == float(jax_compsum.cvdot(jnp.asarray(x32),
+                                                 jnp.asarray(y32)))
+    assert float(compsum.csum(torch.tensor(x32))) == float(
+        jax_compsum.csum(jnp.asarray(x32)))

@@ -235,12 +235,28 @@ def test_default_start_is_seeded():
 
 
 def test_float32_and_feasibility_paths_raise():
+    """The C = 0 feasibility path is still a later slice; the float32 half
+    of this test became ``test_float32_path_solves`` with its slice."""
     prob = random_maxcut_problem(40, avg_degree=4, seed=0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Solver(prob, SolverParams(dtype="float32"), device="cpu")
     prob.c_nrm1 = 0.0
     with pytest.raises(NotImplementedError, match="later slice"):
         Solver(prob, device="cpu")
+    with pytest.raises(ValueError, match="unknown dtype"):
+        Solver(random_maxcut_problem(40, avg_degree=4, seed=0),
+               SolverParams(dtype="float16"), device="cpu")
+
+
+def test_float32_path_solves():
+    """``dtype="float32"`` builds float32 operators and factors and
+    certifies; ``"auto"`` stays float64."""
+    prob = random_maxcut_problem(40, avg_degree=4, seed=0)
+    s32 = Solver(prob, SolverParams(dtype="float32"), device="cpu")
+    assert s32.dtype == torch.float32 and s32.b.dtype == torch.float32
+    assert Solver(prob, device="cpu").dtype == torch.float64
+    res = s32.solve()
+    assert res.status == SolverStatus.PRIMAL_DUAL_OPTIMAL
+    assert res.U[0].dtype == res.dual.dtype == np.float32
+    assert "f64_polish" in res.stage_times and "polish2" in res.stage_times
 
 
 # --------------------------------------------------------------------------- #
