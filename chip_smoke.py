@@ -154,7 +154,23 @@ Phases, in order; any failed check raises and the script exits nonzero:
    ``MC_600x600_r5`` step, epoch wall, peak memory), its second epoch under
    the profiler (device busy share); ``infer`` on ``theta_n300_d75`` with
    the checkpoint just written;
-13. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
+13. the HALLaR path: ``hallar_solve`` on the card against the CPU on the
+   reference's trace-bound min-eig case and a 40 x 40 matrix completion at a
+   reduced ``maxiter_fista`` (the same outer iterations, rank and FISTA
+   steps, pobj to 1e-9 and 1e-8); K4, K5 and K6 at HALLaR's layouts on a
+   maximum stable set cone of n = 1,024 (dense C as its n(n+1)/2 upper
+   entries); then ``ltr_lowrank_sdp_torch.hallar.cli`` on
+   ``matcomp_sdpa(1500, 1500, 3, 3.0, 0)`` (n = 3,000, m = 216,171, the
+   size of the HALLaR binary's README example) with ``--trace_bound`` 3
+   ||M||_* and default parameters, counters set to 0 just before and read
+   just after: converged with pinf and gap <= 1e-5, pobj within 1e-5 of the
+   LoRADS path's solve of the same file (``--heuristicFactor 10``), K4, K5
+   and K6 launched, nothing else and no plain version run; solve time,
+   outer iterations, rank, FISTA steps, host reads and CUDA-graph replays
+   printed; K4-K6 held at the path's layouts and final rank; the inner
+   loop's machine step timed eagerly and replayed as a CUDA graph; one
+   outer iteration at ``maxiter_fista`` 2000 under the profiler;
+14. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
    row at every main path's shapes; K9-K12's rows at the width phase's
    widths under ``widths``; a ``NAME[float32]`` row for each of K1-K8 with
    its float32 launches on the float32 run of its path), the kernels still
@@ -278,14 +294,24 @@ F32_FLAGS = ("--dtype", "float32")
 GNN_WIDTHS = ((2, 16), (4, 12), (4, 20), (2, 48), (4, 24), (4, 64))
 POOL_WIDTHS = (96, 256)
 WIDE_HIDDEN = 96          # the full-width training step at --hidden-dim 96
+# the HALLaR path: its CLI on the matrix completion that the HALLaR binary's
+# README reports (n = 3,000, m = 216,172 there; this generator gives
+# 216,171), trace bound 3 ||M||_* of the planted M, default parameters
+# (ADAP-FISTA); held to the LoRADS path's solve of the same file
+HALLAR_MC = (1500, 1500, 3, 3.0, 0)
+HALLAR_LIMIT_S = 300.0
+HALLAR_KERNELS = ("sym_contract_sum", "coo_contract_segsum",
+                  "spmm_constr_csr")
+HALLAR_REPLACES = "ltr_lowrank_sdp_tpu/hallar/solver.py:179,184,188"
+HALLAR_POBJ_RTOL = 1e-5
+HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
+HALLAR_PROFILE_FISTA = 2000  # inner steps of the profiled outer iteration
 
 UNPORTED = [
     "P  scripts/pallas_gather_probe.py:40-65 kern (pallas_call :57): "
     "gather-sum probe; later an H100 gather micro-benchmark",
-    "15 ltr_lowrank_sdp_tpu/hallar/solver.py:179,184,188 _Ops.AX, _Ops.CX, "
-    "_Ops.SY (HALLaR slice, the next)",
     "16 ltr_lowrank_sdp_tpu/parallel/meshops.py:211,220 _local_reduce, "
-    "_local_spmm (parallel slice)",
+    "_local_spmm (parallel slice, the next)",
 ]
 # The reference's device-resident solver loops are jnp loops over the
 # operators above, with no gather or segment-reduction kernel of their own;
@@ -298,6 +324,10 @@ LOOPS = [
     "ltr_lowrank_sdp_torch/ops/lbfgs.py",
     "13 ltr_lowrank_sdp_tpu/ops/lanczos.py:162 oracle_rank_gram -> "
     "ltr_lowrank_sdp_torch/ops/lanczos.py (torch.matmul + host eigh)",
+    "15 ltr_lowrank_sdp_tpu/hallar/solver.py:205,258 _make_fista, "
+    "_make_aipp; ops/lanczos.py:115 lanczos_min_eig_vec -> "
+    "ltr_lowrank_sdp_torch/hallar/solver.py (a torch.where state machine "
+    "over K4-K6, replayed as CUDA graphs), ops/lanczos.py",
 ]
 
 
@@ -871,6 +901,252 @@ def _measure_gnn(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
           f"host-issued call {call_ms:.4f} ms", flush=True)
     return {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
+    """K5, K4 and K6 as HALLaR's ``_Ops`` calls them: A(YY^T) (K5, U is V),
+    <C, YY^T> (K4, U is V) and (C + A*(w)) Y (K6 on the one layout of A and
+    C, weights [w, 1]) at ``rank``, and K6 at r = 1 (the Lanczos matvec).
+    ``positive`` draws Y >= 0, so that K4's sum over a dense C has no
+    cancellation and 1e-12 holds the kernel, not the order of a cancelling
+    sum.  Returns {name: row} at ``rank``."""
+    seg, csr = ops.a_seg, ops.s_csr
+    n, m, nnz, slots = ops.n, ops.m, seg.nnz, csr.nnz
+    nnz_c = int(ops.c_rows.numel())
+    f8, i4 = 8, 4
+    g = torch.Generator(device=dev).manual_seed(2031)
+    w = torch.randn(m + 1, generator=g, dtype=torch.float64, device=dev)
+    w[m] = 1.0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "sparse CSR support is beta"
+        s_w = torch.sparse_coo_tensor(
+            torch.stack([csr.row_ids, csr.indices.long()]),
+            w[csr.cid.long()] * csr.vals,
+            size=(n, n)).coalesce().to_sparse_csr()
+    report = {}
+    for r in (rank, 1):
+        Y = torch.randn((n, r), generator=g, dtype=torch.float64, device=dev)
+        Y = Y.abs() if positive else Y
+        shape = f"{tag} n={n} m={m} r={r}"
+        k6 = _measure(
+            "spmm_constr_csr", f"A+C {shape} slots={slots}",
+            lambda: K.spmm_constr_csr(csr, w, Y),
+            lambda: K.spmm_constr_csr_plain(csr, w, Y),
+            (n + 1) * i4 + slots * (2 * i4 + f8) + (m + 1) * f8
+            + 2 * n * r * f8, 2.0 * slots * r + slots,
+            lambda: torch.sparse.mm(s_w, Y))
+        require(torch.equal(K.spmm_constr_csr(csr, w, Y),
+                            K.spmm_constr_csr(csr, w, Y)),
+                f"K6 {shape}: two calls gave different bits")
+        if r == 1:
+            continue        # K4 and K5 run at the factor's rank only
+        k5 = _measure(
+            "coo_contract_segsum", f"U-is-V {shape} nnz={nnz}",
+            lambda: K.coo_contract_segsum(seg, Y, Y),
+            lambda: K.coo_contract_segsum_plain(seg, Y, Y),
+            (m + 1) * i4 + nnz * (2 * i4 + f8) + m * f8 + n * r * f8,
+            2.0 * nnz * r)
+        k4 = _measure(
+            "sym_contract_sum", f"U-is-V {shape} C nnz={nnz_c}",
+            lambda: K.sym_contract_sum(ops.c_rows, ops.c_cols, ops.c_dbl,
+                                       Y, Y),
+            lambda: K.sym_contract_sum_plain(ops.c_rows, ops.c_cols,
+                                             ops.c_dbl, Y, Y),
+            nnz_c * (2 * i4 + f8) + n * r * f8 + f8, (2.0 * r + 1) * nnz_c)
+        require(torch.equal(K.coo_contract_segsum(seg, Y, Y),
+                            K.coo_contract_segsum(seg, Y, Y))
+                and torch.equal(ops.CX(Y), ops.CX(Y)),
+                f"K4/K5 {shape}: two calls gave different bits")
+        report = {"sym_contract_sum": k4, "coo_contract_segsum": k5,
+                  "spmm_constr_csr": k6}
+    return report
+
+
+def time_machine_step(H, ops, dev, r, tau, chunks=4):
+    """The inner loop's machine step at rank ``r`` on the path's layouts,
+    issued eagerly and replayed as a captured CUDA graph (what
+    ``run_fista`` does after its first chunk): host clock over ``chunks``
+    chunks of ``H.FISTA_CHUNK`` steps, synchronized."""
+    params = H.HallarParams(maxiter_fista=10 ** 9)
+    val, val_grad = H.al_functions(
+        ops, torch.zeros(ops.m, dtype=torch.float64, device=dev), 10.0)
+    g = torch.Generator(device=dev).manual_seed(2032)
+    Y0 = ops.project(tau * torch.randn((ops.n, r), generator=g,
+                                       dtype=torch.float64, device=dev))
+
+    def run_chunk(st):
+        for _ in range(H.FISTA_CHUNK):
+            st = H._machine_step(st, ops, params, val, val_grad)
+        return st
+
+    stream = torch.cuda.Stream(dev)     # as run_fista: eager on a side stream
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        st = run_chunk(H.fista_init(Y0, 1.0, val_grad))     # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(chunks):
+            st = run_chunk(st)
+        torch.cuda.synchronize()
+    eager = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
+    graph, st, _ = H._capture_chunk(st, run_chunk, stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(chunks):
+        graph.replay()
+    torch.cuda.synchronize()
+    replayed = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
+    print(f"[hallar] machine step at r={r}: eager {eager:.4f} ms, replayed "
+          f"as a CUDA graph {replayed:.4f} ms ({eager / replayed:.2f}x)",
+          flush=True)
+
+
+def hallar_min_eig_problem():
+    """The reference's trace-bound min-eig case (``tests/test_hallar.py``):
+    min <C, X> over tr X <= 1, X >= 0, one all-zero constraint."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.hallar.solver import SpectraplexProblem
+
+    rng = np.random.default_rng(0)
+    C = rng.normal(size=(12, 12))
+    C = (C + C.T) / 2
+    iu = np.triu_indices(12)
+    return SpectraplexProblem(
+        n=12, m=1, b=np.zeros(1), tau=1.0,
+        c_rows=iu[0].astype(np.int32), c_cols=iu[1].astype(np.int32),
+        c_vals=C[iu], a_rows=np.zeros(1, np.int32),
+        a_cols=np.zeros(1, np.int32), a_vals=np.zeros(1),
+        a_cid=np.zeros(1, np.int32))
+
+
+def run_hallar_path(K, dev, tmp):
+    """Phase 13, the HALLaR path.  Returns (its counts, its JSON result,
+    its rows of the kernels line)."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch import cli as lorads_cli
+    from ltr_lowrank_sdp_torch.hallar import cli as hcli
+    from ltr_lowrank_sdp_torch.hallar import solver as H
+    from ltr_lowrank_sdp_torch.problem import canonicalize, load_problem
+    from ltr_lowrank_sdp_torch.testing import (matcomp_nuclear_norm,
+                                               matcomp_sdpa, write_sdpa)
+
+    t13 = time.perf_counter()
+    # GPU against CPU at a reduced maxiter_fista: the min-eig case (no
+    # constraint to drift along) to 1e-9; a 40 x 40 matrix completion,
+    # whose pobj is fixed only to its primal infeasibility (about 1e-8), to
+    # 1e-8
+    for tag, prob, params, tol in (
+            ("min-eig", hallar_min_eig_problem(), H.HallarParams(
+                eps_gap=1e-4, maxiter_hallar=200, lanczos_iters=24,
+                maxiter_fista=1000), 1e-9),
+            ("matcomp40", H.SpectraplexProblem.from_sdp_problem(
+                canonicalize(matcomp_sdpa(40, 40, 3, 3.0, 0)),
+                3 * matcomp_nuclear_norm(40, 40, 3, 0)),
+             H.HallarParams(maxiter_fista=300), 1e-8)):
+        r_gpu = H.hallar_solve(prob, params, device=dev)
+        r_cpu = H.hallar_solve(prob, params, device="cpu")
+        for side, r in (("gpu", r_gpu), ("cpu", r_cpu)):
+            print(f"[hallar-{tag}] {side} converged {r.converged} pobj "
+                  f"{r.pobj:.12e} gap {r.rel_gap:.2e} iters {r.iters} rank "
+                  f"{r.final_rank} fista steps {r.fista_steps} host reads "
+                  f"{r.host_reads} graph replays {r.graph_replays} "
+                  f"{r.solve_time:.2f} s", flush=True)
+        diff = abs(r_gpu.pobj - r_cpu.pobj) / abs(r_cpu.pobj)
+        print(f"[hallar-{tag}] |pobj gpu - pobj cpu| / |pobj| {diff:.3e} "
+              f"(tol {tol:g})", flush=True)
+        require(r_gpu.converged and r_cpu.converged
+                and (r_gpu.iters, r_gpu.final_rank, r_gpu.fista_steps)
+                == (r_cpu.iters, r_cpu.final_rank, r_cpu.fista_steps),
+                f"hallar {tag}: GPU and CPU part")
+        require(diff <= tol, f"hallar {tag}: GPU and CPU pobj differ")
+
+    # the maximum stable set cone at n = 1,024: C = -ee^T stored as its
+    # n(n+1)/2 upper entries, as the reference does
+    n_mss, deg, seed = HALLAR_MSS
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n_mss, size=(n_mss * deg // 2, 2))
+    e = np.unique(np.sort(e[e[:, 0] != e[:, 1]], axis=1), axis=0)
+    mss = H._Ops(H.build_mss_problem([tuple(x) for x in e.tolist()], n_mss),
+                 torch.float64, dev)
+    check_hallar_kernels(K, mss, dev, 8, f"mss{n_mss}", positive=True)
+    del mss
+
+    # the path: the .dat-s file, the LoRADS path's solve of it, then HALLaR
+    path = os.path.join(tmp, "hallar_mc3000.dat-s")
+    write_sdpa(path, matcomp_sdpa(*HALLAR_MC))
+    tau = 3.0 * matcomp_nuclear_norm(*HALLAR_MC[:3], HALLAR_MC[4])
+    print(f"[hallar] matcomp_sdpa{HALLAR_MC}: 3 ||M||_* = {tau!r}",
+          flush=True)
+    t = time.perf_counter()
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        lorads = lorads_cli.main([path, "--heuristicFactor", "10"])
+    print(f"[hallar] LoRADS path (--heuristicFactor 10): "
+          f"{lorads.status.value} pobj {lorads.pobj:.12e}, "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    require(lorads.status.value in ("primal_dual_optimal", "primal_optimal"),
+            "hallar: the LoRADS path's solve did not certify")
+    cfg = os.path.join(tmp, "hallar.cfg")
+    with open(cfg, "w") as fh:
+        fh.write(f"time_limit = {HALLAR_LIMIT_S}\n")
+    out = os.path.join(tmp, "hallar.json")
+    K.reset_counts()
+    t = time.perf_counter()
+    hcli.main(["-i", path, "--trace_bound", repr(tau), "-c", cfg,
+               "-o", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.counts()
+    with open(out) as fh:
+        res = json.load(fh)
+    print(f"[hallar] counts {json.dumps(counts)}")
+    print(f"[hallar] cli wall {wall:.3f} s, solve {res['solve_time']:.3f} s, "
+          f"outer iterations {res['iters']}, final rank "
+          f"{res['final_rank']}, FISTA steps {res['fista_steps']} "
+          f"({res['solve_time'] / max(res['fista_steps'], 1) * 1e3:.4f} ms "
+          f"each), host reads {res['host_reads']}, graph replays "
+          f"{res['graph_replays']}, launches inside them "
+          f"{json.dumps(res['graph_runs'])}", flush=True)
+    rel = abs(res["pobj"] - lorads.pobj) / abs(lorads.pobj)
+    print(f"[hallar] converged {res['converged']} pobj {res['pobj']:.12e} "
+          f"dval {res['dval']:.12e} pinf {res['pinf']:.3e} gap "
+          f"{res['rel_gap']:.3e}; pobj against the LoRADS path "
+          f"{rel:.3e} relative (tol {HALLAR_POBJ_RTOL:g})", flush=True)
+    require(res["converged"] and res["pinf"] <= 1e-5
+            and res["rel_gap"] <= 1e-5, "hallar: not converged to 1e-5")
+    require(rel <= HALLAR_POBJ_RTOL,
+            "hallar: pobj differs from the LoRADS path's")
+    for name, (launches, plain_calls) in counts.items():
+        if name in HALLAR_KERNELS:
+            require(launches > 0, f"{name} was not launched on the hallar "
+                    "path")
+        else:
+            require(launches == 0, f"{name} ran on the hallar path")
+        require(plain_calls == 0,
+                f"{name}'s plain version ran on the hallar path")
+
+    # the kernels at the path's layouts and final rank, then one outer
+    # iteration at a reduced maxiter_fista under the profiler (a full one
+    # runs some 1.6 million device kernels)
+    prob = H.SpectraplexProblem.from_sdp_problem(load_problem(path), tau)
+    t = time.perf_counter()
+    ops = H._Ops(prob, torch.float64, dev)
+    print(f"[hallar] layouts built in {time.perf_counter() - t:.3f} s: "
+          f"A nnz {ops.a_seg.nnz}, A+C slots {ops.s_csr.nnz}, C nnz "
+          f"{ops.c_rows.numel()}", flush=True)
+    rows = check_hallar_kernels(K, ops, dev, res["final_rank"],
+                                "hallar mc3000")
+    time_machine_step(H, ops, dev, res["final_rank"], tau)
+    del ops
+    profile_call(lambda: H.hallar_solve(prob, H.HallarParams(
+        maxiter_hallar=1, maxiter_fista=HALLAR_PROFILE_FISTA), device=dev),
+        "hallar-profile", f"one outer iteration at maxiter_fista="
+        f"{HALLAR_PROFILE_FISTA} (layouts built inside)")
+    print(f"[time] phase 13 (hallar) {time.perf_counter() - t13:.1f} s",
+          flush=True)
+    return counts, res, rows
 
 
 def gnn_inputs(model, graph, dev):
@@ -2280,7 +2556,12 @@ def main() -> int:
     print(f"[time] phase 12 (training) {time.perf_counter() - t12:.1f} s",
           flush=True)
 
-    # ---- phase 13: report --------------------------------------------- #
+    # ---- phase 13: the HALLaR path -------------------------------------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        hallar_counts, hallar_res, report["hallar"] = run_hallar_path(
+            K, dev, tmp)
+
+    # ---- phase 14: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
     # carried it (MaxCut for K1-K4, the sparse cone for K5 and K6, the
     # multi-block + LP problem for K7 and K8, the serve path's graph for K9
@@ -2291,7 +2572,8 @@ def main() -> int:
     # largest graph, and "train", the training path)
     path_counts = {"maxcut": counts, "matcomp": mc_counts,
                    "multiblock_lp": mb_counts, "theta": th_counts,
-                   **serve_counts, "train": train_counts}
+                   **serve_counts, "train": train_counts,
+                   "hallar": hallar_counts}
     first_path = {**{name: "matcomp" for name in SPARSE_KERNELS},
                   **{name: "maxcut" for name in MAXCUT_KERNELS},
                   "lp_constr_segsum": "multiblock_lp",
@@ -2303,6 +2585,12 @@ def main() -> int:
     for name, k in K.KERNELS.items():
         by_path = {path: {"launches": path_counts[path][name][0], **rows[name]}
                    for path, rows in report.items() if name in rows}
+        if name in HALLAR_KERNELS:
+            # HALLaR's inner loop replays CUDA graphs: the counter saw each
+            # launch inside one once, at capture; the replays ran it again
+            by_path["hallar"].update(
+                replaces=HALLAR_REPLACES,
+                graph_replay_launches=hallar_res["graph_runs"].get(name, 0))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"ltr_lowrank_sdp_torch/csrc/{name}.cu",

@@ -47,6 +47,49 @@ def lanczos_tridiag(matvec: Callable, n: int, v0: torch.Tensor,
     return alphas, betas
 
 
+def lanczos_min_eig_vec(matvec: Callable, n: int, v0: torch.Tensor,
+                        num_iters: int = 64) -> Tuple[float, np.ndarray]:
+    """Minimum eigenvalue AND Ritz vector of the symmetric operator
+    ``matvec`` (HALLaR's escape direction), from start vector ``v0``.
+
+    The recurrence of ``ltr_lowrank_sdp_tpu/ops/lanczos.py``
+    ``lanczos_min_eig_vec`` (:115-159), which differs from
+    :func:`lanczos_tridiag`: no three-term ``beta`` subtraction, only the
+    full reorthogonalization against the basis so far (rows past ``j`` of V
+    are still zero, as the reference's mask makes them).  The loop runs on
+    ``v0``'s device with no host read; the basis, the k x k tridiagonal's
+    eigendecomposition and the Ritz vector come to the host in one read and
+    are combined there in float64.  Returns ``(lambda_min, ritz)`` with
+    ``ritz`` a unit float64 numpy vector."""
+    k = min(num_iters, n)
+    V = torch.zeros((k, n), dtype=v0.dtype, device=v0.device)
+    V[0] = v0 / torch.linalg.vector_norm(v0)
+    alphas = torch.zeros((k,), dtype=v0.dtype, device=v0.device)
+    betas = torch.zeros((k,), dtype=v0.dtype, device=v0.device)
+    for j in range(k):
+        v = V[j]
+        w = matvec(v)
+        alpha = torch.dot(v, w)
+        w = w - alpha * v
+        w = w - (V @ w) @ V
+        beta = torch.linalg.vector_norm(w)
+        alphas[j] = alpha
+        betas[j] = beta
+        if j + 1 < k:
+            V[j + 1] = w / torch.where(beta > 1e-30, beta,
+                                       torch.ones_like(beta))
+    host = torch.cat([alphas, betas, V.reshape(-1)]).cpu().numpy()
+    a = np.asarray(host[:k], np.float64)
+    bta = np.asarray(host[k:2 * k], np.float64)
+    T = np.diag(a) + np.diag(bta[: k - 1], 1) + np.diag(bta[: k - 1], -1)
+    evals, evecs = np.linalg.eigh(T)
+    ritz = np.asarray(host[2 * k:], np.float64).reshape(k, n).T @ evecs[:, 0]
+    nrm = np.linalg.norm(ritz)
+    if nrm > 0:
+        ritz = ritz / nrm
+    return float(evals[0]), ritz
+
+
 def tridiag_min_eig_resid(alphas, betas) -> Tuple[float, float]:
     """Smallest eigenvalue of the k x k tridiagonal AND its Lanczos residual
     bound ``|beta_k * u[k-1]|`` (Paige), on the host in float64."""

@@ -115,6 +115,18 @@ def matcomp_sdpa(n1: int, n2: int, rank: int = 3, sample_factor: float = 2.0,
                         col, val)
 
 
+def matcomp_nuclear_norm(n1: int, n2: int, rank: int = 3,
+                         seed: int = 0) -> float:
+    """||M||_* of the planted matrix M = L R^T of :func:`matcomp_sdpa` with
+    the same seed (the trace of its optimal Y is 2 ||M||_* when the
+    completion is exact), from the factors' (rank x rank) core."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(n1, rank))
+    R = rng.normal(size=(n2, rank))
+    core = np.linalg.qr(L, mode="r") @ np.linalg.qr(R, mode="r").T
+    return float(np.sum(np.linalg.svd(core, compute_uv=False)))
+
+
 def matcomp_problem(n1: int, n2: int, rank: int = 3,
                     sample_factor: float = 2.0, seed: int = 0,
                     name: str = "synthetic_matcomp") -> SDPProblem:

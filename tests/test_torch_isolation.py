@@ -88,6 +88,30 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())     # nothing written, nothing solved
 
 
+def test_hallar_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                            tmp_path):
+    from ltr_lowrank_sdp_torch.hallar import cli as hcli
+    from ltr_lowrank_sdp_torch.hallar import solver as hsolver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prob = hsolver.build_mss_problem([(0, 1), (1, 2), (2, 0)], 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hsolver.hallar_solve(prob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hcli.main(["--run_tests"])
+    out = tmp_path / "o.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hcli.main(["-i", str(tmp_path / "p.hslr"), "-o", str(out)])
+    assert not out.exists()
+    K.reset_counts()
+    res = hsolver.hallar_solve(prob, hsolver.HallarParams(
+        maxiter_hallar=1, maxiter_fista=5), device="cpu")
+    assert res.iters == 1 and res.host_reads > 0
+    assert all(launches == 0 for launches, _ in K.counts().values())
+    assert {k for k, (_, plain) in K.counts().items() if plain} == {
+        "coo_contract_segsum", "sym_contract_sum", "spmm_constr_csr"}
+
+
 def test_cpu_solve_runs_the_plain_versions_only():
     K.reset_counts()
     prob = random_maxcut_problem(60, avg_degree=4, seed=2)
