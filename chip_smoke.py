@@ -7,8 +7,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; no CUDA device -> exit 2 before anything else;
-2. build the twelve CUDA kernels from ``ltr_lowrank_sdp_torch/csrc`` (nvcc,
-   sm_90a, all sources at once);
+2. build the thirteen CUDA kernels from ``ltr_lowrank_sdp_torch/csrc``
+   (nvcc, sm_90a, all sources at once);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64, at the main paths' shapes: max relative error <= 1e-12, with the
    kernel's time, the plain version's time, the memory bound (bytes / 3.35
@@ -44,7 +44,18 @@ Phases, in order; any failed check raises and the script exits nonzero:
    the sum of its terms' magnitudes), the same bits on two calls, the
    kernel's, the float32 plain version's and a float32 library call's
    time (``torch.sparse.mm`` for K1, K6, K7, K8, ``torch.linalg.vecdot``
-   for K2) beside the bound at 4-byte values;
+   for K2) beside the bound at 4-byte values.  K5 and K6 on each shard's
+   layouts of the matrix-completion cone at world size 2 (row 16: a rank's
+   constraint segment and its row slice of the CSR), as above.  K13
+   (``gather_rowsum``, the port of the repo's one ``pl.pallas_call``) at
+   the gather probe's shape (N = 8,192, M = 262,144, R = 32) and at R = 8
+   and 64, float32, against its plain version evaluated in float64 (max
+   |kernel - plain| / max |plain| <= 1e-5), the same bits on two calls,
+   timed beside the float32 plain version (one PyTorch call, also the
+   library yardstick) and the bound; then the probe twin
+   (``ltr_lowrank_sdp_torch.scripts.gather_probe``) through its entry
+   point, counters set to 0 just before and read just after: K13 launched,
+   no plain version run, ``kernel_ok``;
 4. the MaxCut main path: ``ltr_lowrank_sdp_torch.cli.main`` on the Delaunay
    graph (n = 2^14, seed 14; the kind of SuiteSparse ``delaunay_n14``, solved
    with the LoRADS MaxCut row's flags ``--phase1Tol 1e+1 --heuristicFactor
@@ -113,7 +124,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
    half-integer may round the other way; it is printed), with the peak
    device memory and the device's busy share under the profiler;
 11. predict, then solve: ``ltr_lowrank_sdp_torch.benchmark.main`` on
-   ``theta_sdpa(95, 23, 95)`` written as ``hansmittel/theta95_gen.dat-s``
+   ``theta_sdpa(20, 5, 20)`` written as ``hansmittel/theta20_gen.dat-s``
    (no dataset graph has its name, so the processor runs), a default and a
    scheduled solve on the card: both ``primal_dual_optimal`` or
    ``primal_optimal`` within phase 7's error limits and inside the
@@ -170,11 +181,32 @@ Phases, in order; any failed check raises and the script exits nonzero:
    printed; K4-K6 held at the path's layouts and final rank; the inner
    loop's machine step timed eagerly and replayed as a CUDA graph; one
    outer iteration at ``maxiter_fista`` 2000 under the profiler;
-14. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
+14. the parallel modes (``ltr_lowrank_sdp_torch.parallel``): phases 4 and
+   5's files solved again with every cone constraint-sharded
+   (``Solver(mesh=...)``, ``launch.spawn`` of ``dryrun.sharded_solve``), at
+   world size 1 (NCCL) and 2 (gloo: both ranks on this card, which NCCL
+   refuses; the all-reduces go through the host, so the times say nothing
+   of scaling), one start of the ranks per world size, each solve run cold
+   and warm, each rank's counters set to 0 just before each solve and
+   read just after: K1, K4, K5 and K6 launched and no plain version run,
+   every rank's solves with rank 0's first numbers, the unsharded CLI
+   solve's status and ALM / ADMM / CG counts and its pobj within 1e-9
+   relative, with the all-reduce count and bytes; ``batched_alm_steps`` on
+   8 Delaunay MaxCut instances of n = 2^14 at rank 20, 25 steps, on the
+   two gloo ranks (batch axis 2; one K1 launch per step for a rank's 4
+   instances), cold and warm, against a loop over the single instances on
+   the card (1e-10), and K1 on one rank's block-diagonal CSR of its 4
+   instances (row B, which the JAX package computes with a scatter-add)
+   against its plain version as in phase 3; ``dryrun`` at world size 2;
+15. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
    row at every main path's shapes; K9-K12's rows at the width phase's
    widths under ``widths``; a ``NAME[float32]`` row for each of K1-K8 with
-   its float32 launches on the float32 run of its path), the kernels still
-   to be ported, the
+   its float32 launches on the float32 run of its path; a ``NAME[shard]``
+   row for K5 and K6 on a shard's layouts, row 16, with its launches on
+   rank 0 of the matrix-completion path's world-size-2 sharded solve;
+   ``spmm_sym_csr[batch]``, row B, with its launches on rank 0 of the
+   batched steps), the
+   kernels still to be ported (none), the
    solver loops carried as plain torch over the kernels, the card line
    and, last, ``{"ok": true, "device": {...}}``.
 
@@ -264,7 +296,13 @@ BIG_GRAPH = "MC_600x600_r5"
 POOL_BATCH = ("maxcut_n200_d4", "G11", "theta_n95_d23", "MC_100x100_r2",
               "maxcut_n3200_d14", "theta_n460_d115", "MC_300x300_r3",
               "shmup4")
-BENCH_THETA = (95, 23, 95)
+# predict-then-solve: both solves certify, in about 5 s together on the CPU
+# and, the card's host-bound loop being 2.4-2.9 times slower at this size,
+# about 15 s on the card (theta_sdpa(28, 7, 28): 11.3 s on the CPU, 27.0 and
+# 32.5 s in two card runs); theta's iteration count is not monotone in n:
+# n = 26, 30, 32, 36, 44 took 22-59 s on the CPU, n = 40 ended maxiter on
+# the card
+BENCH_THETA = (20, 5, 20)
 GNN_TOL = 1e-5            # max |kernel - plain| / max |plain|, float32
 LIB_TOL = 1e-4            # K10's float32 library yardstick, same measure
 PREDICT_RTOL = 1e-4       # the raw schedule, card against CPU
@@ -307,12 +345,22 @@ HALLAR_POBJ_RTOL = 1e-5
 HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
 HALLAR_PROFILE_FISTA = 2000  # inner steps of the profiled outer iteration
 
-UNPORTED = [
-    "P  scripts/pallas_gather_probe.py:40-65 kern (pallas_call :57): "
-    "gather-sum probe; later an H100 gather micro-benchmark",
-    "16 ltr_lowrank_sdp_tpu/parallel/meshops.py:211,220 _local_reduce, "
-    "_local_spmm (parallel slice, the next)",
-]
+# the repo's one pl.pallas_call: K13 at the probe's defaults, R = 8 and 64
+GATHER_SHAPES = ((8192, 262144, 32), (8192, 262144, 8), (8192, 262144, 64))
+# the parallel modes: each sharded main path at world size 1 (NCCL) and 2
+# (gloo), held to its unsharded solve; batched ALM steps on BATCH_B MaxCut
+# instances of n = 2^14
+PAR_RUNS = ((1, "nccl"), (2, "gloo"))
+PAR_POBJ_RTOL = 1e-9
+PAR_KERNELS = ("spmm_sym_csr", "sym_contract_sum", "coo_contract_segsum",
+               "spmm_constr_csr")
+SHARD_REPLACES = {"coo_contract_segsum":
+                  "ltr_lowrank_sdp_tpu/parallel/meshops.py:211",
+                  "spmm_constr_csr":
+                  "ltr_lowrank_sdp_tpu/parallel/meshops.py:220"}
+BATCH_B, BATCH_RANK, BATCH_STEPS, BATCH_RHO = 8, 20, 25, 1.0
+BATCH_TOL = 1e-10
+UNPORTED = []
 # The reference's device-resident solver loops are jnp loops over the
 # operators above, with no gather or segment-reduction kernel of their own;
 # the port carries them as plain torch loops over K1-K8.  A fused or
@@ -598,7 +646,9 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
     """Phase 3 for K5 and K6 on one cone's two layouts.  Returns {name: row}
     at ``report_rank``: K5 in pair mode (the ALM line search, once per inner
     iteration) and K6 alone (the ALM gradient's A*(w) R)."""
-    n, m, nnz, slots = seg.n, seg.m, seg.nnz, csr.nnz
+    # m: K5's constraints; mw: K6's weights (more than m on a shard's
+    # layouts, whose K6 slots keep their global constraint ids)
+    n, m, nnz, slots, mw = seg.n, seg.m, seg.nnz, csr.nnz, csr.m
     f8, i4 = 8, 4
     g = torch.Generator(device=dev).manual_seed(2025)
 
@@ -609,8 +659,8 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
     report = {}
     for r in ranks:
         U, V, Z = rnd(n, r), rnd(n, r), rnd(n, r)
-        w = rnd(m)
-        w0 = torch.where(torch.arange(m, device=dev) % 3 == 0, 0.0, w)
+        w = rnd(mw)
+        w0 = torch.where(torch.arange(mw, device=dev) % 3 == 0, 0.0, w)
         u1 = U[:, :1].contiguous()
         # the yardstick: one CSR product with the slot weights w[cid] * val
         # multiplied in beforehand (and equal (row, col) slots merged), so
@@ -622,7 +672,7 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
                 w[csr.cid.long()] * csr.vals,
                 size=(n, n)).coalesce().to_sparse_csr()
         k5_bytes = (m + 1) * i4 + nnz * (2 * i4 + f8) + m * f8
-        k6_bytes = ((n + 1) * i4 + slots * (2 * i4 + f8) + m * f8
+        k6_bytes = ((n + 1) * i4 + slots * (2 * i4 + f8) + mw * f8
                     + 2 * n * r * f8)
         shape = f"{tag} n={n} m={m} nnz={nnz} r={r}"
         rows = {
@@ -657,14 +707,16 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
         _measure("spmm_constr_csr", f"r=1 {tag} n={n} m={m} slots={slots}",
                  lambda: K.spmm_constr_csr(csr, w, u1, Z=u1),
                  lambda: K.spmm_constr_csr_plain(csr, w, u1, Z=u1),
-                 (n + 1) * i4 + slots * (2 * i4 + f8) + m * f8 + 3 * n * f8,
+                 (n + 1) * i4 + slots * (2 * i4 + f8) + mw * f8 + 3 * n * f8,
                  3.0 * slots + n)
-        # the ADMM normal-equation matvec: K5 then K6, nothing between
-        got = K.spmm_constr_csr(csr, K.coo_contract_segsum(seg, U, V), V, Z=U)
-        want = K.spmm_constr_csr_plain(
-            csr, K.coo_contract_segsum_plain(seg, U, V), V, Z=U)
-        require(rel_err(got, want) <= KERNEL_RTOL,
-                f"K5 then K6 {shape}: normal-equation matvec differs")
+        if mw == m:
+            # the ADMM normal-equation matvec: K5 then K6, nothing between
+            got = K.spmm_constr_csr(csr, K.coo_contract_segsum(seg, U, V), V,
+                                    Z=U)
+            want = K.spmm_constr_csr_plain(
+                csr, K.coo_contract_segsum_plain(seg, U, V), V, Z=U)
+            require(rel_err(got, want) <= KERNEL_RTOL,
+                    f"K5 then K6 {shape}: normal-equation matvec differs")
         # no atomics: the same bits on every call
         require(torch.equal(K.coo_contract_segsum(seg, U, V),
                             K.coo_contract_segsum(seg, U, V))
@@ -1991,7 +2043,7 @@ def run_predict_then_solve(K, tmp, optimal):
     from ltr_lowrank_sdp_torch.testing import theta_sdpa, write_sdpa
 
     inst_dir = os.path.join(tmp, "bench")
-    name = "theta95_gen"
+    name = f"theta{BENCH_THETA[0]}_gen"
     path = os.path.join(inst_dir, "hansmittel", f"{name}.dat-s")
     os.makedirs(os.path.dirname(path))
     write_sdpa(path, theta_sdpa(*BENCH_THETA))
@@ -2220,6 +2272,227 @@ def theta_solve(spec: str, limit_s: float, profile: bool, logfile,
     return 0
 
 
+def check_gather_rowsum(K, dev):
+    """Phase 3 for K13, the port of the repo's one ``pl.pallas_call``, at the
+    probe's default shape and at R = 8 and 64: against its plain version
+    evaluated in float64 (max |kernel - plain| / max |plain| <= GNN_TOL),
+    the same bits on two calls, timed beside the float32 plain version (one
+    PyTorch call, ``index_select`` then ``sum``: also the probe's own XLA
+    baseline, so it is the library yardstick too) and the bound (idx, Y and
+    out once over 3.35 TB/s).  Returns {name: row} at the default shape."""
+    from ltr_lowrank_sdp_torch.scripts.gather_probe import probe_inputs
+
+    def lib_check(got, ref):
+        err = float((got.double() - ref).abs().max() / ref.abs().max())
+        require(err <= GNN_TOL, f"gather_rowsum: the library call is {err:.2e} "
+                                f"off the float64 sum")
+
+    report = {}
+    for N, M, R in GATHER_SHAPES:
+        Y, idx = probe_inputs(N, M, R, dev)
+        row = _measure_gnn(
+            "gather_rowsum",
+            f"N={N} M={M} R={R} (gathered {M * R * 4 / 1e6:.1f} MB)",
+            lambda: K.gather_rowsum(Y, idx),
+            lambda: K.gather_rowsum_plain(Y, idx),
+            lambda: K.gather_rowsum_plain(Y.double(), idx),
+            M * 4 + N * R * 4 + R * 4, M * R,
+            lib=lambda: K.gather_rowsum_plain(Y, idx), lib_check=lib_check)
+        row["gathered_bytes"] = M * R * 4
+        if not report:
+            report = {"gather_rowsum": row}
+    return report
+
+
+def run_gather_probe(K):
+    """The probe twin (``scripts/gather_probe.py``) at its defaults, the
+    counters set to 0 just before and read just after: K13 launched and no
+    plain version run, ``kernel_ok``."""
+    from ltr_lowrank_sdp_torch.scripts import gather_probe
+
+    K.reset_counts()
+    res = gather_probe.probe()
+    counts = K.counts()
+    print(f"[gather-probe] {json.dumps(res)}", flush=True)
+    require(res["kernel_ok"] is True, "gather-probe: kernel_ok")
+    require_counts("gather-probe", counts, ("gather_rowsum",))
+    return counts
+
+
+def shard_layouts(cone, inner, dev, D, s):
+    """Shard ``s`` of ``D``'s two layouts (K5's constraint segment and K6's
+    row slice) as a rank of a D-wide constraint axis builds them; no
+    process group is needed to build them."""
+    from ltr_lowrank_sdp_torch.parallel.mesh import Mesh
+    from ltr_lowrank_sdp_torch.parallel.meshops import MeshConeOps
+
+    mesh = Mesh(shape={"batch": 1, "constr": D},
+                axis_names=("batch", "constr"), rank=s, coords=(0, s),
+                device=dev, groups={"constr": None, "batch": None})
+    mops = MeshConeOps(cone, inner, mesh)
+    require(mops.sharded and mops.cv_seg is not None
+            and mops.mm_csr is not None, f"shard {s} of {D} owns entries")
+    return mops
+
+
+def _parallel_rank(solves, batch):
+    """One rank of phase 14: the sharded solve of each (problem, params) of
+    ``solves``, then, with ``batch`` = (problem, R, dual, rho, steps), the
+    batched ALM steps with the world on the batch axis; each twice, cold (the
+    rank's first launches, as a user's first call) and warm."""
+    import torch.distributed as dist
+
+    from ltr_lowrank_sdp_torch.parallel.dryrun import (batched_steps,
+                                                       sharded_solve)
+
+    out = {"solves": [[sharded_solve(prob, params) for _ in range(2)]
+                      for prob, params in solves]}
+    if batch is not None:
+        out["batch"] = [batched_steps(*batch, dist.get_world_size())
+                        for _ in range(2)]
+    return out
+
+
+def run_parallel_paths(K, dev, solves):
+    """Phase 14: the parallel modes.  ``solves``: (tag, problem, params,
+    unsharded result) of the main paths that are solved again
+    constraint-sharded, at world size 1 (NCCL) and 2 (gloo, both ranks on
+    this card: NCCL refuses two ranks on one GPU), one start of the ranks
+    for each world size; the world-size-2 ranks then run the batched ALM
+    steps with the batch axis over both.  Every rank's counters are set to 0
+    just before each solve or run and read just after.  Returns ({path: rank
+    0's counts}, row B: K1 on one rank's block-diagonal CSR of the batch)."""
+    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
+    from ltr_lowrank_sdp_torch.parallel.batch import (LocalBatch,
+                                                      batched_from_problems,
+                                                      local_alm_steps)
+    from ltr_lowrank_sdp_torch.parallel.dryrun import dryrun
+    from ltr_lowrank_sdp_torch.parallel.launch import spawn
+    from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
+
+    # BATCH_B Delaunay MaxCut instances of n = 2^14
+    t = time.perf_counter()
+    bprob = batched_from_problems([
+        maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
+            MAIN_N, seed=MAIN_SEED + k)) for k in range(BATCH_B)])
+    g = torch.Generator().manual_seed(BATCH_B)
+    R0 = torch.randn((BATCH_B, bprob.n, BATCH_RANK), generator=g,
+                     dtype=torch.float64) / math.sqrt(BATCH_RANK)
+    dual0 = torch.zeros((BATCH_B, bprob.n), dtype=torch.float64)
+    print(f"[batch] {BATCH_B} Delaunay MaxCut instances n={bprob.n}, "
+          f"{bprob.c_vals.shape[1]} objective entries each (padded), rank "
+          f"{BATCH_RANK}, built in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    # row B: the batched C Y + w o Y (JAX: a scatter-add in vmap) is K1 on
+    # one rank's block-diagonal CSR of its BATCH_B // 2 instances
+    lb = LocalBatch(bprob, 0, BATCH_B // 2, dev, torch.float64)
+    csr, r = lb.csr, BATCH_RANK
+    Y = R0[:BATCH_B // 2].reshape(-1, r).to(dev)
+    w = torch.randn(csr.n, generator=g, dtype=torch.float64).to(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # "sparse CSR support is beta"
+        c_sparse = torch.sparse_csr_tensor(csr.indptr, csr.indices, csr.vals,
+                                           size=(csr.n, csr.n))
+    row_b = _measure(
+        "spmm_sym_csr", f"block-diagonal batch {BATCH_B // 2} x "
+        f"n={bprob.n} r={r} nnz={csr.nnz}",
+        lambda: K.spmm_sym_csr(csr, Y, 1.0, d=w),
+        lambda: K.spmm_sym_csr_plain(csr, Y, 1.0, d=w),
+        (csr.n + 1) * 4 + csr.nnz * 12 + 2 * csr.n * r * 8 + csr.n * 8,
+        2.0 * csr.nnz * r + 2.0 * csr.n * r,
+        lib=lambda: torch.sparse.mm(c_sparse, Y),
+        lib_ref=lambda: K.spmm_sym_csr(csr, Y, 1.0))
+    del lb, csr, Y, w, c_sparse
+
+    counts = {}
+    cases = [(prob, params) for _, prob, params, _ in solves]
+    for ws, backend in PAR_RUNS:
+        batch = ((bprob, R0, dual0, BATCH_RHO, BATCH_STEPS) if ws > 1
+                 else None)
+        t = time.perf_counter()
+        ranks = spawn(_parallel_rank, ws, (cases, batch), backend=backend)
+        print(f"[parallel] {ws} rank(s), {backend}: start to join "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        for k, (tag, _, _, ref) in enumerate(solves):
+            ptag = f"{tag}-sharded{ws}"
+            o, warm = ranks[0]["solves"][k]
+            rel = abs(o["pobj"] - ref.pobj) / abs(ref.pobj)
+            print(f"[{ptag}] {backend}, {ws} rank(s) on {o['device']}, mesh "
+                  f"{o['mesh']}: {o['status']} pobj {o['pobj']:.12e} "
+                  f"(unsharded {ref.pobj:.12e}, {rel:.2e} relative, tol "
+                  f"{PAR_POBJ_RTOL:g}); ALM outer {o['alm_outer_iters']} "
+                  f"inner {o['alm_inner_iters']}, ADMM {o['admm_iters']}, CG "
+                  f"{o['cg_iters']} (unsharded {ref.alm_outer_iters} / "
+                  f"{ref.alm_inner_iters}, {ref.admm_iters}, {ref.cg_iters}); "
+                  f"solve cold {o['solve_time']:.3f} s, warm "
+                  f"{warm['solve_time']:.3f} s (unsharded, CLI "
+                  f"{ref.solve_time:.3f} s), host syncs {o['host_syncs']}, "
+                  f"all-reduces {o['allreduce_calls']} of "
+                  f"{o['allreduce_bytes'] / 1e6:.1f} MB on rank 0",
+                  flush=True)
+            require_counts(ptag, o["counts"], PAR_KERNELS)
+            require(all(o["sharded"]), f"{ptag}: every cone sharded")
+            for p in [warm] + [x for r in ranks[1:] for x in r["solves"][k]]:
+                require(all(p[f] == o[f] for f in (
+                    "status", "pobj", "dobj", "alm_outer_iters",
+                    "alm_inner_iters", "admm_iters", "cg_iters")),
+                        f"{ptag}: rank {p['rank']}'s solves part from rank "
+                        f"0's first")
+            require(o["status"] == ref.status.value,
+                    f"{ptag}: status {o['status']}, unsharded "
+                    f"{ref.status.value}")
+            require((o["alm_outer_iters"], o["alm_inner_iters"],
+                     o["admm_iters"], o["cg_iters"])
+                    == (ref.alm_outer_iters, ref.alm_inner_iters,
+                        ref.admm_iters, ref.cg_iters),
+                    f"{ptag}: the counts differ from the unsharded solve")
+            require(rel <= PAR_POBJ_RTOL,
+                    f"{ptag}: pobj {rel:.2e} from the unsharded solve")
+            counts[ptag] = o["counts"]
+        if batch is None:
+            continue
+
+        # the batched steps against a loop over the single instances here
+        o, warm = ranks[0]["batch"]
+        require_counts("batch", o["counts"], ("spmm_sym_csr", "diag_rowdot"))
+        require(o["counts"]["spmm_sym_csr"][0] == BATCH_STEPS,
+                "batch: one K1 launch per step for all of a rank's instances")
+        K.reset_counts()
+        t = time.perf_counter()
+        loop = [local_alm_steps(bprob, i, i + 1, R0[i:i + 1], dual0[i:i + 1],
+                                BATCH_RHO, BATCH_STEPS, dev)
+                for i in range(BATCH_B)]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        loop_counts = K.counts()
+        err = 0.0
+        for k, name in enumerate(("R", "dual", "pinf")):
+            want = torch.cat([x[k] for x in loop]).cpu()
+            for got in (torch.from_numpy(x[name]) for r in ranks
+                        for x in r["batch"]):
+                err = max(err, float((got - want).abs().max()
+                                     / want.abs().max().clamp_min(1.0)))
+        pinf = o["pinf"]
+        print(f"[batch] {ws} {backend} ranks x {BATCH_B // ws} instances, "
+              f"{BATCH_STEPS} steps: cold {o['wall']:.3f} s, warm "
+              f"{warm['wall']:.3f} s on rank 0 (layouts and gather included; K1 "
+              f"{o['counts']['spmm_sym_csr'][0]}, K2 "
+              f"{o['counts']['diag_rowdot'][0]} launches); the loop over "
+              f"single instances on this card {loop_s:.3f} s (K1 "
+              f"{loop_counts['spmm_sym_csr'][0]} launches); max difference "
+              f"{err:.2e} of scale (tol {BATCH_TOL:g}); pinf "
+              f"{float(pinf.min()):.3e} .. {float(pinf.max()):.3e}",
+              flush=True)
+        require(err <= BATCH_TOL,
+                "batch: the batched steps differ from the loop")
+        counts["batch"] = o["counts"]
+
+    t = time.perf_counter()
+    line = dryrun(2, "gloo")
+    print(f"[dryrun] {line} ({time.perf_counter() - t:.1f} s)", flush=True)
+    return counts, row_b
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2250,7 +2523,9 @@ def main() -> int:
     from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
     from ltr_lowrank_sdp_torch.ops import kernels as K
     from ltr_lowrank_sdp_torch.ops.coneops import ConeOps, LPOps
-    from ltr_lowrank_sdp_torch.problem import canonicalize, initial_ranks
+    from ltr_lowrank_sdp_torch import cli
+    from ltr_lowrank_sdp_torch.problem import (canonicalize, initial_ranks,
+                                               load_problem)
     from ltr_lowrank_sdp_torch.solver.driver import Solver
     from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
                                                matcomp_problem, matcomp_sdpa,
@@ -2268,9 +2543,9 @@ def main() -> int:
     built = K.build_kernels()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.1f} s "
           f"({', '.join(built)})")
-    require(len(K.KERNELS) == 12 and all(
+    require(len(K.KERNELS) == 13 and all(
         k.lib_path is not None and k.lib_path.exists()
-        for k in K.KERNELS.values()), "twelve kernels built")
+        for k in K.KERNELS.values()), "thirteen kernels built")
     for k in K.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2286,7 +2561,8 @@ def main() -> int:
 
     t = time.perf_counter()
     mc_data = matcomp_sdpa(*MC_ARGS)
-    mc_cone = ConeOps(canonicalize(mc_data).cones[0], dev)
+    mc_cone_data = canonicalize(mc_data).cones[0]
+    mc_cone = ConeOps(mc_cone_data, dev)
     require((mc_cone.kind_a, mc_cone.kind_c) == ("sparse", "sparse")
             and not mc_cone.diag_identity, "matrix completion is a sparse cone")
     print(f"[problem] matcomp {MC_ARGS}: n={mc_cone.n} m={mc_cone.m} "
@@ -2347,6 +2623,23 @@ def main() -> int:
     big_lp = canonicalize(multiblock_lp_sdpa((2,), 10 * MB_M, 10 * MB_NLP,
                                              1)).lp
     check_lp_kernels(K, LPOps(big_lp, dev).entries, dev, "10x LP")
+
+    # row 16: K5 and K6 on each shard's layouts of the matrix-completion
+    # cone at world size 2 (rank 0's is the row of the kernels line)
+    shard_rows = {}
+    for shard in range(2):
+        mops = shard_layouts(mc_cone_data, mc_cone, dev, 2, shard)
+        rows = check_general_kernels(
+            K, mops.cv_seg, mops.mm_csr, dev, (MC_REPORT_RANK,),
+            MC_REPORT_RANK, f"matcomp shard {shard}/2 (constraints "
+            f"{mops.cv_range}, rows {mops.mm_range})")
+        shard_rows = shard_rows or rows
+        del mops
+
+    # K13, the repo's one pl.pallas_call, then the probe twin through its
+    # entry point
+    report["gather_probe"] = check_gather_rowsum(K, dev)
+    gather_counts = run_gather_probe(K)
 
     # the float32 kernel phase: K1-K8 on float32 values at the same shapes
     t = time.perf_counter()
@@ -2415,6 +2708,13 @@ def main() -> int:
               mb_res, len(MB_DIMS))), dev)
         print(f"[time] phase 7b (float32 main paths) "
               f"{time.perf_counter() - t7b:.1f} s", flush=True)
+        # phase 14 solves phases 4 and 5's files again, sharded
+        par_solves = [
+            (tag, load_problem(path), cli.params_from_args(
+                cli.build_arg_parser().parse_args([path, *flags])), res)
+            for tag, path, flags, res in (
+                ("maxcut", maxcut_path, MAIN_FLAGS, main_res),
+                ("matcomp", mc_path, MC_FLAGS, mc_res))]
 
     # ---- phase 8: GPU and CPU agree on small problems ------------------ #
     for tag, small, params in (
@@ -2561,7 +2861,14 @@ def main() -> int:
         hallar_counts, hallar_res, report["hallar"] = run_hallar_path(
             K, dev, tmp)
 
-    # ---- phase 14: report --------------------------------------------- #
+    # ---- phase 14: the parallel modes ----------------------------------- #
+    t14 = time.perf_counter()
+    par_counts, batch_row = run_parallel_paths(K, dev, par_solves)
+    del par_solves
+    print(f"[time] phase 14 (parallel modes) {time.perf_counter() - t14:.1f} s",
+          flush=True)
+
+    # ---- phase 15: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
     # carried it (MaxCut for K1-K4, the sparse cone for K5 and K6, the
     # multi-block + LP problem for K7 and K8, the serve path's graph for K9
@@ -2573,14 +2880,15 @@ def main() -> int:
     path_counts = {"maxcut": counts, "matcomp": mc_counts,
                    "multiblock_lp": mb_counts, "theta": th_counts,
                    **serve_counts, "train": train_counts,
-                   "hallar": hallar_counts}
+                   "hallar": hallar_counts, "gather_probe": gather_counts}
     first_path = {**{name: "matcomp" for name in SPARSE_KERNELS},
                   **{name: "maxcut" for name in MAXCUT_KERNELS},
                   "lp_constr_segsum": "multiblock_lp",
                   "lp_col_wsum": "multiblock_lp",
                   **{name: "serve" for name in GNN_KERNELS},
                   "gatv2_softmax_agg_bwd": "train",
-                  "graph_pool_bwd": "train"}
+                  "graph_pool_bwd": "train",
+                  "gather_rowsum": "gather_probe"}
     kernels = []
     for name, k in K.KERNELS.items():
         by_path = {path: {"launches": path_counts[path][name][0], **rows[name]}
@@ -2611,6 +2919,24 @@ def main() -> int:
             "launches": f32_counts[first_path[name]][name], **row,
             "launches_by_path": {path: c[name]
                                  for path, c in f32_counts.items()}})
+    # row 16: K5 and K6 on one rank's shard of the matrix-completion cone,
+    # launches from rank 0 of that path's world-size-2 sharded solve
+    for name, row in shard_rows.items():
+        kernels.append({
+            "name": f"{name}[shard]", "route": "cuda",
+            "source": f"ltr_lowrank_sdp_torch/csrc/{name}.cu",
+            "replaces": SHARD_REPLACES[name],
+            "launches": par_counts["matcomp-sharded2"][name][0], **row,
+            "launches_by_path": {path: c[name][0]
+                                 for path, c in par_counts.items()
+                                 if path != "batch"}})
+    # row B: K1 on one rank's block-diagonal CSR of the batched instances,
+    # launches from rank 0 of the batched steps
+    kernels.append({
+        "name": "spmm_sym_csr[batch]", "route": "cuda",
+        "source": "ltr_lowrank_sdp_torch/csrc/spmm_sym_csr.cu",
+        "replaces": "ltr_lowrank_sdp_tpu/parallel/batch.py:76",
+        "launches": par_counts["batch"]["spmm_sym_csr"][0], **batch_row})
     for row in UNPORTED:
         print(f"[unported] {row}")
     for row in LOOPS:

@@ -1,4 +1,4 @@
-"""The port's twelve CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's thirteen CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -48,6 +48,9 @@ K10    graph_pool            models/net.py mean / max pooling and
 K11    gatv2_softmax_agg_bwd the VJP of K9's function, which
                              jax.value_and_grad takes in train.py (float32)
 K12    graph_pool_bwd        the VJP of K10's function (float32)
+K13    gather_rowsum         scripts/pallas_gather_probe.py kern, the one
+                             pl.pallas_call: the column sum of
+                             index-gathered rows (float32)
 =====  ====================  ==============================================
 
 K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
@@ -173,6 +176,9 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
            (_P,) * 11 + (_I, _I) + (_P,) * 3),
+    Kernel("gather_rowsum",
+           "scripts/pallas_gather_probe.py:41",
+           (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
 )}
 
 
@@ -753,7 +759,13 @@ class ConstrCSR:
 
     @staticmethod
     def from_upper_coo(rows, cols, vals, cid, n: int, m: int, device,
-                       dtype=torch.float64) -> "ConstrCSR":
+                       dtype=torch.float64,
+                       row_range: Optional[Tuple[int, int]] = None
+                       ) -> "ConstrCSR":
+        """``row_range=(lo, hi)`` keeps only the slots of rows lo..hi-1 (one
+        rank's share of a sharded SpMM); every other row is empty and K6
+        writes 0 there.  A kept row holds its slots in the same order as in
+        the full layout, so its output is the full layout's, bit for bit."""
         rows = np.asarray(rows, np.int64)
         cols = np.asarray(cols, np.int64)
         vals = np.asarray(vals, np.float64)
@@ -767,6 +779,10 @@ class ConstrCSR:
         order = np.lexsort((k_all, c_all, r_all))
         r_all, c_all = r_all[order], c_all[order]
         v_all, k_all = v_all[order], k_all[order]
+        if row_range is not None:
+            keep = (r_all >= row_range[0]) & (r_all < row_range[1])
+            r_all, c_all = r_all[keep], c_all[keep]
+            v_all, k_all = v_all[keep], k_all[keep]
         indptr = np.zeros(n + 1, np.int64)
         np.cumsum(np.bincount(r_all, minlength=n), out=indptr[1:])
         return ConstrCSR(
@@ -1467,3 +1483,53 @@ def graph_pool(seg: GraphSegments, x: torch.Tensor, score: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or score.requires_grad):
         return _GraphPool.apply(seg, keep, x, score)
     return _graph_pool_forward(seg, x, score, keep, False)[0]
+
+
+# --------------------------------------------------------------------------- #
+# K13: the column sum of index-gathered rows (float32)
+# --------------------------------------------------------------------------- #
+
+K13_MAX_R = 256          # kMaxR in gather_rowsum.cu: 8 columns per lane
+K13_MIN_TILE = 256       # indices per block at least
+K13_MAX_BLOCKS = 8 * 132  # 8 blocks per SM of the H100
+
+
+def gather_rowsum_grid(M: int) -> Tuple[int, int]:
+    """(blocks, indices per block) of K13's first launch: tiles of at least
+    ``K13_MIN_TILE`` indices, at most ``K13_MAX_BLOCKS`` blocks, none
+    empty (one block for M = 0, which writes zeros)."""
+    tile = max(K13_MIN_TILE, -(-M // K13_MAX_BLOCKS))
+    return max(1, -(-M // tile)), tile
+
+
+def gather_rowsum_plain(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13: ``Y[idx].sum(0, keepdim=True)``."""
+    return Y.index_select(0, idx).sum(0, keepdim=True)
+
+
+def gather_rowsum(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K13: ``out (1, R) = sum_i Y[idx[i], :]`` for float32 Y (N, R), R <=
+    256, and int32 indices in [0, N) (not checked on the card), summed in
+    float32 in a fixed order: the same bits on every call."""
+    k = KERNELS["gather_rowsum"]
+    if _is_cpu(Y):
+        k.plain_calls += 1
+        return gather_rowsum_plain(Y, idx)
+    dev = Y.device
+    if Y.dim() != 2:
+        raise ValueError(f"Y must be (N, R), got {tuple(Y.shape)}")
+    N, R = Y.shape
+    if not 1 <= R <= K13_MAX_R or N < 1:
+        raise ValueError(f"gather_rowsum takes 1 <= R <= {K13_MAX_R} columns "
+                         f"and N >= 1 rows, got {tuple(Y.shape)}")
+    M = int(idx.numel())
+    _check(Y, "Y", torch.float32, (N, R), dev)
+    _check(idx, "idx", torch.int32, (M,), dev)
+    _i32(N * R, "N * R")
+    _i32(M, "M")
+    n_blocks, tile = gather_rowsum_grid(M)
+    part = torch.empty((n_blocks, R), dtype=torch.float32, device=dev)
+    out = torch.empty((1, R), dtype=torch.float32, device=dev)
+    k.launch(Y.data_ptr(), idx.data_ptr(), N, M, R, tile, n_blocks,
+             part.data_ptr(), out.data_ptr(), _stream(dev))
+    return out

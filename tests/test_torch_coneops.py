@@ -420,7 +420,8 @@ def test_general_cpu_operators_take_the_plain_path(gpair):
                      "spmm_constr_csr": 0 if empty else 2,
                      "lp_constr_segsum": 0, "lp_col_wsum": 0,
                      "gatv2_softmax_agg": 0, "graph_pool": 0,
-                     "gatv2_softmax_agg_bwd": 0, "graph_pool_bwd": 0}
+                     "gatv2_softmax_agg_bwd": 0, "graph_pool_bwd": 0,
+                     "gather_rowsum": 0}
 
 
 # --------------------------------------------------------------------------- #

@@ -123,7 +123,7 @@ def test_cpu_solve_runs_the_plain_versions_only():
                                     "lp_constr_segsum", "lp_col_wsum",
                                     "gatv2_softmax_agg", "graph_pool",
                                     "gatv2_softmax_agg_bwd",
-                                    "graph_pool_bwd"}
+                                    "graph_pool_bwd", "gather_rowsum"}
     assert all(launches == 0 for launches, _ in counts.values()), counts
     # the MaxCut family runs K1-K4 and never the general-cone or LP kernels
     assert all((plain > 0) == (name in maxcut)

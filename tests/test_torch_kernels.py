@@ -1,4 +1,4 @@
-"""The twelve CUDA kernels of the port against their plain PyTorch versions,
+"""The thirteen CUDA kernels of the port against their plain PyTorch versions,
 on the GPU.  Those tests are marked ``cuda``: they build the kernels with
 nvcc and skip on a machine without a GPU.  Run them there with
 
@@ -25,6 +25,11 @@ tie counts included), with and without dropout keep-scales and with tied
 maxima, each output's scale floored at 1e-6 of the largest output (an output
 whose exact value vanishes is rounding); the plain backwards themselves pass
 ``torch.autograd.gradcheck`` in float64 on the CPU (unmarked tests).
+K13 (``gather_rowsum``, float32) is held like K9: against its plain version
+evaluated in float64, max |kernel - plain| / max |plain| <= 1e-5, at the
+gather probe's shape and at widths and index counts that leave partial
+tiles, lanes and warps; its plain version against the Pallas ``kern`` it
+replaces is in ``test_torch_gather_probe.py``.
 """
 
 import dataclasses
@@ -34,6 +39,7 @@ import pytest
 import torch
 
 from ltr_lowrank_sdp_torch.ops import kernels as K
+from ltr_lowrank_sdp_torch.scripts.gather_probe import probe_inputs
 from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
 
 cuda = pytest.mark.cuda
@@ -870,3 +876,37 @@ def test_float32_kernels_on_the_card(dev, name):
     again = wrapper(*args)
     assert all(torch.equal(a, b) for a, b in zip(_outs(got), _outs(again)))
     assert K.KERNELS[name].launches == before + 2
+
+
+# --------------------------------------------------------------------------- #
+# K13: the column sum of index-gathered rows
+# --------------------------------------------------------------------------- #
+
+
+@cuda
+@pytest.mark.parametrize("n, m, r", [(8192, 262144, 32), (8192, 262144, 8),
+                                     (4096, 100_003, 64), (1000, 77_777, 200),
+                                     (1, 5000, 32), (300, 10, 17),
+                                     (50, 0, 3), (2000, 300_001, 256)])
+def test_gather_rowsum_matches_float64_plain(dev, n, m, r):
+    Y, idx = probe_inputs(n, m, r, dev, seed=3)
+    before = K.KERNELS["gather_rowsum"].launches
+    got = K.gather_rowsum(Y, idx)
+    again = K.gather_rowsum(Y, idx)
+    torch.cuda.synchronize()
+    assert K.KERNELS["gather_rowsum"].launches == before + 2
+    assert tuple(got.shape) == (1, r) and torch.equal(got, again)
+    want = K.gather_rowsum_plain(Y.double(), idx)
+    err = float((got.double() - want).abs().max())
+    assert err <= 1e-5 * max(float(want.abs().max()), 1e-30)
+
+
+@cuda
+def test_gather_rowsum_refuses_what_it_does_not_take(dev):
+    Y, idx = probe_inputs(64, 100, 8, dev)
+    with pytest.raises(ValueError, match="columns"):
+        K.gather_rowsum(torch.zeros((4, 257), device=dev), idx)
+    with pytest.raises(TypeError):
+        K.gather_rowsum(Y.double(), idx)
+    with pytest.raises(TypeError):
+        K.gather_rowsum(Y, idx.long())

@@ -235,12 +235,18 @@ def test_default_start_is_seeded():
 
 
 def test_float32_and_feasibility_paths_raise():
-    """The C = 0 feasibility path is still a later slice; the float32 half
-    of this test became ``test_float32_path_solves`` with its slice."""
+    """An unknown dtype raises.  The C = 0 feasibility path, which raised
+    here until its slice, now takes the JAX driver's ``feas_only`` path
+    (phase 1 tightened to the final bar; the solves are held to the JAX
+    package's in ``test_torch_feasibility.py``); the float32 half of this
+    test became ``test_float32_path_solves`` with its slice."""
     prob = random_maxcut_problem(40, avg_degree=4, seed=0)
     prob.c_nrm1 = 0.0
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Solver(prob, device="cpu")
+    s = Solver(prob, device="cpu")
+    assert s.feas_only
+    assert s.params.phase1_tol == min(
+        SolverParams().phase1_tol,
+        SolverParams().phase2_tol * (1.0 + prob.b_nrminf) / (1.0 + prob.b_nrm1))
     with pytest.raises(ValueError, match="unknown dtype"):
         Solver(random_maxcut_problem(40, avg_degree=4, seed=0),
                SolverParams(dtype="float16"), device="cpu")
