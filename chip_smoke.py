@@ -46,7 +46,15 @@ Phases, in order; any failed check raises and the script exits nonzero:
    time (``torch.sparse.mm`` for K1, K6, K7, K8, ``torch.linalg.vecdot``
    for K2) beside the bound at 4-byte values.  K5 and K6 on each shard's
    layouts of the matrix-completion cone at world size 2 (row 16: a rank's
-   constraint segment and its row slice of the CSR), as above.  K13
+   constraint segment and its row slice of the CSR), as above, and their
+   outputs there bitwise the whole layouts' (``[shard-bits]``).  Every K5 /
+   K6 ``[kernel]`` line names the instantiation launched (lane group G,
+   columns per lane CPL, K5's constraints per group KC, K6's warps per row
+   W) with its registers and spills (``[ptxas]`` lists every
+   instantiation's); wherever K6 is held, every warps-per-row value (1, 2,
+   4, 8) must give the planned launch's bits, and wherever K5 is, one and
+   two constraints per group; each is timed at the path's shapes
+   (``[k6-warps]``, ``[k5-kc]``: the evidence for the host's choice).  K13
    (``gather_rowsum``, the port of the repo's one ``pl.pallas_call``) at
    the gather probe's shape (N = 8,192, M = 262,144, R = 32) and at R = 8
    and 64, float32, against its plain version evaluated in float64 (max
@@ -180,7 +188,7 @@ Phases, in order; any failed check raises and the script exits nonzero:
    outer iterations, rank, FISTA steps, host reads and CUDA-graph replays
    printed; K4-K6 held at the path's layouts and final rank; the inner
    loop's machine step timed eagerly and replayed as a CUDA graph; one
-   outer iteration at ``maxiter_fista`` 2000 under the profiler;
+   outer iteration at ``maxiter_fista`` 500 under the profiler;
 14. the parallel modes (``ltr_lowrank_sdp_torch.parallel``): phases 4 and
    5's files solved again with every cone constraint-sharded
    (``Solver(mesh=...)``, ``launch.spawn`` of ``dryrun.sharded_solve``), at
@@ -343,7 +351,7 @@ HALLAR_KERNELS = ("sym_contract_sum", "coo_contract_segsum",
 HALLAR_REPLACES = "ltr_lowrank_sdp_tpu/hallar/solver.py:179,184,188"
 HALLAR_POBJ_RTOL = 1e-5
 HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
-HALLAR_PROFILE_FISTA = 2000  # inner steps of the profiled outer iteration
+HALLAR_PROFILE_FISTA = 500   # inner steps of the profiled outer iteration
 
 # the repo's one pl.pallas_call: K13 at the probe's defaults, R = 8 and 64
 GATHER_SHAPES = ((8192, 262144, 32), (8192, 262144, 8), (8192, 262144, 64))
@@ -435,6 +443,96 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = FP64_FLOP_PER_S):
 def rel_err(a, b) -> float:
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b).clamp_min(1e-300))
+
+
+def k56_instance(K, name, r, layout, dtype=torch.float64, mode=2) -> str:
+    """The instantiation that K5 (``coo_contract_segsum``, in ``mode``: 0
+    single, 1 ``U is V``, 2 pair) or K6 (``spmm_constr_csr``) launches at
+    rank ``r`` on ``layout``, with its registers and spill bytes from this
+    run's ``-Xptxas -v``."""
+    if name == "coo_contract_segsum":
+        plan = K.k5_plan(r, layout.m)
+        key = (mode, plan.g, plan.cpl, plan.kc)
+    else:
+        plan = K.k6_plan(r, layout.n, layout.max_row)
+        key = (plan.g, plan.cpl)
+    kind = "f32" if dtype == torch.float32 else "f64"
+    use = K.ptxas_usage(name).get(("main", kind, key))
+    regs = ("registers not in this run's build log" if use is None else
+            f"{use[0]} registers, spill stores / loads {use[1]} / {use[2]} "
+            "bytes")
+    return f"[{kind} {plan.describe()}: {regs}]"
+
+
+def check_k5_kc(K, seg, U, V, tag, pair=False, timed=False) -> None:
+    """K5's constraints per group (1 or 2) only say which group computes a
+    constraint: both give the planned launch's bits.  ``timed`` prints each
+    one's time (``[k5-kc]``), the evidence for ``k5_plan``'s choice."""
+    plan = K.k5_plan(U.shape[1], seg.m)
+    want = K.coo_contract_segsum(seg, U, V, pair=pair)
+    want = want if pair else (want,)
+    times = {}
+    for kc in (1, 2):
+        if plan.g == 1 or (kc == 2 and 2 * plan.cpl > K.MAX_CPL):
+            continue
+        p = K.K5Plan(plan.g, plan.cpl, kc)
+        got = K.coo_contract_segsum_with(p, seg, U, V, pair=pair)
+        got = got if pair else (got,)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K5 {tag}: KC={kc} gave other bits than {plan.describe()}")
+        if timed:
+            times[kc] = time_ms(
+                lambda: K.coo_contract_segsum_with(p, seg, U, V, pair=pair))
+    if times:
+        print(f"[k5-kc] {tag} {'pair' if pair else 'U-is-V'}: planned "
+              f"{plan.describe()}; "
+              + ", ".join(f"KC={k} {v:.4f} ms" for k, v in times.items()),
+              flush=True)
+
+
+def check_k6_warps(K, csr, w, Y, tag, Z=None, beta=1.0, timed=False) -> None:
+    """K6's warps per row only say which warp adds which of a row's fixed
+    subtrees: every value (1, 2, 4, 8) gives the planned launch's bits.
+    ``timed`` prints each one's time (``[k6-warps]``), the evidence for
+    ``k6_plan``'s choice."""
+    plan = K.k6_plan(Y.shape[1], csr.n, csr.max_row)
+    want = K.spmm_constr_csr(csr, w, Y, Z, beta)
+    times = {}
+    for wpr in (1, 2, 4, 8):
+        p = K.K6Plan(plan.g, plan.cpl, wpr)
+        got = K.spmm_constr_csr_with(p, csr, w, Y, Z, beta)
+        require(torch.equal(got, want),
+                f"K6 {tag}: W={wpr} gave other bits than {plan.describe()}")
+        if timed:
+            times[wpr] = time_ms(
+                lambda: K.spmm_constr_csr_with(p, csr, w, Y, Z, beta))
+    if times:
+        print(f"[k6-warps] {tag} r={Y.shape[1]}: planned {plan.describe()}; "
+              + ", ".join(f"W={k} {v:.4f} ms" for k, v in times.items()),
+              flush=True)
+
+
+def check_shard_bits(K, cone, mops, dev, r, tag) -> None:
+    """On the card, a rank's K5 constraint segment and K6 row slice give the
+    full layouts' outputs there, bit for bit (the sharded operators add
+    exact zeros elsewhere)."""
+    g = torch.Generator(device=dev).manual_seed(2033)
+    U, V = (torch.randn((cone.n, r), generator=g, dtype=torch.float64,
+                        device=dev) for _ in range(2))
+    w = torch.randn(cone.m, generator=g, dtype=torch.float64, device=dev)
+    lo, hi = mops.cv_range
+    whole = K.coo_contract_segsum(cone.a_seg, U, V, pair=True)
+    part = K.coo_contract_segsum(mops.cv_seg, U, V, pair=True)
+    require(all(torch.equal(p, x[lo:hi]) for p, x in zip(part, whole)),
+            f"{tag}: K5 on the shard differs from the whole layout's bits")
+    a, b = mops.mm_range
+    whole = K.spmm_constr_csr(cone.a_csr, w, U)
+    part = K.spmm_constr_csr(mops.mm_csr, w, U)
+    require(torch.equal(part[a:b], whole[a:b]) and not part[:a].any()
+            and not part[b:].any(),
+            f"{tag}: K6 on the shard differs from the whole layout's bits")
+    print(f"[shard-bits] {tag} r={r}: K5 constraints {lo}..{hi - 1} and K6 "
+          f"rows {a}..{b - 1} bitwise the whole layouts'", flush=True)
 
 
 def profile_solve(solver, tag: str = "profile") -> None:
@@ -675,19 +773,23 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
         k6_bytes = ((n + 1) * i4 + slots * (2 * i4 + f8) + mw * f8
                     + 2 * n * r * f8)
         shape = f"{tag} n={n} m={m} nnz={nnz} r={r}"
+        i5 = k56_instance(K, "coo_contract_segsum", r, seg)
+        i6 = k56_instance(K, "spmm_constr_csr", r, csr)
         rows = {
             "coo_contract_segsum": _measure(
-                "coo_contract_segsum", f"pair {shape}",
+                "coo_contract_segsum", f"pair {shape} {i5}",
                 lambda: K.coo_contract_segsum(seg, U, V, pair=True),
                 lambda: K.coo_contract_segsum_plain(seg, U, V, pair=True),
                 k5_bytes + 2 * n * r * f8 + m * f8, 6.0 * nnz * r),
             "spmm_constr_csr": _measure(
-                "spmm_constr_csr", f"alone {shape} slots={slots}",
+                "spmm_constr_csr", f"alone {shape} slots={slots} {i6}",
                 lambda: K.spmm_constr_csr(csr, w, U),
                 lambda: K.spmm_constr_csr_plain(csr, w, U),
                 k6_bytes, 2.0 * slots * r + slots,
                 lambda: torch.sparse.mm(s_w, U)),
         }
+        rows["coo_contract_segsum"]["instance"] = i5
+        rows["spmm_constr_csr"]["instance"] = i6
         _measure("coo_contract_segsum", f"single {shape}",
                  lambda: K.coo_contract_segsum(seg, U, V),
                  lambda: K.coo_contract_segsum_plain(seg, U, V),
@@ -704,7 +806,8 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
                  lambda: K.spmm_constr_csr(csr, w0, U, Z=Z, beta=-0.5),
                  lambda: K.spmm_constr_csr_plain(csr, w0, U, Z=Z, beta=-0.5),
                  k6_bytes + n * r * f8, 2.0 * slots * r + slots + n * r)
-        _measure("spmm_constr_csr", f"r=1 {tag} n={n} m={m} slots={slots}",
+        _measure("spmm_constr_csr", f"r=1 {tag} n={n} m={m} slots={slots} "
+                 f"{k56_instance(K, 'spmm_constr_csr', 1, csr)}",
                  lambda: K.spmm_constr_csr(csr, w, u1, Z=u1),
                  lambda: K.spmm_constr_csr_plain(csr, w, u1, Z=u1),
                  (n + 1) * i4 + slots * (2 * i4 + f8) + mw * f8 + 3 * n * f8,
@@ -717,12 +820,18 @@ def check_general_kernels(K, seg, csr, dev, ranks, report_rank, tag):
                 csr, K.coo_contract_segsum_plain(seg, U, V), V, Z=U)
             require(rel_err(got, want) <= KERNEL_RTOL,
                     f"K5 then K6 {shape}: normal-equation matvec differs")
-        # no atomics: the same bits on every call
+        # no atomics: the same bits on every call, and at every K6 warps
+        # per row
         require(torch.equal(K.coo_contract_segsum(seg, U, V),
                             K.coo_contract_segsum(seg, U, V))
                 and torch.equal(K.spmm_constr_csr(csr, w, U),
                                 K.spmm_constr_csr(csr, w, U)),
                 f"K5/K6 {shape}: two calls gave different bits")
+        check_k6_warps(K, csr, w, U, shape, timed=True)
+        check_k6_warps(K, csr, w0, U, shape, Z=Z, beta=-0.5)
+        check_k6_warps(K, csr, w, u1, shape, Z=u1, timed=True)
+        check_k5_kc(K, seg, U, V, shape, pair=True, timed=True)
+        check_k5_kc(K, seg, U, U, shape)
         if r == report_rank:
             report = rows
     return report
@@ -980,8 +1089,9 @@ def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
         Y = torch.randn((n, r), generator=g, dtype=torch.float64, device=dev)
         Y = Y.abs() if positive else Y
         shape = f"{tag} n={n} m={m} r={r}"
+        i6 = k56_instance(K, "spmm_constr_csr", r, csr)
         k6 = _measure(
-            "spmm_constr_csr", f"A+C {shape} slots={slots}",
+            "spmm_constr_csr", f"A+C {shape} slots={slots} {i6}",
             lambda: K.spmm_constr_csr(csr, w, Y),
             lambda: K.spmm_constr_csr_plain(csr, w, Y),
             (n + 1) * i4 + slots * (2 * i4 + f8) + (m + 1) * f8
@@ -990,10 +1100,13 @@ def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
         require(torch.equal(K.spmm_constr_csr(csr, w, Y),
                             K.spmm_constr_csr(csr, w, Y)),
                 f"K6 {shape}: two calls gave different bits")
+        check_k6_warps(K, csr, w, Y, shape, timed=True)
+        k6["instance"] = i6
         if r == 1:
             continue        # K4 and K5 run at the factor's rank only
+        i5 = k56_instance(K, "coo_contract_segsum", r, seg, mode=1)
         k5 = _measure(
-            "coo_contract_segsum", f"U-is-V {shape} nnz={nnz}",
+            "coo_contract_segsum", f"U-is-V {shape} nnz={nnz} {i5}",
             lambda: K.coo_contract_segsum(seg, Y, Y),
             lambda: K.coo_contract_segsum_plain(seg, Y, Y),
             (m + 1) * i4 + nnz * (2 * i4 + f8) + m * f8 + n * r * f8,
@@ -1009,6 +1122,8 @@ def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
                             K.coo_contract_segsum(seg, Y, Y))
                 and torch.equal(ops.CX(Y), ops.CX(Y)),
                 f"K4/K5 {shape}: two calls gave different bits")
+        check_k5_kc(K, seg, Y, Y, shape, timed=True)
+        k5["instance"] = i5
         report = {"sym_contract_sum": k4, "coo_contract_segsum": k5,
                   "spmm_constr_csr": k6}
     return report
@@ -1661,8 +1776,10 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
             size=(n, n)).coalesce().to_sparse_csr()
     shape = f"matcomp n={n} m={m} nnz={nnz} r={r}"
     ref5 = K.coo_contract_segsum_plain(seg64, U64, V64, pair=True)
+    i5 = k56_instance(K, "coo_contract_segsum", r, seg32, f32)
+    i6 = k56_instance(K, "spmm_constr_csr", r, acsr32, f32)
     rows["coo_contract_segsum"] = _measure32(
-        "coo_contract_segsum", f"pair {shape}",
+        "coo_contract_segsum", f"pair {shape} {i5}",
         lambda: K.coo_contract_segsum(seg32, U, V, pair=True),
         lambda: K.coo_contract_segsum_plain(seg32, U, V, pair=True),
         lambda: ref5,
@@ -1670,12 +1787,14 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
         6.0 * nnz * r)
     ref6 = K.spmm_constr_csr_plain(acsr64, w.double(), U64)
     rows["spmm_constr_csr"] = _measure32(
-        "spmm_constr_csr", f"alone {shape} slots={slots}",
+        "spmm_constr_csr", f"alone {shape} slots={slots} {i6}",
         lambda: K.spmm_constr_csr(acsr32, w, U),
         lambda: K.spmm_constr_csr_plain(acsr32, w, U), lambda: ref6,
         (n + 1) * i4 + slots * (2 * i4 + f4) + m * f4 + 2 * n * r * f4,
         2.0 * slots * r + slots, lambda: torch.sparse.mm(s_w, U),
         _lib_close("spmm_constr_csr", ref6))
+    rows["coo_contract_segsum"]["instance"] = i5
+    rows["spmm_constr_csr"]["instance"] = i6
     # ---- K7, K8: the multi-block + LP path's LP cone ----
     lp32 = as_dtype(lp, f32)
     lp64 = as_dtype(lp32, f64)
@@ -2547,9 +2666,16 @@ def main() -> int:
         k.lib_path is not None and k.lib_path.exists()
         for k in K.KERNELS.values()), "thirteen kernels built")
     for k in K.KERNELS.values():
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {k.name}: {line.strip()}")
+        if k.name not in DENSE_KERNELS:
+            for line in k.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[ptxas] {k.name}: {line.strip()}")
+            continue
+        # K5 / K6: every instantiation by its template arguments
+        for key, (regs, st, ld) in sorted(K.ptxas_usage(k.name).items()):
+            print(f"[ptxas] {k.name} {key[0]}<{key[1]}"
+                  f"{''.join(f', {x}' for x in key[2])}>: {regs} registers, "
+                  f"spill stores / loads {st} / {ld} bytes")
 
     # ---- phase 3: each kernel against its plain version ---------------- #
     adj = delaunay_maxcut_adjacency(MAIN_N, seed=MAIN_SEED)
@@ -2634,6 +2760,8 @@ def main() -> int:
             MC_REPORT_RANK, f"matcomp shard {shard}/2 (constraints "
             f"{mops.cv_range}, rows {mops.mm_range})")
         shard_rows = shard_rows or rows
+        check_shard_bits(K, mc_cone, mops, dev, MC_REPORT_RANK,
+                         f"matcomp shard {shard}/2")
         del mops
 
     # K13, the repo's one pl.pallas_call, then the probe twin through its

@@ -74,6 +74,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -152,11 +153,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P), typed=True),
     Kernel("coo_contract_segsum",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:143",
-           (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-            _I, _P, _I, _P, _P, _I, _P, _P, _P), typed=True),
+           (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
+            _I, _P, _P, _I, _P, _P, _I, _I, _I, _P), typed=True),
     Kernel("spmm_constr_csr",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:256",
-           (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P), typed=True),
+           (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _I, _I, _P),
+           typed=True),
     Kernel("lp_constr_segsum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:435",
            (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P), typed=True),
@@ -254,6 +256,38 @@ def build_kernels() -> List[str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return [k.name for k, _, _ in procs]
+
+
+def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
+    """``{(kind, value type, template ints): (registers, spill store bytes,
+    spill load bytes)}`` of each ``__global__`` instantiation of one
+    kernel's source, read from ``-Xptxas -v`` in this process's build log
+    (empty when the library was already built).  ``kind`` is ``"main"`` or,
+    for K5's second launch, ``"long_reduce"``; the value type ``"f64"`` or
+    ``"f32"``; the ints the template's int arguments in order, e.g. ``(32,
+    5)`` for K6's G = 32, CPL = 5 and ``(2, 16, 2, 2)`` for K5's pair mode
+    at G = 16, CPL = 2, KC = 2."""
+    out: Dict[Tuple, Tuple[int, int, int]] = {}
+    key, spill = None, (0, 0)
+    for line in KERNELS[name].build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"_kernelI((?:Li\d+E|[df])+)E", m.group(1))
+            key = None if t is None else (
+                "long_reduce" if "long_reduce" in m.group(1) else "main",
+                "f32" if re.sub(r"Li\d+E", "", t.group(1)) == "f" else "f64",
+                tuple(int(x) for x in re.findall(r"Li(\d+)E", t.group(1))))
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key is not None:
+            out[key] = (int(m.group(1)), *spill)
+            key = None
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -560,6 +594,64 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
 
 K5_LONG_SEGMENT = 32     # a segment of at least this many entries is cut
 K5_CHUNK = 8             # into chunks of at most this many entries
+MAX_CPL = 8              # K5 / K6: columns per lane and pass
+
+
+def lane_group(r: int) -> Tuple[int, int]:
+    """``(G, CPL)`` of K5 and K6 at rank ``r``: G lanes share one entry or
+    slot (the smallest power of two >= r, at most 32), and each lane keeps
+    CPL = ceil(r / G) column terms, at most ``MAX_CPL`` (a wider r runs in
+    passes of 32 * MAX_CPL columns).  A function of r alone: it fixes the
+    order in which each output's terms are added."""
+    if r < 1:
+        raise ValueError(f"rank {r} < 1")
+    g = 1
+    while g < min(r, 32):
+        g *= 2
+    return g, min(MAX_CPL, -(-r // g))
+
+
+def _instance(g: int, cpl: int) -> str:
+    return f"G={g} CPL={cpl}"
+
+
+@dataclasses.dataclass(frozen=True)
+class K5Plan:
+    """K5's instantiation at one rank: ``g`` lanes per constraint, ``cpl``
+    columns per lane, ``kc`` constraints per group, so a warp serves
+    ``constraints_per_warp`` = 32 / g * kc neighbouring constraints."""
+
+    g: int
+    cpl: int
+    kc: int
+
+    @property
+    def constraints_per_warp(self) -> int:
+        return 32 // self.g * self.kc
+
+    def describe(self) -> str:
+        return f"{_instance(self.g, self.cpl)} KC={self.kc}"
+
+
+K5_FILL_TILES = 16 * 1024   # tiles of one constraint a group that keep
+                            # the card busy: above them, two a group
+
+
+def k5_plan(r: int, m: int) -> K5Plan:
+    """K5's instantiation at rank ``r`` for ``m`` constraints
+    (``coo_contract_segsum.cu`` ``dispatch``).  The lane group is
+    :func:`lane_group`'s but for 17 <= r <= 32, where 16 lanes of two
+    columns each serve two constraints a warp step (half the shuffles and
+    index loads a constraint of 32 lanes of one column).  A group takes two
+    constraints (``kc``) when one a group leaves more than
+    ``K5_FILL_TILES`` warps and two keep its lanes' row terms within eight,
+    else one.  ``kc`` never changes the bits."""
+    g, cpl = lane_group(r)
+    if 17 <= r <= 32:
+        g, cpl = 16, 2
+    kc = 2 if (g > 1 and 2 * cpl <= MAX_CPL
+               and m * g >= 32 * K5_FILL_TILES) else 1
+    return K5Plan(g, cpl, kc)
 
 
 @dataclasses.dataclass
@@ -681,6 +773,14 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
     """K5: per constraint i, ``sum_k coef_k * sym(U V^T)[rows_k, cols_k]``
     over its entries -> (m,) (``U is V`` reads U only); with ``pair`` the two
     vectors ``(A(2 sym(U V^T)), A(V V^T))`` from one read of the rows."""
+    return coo_contract_segsum_with(None, seg, U, V, pair)
+
+
+def coo_contract_segsum_with(plan: Optional[K5Plan], seg: SegCOO,
+                             U: torch.Tensor, V: torch.Tensor,
+                             pair: bool = False):
+    """:func:`coo_contract_segsum` launched with ``plan`` (None:
+    :func:`k5_plan` of the call).  Another ``kc`` gives the same bits."""
     k = KERNELS["coo_contract_segsum"]
     if _is_cpu(U):
         k.plain_calls += 1
@@ -700,6 +800,10 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
     _check(seg.coef, "coef", dt, (seg.nnz,), dev)
     _i32(n * r, "n * r")
     mode = 2 if pair else (1 if U is V else 0)
+    if plan is None:
+        plan = k5_plan(r, seg.m)
+    elif plan.g < 32 and r > plan.g * plan.cpl:
+        raise ValueError(f"{plan.describe()} does not cover r = {r}")
     o1 = torch.empty(seg.m, dtype=dt, device=dev)
     o2 = torch.empty(seg.m, dtype=dt, device=dev) if pair else None
     nc = seg.n_chunks
@@ -711,11 +815,13 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
         _check(seg.long_seg, "long_seg", torch.int32, (n_long,), dev)
         _check(seg.long_ptr, "long_ptr", torch.int32, (n_long + 1,), dev)
         part = torch.empty((2, nc), dtype=dt, device=dev)
-    k.launch(_f32(dt), seg.seg_ptr.data_ptr(), seg.rows.data_ptr(), seg.cols.data_ptr(),
-             seg.coef.data_ptr(), U.data_ptr(), V.data_ptr(), seg.m, r, mode,
-             o1.data_ptr(), _ptr(o2), seg.long_thresh, _ptr(seg.chunk_ptr),
-             nc, _ptr(seg.long_seg), _ptr(seg.long_ptr), n_long,
-             _ptr(part), part[1].data_ptr() if nc else None, _stream(dev))
+    k.launch(_f32(dt), seg.seg_ptr.data_ptr(), seg.rows.data_ptr(),
+             seg.cols.data_ptr(), seg.coef.data_ptr(), U.data_ptr(),
+             V.data_ptr(), seg.m, seg.nnz, r, mode, o1.data_ptr(), _ptr(o2),
+             seg.long_thresh, _ptr(seg.chunk_ptr), nc, _ptr(seg.long_seg),
+             _ptr(seg.long_ptr), n_long, _ptr(part),
+             part[1].data_ptr() if nc else None, plan.g, plan.cpl, plan.kc,
+             _stream(dev))
     return (o1, o2) if pair else o1
 
 
@@ -724,12 +830,50 @@ def coo_contract_segsum(seg: SegCOO, U: torch.Tensor, V: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+K6_STRANDS = 8           # matches kStrands in spmm_constr_csr.cu
+K6_STEPS = 8             # a chunk is min(G, K6_STEPS) * 32 / G slots
+K6_FILL_WARPS = 132 * 16     # warps that keep the H100's 132 SMs busy
+
+
+@dataclasses.dataclass(frozen=True)
+class K6Plan:
+    """K6's launch at one rank and layout: ``g`` lanes per slot, ``cpl``
+    columns per lane, ``wpr`` warps per row.  ``wpr`` only says which warp
+    adds which of a row's fixed subtrees: every value gives the same bits."""
+
+    g: int
+    cpl: int
+    wpr: int
+
+    def describe(self) -> str:
+        return f"{_instance(self.g, self.cpl)} W={self.wpr}"
+
+
+def k6_plan(r: int, n: int, max_row: int) -> K6Plan:
+    """K6's launch for rank ``r`` on a layout of ``n`` rows whose longest row
+    has ``max_row`` slots: the lane group of :func:`lane_group`, and as many
+    warps per row (1, 2, 4 or 8) as the rows' chunks can use
+    (``min(G, K6_STEPS) * 32 / G`` slots each, dealt round-robin to
+    ``K6_STRANDS`` strands; at G = 1 a warp reads one chunk of each of its
+    strands at once, so such a round counts as one chunk) while ``n`` rows
+    alone leave the card short of ``K6_FILL_WARPS`` warps."""
+    g, cpl = lane_group(r)
+    chunk = min(g, K6_STEPS) * (32 // g) * (K6_STRANDS if g == 1 else 1)
+    chunks = -(-max_row // chunk)
+    want = -(-K6_FILL_WARPS // max(n, 1))
+    wpr = 1
+    while wpr < K6_STRANDS and wpr < chunks and wpr < want:
+        wpr *= 2
+    return K6Plan(g, cpl, wpr)
+
+
 @dataclasses.dataclass
 class ConstrCSR:
     """All constraint entries of a cone as one full symmetric CSR (both
     triangles, a diagonal entry once), built on the host from the
     upper-triangle COO.  Every slot keeps the id of its constraint, so
-    entries of different constraints at one (row, col) stay separate."""
+    entries of different constraints at one (row, col) stay separate.
+    ``max_row``, the longest row's slot count, picks K6's warps per row."""
 
     n: int
     m: int
@@ -737,6 +881,7 @@ class ConstrCSR:
     indices: torch.Tensor    # (nnz,) int32
     vals: torch.Tensor       # (nnz,) float64 or float32
     cid: torch.Tensor        # (nnz,) int32
+    max_row: int = 0
 
     @property
     def nnz(self) -> int:
@@ -783,14 +928,16 @@ class ConstrCSR:
             keep = (r_all >= row_range[0]) & (r_all < row_range[1])
             r_all, c_all = r_all[keep], c_all[keep]
             v_all, k_all = v_all[keep], k_all[keep]
+        per_row = np.bincount(r_all, minlength=n)
         indptr = np.zeros(n + 1, np.int64)
-        np.cumsum(np.bincount(r_all, minlength=n), out=indptr[1:])
+        np.cumsum(per_row, out=indptr[1:])
         return ConstrCSR(
             n=n, m=m,
             indptr=torch.tensor(indptr, dtype=torch.int32, device=device),
             indices=torch.tensor(c_all, dtype=torch.int32, device=device),
             vals=torch.tensor(v_all, dtype=dtype, device=device),
-            cid=torch.tensor(k_all, dtype=torch.int32, device=device))
+            cid=torch.tensor(k_all, dtype=torch.int32, device=device),
+            max_row=int(per_row.max(initial=0)))
 
 
 def spmm_constr_csr_plain(csr: ConstrCSR, w, Y, Z=None, beta: float = 1.0):
@@ -806,6 +953,16 @@ def spmm_constr_csr(csr: ConstrCSR, w: torch.Tensor, Y: torch.Tensor,
                     beta: float = 1.0) -> torch.Tensor:
     """K6: ``(sum_i w_i A_i) @ Y (+ beta * Z)`` with per-slot weight
     ``w[cid] * val`` gathered inside the kernel."""
+    return spmm_constr_csr_with(None, csr, w, Y, Z, beta)
+
+
+def spmm_constr_csr_with(plan: Optional[K6Plan], csr: ConstrCSR,
+                         w: torch.Tensor, Y: torch.Tensor,
+                         Z: Optional[torch.Tensor] = None,
+                         beta: float = 1.0) -> torch.Tensor:
+    """:func:`spmm_constr_csr` launched with ``plan`` (None: :func:`k6_plan`
+    of the call).  Other warps per row give the same bits; the tests and the
+    smoke run hold every ``wpr`` to that."""
     k = KERNELS["spmm_constr_csr"]
     if _is_cpu(Y):
         k.plain_calls += 1
@@ -826,11 +983,15 @@ def spmm_constr_csr(csr: ConstrCSR, w: torch.Tensor, Y: torch.Tensor,
     _check(csr.vals, "vals", dt, (csr.nnz,), dev)
     _check(csr.cid, "cid", torch.int32, (csr.nnz,), dev)
     _i32(n * r, "n * r")
+    if plan is None:
+        plan = k6_plan(r, n, csr.max_row)
+    elif plan.g < 32 and r > plan.g * plan.cpl:
+        raise ValueError(f"{plan.describe()} does not cover r = {r}")
     out = torch.empty((n, r), dtype=dt, device=dev)
     k.launch(_f32(dt), csr.indptr.data_ptr(), csr.indices.data_ptr(),
              csr.vals.data_ptr(), csr.cid.data_ptr(), w.data_ptr(),
              Y.data_ptr(), _ptr(Z), out.data_ptr(), n, r, float(beta),
-             _stream(dev))
+             plan.g, plan.cpl, plan.wpr, _stream(dev))
     return out
 
 

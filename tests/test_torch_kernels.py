@@ -910,3 +910,364 @@ def test_gather_rowsum_refuses_what_it_does_not_take(dev):
         K.gather_rowsum(Y.double(), idx)
     with pytest.raises(TypeError):
         K.gather_rowsum(Y, idx.long())
+
+
+# --------------------------------------------------------------------------- #
+# K5 / K6: lane groups, tiles, strands and warps per row
+# --------------------------------------------------------------------------- #
+
+K56_RANKS = [1, 2, 3, 7, 8, 19, 32, 33, 64, 141, 256]
+
+
+def _instantiated(name, macro):
+    """The template arguments of every ``macro(...)`` case of a source's
+    dispatch: the instantiations its C entry point launches."""
+    import re
+
+    src = (K.CSRC_DIR / f"{name}.cu").read_text()
+    return {tuple(int(x) for x in m.split(","))
+            for m in re.findall(macro + r"\((\d+, \d+(?:, \d+)?)\)", src)}
+
+
+@pytest.mark.parametrize("r", K56_RANKS + [4, 5, 16, 17, 96, 129, 257, 600])
+def test_lane_group_is_a_function_of_r(r):
+    """G is the smallest power of two >= r, at most 32; a lane's CPL
+    columns cover r in one pass up to 256 and in passes of 256 beyond."""
+    g, cpl = K.lane_group(r)
+    assert g & (g - 1) == 0 and g <= 32
+    assert g >= min(r, 32) and (g == 1 or g // 2 < r)
+    assert cpl == min(K.MAX_CPL, -(-r // g))
+    passes = -(-r // (g * cpl))
+    assert passes == (1 if r <= 32 * K.MAX_CPL else -(-r // 256))
+    # K6 launches it; K5 too, but for 17 <= r <= 32 (16 lanes of 2)
+    assert (K.k6_plan(r, 300, 67).g, K.k6_plan(r, 300, 67).cpl) == (g, cpl)
+    p5 = K.k5_plan(r, 10**6)
+    assert (p5.g, p5.cpl) == ((16, 2) if 17 <= r <= 32 else (g, cpl))
+
+
+def _k5_cases():
+    """K5's instantiations: the K5_CASE triples and each K5_CASE2 pair with
+    kc 1 and 2."""
+    k5 = _instantiated("coo_contract_segsum", "K5_CASE")
+    return k5 | {(g, c, kc) for g, c in
+                 _instantiated("coo_contract_segsum", "K5_CASE2")
+                 for kc in (1, 2)}
+
+
+@pytest.mark.parametrize("r", K56_RANKS)
+@pytest.mark.parametrize("m", [1, 2_400, 216_171, 552_620])
+def test_k5_plan_is_instantiated_and_fits_one_warp(r, m):
+    """Every rank's K5 plan is a case of the source's dispatch; a warp's
+    constraints fit one 32-lane load of their bounds; a group's row terms
+    stay within eight; two constraints a group only where one a group
+    leaves more than K5_FILL_TILES warps."""
+    plan = K.k5_plan(r, m)
+    assert (plan.g, plan.cpl, plan.kc) in _k5_cases()
+    assert 1 <= plan.constraints_per_warp <= 32
+    assert plan.kc in (1, 2) and plan.kc * plan.cpl <= K.MAX_CPL
+    assert plan.g >= 32 or r <= plan.g * plan.cpl
+    assert (plan.kc == 2) == (plan.g > 1 and 2 * plan.cpl <= K.MAX_CPL and
+                              m * plan.g >= 32 * K.K5_FILL_TILES)
+    assert plan.describe() == f"G={plan.g} CPL={plan.cpl} KC={plan.kc}"
+
+
+def test_every_k5_and_k6_plan_is_instantiated():
+    k5 = _k5_cases()
+    k6 = _instantiated("spmm_constr_csr", "K6_CASE")
+    assert len(k5) == 21 and len(k6) == 13
+    for r in range(1, 600):
+        for m in (10, 10**6):
+            p5 = K.k5_plan(r, m)
+            assert (p5.g, p5.cpl, p5.kc) in k5
+        assert K.lane_group(r) in k6
+
+
+@pytest.mark.parametrize("r", K56_RANKS)
+def test_k5_tiles_cover_every_short_constraint_once(r):
+    """The kernel's tiles as the host plans them: warp w serves constraints
+    w * NC .. w * NC + NC - 1, group q its k-th at offset k * P + q; every
+    constraint is walked by exactly one group, a long one by its chunks
+    only."""
+    n, m, rows, cols, vals, cid = _constraint_entries("long")
+    seg = K.SegCOO.from_coo(rows, cols, vals, cid, n, m, "cpu")
+    plan = K.k5_plan(r, m)
+    per, nc = 32 // plan.g, plan.constraints_per_warp
+    lens = np.diff(seg.seg_ptr.numpy())
+    walked = []
+    for c0 in range(0, m, nc):
+        for q in range(per):
+            for k in range(plan.kc):
+                c = c0 + k * per + q
+                if c < m and lens[c] < seg.long_thresh:
+                    walked.append(c)
+    chunked = seg.long_seg.tolist()
+    assert sorted(walked + chunked) == list(range(m))
+    assert not set(walked) & set(chunked)
+
+
+@pytest.mark.parametrize("n, max_row, want", [
+    (10_000, 130, 1), (300, 67, 8), (1024, 1050, 4), (3000, 144, 1),
+    (1000, 60, 2), (300, 0, 1), (5, 1, 1), (132 * 32, 10_000, 1)])
+def test_k6_warps_per_row(n, max_row, want):
+    """Warps per row: as many as the longest row's chunks can use while n
+    rows alone leave the card short of warps; never more than the strands,
+    and the same for every r with the same lane group."""
+    r = 141 if (n, max_row) == (300, 67) else 8
+    plan = K.k6_plan(r, n, max_row)
+    assert plan.wpr == want
+    assert plan.wpr in (1, 2, 4, 8) and plan.wpr <= K.K6_STRANDS
+    chunks = -(-max_row // (min(plan.g, K.K6_STEPS) * 32 // plan.g))
+    assert plan.wpr == 1 or plan.wpr < 2 * chunks
+    assert plan.describe().endswith(f"W={plan.wpr}")
+
+
+def test_k6_plan_grows_with_long_rows_and_few_rows():
+    for r in K56_RANKS:
+        for n in (10, 300, 3000, 100_000):
+            w = [K.k6_plan(r, n, L).wpr for L in (0, 8, 64, 512, 10**5)]
+            assert w == sorted(w)
+        for L in (16, 1000):
+            w = [K.k6_plan(r, n, L).wpr for n in (100_000, 3000, 300, 10)]
+            assert w == sorted(w)
+
+
+def _lengths_entries(seed=0):
+    """(n, m, rows, cols, vals, cid): constraints of 0 (id 1), 1, 2, 5, 31,
+    32, 33 and 1,000 entries and 400 of one entry, so that K6's rows have 0,
+    1, a few, 31, 32, 33 and 1,000 slots."""
+    rng = np.random.default_rng(seed)
+    n = 1100
+    segs = [  # (row, col) lists, constraint ids 0, 2, 3, ...
+        [(0, j) for j in range(1, 1001)],                  # row 0: 1,000
+        [(1001, j) for j in range(1, 32)],                 # row 1001: 31
+        [(1002, j) for j in range(1, 33)],                 # row 1002: 32
+        [(1003, j) for j in range(1, 34)],                 # row 1003: 33
+        [(i, i) for i in range(1004, 1009)],               # 5 diagonal
+        [(1009, 1010), (1009, 1009)],
+        [(1011, 1012)]]
+    rows, cols, cid = [], [], []
+    for k, s in enumerate(segs):
+        rows += [a for a, _ in s]
+        cols += [b for _, b in s]
+        cid += [k if k == 0 else k + 1] * len(s)
+    one_r = rng.integers(1013, 1040, 400)
+    one_c = rng.integers(1013, 1040, 400)
+    rows += list(np.minimum(one_r, one_c))
+    cols += list(np.maximum(one_r, one_c))
+    cid += list(range(len(segs) + 1, len(segs) + 401))
+    rows, cols, cid = (np.asarray(x, np.int64) for x in (rows, cols, cid))
+    return n, int(cid.max()) + 1, rows, cols, rng.standard_normal(rows.size), \
+        cid
+
+
+def _mss_entries(n=300, deg=8, seed=7):
+    """A maximum stable set cone as HALLaR lays it out for K6: an entry per
+    edge and C = -ee^T as constraint m, so every row holds about n slots."""
+    from ltr_lowrank_sdp_torch.hallar.solver import build_mss_problem
+
+    rng = np.random.default_rng(seed)
+    e = rng.integers(0, n, size=(n * deg // 2, 2))
+    e = np.unique(np.sort(e[e[:, 0] != e[:, 1]], axis=1), axis=0)
+    p = build_mss_problem([tuple(x) for x in e.tolist()], n)
+    return (n, p.m + 1,
+            np.concatenate([p.a_rows, p.c_rows]).astype(np.int64),
+            np.concatenate([p.a_cols, p.c_cols]).astype(np.int64),
+            np.concatenate([p.a_vals, p.c_vals]),
+            np.concatenate([p.a_cid, np.full(p.c_rows.size, p.m)]))
+
+
+def _k56_entries(case):
+    if case == "lengths":
+        return _lengths_entries()
+    if case == "mss":
+        return _mss_entries()
+    return _constraint_entries(case)
+
+
+def test_lengths_and_mss_cases_have_the_shapes_they_name():
+    n, m, rows, cols, vals, cid = _lengths_entries()
+    seg = K.SegCOO.from_coo(rows, cols, vals, cid, n, m, "cpu")
+    csr = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, "cpu")
+    lens = np.diff(seg.seg_ptr.numpy())
+    assert {0, 1, 2, 5, 31, 32, 33, 1000} <= set(lens.tolist())
+    slots = np.diff(csr.indptr.numpy())
+    assert {0, 1, 31, 32, 33} <= set(slots.tolist())
+    assert csr.max_row == slots.max() == 1000
+    assert seg.long_seg.tolist() == list(np.flatnonzero(lens >= 32))
+    n, m, rows, cols, vals, cid = _mss_entries()
+    csr = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, "cpu")
+    assert np.diff(csr.indptr.numpy()).min() >= n
+
+
+@pytest.mark.parametrize("case", ["lengths", "mss", "theta", "matcomp"])
+def test_shard_layouts_are_the_whole_layouts_restricted(case):
+    """What a rank of the sharded operators builds (meshops): K6's row
+    slice keeps each kept row's slots in the full layout's order, and K5's
+    constraint segment holds the full layout's segments, long-segment
+    chunks included, shifted to its own start: each output's terms, and so
+    its bits, are the full layout's."""
+    n, m, rows, cols, vals, cid = _k56_entries(case)
+    whole = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, "cpu")
+    wseg = K.SegCOO.from_coo(rows, cols, vals, cid, n, m, "cpu")
+    wptr = whole.indptr.numpy()
+    sptr = wseg.seg_ptr.numpy()
+    for lo, hi in ((0, n // 3), (n // 3, n)):
+        part = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, "cpu",
+                                          row_range=(lo, hi))
+        pptr = part.indptr.numpy()
+        a, b = wptr[lo], wptr[hi]
+        assert np.array_equal(pptr[lo:hi + 1] - pptr[lo], wptr[lo:hi + 1] - a)
+        assert np.all(np.diff(pptr)[:lo] == 0) and np.all(
+            np.diff(pptr)[hi:] == 0)
+        for f in ("indices", "vals", "cid"):
+            assert torch.equal(getattr(part, f), getattr(whole, f)[a:b])
+        assert part.max_row == np.diff(wptr)[lo:hi].max(initial=0)
+    for lo, hi in ((0, m // 2), (m // 2, m)):
+        own = (cid >= lo) & (cid < hi)
+        seg = K.SegCOO.from_coo(rows[own], cols[own], vals[own],
+                                cid[own] - lo, n, hi - lo, "cpu")
+        a = sptr[lo]
+        assert np.array_equal(seg.seg_ptr.numpy(), sptr[lo:hi + 1] - a)
+        for f in ("rows", "cols", "coef"):
+            assert torch.equal(getattr(seg, f),
+                               getattr(wseg, f)[a:sptr[hi]])
+        mine = [i for i in range(wseg.long_seg.numel() if wseg.n_chunks
+                                 else 0)
+                if lo <= int(wseg.long_seg[i]) < hi]
+        got = seg.chunk_ptr.numpy().tolist() if seg.n_chunks else []
+        want = [[s - a, e - a] for i in mine for s, e in
+                wseg.chunk_ptr.numpy()[int(wseg.long_ptr[i]):
+                                       int(wseg.long_ptr[i + 1])].tolist()]
+        assert got == want
+
+
+def _k56_inputs(case, r, dev, dtype=torch.float64, seed=0):
+    n, m, rows, cols, vals, cid = _k56_entries(case)
+    seg = K.SegCOO.from_coo(rows, cols, vals, cid, n, m, dev, dtype)
+    csr = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, dev, dtype)
+    rng = np.random.default_rng(seed + r)
+    U, V, Z = (torch.tensor(rng.standard_normal((n, r)), dtype=dtype,
+                            device=dev) for _ in range(3))
+    w = torch.tensor(rng.standard_normal(m), dtype=dtype, device=dev)
+    return seg, csr, U, V, Z, w
+
+
+@cuda
+@pytest.mark.parametrize("r", K56_RANKS)
+@pytest.mark.parametrize("case", ["lengths", "mss", "theta"])
+def test_k5_redesign_matches_plain(dev, case, r):
+    """K5's lane groups and tiles at every rank of its instantiations, on
+    segments of 0 to 1,000 entries: all three modes against the plain
+    version (1e-12), an empty constraint exactly 0, the same bits twice and
+    with one or two constraints a group."""
+    seg, _, U, V, _, _ = _k56_inputs(case, r, dev)
+    plan = K.k5_plan(r, seg.m)
+    for a, b, pair in ((U, V, False), (U, U, False), (U, V, True)):
+        got = K.coo_contract_segsum(seg, a, b, pair=pair)
+        for kc in (1, 2) if plan.g > 1 and 2 * plan.cpl <= K.MAX_CPL else ():
+            other = K.coo_contract_segsum_with(
+                K.K5Plan(plan.g, plan.cpl, kc), seg, a, b, pair=pair)
+            assert all(torch.equal(x, y) for x, y in zip(
+                other if pair else (other,), got if pair else (got,)))
+        again = K.coo_contract_segsum(seg, a, b, pair=pair)
+        want = K.coo_contract_segsum_plain(seg, a, b, pair=pair)
+        torch.cuda.synchronize()
+        for x, y, z in zip(*(t if pair else (t,) for t in (got, want,
+                                                          again))):
+            assert _rel(x, y) <= RTOL
+            assert torch.equal(x, z)
+            if case == "lengths":
+                assert float(x[1]) == 0.0
+
+
+@cuda
+@pytest.mark.parametrize("r", K56_RANKS)
+@pytest.mark.parametrize("case", ["lengths", "mss", "theta"])
+def test_k6_redesign_matches_plain_at_every_warps_per_row(dev, case, r):
+    """K6 at every rank of its instantiations on rows of 0 to 1,000 slots:
+    alone, with the addend at beta = -0.5 and with zero weights, against
+    the plain version (1e-12); every warps-per-row value gives the bits of
+    the planned launch."""
+    _, csr, U, _, Z, w = _k56_inputs(case, r, dev)
+    w0 = torch.where(torch.arange(w.numel(), device=dev) % 3 == 0, 0.0, w)
+    g, cpl = K.lane_group(r)
+    for args in ((csr, w, U), (csr, w, U, Z, -0.5), (csr, w0, U, Z, -0.5)):
+        got = K.spmm_constr_csr(*args)
+        torch.cuda.synchronize()
+        assert _rel(got, K.spmm_constr_csr_plain(*args)) <= RTOL
+        for wpr in (1, 2, 4, 8):
+            assert torch.equal(
+                K.spmm_constr_csr_with(K.K6Plan(g, cpl, wpr), *args), got)
+
+
+@cuda
+@pytest.mark.parametrize("r", [3, 19, 141])
+@pytest.mark.parametrize("case", ["lengths", "mss", "theta"])
+def test_k5_k6_redesign_float32(dev, case, r):
+    """float32 K5 (pair) and K6 (with the addend) against the plain version
+    evaluated in float64 on the same inputs: within 1e-5 of the output's
+    largest magnitude; the same bits twice."""
+    seg, csr, U, V, Z, w = _k56_inputs(case, r, dev, torch.float32)
+    seg64, csr64, U64, V64, Z64, w64 = _f64((seg, csr, U, V, Z, w))
+    got = K.coo_contract_segsum(seg, U, V, pair=True)
+    assert _rel_to_scale(got, K.coo_contract_segsum_plain(
+        seg64, U64, V64, pair=True)) <= KERNEL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, K.coo_contract_segsum(seg, U, V, pair=True)))
+    got = K.spmm_constr_csr(csr, w, U, Z, -0.5)
+    assert _rel_to_scale(got, K.spmm_constr_csr_plain(
+        csr64, w64, U64, Z64, -0.5)) <= KERNEL_TOL
+    assert torch.equal(got, K.spmm_constr_csr(csr, w, U, Z, -0.5))
+
+
+@cuda
+@pytest.mark.parametrize("r", [2, 7, 19, 141])
+@pytest.mark.parametrize("case", ["lengths", "theta", "matcomp"])
+def test_k5_k6_shards_give_the_whole_layouts_bits(dev, case, r):
+    """On the card: a rank's K6 row slice gives the full layout's rows and
+    its K5 constraint segment the full layout's constraint values, bit for
+    bit (meshops adds exact zeros elsewhere)."""
+    n, m, rows, cols, vals, cid = _k56_entries(case)
+    seg, csr, U, V, _, w = _k56_inputs(case, r, dev)
+    whole6 = K.spmm_constr_csr(csr, w, U)
+    whole5 = K.coo_contract_segsum(seg, U, V, pair=True)
+    for lo, hi in ((0, n // 3), (n // 3, n)):
+        part = K.ConstrCSR.from_upper_coo(rows, cols, vals, cid, n, m, dev,
+                                          row_range=(lo, hi))
+        got = K.spmm_constr_csr(part, w, U)
+        assert torch.equal(got[lo:hi], whole6[lo:hi])
+        assert not got[:lo].any() and not got[hi:].any()
+    for lo, hi in ((0, m // 2), (m // 2, m)):
+        own = (cid >= lo) & (cid < hi)
+        part = K.SegCOO.from_coo(rows[own], cols[own], vals[own],
+                                 cid[own] - lo, n, hi - lo, dev)
+        got = K.coo_contract_segsum(part, U, V, pair=True)
+        assert all(torch.equal(g, x[lo:hi]) for g, x in zip(got, whole5))
+
+
+def test_ptxas_usage_reads_each_instantiation(monkeypatch):
+    """The registers and spills of each template instantiation, keyed by its
+    value type and int arguments, from ``-Xptxas -v`` output."""
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122spmm_"
+        "constr_csr_kernelIdLi32ELi5EEEvPKiS2_PKT_S2_S5_S5_S5_PS3_iiS3_i' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_122spmm_"
+        "constr_csr_kernelIdLi32ELi5EEEvPKiS2_PKT_S2_S5_S5_S5_PS3_iiS3_i",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 10240 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122coo_long_"
+        "reduce_kernelIfEEvPKiS2_iiPKT_S5_PS3_S6_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 12 registers, used 0 barriers, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126coo_contract"
+        "_segsum_kernelILi2EfLi16ELi2ELi2EEEvPKiS2_S2_PKT0_S5_S5_iiiPS3_S6_iiS2_"
+        "iS6_S6_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 70 registers, used 0 barriers, 400 bytes cmem[0]"])
+    monkeypatch.setattr(K.KERNELS["spmm_constr_csr"], "build_log", log)
+    assert K.ptxas_usage("spmm_constr_csr") == {
+        ("main", "f64", (32, 5)): (96, 8, 4),
+        ("long_reduce", "f32", ()): (12, 0, 0),
+        ("main", "f32", (2, 16, 2, 2)): (70, 0, 0)}
