@@ -54,7 +54,16 @@ Phases, in order; any failed check raises and the script exits nonzero:
    instantiation's); wherever K6 is held, every warps-per-row value (1, 2,
    4, 8) must give the planned launch's bits, and wherever K5 is, one and
    two constraints per group; each is timed at the path's shapes
-   (``[k6-warps]``, ``[k5-kc]``: the evidence for the host's choice).  K13
+   (``[k6-warps]``, ``[k5-kc]``: the evidence for the host's choice).
+   Wherever K4 is held at a path's reported rank (MaxCut, matrix
+   completion, float32 MaxCut, HALLaR's layouts, the maximum stable set
+   cone), every grid of ``k4_plans`` (1 block, half the planned grid,
+   twice the cap), three more calls, a CUDA-graph replay and two graphs
+   captured on one stream and replayed at once on two must give the
+   planned launch's bits, each grid timed (``[k4-plan]``), and one call
+   must be one device kernel: one kernel node in a CUDA graph captured
+   from a call, and no other kernel and at most one a call in what the
+   profiler records (``[k4-kernels]``).  K13
    (``gather_rowsum``, the port of the repo's one ``pl.pallas_call``) at
    the gather probe's shape (N = 8,192, M = 262,144, R = 32) and at R = 8
    and 64, float32, against its plain version evaluated in float64 (max
@@ -146,9 +155,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
    so that many nodes tie at a column's max: every output against the plain
    version evaluated in float64 on the kernel's inputs (max |kernel - plain|
    / max |plain| <= 1e-5, the backward's scale floored at 1e-6 of its
-   largest output), the same bits on two calls, times beside the bound.
-   Then one training step at full width (``runs/r5_theta``'s weights,
-   dropout 0, fixed coins) on a collated batch of the seeded test split, on
+   largest output), the same bits on two calls, times beside the bound;
+   K11's scratch, measured as one call's peak-memory delta beyond its
+   outputs, under a fifth of E' H C 4 bytes (``[k11-scratch]``).  Then one training step at full width
+   (``runs/r5_theta``'s weights, dropout 0, fixed coins) on a collated batch of the seeded test split, on
    the card in float32 and on the CPU in float64: loss within 1e-5
    relative, every gradient leaf within 1e-4 of that leaf's own largest
    value, the card's optimizer step within 1e-5 of the float64 step from the
@@ -238,6 +248,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -293,6 +304,8 @@ THETA_N = 300
 THETA_RANKS = (141, 1)           # the solve's rank, Lanczos
 THETA_LIMIT_S = 180.0
 DENSE_KERNELS = ("coo_contract_segsum", "spmm_constr_csr")
+PTXAS_BY_INSTANCE = DENSE_KERNELS + ("sym_contract_sum",
+                                     "gatv2_softmax_agg_bwd")
 SLEEP_CYCLES = 50_000_000  # about 30 ms at the H100's clocks
 # the rank-schedule predictor: a checkpoint of the repo's one model width
 # (hidden 64, 3 GATv2 layers x 4 heads, LSTM 96 x 2), its serve path's
@@ -512,6 +525,96 @@ def check_k6_warps(K, csr, w, Y, tag, Z=None, beta=1.0, timed=False) -> None:
               flush=True)
 
 
+def check_k4_plans(K, rows, cols, coef, U, V, tag) -> dict:
+    """K4's grid only says which block walks which chunk: every plan of
+    ``k4_plans`` (1 block, half the planned grid, twice the cap) gives the
+    planned launch's bits, and so do three more calls, a CUDA-graph replay,
+    and two graphs captured on one stream replayed at once on two.  Prints each plan's time (``[k4-plan]``), the evidence for
+    ``k4_plan``'s grid; returns the planned plan's fields for the kernels
+    line."""
+    dev = U.device
+    plans = K.k4_plans(rows.numel(), U.shape[1], K.k4_cap(U, U is V))
+    want = K.sym_contract_sum(rows, cols, coef, U, V)
+    for _ in range(3):
+        require(torch.equal(K.sym_contract_sum(rows, cols, coef, U, V), want),
+                f"K4 {tag}: two calls gave different bits")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        K.sym_contract_sum(rows, cols, coef, U, V)      # the graph's warm-up
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        static = K.sym_contract_sum(rows, cols, coef, U, V)
+    graph.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(static, want),
+            f"K4 {tag}: a CUDA-graph replay gave other bits")
+    # a second graph captured on the same stream takes a ticket of its own:
+    # both replayed at once, on two streams, still give the bits
+    graph2 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph2, stream=side):
+        static2 = K.sym_contract_sum(rows, cols, coef, U, V)
+    two = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    for s in two:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(20):
+        for g, s in zip((graph, graph2), two):
+            with torch.cuda.stream(s):
+                g.replay()
+    torch.cuda.synchronize()
+    require(torch.equal(static, want) and torch.equal(static2, want),
+            f"K4 {tag}: two graphs replayed at once gave other bits")
+    times = []
+    for plan in plans:
+        got = K.sym_contract_sum_with(plan, rows, cols, coef, U, V)
+        require(torch.equal(got, want),
+                f"K4 {tag}: {plan.describe()} gave other bits than "
+                f"{plans[0].describe()}")
+        times.append(time_ms(lambda: K.sym_contract_sum_with(
+            plan, rows, cols, coef, U, V)))
+    print(f"[k4-plan] {tag} {'U-is-V' if U is V else 'pair'}: planned "
+          f"{plans[0].describe()}, the same bits over {len(plans)} plans, 3 "
+          "calls, a graph replay and two graphs replayed at once; "
+          + ", ".join(
+              f"grid={p.grid} {t:.5f} ms" for p, t in zip(plans, times)),
+          flush=True)
+    return {"plan": plans[0].describe()}
+
+
+def count_k4_kernels(K, rows, cols, coef, U, tag, calls=5) -> None:
+    """One device kernel per K4 call, exactly: the kernel nodes of a CUDA
+    graph captured from one call.  ``torch.profiler`` over ``calls`` calls
+    is printed beside it and must record no other kernel and at most one a
+    call; it is not held to one a call, because late in a long process it
+    can drop every device record of a short window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ltr_lowrank_sdp_torch.testing import captured_kernel_nodes
+
+    nodes = captured_kernel_nodes(
+        lambda: K.sym_contract_sum(rows, cols, coef, U, U))
+    K.sym_contract_sum(rows, cols, coef, U, U)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            K.sym_contract_sum(rows, cols, coef, U, U)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    short = sorted({m.group(1) if m else n[:40] for n in names
+                    for m in [re.search(r"(\w+_kernel)", n)]})
+    print(f"[k4-kernels] {tag}: {nodes} kernel node(s) in a graph captured "
+          f"from one call; the profiler recorded {len(names)} device "
+          f"kernels in {calls} calls ({', '.join(short)})", flush=True)
+    require(nodes == 1, f"K4 {tag}: {nodes} kernels in one call")
+    require(len(names) <= calls
+            and all("sym_contract_kernel" in n for n in names),
+            f"K4 {tag}: the profiler recorded other kernels than K4's, or "
+            "more than one a call")
+
+
 def check_shard_bits(K, cone, mops, dev, r, tag) -> None:
     """On the card, a rank's K5 constraint segment and K6 row slice give the
     full layouts' outputs there, bit for bit (the sharded operators add
@@ -682,6 +785,11 @@ def check_kernels(K, cone, dev):
                            lib, extra[name], lib_ref.get(name))
             if r == REPORT_RANK:
                 report[name] = row
+        if r == REPORT_RANK:
+            report["sym_contract_sum"].update(check_k4_plans(
+                K, rows, cols, coef, U, U, f"maxcut n={n} r={r}"))
+            check_k4_plans(K, rows, cols, coef, U, V, f"maxcut n={n} r={r}")
+            count_k4_kernels(K, rows, cols, coef, U, f"maxcut n={n} r={r}")
     return report
 
 
@@ -736,6 +844,7 @@ def check_objective_kernels(K, cone, dev, ranks, report_rank, tag,
             [(lambda: K.sym_contract_sum(rows, cols, coef, U, V),
               lambda: K.sym_contract_sum_plain(rows, cols, coef, U, V))])
         if r == report_rank:
+            k4.update(check_k4_plans(K, rows, cols, coef, U, U, shape))
             report = {"spmm_sym_csr": k1, "sym_contract_sum": k4}
     return report
 
@@ -1123,6 +1232,9 @@ def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
                 and torch.equal(ops.CX(Y), ops.CX(Y)),
                 f"K4/K5 {shape}: two calls gave different bits")
         check_k5_kc(K, seg, Y, Y, shape, timed=True)
+        k4.update(check_k4_plans(K, ops.c_rows, ops.c_cols, ops.c_dbl, Y, Y,
+                                 shape))
+        count_k4_kernels(K, ops.c_rows, ops.c_cols, ops.c_dbl, Y, shape)
         k5["instance"] = i5
         report = {"sym_contract_sum": k4, "coo_contract_segsum": k5,
                   "spmm_constr_csr": k6}
@@ -1399,6 +1511,31 @@ def _keep(shape, dev, seed):
     return (u < 1.0 - TRAIN_DROPOUT).float() / (1.0 - TRAIN_DROPOUT)
 
 
+def check_k11_memory(K, g, args, keep, lse, out, dout, tag) -> dict:
+    """K11's scratch: what one call allocates beyond its five outputs (the
+    call's peak-memory delta less the outputs' bytes), a few words a slot,
+    never a row of H C values a slot: it must stay under a fifth of E' H C
+    4 bytes."""
+    hc = args[-1].numel()
+    row_bytes = g.n_slots * hc * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outputs = sum(t.nbytes for t in res)
+    scratch = peak - outputs
+    del res
+    print(f"[k11-scratch] {tag} N={g.n} E'={g.n_slots} H*C={hc}: one call's "
+          f"peak-memory delta {peak} bytes = the outputs' {outputs} + scratch "
+          f"{scratch}, {scratch / row_bytes:.3f} of E' H C 4 = {row_bytes} "
+          "bytes", flush=True)
+    require(scratch < row_bytes / 5,
+            f"K11 {tag}: scratch past a fifth of a row a slot")
+    return {"scratch_bytes": scratch, "peak_delta_bytes": peak}
+
+
 @torch.no_grad()
 def check_train_kernels(K, layer1, pool, tag, dev):
     """Phase 12: K9 with its keep-scale and lse, K11, K10 with its keep-scale
@@ -1432,13 +1569,14 @@ def check_train_kernels(K, layer1, pool, tag, dev):
         require(lse_err <= GNN_TOL, f"K9 {kt}: lse error {lse_err:.2e}")
         dout = torch.randn(out.shape, generator=gen, device=dev)
         # reads K9's inputs, keep, lse, out, dout and the source CSR once,
-        # writes the five gradients; the (E', 64) scratch rows are not
-        # compulsory.  About 17 operations per slot and channel.
+        # writes the five gradients; the scratch (a few words a slot) is
+        # not compulsory.  About 17 operations per slot and channel.
         bwd_bytes = (fwd_bytes + (n + 1) * f4 + e_all * f4
                      + n * hc * f4 + 2 * n * hc * f4
                      + g.n_real * hc * f4 + hc * f4 + att.numel() * f4)
+        p11 = K.k11_plan(heads, hc // heads).describe()
         row11 = _measure_gnn(
-            "gatv2_softmax_agg_bwd", f"{kt} N={n} E'={e_all}",
+            "gatv2_softmax_agg_bwd", f"{kt} N={n} E'={e_all} [{p11}]",
             lambda: K.gatv2_softmax_agg_bwd(g, *layer1[1:], keep, lse, out,
                                             dout),
             lambda: K.gatv2_softmax_agg_bwd_plain(g, *layer1[1:], keep, lse,
@@ -1447,6 +1585,8 @@ def check_train_kernels(K, layer1, pool, tag, dev):
                                                   lse.double(), out.double(),
                                                   dout.double()),
             bwd_bytes, 17.0 * e_all * hc)
+        row11.update(check_k11_memory(K, g, layer1[1:], keep, lse, out, dout,
+                                      kt), plan=p11)
         for xt, ttag in ((x, ""), (torch.round(4.0 * x) / 4.0, " ties")):
             nn_, d = xt.shape
             keep_p = _keep((nn_,), dev, 6) if dropout else None
@@ -1761,6 +1901,8 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
         lambda: K.sym_contract_sum_plain(crows, ccols, coef, U, U),
         lambda: ref4, nnz_up * (2 * i4 + f4) + n * r * f4 + 8,
         (2.0 * r + 1) * nnz_up, scale=float(terms))
+    rows["sym_contract_sum"].update(check_k4_plans(
+        K, crows, ccols, coef, U, U, f"float32 {shape}"))
     # ---- K5, K6: the matrix-completion cone, n = 10^4, rank 19 ----
     seg32, acsr32 = as_dtype(mc_cone.a_seg, f32), as_dtype(mc_cone.a_csr, f32)
     seg64, acsr64 = as_dtype(seg32, f64), as_dtype(acsr32, f64)
@@ -1875,8 +2017,9 @@ def check_gnn_widths(K, edge_index, n, dev):
         dout = rnd(n, hc)
         bwd_bytes = (train_bytes + (n + 1) * f4 + e_all * f4 + n * hc * f4
                      + 2 * n * hc * f4 + n_real * hc * f4 + 2 * hc * f4)
+        p11 = K.k11_plan(heads, ch).describe()
         out["gatv2_softmax_agg_bwd"][f"{heads}x{ch}"] = _measure_gnn(
-            "gatv2_softmax_agg_bwd", tag,
+            "gatv2_softmax_agg_bwd", f"{tag} [{p11}]",
             lambda: K.gatv2_softmax_agg_bwd(g, *args, keep, lse, o, dout),
             lambda: K.gatv2_softmax_agg_bwd_plain(g, *args, keep, lse, o,
                                                   dout),
@@ -1884,6 +2027,7 @@ def check_gnn_widths(K, edge_index, n, dev):
                 g, *args64, keep.double(), lse.double(), o.double(),
                 dout.double()),
             bwd_bytes, 17.0 * e_all * hc)
+        out["gatv2_softmax_agg_bwd"][f"{heads}x{ch}"]["plan"] = p11
     seg = K.GraphSegments.from_counts((n,), dev)
     for d in POOL_WIDTHS:
         x, score = rnd(n, d), rnd(n, scale=3.0)
@@ -2666,12 +2810,12 @@ def main() -> int:
         k.lib_path is not None and k.lib_path.exists()
         for k in K.KERNELS.values()), "thirteen kernels built")
     for k in K.KERNELS.values():
-        if k.name not in DENSE_KERNELS:
+        if k.name not in PTXAS_BY_INSTANCE:
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"[ptxas] {k.name}: {line.strip()}")
             continue
-        # K5 / K6: every instantiation by its template arguments
+        # K4-K6, K11: every instantiation by its template arguments
         for key, (regs, st, ld) in sorted(K.ptxas_usage(k.name).items()):
             print(f"[ptxas] {k.name} {key[0]}<{key[1]}"
                   f"{''.join(f', {x}' for x in key[2])}>: {regs} registers, "

@@ -23,7 +23,11 @@
 // Bound on the card: memory.  It must read the inputs of K9 once (the edge
 // terms `we`, E rows of 4 H C bytes, are the bulk), lse, out and dout, and
 // write d_we (E rows of 4 H C bytes), d_w_src and d_w_dst: about 40 flops
-// per edge row element, far below the FP32 ridge point.
+// per edge row element, far below the FP32 ridge point.  The source-side
+// sum needs, per slot, a term that only the destination pass can form; an
+// (E', H C) float32 row of it per slot, written and read back, was 1.3 GB
+// of traffic the bound does not count (657 MB allocated per call on the
+// largest dataset graph).
 //
 // Precision: the per-slot arithmetic runs in float64 on the float32 inputs.
 // d_w_dst, d_we_loop and d_att are sums of ds_e terms that cancel (sum_e
@@ -31,23 +35,46 @@
 // dalpha or D leaves 1e-4 of such a result, and where every slot's msg has
 // one sign the exact result is 0.  In float64 the kernel gives the float64
 // evaluation of its inputs to float32 output rounding; the device is bound by
-// bytes here, not by its FP64 rate.
+// bytes here, not by its FP64 rate.  d_w_src's terms do not cancel that way,
+// so the destination pass hands them on in float32: alpha_e keep_e and ds_e,
+// one float2 per slot and head, and the signs of msg_e, one bit per channel.
 //
-// Design: three launches, no atomics, the same bits on every call.
-//  1. One warp per destination (a fixed grid walks them with a stride), with
-//     K9's lane layout: lph lanes per head, P channels per lane (a template
-//     from 1 to 8, H C <= 256), the head dots reduced by xor shuffles within
-//     the head's lanes.  It recomputes the scores, alpha and dmsg of each
-//     slot; d_w_dst[i] and the rows d_we[e] are owned by the warp and written
-//     once.  The source-side term of each slot goes to buf (E', H C) in slot
-//     order.  d_att and d_we_loop are summed per lane and combined over the
-//     block's warps in warp order, through a float64 shared array of
-//     8 x 2 x 32 P values (32 KiB at P = 8, under the 48 KiB of static shared
-//     memory), into one partial per block.
-//  2. One warp per source node walks a CSR over sources (src_ptr, src_slot:
-//     the slots of each source in increasing slot order) and sums its buf
-//     rows in that order into d_w_src, lanes striding over the H C channels.
-//  3. One block of 2 H C threads sums the block partials in block order.
+// Design: two launches, no atomics, the same bits on every call.
+//  1. The destination pass: one warp per destination, a grid of the blocks
+//     that fit the card at once (kernels.k11_max_blocks, from the occupancy
+//     query ltr_gatv2_softmax_agg_bwd_resident) walking them with a stride.  The warp is
+//     cut into S sub-warps of L = 32 / S lanes (kernels.k11_plan: S = 4 or
+//     2 where K9's layout would leave a lane one or two channels, else 1);
+//     a sub-warp takes one slot a step, with K9's head split inside it (hw
+//     = lph / S lanes a head, P channels a lane, the head dots reduced by
+//     xor shuffles within the head's lanes).  So the per-slot work (its
+//     indices, exp, head sums, stores) is spread over fewer lanes, each
+//     with more channels.  The lanes load 32 (src, erow) pairs at a time;
+//     then, for a batch of 4 / P steps, every w_src / we row and keep value
+//     is loaded (at a valid address: a loop slot's row is we_loop) one
+//     batch ahead, while the previous batch's messages (kept in float64),
+//     scores, head sums and exps are formed.  (Loading ahead in the source
+//     pass as well was slower at the training shape.)
+//     The values a lane uses at every slot (att, w_dst[i], dout[i]) are
+//     widened to float64 once per destination.  It writes the rows d_we[e]
+//     (each owned by one sub-warp, written once) and, per slot, the float2
+//     (alpha keep, ds) of each head and the slot's msg signs, L bits a
+//     channel slot p of the sub-warp's lanes (one __ballot_sync a p).  The
+//     sub-warps' sums for d_w_dst[i], and at the end for d_att and
+//     d_we_loop, are added by an xor tree over the sub-warps; d_att and
+//     d_we_loop are then combined over the block's warps in warp order into
+//     one partial per block.
+//  2. The source pass: one warp per source node, same lanes, walks a CSR
+//     over sources (src_ptr, and per slot src_slot and src_dst, in
+//     increasing slot order: sub-warp s takes slots s, s + S, ...) and sums
+//     (alpha keep) dout[i] + ds att leaky'(sign) in float64 into d_w_src,
+//     the sub-warps' sums added as above.  Its last ceil(2 H C / 32) blocks
+//     add the destination pass's block partials instead: warp w the
+//     partials w, w + 8, ... in order, then the 8 warp sums in order, lanes
+//     over 32 columns.
+// Scratch: E' (8 H + 4 ceil(P L / 32)) bytes and the partials, against E' 4
+// H C for a row a slot: 103 MB instead of 657 MB on the largest dataset
+// graph.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,22 +82,72 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxBlocks = 1024;
+constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Steps a batch whose rows are loaded before their arithmetic: 4 float64
+// messages a lane (4 steps at P = 1, 2 at P = 2, 1 beyond).  Larger
+// batches cost more registers than they hide latency.
+template <int P>
+__host__ __device__ constexpr int batch_steps() {
+  return 4 / P < 1 ? 1 : 4 / P;
+}
+
+// 32-bit words of msg signs a slot: P fields of L = 32 / S lane bits.
+template <int P, int S>
+__host__ __device__ constexpr int sign_words() {
+  return (P * (32 / S) + 31) / 32;
+}
 
 __device__ __forceinline__ double leaky(double v, double slope) {
   return v >= 0.0 ? v : slope * v;
 }
 
-__device__ __forceinline__ double head_sum(double v, int lph) {
-  for (int off = lph >> 1; off > 0; off >>= 1) {
+// The sum over the w lanes of a head (w a power of two) by an xor tree.
+__device__ __forceinline__ double head_sum(double v, int w) {
+  for (int off = w >> 1; off > 0; off >>= 1) {
     v += __shfl_xor_sync(kFull, v, off);
   }
   return v;
 }
 
-template <int P>
-__global__ void gatv2_bwd_dst_kernel(
+// The sum of a lane's value over the S sub-warps (lanes lane mod 32 / S),
+// by an xor tree: every sub-warp ends with the same bits.
+template <int S>
+__device__ __forceinline__ double sub_sum(double v) {
+#pragma unroll
+  for (int off = 32 / S; off < 32; off <<= 1) {
+    v += __shfl_xor_sync(kFull, v, off);
+  }
+  return v;
+}
+
+// A lane's place: sub-warp `sub` of S (L = 32 / S lanes) takes one slot a
+// step; in it, K9's head split (hw = lph / S lanes a head) and P channels a
+// lane, channels c0 .. c0 + cnt - 1 of the row.
+template <int P, int S>
+struct Lanes {
+  int lane, sub, lin, hw, head, hs, c0, cnt, cl;
+  bool live, leader;
+  __device__ Lanes(int heads, int ch, int lph) {
+    lane = threadIdx.x & 31;
+    sub = lane / (32 / S);
+    lin = lane % (32 / S);
+    hw = lph / S;
+    head = lin / hw;
+    const int q = (lin % hw) * P;
+    live = head < heads;
+    hs = live ? head : 0;                // a valid head for the loads
+    c0 = head * ch + q;
+    cnt = live ? max(0, min(P, ch - q)) : 0;
+    cl = cnt > 0 ? c0 : 0;               // a valid channel for the loads
+    leader = live && lin % hw == 0;
+  }
+  __device__ int chan(int p) const { return p < cnt ? c0 + p : cl; }
+};
+
+template <int P, int S>
+__global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
     const int* __restrict__ indptr, const int* __restrict__ src,
     const int* __restrict__ erow, const float* __restrict__ w_src,
     const float* __restrict__ w_dst, const float* __restrict__ we,
@@ -79,25 +156,23 @@ __global__ void gatv2_bwd_dst_kernel(
     const float* __restrict__ out, const float* __restrict__ dout, int n,
     int n_real, int heads, int ch, int lph, double slope,
     float* __restrict__ d_w_dst, float* __restrict__ d_we,
-    float* __restrict__ buf, double* __restrict__ part) {
-  constexpr int kRowMax = 32 * P;          // the widest row of this P
+    float2* __restrict__ akds, unsigned* __restrict__ bits,
+    double* __restrict__ part) {
+  constexpr int L = 32 / S;
+  constexpr int B = batch_steps<P>();
+  constexpr int W = sign_words<P, S>();
+  constexpr int kRowMax = L * P;           // the widest row of this P, S
   static_assert(kWarpsPerBlock * 2 * kRowMax * sizeof(double) <= 48 * 1024,
                 "static shared memory of a block");
   __shared__ double sm[kWarpsPerBlock][2 * kRowMax];
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int hc = heads * ch;
-  const int head = lane / lph;
-  const int q = (lane % lph) * P;
-  const bool live = head < heads;
-  const int c0 = head * ch + q;
-  const int cnt = live ? max(0, min(P, ch - q)) : 0;
-  double a[P], elv[P], datt[P], dloop[P];
+  const Lanes<P, S> ln(heads, ch, lph);
+  // values used at every slot are widened to float64 once, not per slot
+  double a[P], datt[P], dloop[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const bool ok = p < cnt;
-    a[p] = ok ? att[c0 + p] : 0.0;
-    elv[p] = ok ? we_loop[c0 + p] : 0.0;
+    a[p] = p < ln.cnt ? att[ln.c0 + p] : 0.f;
     datt[p] = 0.0;
     dloop[p] = 0.0;
   }
@@ -110,76 +185,136 @@ __global__ void gatv2_bwd_dst_kernel(
     double go_o = 0.0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const bool ok = p < cnt;
-      xd[p] = ok ? w_dst[i * hc + c0 + p] : 0.0;
-      g[p] = ok ? dout[i * hc + c0 + p] : 0.0;
-      go_o += g[p] * (ok ? out[i * hc + c0 + p] : 0.f);
+      xd[p] = w_dst[i * hc + ln.chan(p)];
+      g[p] = dout[i * hc + ln.chan(p)];
+      if (p < ln.cnt) go_o += g[p] * out[i * hc + ln.chan(p)];
       acc[p] = 0.0;
     }
-    const double dd = head_sum(go_o, lph);
-    const double ls = live ? lse[i * heads + head] : 0.0;
+    const double dd = head_sum(go_o, ln.hw);
+    const double ls = lse[i * heads + ln.hs];
     const int beg = indptr[i];
     const int end = indptr[i + 1];
     for (int base = beg; base < end; base += 32) {
       const int cnt_e = min(32, end - base);
-      int my_src = 0;
-      int my_row = 0;
-      if (lane < cnt_e) {
-        my_src = src[base + lane];
-        my_row = erow[base + lane];
-      }
-      for (int k = 0; k < cnt_e; ++k) {
-        const int j = __shfl_sync(kFull, my_src, k);
-        const int r = __shfl_sync(kFull, my_row, k);
-        const long long e = base + k;
-        const float* xs_row = w_src + static_cast<long long>(j) * hc + c0;
-        const float* ev_row = we + static_cast<long long>(r) * hc + c0;
-        double xs[P], msg[P], lk[P];
-        double s = 0.0;
-        double gx = 0.0;
+      const int mine = base + min(ln.lane, cnt_e - 1);
+      const int my_src = src[mine];
+      const int my_row = erow[mine];
+      const int steps = (cnt_e + S - 1) / S;
+      // a batch's rows, loaded one batch ahead of its arithmetic
+      struct Rows {
+        float xs[B][P], ev[B][P], kp[B];
+        int rr[B];
+      };
+      auto load = [&](Rows& q, int t0) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const bool ok = p < cnt;
-          xs[p] = ok ? xs_row[p] : 0.f;
-          const double ev = ok ? (r < n_real ? ev_row[p] : elv[p]) : 0.0;
-          msg[p] = xs[p] + xd[p] + ev;
-          lk[p] = leaky(msg[p], slope);
-          s += a[p] * lk[p];
-          gx += g[p] * xs[p];
+        for (int b = 0; b < B; ++b) {
+          // step t, sub-warp s: the group's slot t S + s
+          const int k = min((t0 + b) * S + ln.sub, cnt_e - 1);
+          const int j = __shfl_sync(kFull, my_src, k);
+          const int r = __shfl_sync(kFull, my_row, k);
+          q.rr[b] = r;
+          const float* xs_row = w_src + static_cast<long long>(j) * hc;
+          const float* ev_row =
+              r < n_real ? we + static_cast<long long>(r) * hc : we_loop;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            q.xs[b][p] = xs_row[ln.chan(p)];
+            q.ev[b][p] = ev_row[ln.chan(p)];
+          }
+          q.kp[b] = keep ? keep[static_cast<long long>(base + k) * heads +
+                                ln.hs]
+                         : 1.f;
         }
-        s = head_sum(s, lph);
-        const double alpha = exp(s - ls);
-        const double kp = keep && live ? keep[e * heads + head] : 1.0;
-        const double da = kp * head_sum(gx, lph);
-        const double ds = alpha * (da - dd);
-        const double ak = alpha * kp;
+      };
+      Rows cur, ahead;
+      load(cur, 0);
+      for (int t0 = 0; t0 < steps; t0 += B) {
+        if (t0 + B < steps) load(ahead, t0 + B);   // uniform across the warp
+        const auto& xs = cur.xs;
+        const auto& ev = cur.ev;
+        const auto& kp = cur.kp;
+        const auto& rr = cur.rr;
+        double msg[B][P], s[B], gx[B];
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if (p < cnt) {
-            const double t = ds * a[p] * (msg[p] >= 0.0 ? 1.0 : slope);
-            datt[p] += ds * lk[p];
-            acc[p] += t;
-            if (r < n_real) {
-              d_we[static_cast<long long>(r) * hc + c0 + p] =
-                  static_cast<float>(t);
-            } else {
-              dloop[p] += t;
+        for (int b = 0; b < B; ++b) {
+          s[b] = 0.0;
+          gx[b] = 0.0;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const double x = xs[b][p];
+            msg[b][p] = x + xd[p] + static_cast<double>(ev[b][p]);
+            if (p < ln.cnt) {
+              s[b] += a[p] * leaky(msg[b][p], slope);
+              gx[b] += g[p] * x;
             }
-            buf[e * hc + c0 + p] = static_cast<float>(ak * g[p] + t);
           }
         }
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          s[b] = head_sum(s[b], ln.hw);
+          gx[b] = head_sum(gx[b], ln.hw);
+        }
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          if (t0 + b >= steps) continue;     // uniform across the warp
+          const int k = (t0 + b) * S + ln.sub;
+          const bool valid = k < cnt_e;      // uniform across a sub-warp
+          const long long e = base + k;
+          const int r = rr[b];
+          const double alpha = exp(s[b] - ls);
+          const double ds = alpha * (kp[b] * gx[b] - dd);
+          unsigned word[W];
+#pragma unroll
+          for (int w = 0; w < W; ++w) word[w] = 0u;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const bool pos = msg[b][p] >= 0.0;
+            const unsigned m = __ballot_sync(kFull, pos);
+            // this sub-warp's L bits, at bit p L of the slot's sign string
+            const unsigned f =
+                S == 1 ? m : (m >> (ln.sub * L)) & ((1u << (L & 31)) - 1u);
+            word[p * L / 32] |= f << (p * L % 32);
+            if (valid && p < ln.cnt) {
+              const double t = ds * a[p] * (pos ? 1.0 : slope);
+              datt[p] += ds * (pos ? msg[b][p] : slope * msg[b][p]);
+              acc[p] += t;
+              if (r < n_real) {
+                d_we[static_cast<long long>(r) * hc + ln.c0 + p] =
+                    static_cast<float>(t);
+              } else {
+                dloop[p] += t;
+              }
+            }
+          }
+          if (valid) {
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              if (ln.lin == w) bits[e * W + w] = word[w];
+            }
+            if (ln.leader) {
+              akds[e * heads + ln.head] = make_float2(
+                  static_cast<float>(alpha * kp[b]), static_cast<float>(ds));
+            }
+          }
+        }
+        cur = ahead;
       }
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      if (p < cnt) d_w_dst[i * hc + c0 + p] = static_cast<float>(acc[p]);
+      const double v = sub_sum<S>(acc[p]);
+      if (ln.sub == 0 && p < ln.cnt) {
+        d_w_dst[i * hc + ln.c0 + p] = static_cast<float>(v);
+      }
     }
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    if (p < cnt) {
-      sm[warp][c0 + p] = datt[p];
-      sm[warp][hc + c0 + p] = dloop[p];
+    const double v = sub_sum<S>(datt[p]);
+    const double u = sub_sum<S>(dloop[p]);
+    if (ln.sub == 0 && p < ln.cnt) {
+      sm[warp][ln.c0 + p] = v;
+      sm[warp][hc + ln.c0 + p] = u;
     }
   }
   __syncthreads();
@@ -190,138 +325,212 @@ __global__ void gatv2_bwd_dst_kernel(
   }
 }
 
-template <int P>
-__global__ void gatv2_bwd_src_kernel(const int* __restrict__ src_ptr,
-                                     const int* __restrict__ src_slot,
-                                     const float* __restrict__ buf, int n,
-                                     int hc, float* __restrict__ d_w_src) {
+// Blocks src_blocks .. : the destination pass's n_parts block partials
+// (n_parts, 2 H C) -> d_att (H C), d_we_loop (H C), 32 columns a block.
+__device__ __forceinline__ void combine_partials(
+    const double* __restrict__ part, int n_parts, int hc, int cb,
+    float* __restrict__ d_att, float* __restrict__ d_we_loop) {
+  __shared__ double sw[kWarpsPerBlock][32];
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col = cb * 32 + lane;
+  const int cc = min(col, 2 * hc - 1);
+  double t = 0.0;
+  for (int b = warp; b < n_parts; b += kWarpsPerBlock) {
+    t += part[static_cast<long long>(b) * 2 * hc + cc];
+  }
+  sw[warp][lane] = t;
+  __syncthreads();
+  if (warp == 0 && col < 2 * hc) {
+    double s = 0.0;
+    for (int w = 0; w < kWarpsPerBlock; ++w) s += sw[w][lane];
+    if (col < hc) {
+      d_att[col] = static_cast<float>(s);
+    } else {
+      d_we_loop[col - hc] = static_cast<float>(s);
+    }
+  }
+}
+
+template <int P, int S>
+__global__ void __launch_bounds__(kThreads) gatv2_bwd_src_kernel(
+    const int* __restrict__ src_ptr, const int* __restrict__ src_slot,
+    const int* __restrict__ src_dst, const float2* __restrict__ akds,
+    const unsigned* __restrict__ bits, const float* __restrict__ dout,
+    const float* __restrict__ att, int n, int heads, int ch, int lph,
+    double slope, int src_blocks, float* __restrict__ d_w_src,
+    const double* __restrict__ part, int n_parts,
+    float* __restrict__ d_att, float* __restrict__ d_we_loop) {
+  constexpr int L = 32 / S;
+  constexpr int B = batch_steps<P>();
+  constexpr int W = sign_words<P, S>();
+  const int hc = heads * ch;
+  if (static_cast<int>(blockIdx.x) >= src_blocks) {
+    combine_partials(part, n_parts, hc, blockIdx.x - src_blocks, d_att,
+                     d_we_loop);
+    return;
+  }
   const long long j =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (j >= n) return;
-  float acc[P];
+  const Lanes<P, S> ln(heads, ch, lph);
+  double a[P], acc[P];
 #pragma unroll
-  for (int p = 0; p < P; ++p) acc[p] = 0.f;
+  for (int p = 0; p < P; ++p) {
+    a[p] = p < ln.cnt ? att[ln.c0 + p] : 0.f;
+    acc[p] = 0.0;
+  }
   const int beg = src_ptr[j];
   const int end = src_ptr[j + 1];
   for (int base = beg; base < end; base += 32) {
-    const int cnt = min(32, end - base);
-    const int my_slot = lane < cnt ? src_slot[base + lane] : 0;
-    for (int k = 0; k < cnt; ++k) {
-      const long long e = __shfl_sync(kFull, my_slot, k);
+    const int cnt_e = min(32, end - base);
+    const int mine = base + min(ln.lane, cnt_e - 1);
+    const int my_slot = src_slot[mine];
+    const int my_dst = src_dst[mine];
+    const int steps = (cnt_e + S - 1) / S;
+    for (int t0 = 0; t0 < steps; t0 += B) {
+      float2 ad[B];
+      unsigned sg[B][P];
+      float gd[B][P];
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const int c = lane + 32 * p;
-        if (c < hc) acc[p] += buf[e * hc + c];
+      for (int b = 0; b < B; ++b) {
+        const int k = min((t0 + b) * S + ln.sub, cnt_e - 1);
+        const long long e = __shfl_sync(kFull, my_slot, k);
+        const long long i = __shfl_sync(kFull, my_dst, k);
+        ad[b] = akds[e * heads + ln.hs];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sg[b][p] = bits[e * W + (p * L + ln.lin) / 32];
+          gd[b][p] = dout[i * hc + ln.chan(p)];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        if ((t0 + b) * S + ln.sub >= cnt_e) continue;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const bool pos = (sg[b][p] >> ((p * L + ln.lin) % 32)) & 1u;
+          acc[p] += static_cast<double>(ad[b].x) * gd[b][p] +
+                    static_cast<double>(ad[b].y) * a[p] * (pos ? 1.0 : slope);
+        }
       }
     }
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    const int c = lane + 32 * p;
-    if (c < hc) d_w_src[j * hc + c] = acc[p];
+    const double v = sub_sum<S>(acc[p]);
+    if (ln.sub == 0 && p < ln.cnt) {
+      d_w_src[j * hc + ln.c0 + p] = static_cast<float>(v);
+    }
   }
 }
 
-__global__ void gatv2_bwd_partials_kernel(const double* __restrict__ part,
-                                          int n_parts, int hc,
-                                          float* __restrict__ d_att,
-                                          float* __restrict__ d_we_loop) {
-  const int c = threadIdx.x;   // 0 .. 2 * hc - 1
-  if (c >= 2 * hc) return;
-  double t = 0.0;
-  for (int b = 0; b < n_parts; ++b) t += part[b * 2 * hc + c];
-  if (c < hc) {
-    d_att[c] = static_cast<float>(t);
-  } else {
-    d_we_loop[c - hc] = static_cast<float>(t);
-  }
-}
+struct Args {
+  const void *indptr, *src, *erow, *src_ptr, *src_slot, *src_dst, *w_src,
+      *w_dst, *we, *we_loop, *att, *keep, *lse, *out, *dout;
+  int n, n_real, heads, ch, lph;
+  float slope;
+  int dst_blocks;
+  void *d_w_src, *d_w_dst, *d_we, *d_we_loop, *d_att, *akds, *bits, *part;
+};
 
-template <int P>
-int launch(const void* indptr, const void* src, const void* erow,
-           const void* src_ptr, const void* src_slot, const void* w_src,
-           const void* w_dst, const void* we, const void* we_loop,
-           const void* att, const void* keep, const void* lse,
-           const void* out, const void* dout, int n, int n_real, int heads,
-           int ch, int lph, float slope, void* d_w_src, void* d_w_dst,
-           void* d_we, void* d_we_loop, void* d_att, void* buf, void* part,
-           cudaStream_t s) {
-  const int hc = heads * ch;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int n_parts = blocks < kMaxBlocks ? blocks : kMaxBlocks;
-  if (n > 0) {
-    gatv2_bwd_dst_kernel<P><<<n_parts, kWarpsPerBlock * 32, 0, s>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(src),
-        static_cast<const int*>(erow), static_cast<const float*>(w_src),
-        static_cast<const float*>(w_dst), static_cast<const float*>(we),
-        static_cast<const float*>(we_loop), static_cast<const float*>(att),
-        static_cast<const float*>(keep), static_cast<const float*>(lse),
-        static_cast<const float*>(out), static_cast<const float*>(dout), n,
-        n_real, heads, ch, lph, static_cast<double>(slope),
-        static_cast<float*>(d_w_dst), static_cast<float*>(d_we),
-        static_cast<float*>(buf), static_cast<double*>(part));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // H C <= 32 P, so P channels per lane also cover a row here
-    gatv2_bwd_src_kernel<P>
-        <<<(n + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, 0,
-           s>>>(static_cast<const int*>(src_ptr),
-                static_cast<const int*>(src_slot),
-                static_cast<const float*>(buf), n, hc,
-                static_cast<float*>(d_w_src));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+template <int P, int S>
+int launch(const Args& a, cudaStream_t s) {
+  const int hc = a.heads * a.ch;
+  const int dst_blocks = a.n > 0 ? a.dst_blocks : 0;
+  if (a.n > 0) {
+    gatv2_bwd_dst_kernel<P, S><<<dst_blocks, kThreads, 0, s>>>(
+        static_cast<const int*>(a.indptr), static_cast<const int*>(a.src),
+        static_cast<const int*>(a.erow), static_cast<const float*>(a.w_src),
+        static_cast<const float*>(a.w_dst), static_cast<const float*>(a.we),
+        static_cast<const float*>(a.we_loop),
+        static_cast<const float*>(a.att), static_cast<const float*>(a.keep),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.out),
+        static_cast<const float*>(a.dout), a.n, a.n_real, a.heads, a.ch,
+        a.lph, static_cast<double>(a.slope), static_cast<float*>(a.d_w_dst),
+        static_cast<float*>(a.d_we), static_cast<float2*>(a.akds),
+        static_cast<unsigned*>(a.bits), static_cast<double*>(a.part));
+    const cudaError_t err2 = cudaGetLastError();
+    if (err2 != cudaSuccess) return static_cast<int>(err2);
   }
-  gatv2_bwd_partials_kernel<<<1, 2 * hc, 0, s>>>(
-      static_cast<const double*>(part), n > 0 ? n_parts : 0, hc,
-      static_cast<float*>(d_att), static_cast<float*>(d_we_loop));
+  const int src_blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int combine_blocks = (2 * hc + 31) / 32;
+  gatv2_bwd_src_kernel<P, S><<<src_blocks + combine_blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(a.src_ptr), static_cast<const int*>(a.src_slot),
+      static_cast<const int*>(a.src_dst), static_cast<const float2*>(a.akds),
+      static_cast<const unsigned*>(a.bits),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.att),
+      a.n, a.heads, a.ch, a.lph, static_cast<double>(a.slope), src_blocks,
+      static_cast<float*>(a.d_w_src), static_cast<const double*>(a.part),
+      dst_blocks, static_cast<float*>(a.d_att),
+      static_cast<float*>(a.d_we_loop));
   return static_cast<int>(cudaGetLastError());
+}
+
+// resident != null: the blocks of this instantiation's destination pass
+// that fit one SM at once, from CUDA's occupancy query (the host sizes that
+// pass's grid, and its partials, from it); else the two launches.
+template <int P, int S>
+int run(const Args& a, int* resident, cudaStream_t s) {
+  if (resident != nullptr) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        resident, gatv2_bwd_dst_kernel<P, S>, kThreads, 0));
+  }
+  return launch<P, S>(a, s);
+}
+
+int dispatch(int p, int s, const Args& a, int* resident, cudaStream_t st) {
+#define K11_CASE(PP, SS) \
+  if (p == PP && s == SS) return run<PP, SS>(a, resident, st);
+  K11_CASE(1, 1) K11_CASE(2, 1) K11_CASE(3, 1) K11_CASE(4, 1)
+  K11_CASE(5, 1) K11_CASE(6, 1) K11_CASE(7, 1) K11_CASE(8, 1)
+  K11_CASE(1, 2) K11_CASE(2, 2) K11_CASE(3, 2) K11_CASE(4, 2)
+  K11_CASE(1, 4) K11_CASE(2, 4) K11_CASE(3, 4) K11_CASE(4, 4)
+#undef K11_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // indptr (n+1), src / erow (E'): K9's destination CSR; src_ptr (n+1) /
-// src_slot (E'): the same slots as a CSR over sources; w_src, w_dst (n, H C),
-// we (n_real, H C), we_loop (H C), att (H, C), keep (E', H) or null, lse
-// (n, H), out and dout (n, H C) float32.  Outputs: d_w_src, d_w_dst (n, H C),
-// d_we (n_real, H C), d_we_loop (H C), d_att (H, C) float32; scratch buf
-// (E', H C) float32 and part (kMaxBlocks, 2 H C) float64.  heads and channels
-// as K9 takes them (ltr_gatv2_softmax_agg); the wrapper checks shapes.
-// Returns the cudaGetLastError() code of the launches.
+// src_slot / src_dst (E'): the same slots as a CSR over sources, with each
+// slot's destination; w_src, w_dst (n, H C), we (n_real, H C), we_loop
+// (H C), att (H, C), keep (E', H) or null, lse (n, H), out and dout (n, H C)
+// float32.  Outputs: d_w_src, d_w_dst (n, H C), d_we (n_real, H C),
+// d_we_loop (H C), d_att (H, C) float32.  p (channels a lane) and s
+// (slots a warp step) name the instantiation (kernels.k11_plan); scratch:
+// akds (E', H) float2, bits (E', ceil(p 32 / s / 32)) 32-bit words and part
+// (dst_blocks, 2 H C) float64: the destination pass runs dst_blocks blocks
+// (kernels.k11_max_blocks), one partial each.  heads and channels as K9 takes
+// them (ltr_gatv2_softmax_agg); the wrapper checks shapes.  Returns the
+// cudaGetLastError() code of the launches.
 extern "C" int ltr_gatv2_softmax_agg_bwd(
     const void* indptr, const void* src, const void* erow,
-    const void* src_ptr, const void* src_slot, const void* w_src,
-    const void* w_dst, const void* we, const void* we_loop, const void* att,
-    const void* keep, const void* lse, const void* out, const void* dout,
-    int n, int n_real, int heads, int channels, float slope, void* d_w_src,
-    void* d_w_dst, void* d_we, void* d_we_loop, void* d_att, void* buf,
-    void* part, void* stream) {
+    const void* src_ptr, const void* src_slot, const void* src_dst,
+    const void* w_src, const void* w_dst, const void* we,
+    const void* we_loop, const void* att, const void* keep, const void* lse,
+    const void* out, const void* dout, int n, int n_real, int heads,
+    int channels, float slope, int p, int s, int dst_blocks, void* d_w_src,
+    void* d_w_dst, void* d_we, void* d_we_loop, void* d_att, void* akds,
+    void* bits, void* part, void* stream) {
   int hp = 1;
   while (hp < heads) hp <<= 1;
-  if (heads < 1 || hp > 32 || channels < 1) {
+  const int lph = hp <= 32 ? 32 / hp : 0;
+  // the plan must cover the row: s divides the head's lanes, p channels a
+  // lane of them reach the head's channels
+  if (heads < 1 || hp > 32 || channels < 1 || s < 1 || lph % s != 0 ||
+      p * (lph / s) < channels || (n > 0 && dst_blocks < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int lph = 32 / hp;
-  const int per_lane = (channels + lph - 1) / lph;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LTR_K11_CASE(P)                                                       \
-  case P:                                                                     \
-    return launch<P>(indptr, src, erow, src_ptr, src_slot, w_src, w_dst, we, \
-                     we_loop, att, keep, lse, out, dout, n, n_real, heads,   \
-                     channels, lph, slope, d_w_src, d_w_dst, d_we, d_we_loop, \
-                     d_att, buf, part, s);
-  switch (per_lane) {
-    LTR_K11_CASE(1)
-    LTR_K11_CASE(2)
-    LTR_K11_CASE(3)
-    LTR_K11_CASE(4)
-    LTR_K11_CASE(5)
-    LTR_K11_CASE(6)
-    LTR_K11_CASE(7)
-    LTR_K11_CASE(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef LTR_K11_CASE
+  const Args a{indptr, src, erow, src_ptr, src_slot, src_dst, w_src, w_dst,
+               we, we_loop, att, keep, lse, out, dout, n, n_real, heads,
+               channels, lph, slope, dst_blocks, d_w_src, d_w_dst, d_we,
+               d_we_loop, d_att, akds, bits, part};
+  return dispatch(p, s, a, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The blocks of instantiation (p, s)'s destination pass that fit one SM of
+// the current device at once, into *blocks.  Returns the query's cudaError.
+extern "C" int ltr_gatv2_softmax_agg_bwd_resident(int p, int s, int* blocks) {
+  return dispatch(p, s, Args{}, blocks, nullptr);
 }

@@ -108,7 +108,9 @@ class Kernel:
     plain_calls: int = 0    # plain PyTorch version calls (CPU tensors)
     lib_path: Optional[pathlib.Path] = None
     build_log: str = ""
+    _lib: Optional[ctypes.CDLL] = None
     _fn: Optional[object] = None
+    _resident: Dict[Tuple, int] = dataclasses.field(default_factory=dict)
 
     @property
     def source(self) -> pathlib.Path:
@@ -121,12 +123,30 @@ class Kernel:
     def fn(self):
         if self._fn is None:
             build_kernels()
-            lib = ctypes.CDLL(str(self.lib_path))
-            f = getattr(lib, self.symbol)
+            self._lib = ctypes.CDLL(str(self.lib_path))
+            f = getattr(self._lib, self.symbol)
             f.argtypes = list(self.argtypes)
             f.restype = ctypes.c_int
             self._fn = f
         return self._fn
+
+    def resident(self, device: torch.device, *instance: int) -> int:
+        """The blocks of the instantiation named by ``instance`` that fit
+        one SM of ``device`` (the current device) at once: CUDA's occupancy
+        query, through the source's ``ltr_<name>_resident``, once per device
+        and instantiation.  K4 and K11 size their grids from it."""
+        key = (device.index, instance)
+        if key not in self._resident:
+            self.fn()
+            blocks = ctypes.c_int(0)
+            err = getattr(self._lib, f"{self.symbol}_resident")(
+                *(ctypes.c_int(int(v)) for v in instance),
+                ctypes.byref(blocks))
+            if err != 0 or blocks.value < 1:
+                raise RuntimeError(f"occupancy of {self.name} {instance}: "
+                                   f"cudaError {err}, {blocks.value} blocks")
+            self._resident[key] = blocks.value
+        return self._resident[key]
 
     def launch(self, *args) -> None:
         err = self.fn()(*args)
@@ -150,7 +170,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_I, _P, _P, _P, _P, _I, _I, _P), typed=True),
     Kernel("sym_contract_sum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:332",
-           (_I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P), typed=True),
+           (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+           typed=True),
     Kernel("coo_contract_segsum",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:143",
            (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P,
@@ -174,7 +195,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
     Kernel("gatv2_softmax_agg_bwd",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26 (VJP, train.py:250)",
-           (_P,) * 14 + (_I, _I, _I, _I, _F) + (_P,) * 8),
+           (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _I) + (_P,) * 9),
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
            (_P,) * 11 + (_I, _I) + (_P,) * 3),
@@ -262,21 +283,27 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
     """``{(kind, value type, template ints): (registers, spill store bytes,
     spill load bytes)}`` of each ``__global__`` instantiation of one
     kernel's source, read from ``-Xptxas -v`` in this process's build log
-    (empty when the library was already built).  ``kind`` is ``"main"`` or,
-    for K5's second launch, ``"long_reduce"``; the value type ``"f64"`` or
-    ``"f32"``; the ints the template's int arguments in order, e.g. ``(32,
-    5)`` for K6's G = 32, CPL = 5 and ``(2, 16, 2, 2)`` for K5's pair mode
-    at G = 16, CPL = 2, KC = 2."""
+    (empty when the library was already built).  ``kind`` is ``"main"``,
+    K5's second launch ``"long_reduce"``, K11's two passes ``"dst"`` and
+    ``"src"``; the value type ``"f64"``, ``"f32"`` or ``"-"`` (a float32
+    kernel with no value template); the ints the template's int and bool
+    arguments in order, e.g. ``(32, 5)`` for K6's G = 32, CPL = 5, ``(2, 16,
+    2, 2)`` for K5's pair mode at G = 16, CPL = 2, KC = 2 and ``(1, 8, 1)``
+    for K4's U-is-V at G = 8, CPL = 1."""
     out: Dict[Tuple, Tuple[int, int, int]] = {}
     key, spill = None, (0, 0)
     for line in KERNELS[name].build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"_kernelI((?:Li\d+E|[df])+)E", m.group(1))
+            fn = m.group(1)
+            t = re.search(r"_kernelI((?:L[ib]\d+E|[df])+)E", fn)
+            kind = next((k for k in ("long_reduce", "dst", "src")
+                         if f"{k}_kernel" in fn), "main")
+            types = "" if t is None else re.sub(r"L[ib]\d+E", "", t.group(1))
             key = None if t is None else (
-                "long_reduce" if "long_reduce" in m.group(1) else "main",
-                "f32" if re.sub(r"Li\d+E", "", t.group(1)) == "f" else "f64",
-                tuple(int(x) for x in re.findall(r"Li(\d+)E", t.group(1))))
+                kind, {"f": "f32", "d": "f64"}.get(types, "-"),
+                tuple(int(x) for x in re.findall(r"L[ib](\d+)E",
+                                                 t.group(1))))
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -533,8 +560,112 @@ def diag_normal_matvec(x: torch.Tensor, F: torch.Tensor,
 # K4: <C, sym(U V^T)>
 # --------------------------------------------------------------------------- #
 
-_K4_WARPS_PER_BLOCK = 8     # matches kWarpsPerBlock in sym_contract_sum.cu
-_K4_MAX_BLOCKS = 1024
+K4_CHUNK = 256            # entries a chunk (kChunk in sym_contract_sum.cu)
+
+
+@dataclasses.dataclass(frozen=True)
+class K4Plan:
+    """K4's launch: ``g`` lanes an entry and ``cpl`` columns a lane (the sum
+    order, from r), and ``grid`` blocks over the ``chunks`` chunks of
+    ``K4_CHUNK`` entries.  ``grid`` never changes the bits."""
+
+    g: int
+    cpl: int
+    chunks: int
+    grid: int
+
+    def describe(self) -> str:
+        return (f"{_instance(self.g, self.cpl)} chunks={self.chunks} "
+                f"grid={self.grid}")
+
+
+def k4_plan(nnz: int, r: int, cap: int) -> K4Plan:
+    """K4's launch for ``nnz`` entries at rank ``r``: the lane group of
+    :func:`lane_group`, and a block a chunk of ``K4_CHUNK`` entries up to
+    ``cap``, the blocks that fit the card at once (:func:`k4_cap`); more
+    chunks are taken by stride."""
+    g, cpl = lane_group(r)
+    chunks = -(-int(nnz) // K4_CHUNK)
+    return K4Plan(g, cpl, chunks, max(1, min(chunks, cap)))
+
+
+def k4_plans(nnz: int, r: int, cap: int) -> List[K4Plan]:
+    """The planned launch first, then grids of 1 block, half the planned
+    grid and twice the cap.  All give the planned launch's bits (the tests
+    and the smoke run's ``[k4-plan]`` sweep hold that)."""
+    plan = k4_plan(nnz, r, cap)
+    out = [plan] + [dataclasses.replace(plan, grid=max(1, grid)) for grid in (
+        1, plan.grid // 2, min(plan.chunks, 2 * cap))]
+    return list(dict.fromkeys(out))
+
+
+def k4_cap(U: torch.Tensor, same: bool) -> int:
+    """The blocks of K4's instantiation for U's value type and rank (and
+    ``U is V`` or not) that fit U's card at once: its SMs times the
+    occupancy query's blocks an SM."""
+    dev = U.device
+    return _sm_count(dev) * KERNELS["sym_contract_sum"].resident(
+        dev, _f32(U.dtype), int(same), *lane_group(U.shape[1]))
+
+
+@dataclasses.dataclass
+class _K4Scratch:
+    part: torch.Tensor       # one float64 partial a chunk
+    ticket: torch.Tensor     # (1,) int32, 0 between calls
+
+
+@dataclasses.dataclass
+class _K4Tickets:
+    block: torch.Tensor      # zeroed tickets, handed out from ``next`` on
+    next: int = 0
+    spent: List[torch.Tensor] = dataclasses.field(default_factory=list)
+
+
+_K4_SCRATCH: Dict[Tuple[torch.device, int], _K4Scratch] = {}
+_K4_TICKETS: Dict[torch.device, _K4Tickets] = {}
+K4_TICKET_BLOCK = 4096
+
+
+def _k4_scratch(dev: torch.device, stream: int, chunks: int) -> _K4Scratch:
+    """K4's scratch for an eager call on ``stream``: made once (the ticket
+    zeroed then), the partials grown to a power of two when a call needs
+    more.  Eager calls on one stream run in order, so they share it.  Also
+    keeps the pool of zeroed tickets of :func:`_k4_graph_ticket` stocked."""
+    key = (dev, stream)
+    ws = _K4_SCRATCH.get(key)
+    if ws is None:
+        ws = _K4Scratch(torch.empty(64, dtype=torch.float64, device=dev),
+                        torch.zeros(1, dtype=torch.int32, device=dev))
+        _K4_SCRATCH[key] = ws
+    if ws.part.numel() < chunks:
+        ws.part = torch.empty(1 << (chunks - 1).bit_length(),
+                              dtype=torch.float64, device=dev)
+    pool = _K4_TICKETS.get(dev)
+    if pool is None or pool.next > K4_TICKET_BLOCK // 2:
+        block = torch.zeros(K4_TICKET_BLOCK, dtype=torch.int32, device=dev)
+        torch.cuda.current_stream(dev).synchronize()   # zero before a replay
+        # a used block stays held: captured graphs keep its tickets
+        _K4_TICKETS[dev] = _K4Tickets(block, 0, [] if pool is None else
+                                      pool.spent + [pool.block])
+    return ws
+
+
+def _k4_graph_ticket(dev: torch.device) -> torch.Tensor:
+    """A ticket of its own for a call captured into a CUDA graph, so that no
+    two graphs, nor a graph and the eager calls on its capture stream, share
+    one: the pool's next zeroed ticket, never handed out again (the graph's
+    last block leaves it at 0 for the next replay).  With the pool spent, a
+    ticket zeroed inside the graph (one memset node more)."""
+    pool = _K4_TICKETS.get(dev)
+    if pool is None or pool.next == K4_TICKET_BLOCK:
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    pool.next += 1
+    return pool.block[pool.next - 1:pool.next]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def sym_contract_sum_plain(rows, cols, coef, U, V):
@@ -560,6 +691,15 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
     multiplied and summed in float64 (the contract of the reference's
     ``csum`` on float32, ``ltr_lowrank_sdp_tpu/ops/compsum.py:78``); the
     caller rounds the result to its compute type."""
+    return sym_contract_sum_with(None, rows, cols, coef, U, V)
+
+
+def sym_contract_sum_with(plan: Optional[K4Plan], rows: torch.Tensor,
+                          cols: torch.Tensor, coef: torch.Tensor,
+                          U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """:func:`sym_contract_sum` launched with ``plan`` (None:
+    :func:`k4_plan` of the call).  Every plan of :func:`k4_plans` gives the
+    same bits."""
     k = KERNELS["sym_contract_sum"]
     if _is_cpu(U):
         k.plain_calls += 1
@@ -576,14 +716,27 @@ def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
     _check(cols, "cols", torch.int32, (nnz,), dev)
     _check(coef, "coef", dt, (nnz,), dev)
     _i32(n * max(r, 1), "n * r")
-    nblocks = max(1, min(_K4_MAX_BLOCKS,
-                         -(-nnz // _K4_WARPS_PER_BLOCK)))
-    partials = torch.empty(nblocks, dtype=torch.float64, device=dev)
+    _i32(nnz + K4_CHUNK, "nnz")
+    stream = _stream(dev)
+    if plan is None:
+        plan = k4_plan(nnz, r, k4_cap(U, U is V))
+    elif (plan.g, plan.cpl) != lane_group(r) or plan.chunks != -(
+            -nnz // K4_CHUNK):
+        raise ValueError(f"{plan.describe()} is not a plan of nnz = {nnz}, "
+                         f"r = {r}")
+    if torch.cuda.is_current_stream_capturing():
+        # the graph's own partials (its pool holds them) and ticket
+        part = torch.empty(max(1, plan.chunks), dtype=torch.float64,
+                           device=dev)
+        ticket = _k4_graph_ticket(dev)
+    else:
+        ws = _k4_scratch(dev, stream, plan.chunks)
+        part, ticket = ws.part, ws.ticket
     out = torch.empty((), dtype=torch.float64, device=dev)
     k.launch(_f32(dt), rows.data_ptr(), cols.data_ptr(), coef.data_ptr(),
-             U.data_ptr(),
-             V.data_ptr(), _i32(nnz, "nnz"), r, 1 if U is V else 0,
-             partials.data_ptr(), nblocks, out.data_ptr(), _stream(dev))
+             U.data_ptr(), V.data_ptr(), nnz, r, 1 if U is V else 0,
+             plan.g, plan.cpl, plan.grid, part.data_ptr(), ticket.data_ptr(),
+             out.data_ptr(), stream)
     return out
 
 
@@ -1133,7 +1286,6 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
 
 K9_MAX_WIDTH = 256      # heads * channels: 8 channels per lane, 32 lanes
 K9_MAX_PER_LANE = 8
-K11_MAX_PARTS = 1024    # block partials of K11's first launch (kMaxBlocks)
 LEAKY_SLOPE = 0.2
 
 
@@ -1163,18 +1315,21 @@ class EdgeCSR:
         return _ids_from_ptr(self.indptr)
 
     @functools.cached_property
-    def by_src(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def by_src(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The same slots as a CSR over sources, for K11: ``(src_ptr (n+1,),
-        src_slot (n_real + n,))`` int32, the slots of source j in increasing
-        slot order at ``src_slot[src_ptr[j]:src_ptr[j+1]]``.  Built at first
-        use and shared by the layers of one batch."""
+        src_slot (n_real + n,), src_dst (n_real + n,))`` int32, the slots of
+        source j in increasing slot order at ``src_slot[src_ptr[j]:
+        src_ptr[j+1]]`` and their destinations at the same places of
+        ``src_dst``.  Built at first use on the edges' device and shared by
+        the layers of one batch."""
         src = self.src.long()
         src_ptr = torch.zeros(self.n + 1, dtype=torch.long,
                               device=src.device)
         torch.cumsum(torch.bincount(src, minlength=self.n), 0,
                      out=src_ptr[1:])
-        return (src_ptr.int(),
-                torch.argsort(src, stable=True).int())
+        order = torch.argsort(src, stable=True)
+        return (src_ptr.int(), order.int(),
+                _ids_from_ptr(self.indptr)[order].int())
 
     @staticmethod
     def from_edge_index(edge_index: torch.Tensor, n: int) -> "EdgeCSR":
@@ -1355,7 +1510,11 @@ def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
     _check(lse, "lse", torch.float32, (g.n, heads), dev)
     _check(out, "out", torch.float32, (g.n, hc), dev)
     _check(dout, "dout", torch.float32, (g.n, hc), dev)
-    src_ptr, src_slot = g.by_src
+    src_ptr, src_slot, src_dst = g.by_src
+    plan = k11_plan(heads, ch)
+    stream = _stream(dev)
+    max_blocks = k11_max_blocks(g.n, _sm_count(dev) * k.resident(
+        dev, plan.p, plan.s))
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -1363,18 +1522,65 @@ def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
     d_w_src, d_w_dst, d_we = empty(g.n, hc), empty(g.n, hc), empty(
         g.n_real, hc)
     d_we_loop, d_att = empty(hc), empty(heads, ch)
-    buf = empty(g.n_slots, hc)
-    part = empty(K11_MAX_PARTS, 2 * hc, dtype=torch.float64)
+    akds, bits, part = k11_scratch(g.n_slots, g.n, heads, ch, max_blocks,
+                                   dev)
     k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
-             src_ptr.data_ptr(), src_slot.data_ptr(), w_src.data_ptr(),
-             w_dst.data_ptr(), we.data_ptr() if g.n_real else None,
+             src_ptr.data_ptr(), src_slot.data_ptr(), src_dst.data_ptr(),
+             w_src.data_ptr(), w_dst.data_ptr(),
+             we.data_ptr() if g.n_real else None,
              we_loop.data_ptr(), att.data_ptr(), _ptr(keep), lse.data_ptr(),
              out.data_ptr(), dout.data_ptr(), g.n, g.n_real, heads, ch,
-             LEAKY_SLOPE,
+             LEAKY_SLOPE, plan.p, plan.s, max_blocks,
              d_w_src.data_ptr(), d_w_dst.data_ptr(),
              d_we.data_ptr() if g.n_real else None, d_we_loop.data_ptr(),
-             d_att.data_ptr(), buf.data_ptr(), part.data_ptr(), _stream(dev))
+             d_att.data_ptr(), akds.data_ptr(), bits.data_ptr(),
+             part.data_ptr(), stream)
     return d_w_src, d_w_dst, d_we, d_we_loop, d_att
+
+
+@dataclasses.dataclass(frozen=True)
+class K11Plan:
+    """K11's lanes for heads x channels: the warp cut into ``s`` sub-warps
+    of 32 / s lanes, each taking one slot a step with K9's head split inside
+    it and ``p`` channels a lane; ``words`` 32-bit words of msg signs a
+    slot."""
+
+    s: int
+    p: int
+    words: int
+
+    def describe(self) -> str:
+        return f"S={self.s} P={self.p}"
+
+
+def k11_plan(heads: int, ch: int) -> K11Plan:
+    """K11's lanes: where K9's layout (:func:`gatv2_lanes`) leaves a lane
+    one channel, four sub-warps (two where it leaves two), as far as the
+    head's lanes divide; one elsewhere."""
+    lph, per_lane = gatv2_lanes(heads, ch)
+    s = min(lph, {1: 4, 2: 2}.get(per_lane, 1))
+    p = -(-int(ch) // (lph // s))
+    return K11Plan(s, p, -(-(p * (32 // s)) // 32))
+
+
+def k11_max_blocks(n: int, cap: int) -> int:
+    """The blocks of K11's destination pass, one block partial of d_att /
+    d_we_loop each: a warp a destination, at most ``cap`` blocks of 8 warps
+    (the blocks that fit the card at once, from CUDA's occupancy query);
+    more destinations are taken by stride."""
+    return max(1, min(-(-int(n) // 8), cap))
+
+
+def k11_scratch(n_slots: int, n: int, heads: int, ch: int, max_blocks: int,
+                dev) -> Tuple[torch.Tensor, ...]:
+    """K11's scratch for one call: per slot and head the float2 (alpha keep,
+    ds), per slot :func:`k11_plan`'s words of msg signs, and the
+    destination pass's block partials (``max_blocks``, 2 H C) float64."""
+    return (torch.empty((n_slots, heads, 2), dtype=torch.float32, device=dev),
+            torch.empty((n_slots, k11_plan(heads, ch).words),
+                        dtype=torch.int32, device=dev),
+            torch.empty((max_blocks if n else 0, 2 * heads * ch),
+                        dtype=torch.float64, device=dev))
 
 
 class _GATv2SoftmaxAgg(torch.autograd.Function):

@@ -17,13 +17,19 @@ same draws in the same order).  ``multiblock_lp_sdpa`` keeps its construction
 per block, b = A(X0) for a random PSD X0) at any size and adds an LP cone;
 ``theta_sdpa`` is ``scripts/gen_instances.py`` ``gen_theta`` (C all ones, one
 trace constraint, one X_ij = 0 per edge) built as arrays.
+
+``captured_kernel_nodes`` counts the device kernels that one call launches
+on the card (the smoke run and the tests marked ``cuda``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import scipy.sparse
 import scipy.spatial
+import torch
 
 from .io.sdpa import SDPAData, SDPABlock, _dedupe_sum, _postprocess
 from .problem import ConeData, SDPProblem, canonicalize
@@ -365,3 +371,41 @@ def dense_objective_matrix(cone: ConeData) -> np.ndarray:
     off = cone.c_rows != cone.c_cols
     np.add.at(C, (cone.c_cols[off], cone.c_rows[off]), cone.c_vals[off])
     return C
+
+
+def captured_kernel_nodes(fn) -> int:
+    """The device kernels one ``fn()`` launches, exactly: the nodes of a
+    CUDA graph captured from one call on a side stream (warmed up there
+    first), read through libcuda (cuGraphGetNodes).  Raises if the graph
+    holds a node other than a kernel (a copy, a memset)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph, handle = ctypes.c_void_p(), ctypes.c_void_p(side.cuda_stream)
+    with torch.cuda.stream(side):
+        # CU_STREAM_CAPTURE_MODE_RELAXED: the caching allocator may run
+        if cu.cuStreamBeginCapture_v2(handle, 2) != 0:
+            raise RuntimeError("cuStreamBeginCapture failed")
+        try:
+            fn()
+        finally:
+            if cu.cuStreamEndCapture(handle, ctypes.byref(graph)) != 0:
+                raise RuntimeError("cuStreamEndCapture failed")
+    try:
+        count = ctypes.c_size_t(0)
+        cu.cuGraphGetNodes(graph, None, ctypes.byref(count))
+        nodes = (ctypes.c_void_p * max(1, count.value))()
+        cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count))
+        kinds = []
+        for i in range(count.value):
+            t = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]), ctypes.byref(t))
+            kinds.append(t.value)
+    finally:
+        cu.cuGraphDestroy(graph)
+    if any(t != 0 for t in kinds):           # CU_GRAPH_NODE_TYPE_KERNEL
+        raise RuntimeError(f"a captured call holds other nodes: {kinds}")
+    return len(kinds)
