@@ -3,7 +3,7 @@
 // gradients of K9's five inputs.  Per slot e = j -> i of the destination CSR
 // (self-loops included) and head h, with msg = w_src[j] + w_dst[i] + we[e]:
 //
-//   alpha_e  = exp(s_e - lse[i,h])                  (recomputed from K9's lse)
+//   alpha_e  = exp(s_e - lse[i,h])    (K9's lse and K9's own float32 s_e)
 //   dalpha_e = keep[e,h] * <dout[i,h,:], w_src[j,h,:]>
 //   D_i      = <dout[i,h,:], out[i,h,:]>  (= sum_e alpha_e dalpha_e, keep or not)
 //   ds_e     = alpha_e * (dalpha_e - D_i)
@@ -35,9 +35,14 @@
 // dalpha or D leaves 1e-4 of such a result, and where every slot's msg has
 // one sign the exact result is 0.  In float64 the kernel gives the float64
 // evaluation of its inputs to float32 output rounding; the device is bound by
-// bytes here, not by its FP64 rate.  d_w_src's terms do not cancel that way,
-// so the destination pass hands them on in float32: alpha_e keep_e and ds_e,
-// one float2 per slot and head, and the signs of msg_e, one bit per channel.
+// bytes here, not by its FP64 rate.  The one exception is s_e: the sums
+// cancel only where alpha_e are the weights K9 aggregated with, so K9 hands
+// its own float32 scores on (one float a slot and head) and alpha_e is exp
+// of them less K9's lse (a float64 s_e evaluated here doubled to
+// quintupled the error of those sums against the float64 chain).  d_w_src's
+// terms do not cancel that way, so the destination pass hands them on in
+// float32: alpha_e keep_e and ds_e, one float2 per slot and head, and the
+// signs of msg_e, one bit per channel.
 //
 // Design: two launches, no atomics, the same bits on every call.
 //  1. The destination pass: one warp per destination, a grid of the blocks
@@ -53,7 +58,7 @@
 //     then, for a batch of 4 / P steps, every w_src / we row and keep value
 //     is loaded (at a valid address: a loop slot's row is we_loop) one
 //     batch ahead, while the previous batch's messages (kept in float64),
-//     scores, head sums and exps are formed.  (Loading ahead in the source
+//     head sums and exps are formed.  (Loading ahead in the source
 //     pass as well was slower at the training shape.)
 //     The values a lane uses at every slot (att, w_dst[i], dout[i]) are
 //     widened to float64 once per destination.  It writes the rows d_we[e]
@@ -72,6 +77,12 @@
 //     add the destination pass's block partials instead: warp w the
 //     partials w, w + 8, ... in order, then the 8 warp sums in order, lanes
 //     over 32 columns.
+// Widths: a call takes one group of heads whose lanes fit a warp (a power
+// of two of heads, at most 8 channels a lane); a wider layer is cut into
+// such groups on the host (kernels.k11_groups), one call each, reading and
+// writing the group's columns of the full rows in place (ld, lds), so no
+// input is copied.  Each head's terms are its own: the split, fixed by the
+// shape, changes no bit.
 // Scratch: E' (8 H + 4 ceil(P L / 32)) bytes and the partials, against E' 4
 // H C for a row a slot: 103 MB instead of 657 MB on the largest dataset
 // graph.
@@ -97,10 +108,6 @@ __host__ __device__ constexpr int batch_steps() {
 template <int P, int S>
 __host__ __device__ constexpr int sign_words() {
   return (P * (32 / S) + 31) / 32;
-}
-
-__device__ __forceinline__ double leaky(double v, double slope) {
-  return v >= 0.0 ? v : slope * v;
 }
 
 // The sum over the w lanes of a head (w a power of two) by an xor tree.
@@ -153,8 +160,9 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
     const float* __restrict__ w_dst, const float* __restrict__ we,
     const float* __restrict__ we_loop, const float* __restrict__ att,
     const float* __restrict__ keep, const float* __restrict__ lse,
-    const float* __restrict__ out, const float* __restrict__ dout, int n,
-    int n_real, int heads, int ch, int lph, double slope,
+    const float* __restrict__ scores, const float* __restrict__ out,
+    const float* __restrict__ dout, int n, int n_real, int heads, int ch,
+    int lph, int ld, int lds, double slope,
     float* __restrict__ d_w_dst, float* __restrict__ d_we,
     float2* __restrict__ akds, unsigned* __restrict__ bits,
     double* __restrict__ part) {
@@ -185,13 +193,13 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
     double go_o = 0.0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      xd[p] = w_dst[i * hc + ln.chan(p)];
-      g[p] = dout[i * hc + ln.chan(p)];
-      if (p < ln.cnt) go_o += g[p] * out[i * hc + ln.chan(p)];
+      xd[p] = w_dst[i * ld + ln.chan(p)];
+      g[p] = dout[i * ld + ln.chan(p)];
+      if (p < ln.cnt) go_o += g[p] * out[i * ld + ln.chan(p)];
       acc[p] = 0.0;
     }
     const double dd = head_sum(go_o, ln.hw);
-    const double ls = lse[i * heads + ln.hs];
+    const double ls = lse[i * lds + ln.hs];
     const int beg = indptr[i];
     const int end = indptr[i + 1];
     for (int base = beg; base < end; base += 32) {
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
       const int steps = (cnt_e + S - 1) / S;
       // a batch's rows, loaded one batch ahead of its arithmetic
       struct Rows {
-        float xs[B][P], ev[B][P], kp[B];
+        float xs[B][P], ev[B][P], kp[B], sc[B];
         int rr[B];
       };
       auto load = [&](Rows& q, int t0) {
@@ -213,17 +221,18 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
           const int j = __shfl_sync(kFull, my_src, k);
           const int r = __shfl_sync(kFull, my_row, k);
           q.rr[b] = r;
-          const float* xs_row = w_src + static_cast<long long>(j) * hc;
+          const float* xs_row = w_src + static_cast<long long>(j) * ld;
           const float* ev_row =
-              r < n_real ? we + static_cast<long long>(r) * hc : we_loop;
+              r < n_real ? we + static_cast<long long>(r) * ld : we_loop;
 #pragma unroll
           for (int p = 0; p < P; ++p) {
             q.xs[b][p] = xs_row[ln.chan(p)];
             q.ev[b][p] = ev_row[ln.chan(p)];
           }
-          q.kp[b] = keep ? keep[static_cast<long long>(base + k) * heads +
+          q.kp[b] = keep ? keep[static_cast<long long>(base + k) * lds +
                                 ln.hs]
                          : 1.f;
+          q.sc[b] = scores[static_cast<long long>(base + k) * lds + ln.hs];
         }
       };
       Rows cur, ahead;
@@ -237,23 +246,17 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
         double msg[B][P], s[B], gx[B];
 #pragma unroll
         for (int b = 0; b < B; ++b) {
-          s[b] = 0.0;
+          s[b] = cur.sc[b];
           gx[b] = 0.0;
 #pragma unroll
           for (int p = 0; p < P; ++p) {
             const double x = xs[b][p];
             msg[b][p] = x + xd[p] + static_cast<double>(ev[b][p]);
-            if (p < ln.cnt) {
-              s[b] += a[p] * leaky(msg[b][p], slope);
-              gx[b] += g[p] * x;
-            }
+            if (p < ln.cnt) gx[b] += g[p] * x;
           }
         }
 #pragma unroll
-        for (int b = 0; b < B; ++b) {
-          s[b] = head_sum(s[b], ln.hw);
-          gx[b] = head_sum(gx[b], ln.hw);
-        }
+        for (int b = 0; b < B; ++b) gx[b] = head_sum(gx[b], ln.hw);
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           if (t0 + b >= steps) continue;     // uniform across the warp
@@ -279,7 +282,7 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
               datt[p] += ds * (pos ? msg[b][p] : slope * msg[b][p]);
               acc[p] += t;
               if (r < n_real) {
-                d_we[static_cast<long long>(r) * hc + ln.c0 + p] =
+                d_we[static_cast<long long>(r) * ld + ln.c0 + p] =
                     static_cast<float>(t);
               } else {
                 dloop[p] += t;
@@ -304,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
     for (int p = 0; p < P; ++p) {
       const double v = sub_sum<S>(acc[p]);
       if (ln.sub == 0 && p < ln.cnt) {
-        d_w_dst[i * hc + ln.c0 + p] = static_cast<float>(v);
+        d_w_dst[i * ld + ln.c0 + p] = static_cast<float>(v);
       }
     }
   }
@@ -358,7 +361,7 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_src_kernel(
     const int* __restrict__ src_dst, const float2* __restrict__ akds,
     const unsigned* __restrict__ bits, const float* __restrict__ dout,
     const float* __restrict__ att, int n, int heads, int ch, int lph,
-    double slope, int src_blocks, float* __restrict__ d_w_src,
+    int ld, double slope, int src_blocks, float* __restrict__ d_w_src,
     const double* __restrict__ part, int n_parts,
     float* __restrict__ d_att, float* __restrict__ d_we_loop) {
   constexpr int L = 32 / S;
@@ -401,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_src_kernel(
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           sg[b][p] = bits[e * W + (p * L + ln.lin) / 32];
-          gd[b][p] = dout[i * hc + ln.chan(p)];
+          gd[b][p] = dout[i * ld + ln.chan(p)];
         }
       }
 #pragma unroll
@@ -420,15 +423,181 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_src_kernel(
   for (int p = 0; p < P; ++p) {
     const double v = sub_sum<S>(acc[p]);
     if (ln.sub == 0 && p < ln.cnt) {
-      d_w_src[j * hc + ln.c0 + p] = static_cast<float>(v);
+      d_w_src[j * ld + ln.c0 + p] = static_cast<float>(v);
+    }
+  }
+}
+
+// One head of more than 256 channels (a call with heads = 1): its channels
+// walked in passes of kPass = 256, 8 a lane.  The destination pass: a warp
+// a destination (by stride over the grid), first every slot's score and
+// <dout[i], w_src[j]> (each lane's passes in order, then the xor tree), the
+// slot's (alpha keep, ds) written to akds in float64 (a double2 a slot);
+// then pass by pass over the slots
+// again, the messages' signs (8 words a pass, one a channel of each lane),
+// d_we, and the pass's d_w_dst[i] summed in registers; d_att and d_we_loop
+// summed into the warp's own row of part (2 ch float64, zeroed by the warp
+// first), so part has a row a warp.  The source pass: a warp a source, pass
+// by pass over its slots.  The sums' order is fixed by the width alone.
+constexpr int kPass = 256;
+constexpr int kWideP = 8;
+
+__global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_wide_kernel(
+    const int* __restrict__ indptr, const int* __restrict__ src,
+    const int* __restrict__ erow, const float* __restrict__ w_src,
+    const float* __restrict__ w_dst, const float* __restrict__ we,
+    const float* __restrict__ we_loop, const float* __restrict__ att,
+    const float* __restrict__ keep, const float* __restrict__ lse,
+    const float* __restrict__ scores, const float* __restrict__ out,
+    const float* __restrict__ dout, int n, int n_real, int ch, int ld,
+    int lds, double slope,
+    float* __restrict__ d_w_dst, float* __restrict__ d_we,
+    double2* __restrict__ akds, unsigned* __restrict__ bits,
+    double* __restrict__ part) {
+  constexpr int P = kWideP;
+  const int lane = threadIdx.x & 31;
+  const long long wid =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int passes = (ch + kPass - 1) / kPass;
+  const int W = passes * P;                 // sign words a slot
+  double* prow = part + wid * 2 * ch;       // this warp's d_att | d_we_loop
+  for (int c = lane; c < 2 * ch; c += 32) prow[c] = 0.0;
+  __syncwarp();          // zeroed by other lanes than the ones that add
+  const long long stride = static_cast<long long>(gridDim.x) * kWarpsPerBlock;
+  for (long long i = wid; i < n; i += stride) {
+    double go_o = 0.0;
+    for (int c = lane * P; c < ch; c += kPass) {
+      for (int p = 0; p < P && c + p < ch; ++p) {
+        go_o += static_cast<double>(dout[i * ld + c + p]) *
+                static_cast<double>(out[i * ld + c + p]);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      go_o += __shfl_xor_sync(kFull, go_o, off);
+    }
+    const double dd = go_o;
+    const double ls = lse[i * lds];
+    const int beg = indptr[i];
+    const int end = indptr[i + 1];
+    for (int e = beg; e < end; ++e) {       // the slots' (alpha keep, ds)
+      const long long j = src[e];
+      double gx = 0.0;
+      for (int c = lane * P; c < ch; c += kPass) {
+        for (int p = 0; p < P && c + p < ch; ++p) {
+          gx += static_cast<double>(dout[i * ld + c + p]) *
+                static_cast<double>(w_src[j * ld + c + p]);
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        gx += __shfl_xor_sync(kFull, gx, off);
+      }
+      const double kp = keep ? keep[static_cast<long long>(e) * lds] : 1.0;
+      const double alpha =
+          exp(static_cast<double>(scores[static_cast<long long>(e) * lds]) -
+              ls);
+      const double ds = alpha * (kp * gx - dd);
+      if (lane == 0) akds[e] = make_double2(alpha * kp, ds);
+    }
+    __syncwarp();
+    for (int c0 = 0; c0 < ch; c0 += kPass) {
+      const int c = c0 + lane * P;
+      double acc[P], datt[P], dloop[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) acc[p] = datt[p] = dloop[p] = 0.0;
+      for (int e = beg; e < end; ++e) {
+        const long long j = src[e];
+        const int r = erow[e];
+        const float* ev_row = r < n_real ? we + static_cast<long long>(r) * ld
+                                         : we_loop;
+        const double ds = akds[e].y;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const bool ok = c + p < ch;
+          const int cc = ok ? c + p : 0;
+          const double msg = static_cast<double>(w_src[j * ld + cc]) +
+                             static_cast<double>(w_dst[i * ld + cc]) +
+                             static_cast<double>(ev_row[cc]);
+          const bool pos = msg >= 0.0;
+          const unsigned m = __ballot_sync(kFull, pos);
+          if (lane == 0) {
+            bits[static_cast<long long>(e) * W + c0 / kPass * P + p] = m;
+          }
+          if (ok) {
+            const double t =
+                ds * static_cast<double>(att[cc]) * (pos ? 1.0 : slope);
+            datt[p] += ds * (pos ? msg : slope * msg);
+            acc[p] += t;
+            if (r < n_real) {
+              d_we[static_cast<long long>(r) * ld + cc] = static_cast<float>(t);
+            } else {
+              dloop[p] += t;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (c + p < ch) {
+          d_w_dst[i * ld + c + p] = static_cast<float>(acc[p]);
+          prow[c + p] += datt[p];
+          prow[ch + c + p] += dloop[p];
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) gatv2_bwd_src_wide_kernel(
+    const int* __restrict__ src_ptr, const int* __restrict__ src_slot,
+    const int* __restrict__ src_dst, const double2* __restrict__ akds,
+    const unsigned* __restrict__ bits, const float* __restrict__ dout,
+    const float* __restrict__ att, int n, int ch, int ld, double slope,
+    int src_blocks, float* __restrict__ d_w_src,
+    const double* __restrict__ part, int n_parts,
+    float* __restrict__ d_att, float* __restrict__ d_we_loop) {
+  constexpr int P = kWideP;
+  if (static_cast<int>(blockIdx.x) >= src_blocks) {
+    combine_partials(part, n_parts, ch, blockIdx.x - src_blocks, d_att,
+                     d_we_loop);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (j >= n) return;
+  const int W = (ch + kPass - 1) / kPass * P;
+  const int beg = src_ptr[j];
+  const int end = src_ptr[j + 1];
+  for (int c0 = 0; c0 < ch; c0 += kPass) {
+    const int c = c0 + lane * P;
+    double acc[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) acc[p] = 0.0;
+    for (int k = beg; k < end; ++k) {
+      const long long e = src_slot[k];
+      const long long i = src_dst[k];
+      const double2 ad = akds[e];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (c + p < ch) {
+          const bool pos =
+              (bits[e * W + c0 / kPass * P + p] >> lane) & 1u;
+          acc[p] += ad.x * dout[i * ld + c + p] +
+                    ad.y * att[c + p] * (pos ? 1.0 : slope);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (c + p < ch) d_w_src[j * ld + c + p] = static_cast<float>(acc[p]);
     }
   }
 }
 
 struct Args {
   const void *indptr, *src, *erow, *src_ptr, *src_slot, *src_dst, *w_src,
-      *w_dst, *we, *we_loop, *att, *keep, *lse, *out, *dout;
-  int n, n_real, heads, ch, lph;
+      *w_dst, *we, *we_loop, *att, *keep, *lse, *scores, *out, *dout;
+  int n, n_real, heads, ch, lph, ld, lds;
   float slope;
   int dst_blocks;
   void *d_w_src, *d_w_dst, *d_we, *d_we_loop, *d_att, *akds, *bits, *part;
@@ -445,9 +614,11 @@ int launch(const Args& a, cudaStream_t s) {
         static_cast<const float*>(a.w_dst), static_cast<const float*>(a.we),
         static_cast<const float*>(a.we_loop),
         static_cast<const float*>(a.att), static_cast<const float*>(a.keep),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.out),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.scores),
+        static_cast<const float*>(a.out),
         static_cast<const float*>(a.dout), a.n, a.n_real, a.heads, a.ch,
-        a.lph, static_cast<double>(a.slope), static_cast<float*>(a.d_w_dst),
+        a.lph, a.ld, a.lds, static_cast<double>(a.slope),
+        static_cast<float*>(a.d_w_dst),
         static_cast<float*>(a.d_we), static_cast<float2*>(a.akds),
         static_cast<unsigned*>(a.bits), static_cast<double*>(a.part));
     const cudaError_t err2 = cudaGetLastError();
@@ -460,7 +631,8 @@ int launch(const Args& a, cudaStream_t s) {
       static_cast<const int*>(a.src_dst), static_cast<const float2*>(a.akds),
       static_cast<const unsigned*>(a.bits),
       static_cast<const float*>(a.dout), static_cast<const float*>(a.att),
-      a.n, a.heads, a.ch, a.lph, static_cast<double>(a.slope), src_blocks,
+      a.n, a.heads, a.ch, a.lph, a.ld, static_cast<double>(a.slope),
+      src_blocks,
       static_cast<float*>(a.d_w_src), static_cast<const double*>(a.part),
       dst_blocks, static_cast<float*>(a.d_att),
       static_cast<float*>(a.d_we_loop));
@@ -479,7 +651,49 @@ int run(const Args& a, int* resident, cudaStream_t s) {
   return launch<P, S>(a, s);
 }
 
+// A head of more than 256 channels (p = 0): the wide kernels, whose part
+// has a row a warp of the destination pass.
+int run_wide(const Args& a, int* resident, cudaStream_t s) {
+  if (resident != nullptr) {
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        resident, gatv2_bwd_dst_wide_kernel, kThreads, 0));
+  }
+  if (a.heads != 1 || a.ch <= kPass) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int dst_blocks = a.n > 0 ? a.dst_blocks : 0;
+  if (a.n > 0) {
+    gatv2_bwd_dst_wide_kernel<<<dst_blocks, kThreads, 0, s>>>(
+        static_cast<const int*>(a.indptr), static_cast<const int*>(a.src),
+        static_cast<const int*>(a.erow), static_cast<const float*>(a.w_src),
+        static_cast<const float*>(a.w_dst), static_cast<const float*>(a.we),
+        static_cast<const float*>(a.we_loop),
+        static_cast<const float*>(a.att), static_cast<const float*>(a.keep),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.scores),
+        static_cast<const float*>(a.out),
+        static_cast<const float*>(a.dout), a.n, a.n_real, a.ch, a.ld, a.lds,
+        static_cast<double>(a.slope), static_cast<float*>(a.d_w_dst),
+        static_cast<float*>(a.d_we), static_cast<double2*>(a.akds),
+        static_cast<unsigned*>(a.bits), static_cast<double*>(a.part));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int src_blocks = (a.n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int combine_blocks = (2 * a.ch + 31) / 32;
+  gatv2_bwd_src_wide_kernel<<<src_blocks + combine_blocks, kThreads, 0, s>>>(
+      static_cast<const int*>(a.src_ptr), static_cast<const int*>(a.src_slot),
+      static_cast<const int*>(a.src_dst), static_cast<const double2*>(a.akds),
+      static_cast<const unsigned*>(a.bits),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.att),
+      a.n, a.ch, a.ld, static_cast<double>(a.slope), src_blocks,
+      static_cast<float*>(a.d_w_src), static_cast<const double*>(a.part),
+      dst_blocks * kWarpsPerBlock, static_cast<float*>(a.d_att),
+      static_cast<float*>(a.d_we_loop));
+  return static_cast<int>(cudaGetLastError());
+}
+
 int dispatch(int p, int s, const Args& a, int* resident, cudaStream_t st) {
+  if (p == 0 && s == 1) return run_wide(a, resident, st);
 #define K11_CASE(PP, SS) \
   if (p == PP && s == SS) return run<PP, SS>(a, resident, st);
   K11_CASE(1, 1) K11_CASE(2, 1) K11_CASE(3, 1) K11_CASE(4, 1)
@@ -495,37 +709,44 @@ int dispatch(int p, int s, const Args& a, int* resident, cudaStream_t st) {
 // indptr (n+1), src / erow (E'): K9's destination CSR; src_ptr (n+1) /
 // src_slot / src_dst (E'): the same slots as a CSR over sources, with each
 // slot's destination; w_src, w_dst (n, H C), we (n_real, H C), we_loop
-// (H C), att (H, C), keep (E', H) or null, lse (n, H), out and dout (n, H C)
-// float32.  Outputs: d_w_src, d_w_dst (n, H C), d_we (n_real, H C),
+// (H C), att (H, C), keep (E', H) or null, lse (n, H) and scores (E', H)
+// (K9's), out and dout (n, H C) float32.  Outputs: d_w_src, d_w_dst (n, H C), d_we (n_real, H C),
 // d_we_loop (H C), d_att (H, C) float32.  p (channels a lane) and s
 // (slots a warp step) name the instantiation (kernels.k11_plan); scratch:
 // akds (E', H) float2, bits (E', ceil(p 32 / s / 32)) 32-bit words and part
 // (dst_blocks, 2 H C) float64: the destination pass runs dst_blocks blocks
-// (kernels.k11_max_blocks), one partial each.  heads and channels as K9 takes
-// them (ltr_gatv2_softmax_agg); the wrapper checks shapes.  Returns the
-// cudaGetLastError() code of the launches.
+// (kernels.k11_max_blocks), one partial each.  heads (a power of two, at
+// most 32) and channels (lph / s lanes of at most 8 channels a head) are one
+// group of heads (kernels.k11_groups): every row pointer, att, keep, lse and
+// scores point at the group's first head, ld is the full row stride (all
+// heads x channels) of the (n, .) and (n_real, .) rows and lds the full head
+// count (the stride of keep, lse and scores); the wrapper checks shapes.
+// Returns the cudaGetLastError() code of the launches.
 extern "C" int ltr_gatv2_softmax_agg_bwd(
     const void* indptr, const void* src, const void* erow,
     const void* src_ptr, const void* src_slot, const void* src_dst,
     const void* w_src, const void* w_dst, const void* we,
     const void* we_loop, const void* att, const void* keep, const void* lse,
-    const void* out, const void* dout, int n, int n_real, int heads,
-    int channels, float slope, int p, int s, int dst_blocks, void* d_w_src,
-    void* d_w_dst, void* d_we, void* d_we_loop, void* d_att, void* akds,
-    void* bits, void* part, void* stream) {
+    const void* scores, const void* out, const void* dout, int n, int n_real,
+    int heads,
+    int channels, int ld, int lds, float slope, int p,
+    int s, int dst_blocks, void* d_w_src, void* d_w_dst, void* d_we,
+    void* d_we_loop, void* d_att, void* akds, void* bits, void* part,
+    void* stream) {
   int hp = 1;
   while (hp < heads) hp <<= 1;
   const int lph = hp <= 32 ? 32 / hp : 0;
   // the plan must cover the row: s divides the head's lanes, p channels a
-  // lane of them reach the head's channels
+  // lane of them reach the head's channels (p = 0: the wide kernels)
   if (heads < 1 || hp > 32 || channels < 1 || s < 1 || lph % s != 0 ||
-      p * (lph / s) < channels || (n > 0 && dst_blocks < 1)) {
+      (p > 0 && p * (lph / s) < channels) || (n > 0 && dst_blocks < 1) ||
+      ld < heads * channels || lds < heads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{indptr, src, erow, src_ptr, src_slot, src_dst, w_src, w_dst,
-               we, we_loop, att, keep, lse, out, dout, n, n_real, heads,
-               channels, lph, slope, dst_blocks, d_w_src, d_w_dst, d_we,
-               d_we_loop, d_att, akds, bits, part};
+               we, we_loop, att, keep, lse, scores, out, dout, n, n_real,
+               heads, channels, lph, ld, lds, slope, dst_blocks, d_w_src,
+               d_w_dst, d_we, d_we_loop, d_att, akds, bits, part};
   return dispatch(p, s, a, nullptr, static_cast<cudaStream_t>(stream));
 }
 

@@ -33,11 +33,17 @@
 // block per graph and combines its chunks' partials in chunk order.  No
 // atomics: the same bits on every call.  A graph with no node writes zeros.
 //
-// Width: each lane holds kPerLane channels of a row (lane, lane + 32, ...),
-// a template instantiated for kPerLane = 4 (D <= 128) and
-// 8 (D <= 256).  The chunk kernel's shared arrays come to 8 warps x kPerLane
-// x 32 channels x 4 bytes each, 32 KiB for the four of training at D = 256,
-// under the 48 KiB of static shared memory a block may use.
+// Width: the first launch's blocks also split D into column blocks of at
+// most kMaxD = 256 (blockIdx.y), each a block of its own over the chunk's
+// nodes, reading its columns of the full rows in place.  The attention score
+// is one column shared by every column block: each computes the same
+// softmax (m, l) with the same bits, and column block 0 writes it; the max
+// and its ties, the sums and the keep-scale follow the column.  Each lane
+// holds kPerLane channels of its column block (lane, lane + 32, ...), a
+// template instantiated for kPerLane = 4 (D <= 128) and 8 (D > 128).  The
+// chunk kernel's shared arrays come to 8 warps x kPerLane x 32 channels x 4
+// bytes each, 32 KiB for the four of training at a 256-column block, under
+// the 48 KiB of static shared memory a block may use.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,6 +93,8 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int c = blockIdx.x;
+  const int col0 = blockIdx.y * kMaxD;     // this block's first column
+  const int dc = min(kMaxD, d - col0);     // and its columns
   const int beg = chunk_start[c];
   const int end = chunk_end[c];
   float m = -INFINITY;
@@ -110,11 +118,11 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
     const float p = expf(s - mu);
     const float pk = kTrain && keep ? p * keep[node] : p;
     l = l * scale + p;
-    const float* row = x + static_cast<long long>(node) * d;
+    const float* row = x + static_cast<long long>(node) * d + col0;
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
       const int ch = lane + 32 * k;
-      if (ch < d) {
+      if (ch < dc) {
         const float v = row[ch];
         ws[k] = ws[k] * scale + pk * v;
         xs[k] += v;
@@ -134,7 +142,7 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) {
     const int ch = lane + 32 * k;
-    if (ch < d) {
+    if (ch < dc) {
       sm_w[warp][ch] = ws[k];
       sm_s[warp][ch] = xs[k];
       sm_x[warp][ch] = xm[k];
@@ -145,8 +153,9 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
   float mt = -INFINITY;
   for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w]);
   const float mu = mt == -INFINITY ? 0.f : mt;
-  float* out = part + static_cast<long long>(c) * part_width<kTrain>(d);
-  for (int ch = threadIdx.x; ch < d; ch += blockDim.x) {
+  float* out = part + static_cast<long long>(c) * part_width<kTrain>(d) +
+               col0;
+  for (int ch = threadIdx.x; ch < dc; ch += blockDim.x) {
     float w_sum = 0.f;
     float x_sum = 0.f;
     float x_max = -INFINITY;
@@ -165,7 +174,7 @@ __global__ void graph_pool_chunks_kernel(const int* __restrict__ chunk_start,
     out[2 + 2 * d + ch] = x_max;
     if (kTrain) out[2 + 3 * d + ch] = x_cnt;
   }
-  if (threadIdx.x == 0) {
+  if (threadIdx.x == 0 && blockIdx.y == 0) {
     float l_sum = 0.f;
     for (int w = 0; w < kWarps; ++w) l_sum += sm_l[w] * expf(sm_m[w] - mu);
     out[0] = mt;
@@ -226,15 +235,15 @@ __global__ void graph_pool_combine_kernel(const int* __restrict__ graph_ptr,
 // graph_ptr (B+1), chunk_ptr (B+1: the chunks of graph b), chunk_start /
 // chunk_end (n_chunks), x (N, d), score (N,), keep (N,) or null, part
 // (n_chunks, 2 + 4 d) scratch (the serve path uses 2 + 3 d of each row's
-// room), out (B, 3 d), stats (B, 2) or null, ties (B, d) or null.  d <= 256.
-// Returns the cudaGetLastError() code of the launches.
+// room), out (B, 3 d), stats (B, 2) or null, ties (B, d) or null.  Any d >=
+// 1.  Returns the cudaGetLastError() code of the launches.
 extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
                               const void* chunk_start, const void* chunk_end,
                               const void* x, const void* score,
                               const void* keep, int n_graphs, int n_chunks,
                               int d, void* part, void* out, void* stats,
                               void* ties, void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_graphs <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool train = keep || stats || ties;
@@ -243,7 +252,8 @@ extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
                                     : graph_pool_chunks_kernel<4, false>)
                            : (train ? graph_pool_chunks_kernel<8, true>
                                     : graph_pool_chunks_kernel<8, false>);
-    chunks<<<n_chunks, kWarps * 32, 0, s>>>(
+    const dim3 grid(n_chunks, (d + kMaxD - 1) / kMaxD);
+    chunks<<<grid, kWarps * 32, 0, s>>>(
         static_cast<const int*>(chunk_start),
         static_cast<const int*>(chunk_end), static_cast<const float*>(x),
         static_cast<const float*>(score), static_cast<const float*>(keep), d,
@@ -251,7 +261,7 @@ extern "C" int ltr_graph_pool(const void* graph_ptr, const void* chunk_ptr,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int threads = d < 32 ? 32 : ((d + 31) / 32) * 32;
+  const int threads = d < 32 ? 32 : d > 1024 ? 1024 : ((d + 31) / 32) * 32;
   auto combine = train ? graph_pool_combine_kernel<true>
                        : graph_pool_combine_kernel<false>;
   combine<<<n_graphs, threads, 0, s>>>(

@@ -50,12 +50,20 @@
 //
 // Value type: U, V and coef are float64 or float32 (a template on T).  Every
 // product is formed in float64 from the loaded values (exact for float32
-// operands) and every sum runs in float64; the result is always a float64
-// scalar.  This is the contract of the reference's csum on float32
+// operands) and every sum runs in float64; the result is a float64 scalar.
+// This is the contract of the reference's csum on float32
 // (ops/compsum.py:78-92: cast to float64, then reduce), which the caller
-// rounds back to the compute type.
+// rounds back to the compute type.  One caller asks for the other contract:
+// HALLaR's float32 <C, YY^T> (hallar/solver.py:184-186) is a plain jnp.sum
+// in float32, so with ACC32 (float32 values only) the products and every
+// sum are float32 and so is the result, in the same order as above, each
+// product and sum rounded on its own (round-to-nearest intrinsics, no fused
+// multiply-add): kernels.sym_contract_sum_plain(acc32=True) follows the
+// same order and gives the same bits on the CPU.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -72,16 +80,38 @@ __host__ __device__ constexpr int batch_steps() {
   return b < 1 ? 1 : (b > G ? G : b);
 }
 
-template <typename T, bool SAME, int G, int CPL>
+// acc + x * y: in float64 as the compiler contracts it; in float32 (ACC32)
+// the product and the sum each rounded, as the plain version forms them.
+__device__ __forceinline__ double mad(double acc, double x, double y) {
+  return acc + x * y;
+}
+__device__ __forceinline__ float mad(float acc, float x, float y) {
+  return __fadd_rn(acc, __fmul_rn(x, y));
+}
+
+// x * y + z * w, the same way.
+__device__ __forceinline__ double dot2(double x, double y, double z,
+                                       double w) {
+  return x * y + z * w;
+}
+__device__ __forceinline__ float dot2(float x, float y, float z, float w) {
+  return __fadd_rn(__fmul_rn(x, y), __fmul_rn(z, w));
+}
+
+// A: the type of the products and sums, double, or float under ACC32.
+template <typename T, bool SAME, int G, int CPL, bool ACC32>
 __global__ void __launch_bounds__(kThreads)
 sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
                     const T* __restrict__ coef, const T* __restrict__ U,
                     const T* __restrict__ V, int nnz, int r, int n_chunks,
-                    double* __restrict__ part,
-                    unsigned* __restrict__ ticket, double* __restrict__ out) {
+                    void* __restrict__ part_raw,
+                    unsigned* __restrict__ ticket, void* __restrict__ out_raw) {
+  using A = typename std::conditional<ACC32, float, double>::type;
+  A* __restrict__ part = static_cast<A*>(part_raw);
+  A* __restrict__ out = static_cast<A*>(out_raw);
   constexpr int P = 32 / G;           // entries a warp step
   constexpr int B = batch_steps<SAME, G, CPL>();
-  __shared__ double wsum[2][kWarps];   // by chunk parity: one barrier a chunk
+  __shared__ A wsum[2][kWarps];        // by chunk parity: one barrier a chunk
   __shared__ int is_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -94,17 +124,17 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
     const int mine = min(e0 + lane, last);
     const int my_row = rows[mine];
     const int my_col = cols[mine];
-    const double my_coef = static_cast<double>(coef[mine]);
-    double acc = 0.0;
+    const A my_coef = static_cast<A>(coef[mine]);
+    A acc = 0;
     for (int s0 = 0; s0 < G; s0 += B) {
       long long bi[B], bj[B];
-      double d[B];
+      A d[B];
 #pragma unroll
       for (int b = 0; b < B; ++b) {
         const int t = min(s0 + b, G - 1) * P + q;   // the warp's entry t
         bi[b] = static_cast<long long>(__shfl_sync(kFull, my_row, t)) * r;
         bj[b] = static_cast<long long>(__shfl_sync(kFull, my_col, t)) * r;
-        d[b] = 0.0;
+        d[b] = 0;
       }
       for (int c0 = 0; c0 < r; c0 += G * CPL) {
         T ui[B][CPL], uj[B][CPL], vi[B][CPL], vj[B][CPL];
@@ -127,13 +157,11 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
           for (int k = 0; k < CPL; ++k) {
             if (c0 + lig + G * k >= r) continue;
             if (SAME) {
-              d[b] += static_cast<double>(ui[b][k]) *
-                      static_cast<double>(uj[b][k]);
+              d[b] = mad(d[b], static_cast<A>(ui[b][k]),
+                         static_cast<A>(uj[b][k]));
             } else {
-              d[b] += static_cast<double>(ui[b][k]) *
-                          static_cast<double>(vj[b][k]) +
-                      static_cast<double>(uj[b][k]) *
-                          static_cast<double>(vi[b][k]);
+              d[b] += dot2(static_cast<A>(ui[b][k]), static_cast<A>(vj[b][k]),
+                           static_cast<A>(uj[b][k]), static_cast<A>(vi[b][k]));
             }
           }
         }
@@ -141,10 +169,10 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 #pragma unroll
       for (int b = 0; b < B; ++b) {
         const int t = (s0 + b) * P + q;
-        const double ck = __shfl_sync(kFull, my_coef, min(t, 31));
+        const A ck = __shfl_sync(kFull, my_coef, min(t, 31));
         // (x + x) / 2 == x exactly: a diagonal entry needs no case of its own
         if (s0 + b < G && e0 + t <= last) {
-          acc += ck * (SAME ? d[b] : 0.5 * d[b]);
+          acc = mad(acc, ck, SAME ? d[b] : static_cast<A>(0.5) * d[b]);
         }
       }
     }
@@ -152,7 +180,7 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
     for (int off = 16; off > 0; off >>= 1) {
       acc += __shfl_xor_sync(kFull, acc, off);
     }
-    double* ws = wsum[slot & 1];
+    A* ws = wsum[slot & 1];
     if (lane == 0) ws[warp] = acc;
     __syncthreads();
     if (threadIdx.x == 0) {
@@ -170,7 +198,7 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   __threadfence();
   // the fixed combine: thread t adds chunks t, t + 256, ... in order, an
   // xor tree in each warp, a balanced tree over the 8 warps
-  double s = 0.0;
+  A s = 0;
   for (int c = threadIdx.x; c < n_chunks; c += kThreads) {
     s += __ldcg(part + c);
   }
@@ -179,7 +207,7 @@ sym_contract_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
   if (lane == 0) wsum[0][warp] = s;
   __syncthreads();
   if (threadIdx.x == 0) {
-    const double* ws = wsum[0];
+    const A* ws = wsum[0];
     out[0] = ((ws[0] + ws[1]) + (ws[2] + ws[3])) +
              ((ws[4] + ws[5]) + (ws[6] + ws[7]));
   }
@@ -192,31 +220,43 @@ struct Args {
   int* resident;   // non-null: report occupancy instead of launching
 };
 
-template <typename T, bool SAME, int G, int CPL>
+template <typename T, bool SAME, int G, int CPL, bool ACC32>
 int launch(const Args& a, cudaStream_t s) {
   if (a.resident != nullptr) {
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        a.resident, sym_contract_kernel<T, SAME, G, CPL>, kThreads, 0));
+        a.resident, sym_contract_kernel<T, SAME, G, CPL, ACC32>, kThreads,
+        0));
   }
   const int n_chunks = (a.nnz + kChunk - 1) / kChunk;
-  sym_contract_kernel<T, SAME, G, CPL><<<a.grid, kThreads, 0, s>>>(
+  sym_contract_kernel<T, SAME, G, CPL, ACC32><<<a.grid, kThreads, 0, s>>>(
       static_cast<const int*>(a.rows), static_cast<const int*>(a.cols),
       static_cast<const T*>(a.coef), static_cast<const T*>(a.U),
-      static_cast<const T*>(a.V), a.nnz, a.r, n_chunks,
-      static_cast<double*>(a.part), static_cast<unsigned*>(a.ticket),
-      static_cast<double*>(a.out));
+      static_cast<const T*>(a.V), a.nnz, a.r, n_chunks, a.part,
+      static_cast<unsigned*>(a.ticket), a.out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// float64 values always sum in float64; float32 values in float64, or in
+// float32 with acc32
 template <typename T, int G, int CPL>
-int launch_mode(int same, const Args& a, cudaStream_t s) {
-  return same ? launch<T, true, G, CPL>(a, s) : launch<T, false, G, CPL>(a, s);
+int launch_mode(int same, int acc32, const Args& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (acc32) {
+      return same ? launch<T, true, G, CPL, true>(a, s)
+                  : launch<T, false, G, CPL, true>(a, s);
+    }
+  } else if (acc32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return same ? launch<T, true, G, CPL, false>(a, s)
+              : launch<T, false, G, CPL, false>(a, s);
 }
 
 template <typename T>
-int dispatch(int g, int cpl, int same, const Args& a, cudaStream_t s) {
+int dispatch(int g, int cpl, int same, int acc32, const Args& a,
+             cudaStream_t s) {
 #define K4_CASE(GG, CC) \
-  if (g == GG && cpl == CC) return launch_mode<T, GG, CC>(same, a, s);
+  if (g == GG && cpl == CC) return launch_mode<T, GG, CC>(same, acc32, a, s);
   K4_CASE(1, 1) K4_CASE(2, 1) K4_CASE(4, 1) K4_CASE(8, 1) K4_CASE(16, 1)
   K4_CASE(32, 1) K4_CASE(32, 2) K4_CASE(32, 3) K4_CASE(32, 4)
   K4_CASE(32, 5) K4_CASE(32, 6) K4_CASE(32, 7) K4_CASE(32, 8)
@@ -226,9 +266,11 @@ int dispatch(int g, int cpl, int same, const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// f32 != 0: coef, U and V are float32, else float64; out is float64 either
-// way.  V may equal U (pass same = 1 to read U only).  g (lanes an entry)
-// and cpl (columns a lane and pass) name the instantiation
+// f32: 0 for float64 coef, U and V, 1 for float32 ones summed in float64, 2
+// for float32 ones summed in float32 (ACC32); out is a float64 scalar, or a
+// float32 one with f32 = 2, and part holds one sum of that type a chunk.
+// V may equal U (pass same = 1 to read U only).  g (lanes an entry) and cpl
+// (columns a lane and pass) name the instantiation
 // (kernels.lane_group); grid blocks take the ceil(nnz / 256) chunks by
 // stride.  part (one double a chunk) and ticket (an unsigned that is 0 at
 // the call and is 0 again after it) are the caller's scratch, used by one
@@ -247,16 +289,17 @@ extern "C" int ltr_sym_contract_sum(int f32, const void* rows,
   const Args a{rows, cols, coef, U, V, nnz, r, grid, part, ticket, out,
                nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? dispatch<float>(g, cpl, same, a, s)
-             : dispatch<double>(g, cpl, same, a, s);
+  return f32 ? dispatch<float>(g, cpl, same, f32 == 2, a, s)
+             : dispatch<double>(g, cpl, same, 0, a, s);
 }
 
-// The blocks of the instantiation (f32, same, g, cpl) that fit one SM of the
-// current device at once, into *blocks.  Returns the query's cudaError.
+// The blocks of the instantiation (f32 as above, same, g, cpl) that fit one
+// SM of the current device at once, into *blocks.  Returns the query's
+// cudaError.
 extern "C" int ltr_sym_contract_sum_resident(int f32, int same, int g,
                                              int cpl, int* blocks) {
   Args a{};
   a.resident = blocks;
-  return f32 ? dispatch<float>(g, cpl, same, a, nullptr)
-             : dispatch<double>(g, cpl, same, a, nullptr);
+  return f32 ? dispatch<float>(g, cpl, same, f32 == 2, a, nullptr)
+             : dispatch<double>(g, cpl, same, 0, a, nullptr);
 }

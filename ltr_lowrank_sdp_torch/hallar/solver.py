@@ -209,10 +209,11 @@ class _Ops:
         return K.coo_contract_segsum(self.a_seg, Y, Y)
 
     def CX(self, Y: torch.Tensor) -> torch.Tensor:
-        """<C, YY^T> as a 0-dim tensor of the compute dtype: K4, which sums
-        in float64."""
-        return K.sym_contract_sum(self.c_rows, self.c_cols, self.c_dbl,
-                                  Y, Y).to(self.dtype)
+        """<C, YY^T> as a 0-dim tensor of the compute dtype: K4, summing in
+        the compute dtype as the reference's ``jnp.sum`` does (float32 sums
+        in a float32 solve)."""
+        return K.sym_contract_sum(self.c_rows, self.c_cols, self.c_dbl, Y, Y,
+                                  acc32=self.dtype == torch.float32)
 
     def SY(self, w: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """(C + A*(w)) Y: K6 with the weights ``[w, 1]``."""

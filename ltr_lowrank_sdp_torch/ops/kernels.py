@@ -58,8 +58,9 @@ carry every other SDP cone (sparse or dense constraint kind), with K1 and K4
 for a sparse objective and ``torch.matmul`` for a dense one; K7 and K8 carry
 the LP cone.  K1-K8 are templates on the value type: float64, or float32 for
 the solver's ``dtype="float32"`` (K4 then still forms its products and sums
-in float64).  K9 and K10 carry the rank-schedule predictor's graph encoder
-at any width up to 256 channels (:func:`gatv2_lanes`, ``K10_MAX_D``),
+in float64; HALLaR's float32 objective sums in float32).  K9 and K10 carry
+the rank-schedule predictor's graph encoder at any width (:func:`k9_plan`,
+:func:`k11_groups`, ``K10_MAX_D``),
 and K11 and K12 its training backward pass: K9 + K11 and K10 + K12 are each
 one ``torch.autograd.Function`` (:func:`gatv2_softmax_agg`, :func:`graph_pool`
 when an input requires a gradient), with a plain backward beside the plain
@@ -188,14 +189,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_I, _P, _P, _P, _P, _P, _D, _I, _P, _P), typed=True),
     Kernel("gatv2_softmax_agg",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26",
-           (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
-            _P)),
+           (_P,) * 9 + (_I,) * 11 + (_F, _P, _P, _P, _P)),
     Kernel("graph_pool",
            "ltr_lowrank_sdp_tpu/models/layers.py:93",
            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
     Kernel("gatv2_softmax_agg_bwd",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26 (VJP, train.py:250)",
-           (_P,) * 15 + (_I, _I, _I, _I, _F, _I, _I, _I) + (_P,) * 9),
+           (_P,) * 16 + (_I,) * 6 + (_F, _I, _I, _I) + (_P,) * 9),
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
            (_P,) * 11 + (_I, _I) + (_P,) * 3),
@@ -599,13 +599,21 @@ def k4_plans(nnz: int, r: int, cap: int) -> List[K4Plan]:
     return list(dict.fromkeys(out))
 
 
-def k4_cap(U: torch.Tensor, same: bool) -> int:
+def _k4_type(dtype: torch.dtype, acc32: bool) -> int:
+    """K4's first C argument: 0 float64, 1 float32 summed in float64, 2
+    float32 summed in float32."""
+    if acc32 and dtype != torch.float32:
+        raise TypeError("K4 sums in float32 only for float32 values")
+    return 2 if acc32 else _f32(dtype)
+
+
+def k4_cap(U: torch.Tensor, same: bool, acc32: bool = False) -> int:
     """The blocks of K4's instantiation for U's value type and rank (and
-    ``U is V`` or not) that fit U's card at once: its SMs times the
-    occupancy query's blocks an SM."""
+    ``U is V`` or not, and the sum's type) that fit U's card at once: its
+    SMs times the occupancy query's blocks an SM."""
     dev = U.device
     return _sm_count(dev) * KERNELS["sym_contract_sum"].resident(
-        dev, _f32(U.dtype), int(same), *lane_group(U.shape[1]))
+        dev, _k4_type(U.dtype, acc32), int(same), *lane_group(U.shape[1]))
 
 
 @dataclasses.dataclass
@@ -668,12 +676,82 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def sym_contract_sum_plain(rows, cols, coef, U, V):
+def _tree32(v: torch.Tensor) -> torch.Tensor:
+    """The sum over the last axis (a power of two) by the kernels' xor
+    shuffle tree: halves added lane by lane until one is left."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _k4_acc32_plain(rows, cols, coef, U, V) -> torch.Tensor:
+    """K4's float32-summing instance's sum, in its order, each product and
+    sum a float32 operation: per entry, lane ``l`` of its ``G`` lanes adds
+    its columns ``l, l + G, ...`` (passes of ``G * CPL``) in order; each lane
+    adds coef times its column sum over the 32 entries of its warp in step
+    order; an xor tree over the 32 lanes, a balanced tree over the 8 warps
+    of a ``K4_CHUNK``-entry chunk; thread t of 256 adds chunks t, t + 256,
+    ... in order, then the same two trees."""
+    same = U is V
+    nnz, r = int(rows.numel()), int(U.shape[1])
+    dev = U.device
+    if nnz == 0:
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    g, cpl = lane_group(r)
+    lane_cols = [[c0 + lig + g * k for c0 in range(0, r, g * cpl)
+                  for k in range(cpl) if c0 + lig + g * k < r]
+                 for lig in range(g)]
+    ui, uj = _rows(U, rows), _rows(U, cols)
+    vi, vj = (ui, uj) if same else (_rows(V, rows), _rows(V, cols))
+    d = torch.zeros((nnz, g), dtype=torch.float32, device=dev)
+    for m in range(max(len(c) for c in lane_cols)):
+        live = torch.tensor([m < len(c) for c in lane_cols], device=dev)
+        col = torch.tensor([c[m] if m < len(c) else 0 for c in lane_cols],
+                           device=dev)
+        if same:
+            t = ui[:, col] * uj[:, col]
+        else:
+            t = ui[:, col] * vj[:, col] + uj[:, col] * vi[:, col]
+        d = torch.where(live, d + t, d)
+    x = coef[:, None] * (d if same else 0.5 * d)
+    # entry c * 256 + w * 32 + s * (32 / G) + q is lane (q, l) of warp w's
+    # step s
+    chunks = -(-nnz // K4_CHUNK)
+    pad = chunks * K4_CHUNK - nnz
+    x = torch.cat([x, x.new_zeros((pad, g))]).view(chunks, 8, g, 32 // g, g)
+    valid = (torch.arange(chunks * K4_CHUNK, device=dev) < nnz).view(
+        chunks, 8, g, 32 // g, 1)
+    acc = torch.zeros((chunks, 8, 32 // g, g), dtype=torch.float32,
+                      device=dev)
+    for step in range(g):
+        acc = torch.where(valid[:, :, step], acc + x[:, :, step], acc)
+    ws = _tree32(acc.reshape(chunks, 8, 32))
+    part = ((ws[:, 0] + ws[:, 1]) + (ws[:, 2] + ws[:, 3])) + (
+        (ws[:, 4] + ws[:, 5]) + (ws[:, 6] + ws[:, 7]))
+    rounds = -(-chunks // K4_CHUNK)
+    part = torch.cat([part, part.new_zeros(rounds * K4_CHUNK - chunks)])
+    live = torch.arange(rounds * K4_CHUNK, device=dev) < chunks
+    acc = torch.zeros(K4_CHUNK, dtype=torch.float32, device=dev)
+    for k in range(rounds):
+        sl = slice(k * K4_CHUNK, (k + 1) * K4_CHUNK)
+        acc = torch.where(live[sl], acc + part[sl], acc)
+    ws = _tree32(acc.view(8, 32))
+    return ((ws[0] + ws[1]) + (ws[2] + ws[3])) + (
+        (ws[4] + ws[5]) + (ws[6] + ws[7]))
+
+
+def sym_contract_sum_plain(rows, cols, coef, U, V, acc32: bool = False):
     """Plain version of K4: float64 products and sums of the (float32 or
-    float64) inputs -> a 0-dim float64 tensor."""
+    float64) inputs -> a 0-dim float64 tensor; with ``acc32`` float32
+    products and sums of float32 inputs -> a 0-dim float32 tensor, in the
+    kernel's own order (:func:`_k4_acc32_plain`), so the CPU and the card
+    give the same bits: a float32 sum's rounding depends on its order."""
     rows = rows.long()
     cols = cols.long()
     same = U is V
+    if acc32:
+        return _k4_acc32_plain(rows, cols, coef, U, V)
     U, V, coef = U.double(), V.double(), coef.double()
     if same:
         e = torch.sum(_rows(U, rows) * _rows(U, cols), dim=-1)
@@ -684,26 +762,30 @@ def sym_contract_sum_plain(rows, cols, coef, U, V):
 
 
 def sym_contract_sum(rows: torch.Tensor, cols: torch.Tensor,
-                     coef: torch.Tensor, U: torch.Tensor,
-                     V: torch.Tensor) -> torch.Tensor:
+                     coef: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+                     acc32: bool = False) -> torch.Tensor:
     """K4: ``sum_k coef_k * sym(U V^T)[rows_k, cols_k]`` as a 0-dim float64
     tensor on U's device (``U is V`` reads U only).  float32 inputs are
     multiplied and summed in float64 (the contract of the reference's
     ``csum`` on float32, ``ltr_lowrank_sdp_tpu/ops/compsum.py:78``); the
-    caller rounds the result to its compute type."""
-    return sym_contract_sum_with(None, rows, cols, coef, U, V)
+    caller rounds the result to its compute type.  ``acc32`` (float32
+    inputs only; HALLaR's ``<C, YY^T>``, a plain float32 ``jnp.sum`` in the
+    reference) multiplies and sums in float32 and returns float32."""
+    return sym_contract_sum_with(None, rows, cols, coef, U, V, acc32)
 
 
 def sym_contract_sum_with(plan: Optional[K4Plan], rows: torch.Tensor,
                           cols: torch.Tensor, coef: torch.Tensor,
-                          U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+                          U: torch.Tensor, V: torch.Tensor,
+                          acc32: bool = False) -> torch.Tensor:
     """:func:`sym_contract_sum` launched with ``plan`` (None:
     :func:`k4_plan` of the call).  Every plan of :func:`k4_plans` gives the
     same bits."""
     k = KERNELS["sym_contract_sum"]
     if _is_cpu(U):
         k.plain_calls += 1
-        return sym_contract_sum_plain(rows, cols, coef, U, V)
+        _k4_type(U.dtype, acc32)
+        return sym_contract_sum_plain(rows, cols, coef, U, V, acc32)
     dev = U.device
     if U.dim() != 2:
         raise ValueError(f"U must be (n, r), got {tuple(U.shape)}")
@@ -718,8 +800,9 @@ def sym_contract_sum_with(plan: Optional[K4Plan], rows: torch.Tensor,
     _i32(n * max(r, 1), "n * r")
     _i32(nnz + K4_CHUNK, "nnz")
     stream = _stream(dev)
+    f32 = _k4_type(dt, acc32)
     if plan is None:
-        plan = k4_plan(nnz, r, k4_cap(U, U is V))
+        plan = k4_plan(nnz, r, k4_cap(U, U is V, acc32))
     elif (plan.g, plan.cpl) != lane_group(r) or plan.chunks != -(
             -nnz // K4_CHUNK):
         raise ValueError(f"{plan.describe()} is not a plan of nnz = {nnz}, "
@@ -732,8 +815,9 @@ def sym_contract_sum_with(plan: Optional[K4Plan], rows: torch.Tensor,
     else:
         ws = _k4_scratch(dev, stream, plan.chunks)
         part, ticket = ws.part, ws.ticket
-    out = torch.empty((), dtype=torch.float64, device=dev)
-    k.launch(_f32(dt), rows.data_ptr(), cols.data_ptr(), coef.data_ptr(),
+    out = torch.empty((), dtype=torch.float32 if acc32 else torch.float64,
+                      device=dev)
+    k.launch(f32, rows.data_ptr(), cols.data_ptr(), coef.data_ptr(),
              U.data_ptr(), V.data_ptr(), nnz, r, 1 if U is V else 0,
              plan.g, plan.cpl, plan.grid, part.data_ptr(), ticket.data_ptr(),
              out.data_ptr(), stream)
@@ -1284,8 +1368,10 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
 # K9: GATv2 edge softmax and aggregation, K11: its backward (float32)
 # --------------------------------------------------------------------------- #
 
-K9_MAX_WIDTH = 256      # heads * channels: 8 channels per lane, 32 lanes
+K9_MAX_HEAD = 256       # channels a head of K9 / K11's lane layouts (8 a lane,
+                        # 32 lanes); a wider head takes their wide kernels
 K9_MAX_PER_LANE = 8
+K9_TILE = 4             # edges a tile of K9's softmax (kTile)
 LEAKY_SLOPE = 0.2
 
 
@@ -1408,13 +1494,16 @@ def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
 
 
 def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
-                                keep, lse, out, dout):
+                                keep, lse, out, dout, scores=None):
     """Plain version of K11: explicit formulas of K9's VJP, with the
-    LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it."""
+    LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it;
+    ``scores`` (E', H), the forward's own scores where given (else evaluated
+    here)."""
     heads, ch = att.shape
     hc = heads * ch
     dst = g.dst_ids
-    xs, msg, scores = _gatv2_messages(g, w_src, w_dst, we, we_loop, att)
+    xs, msg, s = _gatv2_messages(g, w_src, w_dst, we, we_loop, att)
+    scores = s if scores is None else scores.to(s.dtype)
     alpha = torch.exp(scores - lse[dst])                       # (E', H)
     kp = torch.ones_like(alpha) if keep is None else keep
     go = dout.view(-1, heads, ch)
@@ -1436,27 +1525,113 @@ def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
     return d_w_src, d_w_dst, d_we, torch.sum(dmsg[~real], dim=0), d_att
 
 
+def _pow2(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
 def gatv2_lanes(heads: int, ch: int) -> Tuple[int, int]:
-    """K9 / K11's lane layout for ``heads`` x ``ch``: ``(lanes per head,
-    channels per lane)``.  The heads split a warp's 32 lanes into groups of
-    32 / (heads rounded up to a power of two) lanes and a lane holds at most
-    8 channels, so heads * channels <= 256 for a power-of-two head count.
-    Raises ValueError for a width past that limit."""
-    hp = 1 << max(0, int(heads) - 1).bit_length()
-    if heads >= 1 and ch >= 1 and hp <= 32:
+    """K11's lane layout for one group of ``heads`` x ``ch`` (a group of
+    :func:`k11_groups`) of heads of at most ``K9_MAX_HEAD`` channels:
+    ``(lanes per head, channels per lane)``.  The heads split a warp's 32
+    lanes into groups of 32 / (heads rounded up to a power of two) lanes and
+    a lane holds at most 8 channels."""
+    if not 1 <= ch <= K9_MAX_HEAD:
+        raise ValueError(f"K11's lanes take heads of 1 to {K9_MAX_HEAD} "
+                         f"channels (wider: its wide kernels); got {ch}")
+    hp = _pow2(heads)
+    if heads >= 1 and hp <= 32:
         lph = 32 // hp
         per_lane = -(-int(ch) // lph)
         if per_lane <= K9_MAX_PER_LANE:
             return lph, per_lane
-    raise ValueError(
-        f"K9 / K11 take heads * channels <= {K9_MAX_WIDTH}: at most 32 heads "
-        f"and {K9_MAX_PER_LANE} channels per lane, 32 / (heads rounded up to "
-        f"a power of two) lanes per head; got {heads} heads x {ch} channels")
+    raise ValueError(f"{heads} heads x {ch} channels is not one K11 group "
+                     f"(see k11_groups)")
 
 
-def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev):
+@dataclasses.dataclass(frozen=True)
+class K9Plan:
+    """K9's launch for heads x channels: ``lph`` lanes a head with ``p``
+    channels a lane, ``hpg`` heads a group and ``groups`` groups a node (a
+    warp each), fixed by the shape; ``s`` sub-warps taking different edges
+    of a tile, ``b`` tiles loaded before their arithmetic and ``v`` floats a
+    load, which never change the bits.  ``p = 0`` is the wide kernel of a
+    head past ``K9_MAX_HEAD`` channels (a warp a head, passes of 256)."""
+
+    v: int
+    p: int
+    s: int
+    b: int
+    lph: int
+    hpg: int
+    groups: int
+
+    def describe(self) -> str:
+        if self.p == 0:
+            return f"V={self.v} wide (a warp a head) groups={self.groups}"
+        return (f"V={self.v} P={self.p} S={self.s} B={self.b} lph={self.lph} "
+                f"groups={self.groups}x{self.hpg}")
+
+
+def _k9_batch(p: int, s: int) -> int:
+    """Tiles a batch: one, two at four sub-warps (the fastest at the serve,
+    training and width phase shapes on the H100 in a sweep of 1, 2 and 4
+    tiles at every sub-warp count, PERF.md: two tiles at two sub-warps cost
+    occupancy on the largest graph)."""
+    return max(1, s // 2)
+
+
+def k9_plan(heads: int, ch: int) -> K9Plan:
+    """K9's launch for ``heads`` x ``ch``: 4 channels a lane (8 past 128
+    channels a head) in float4 / float2 loads where ``ch`` allows them,
+    lanes a head the next power of two that covers the head, as many heads a
+    warp as fit (the rest in further groups), sub-warps where a group takes
+    at most half the warp (at most 4), and :func:`_k9_batch` tiles a batch;
+    past ``K9_MAX_HEAD`` channels a head, the wide kernel."""
+    if heads < 1 or ch < 1:
+        raise ValueError(f"K9 needs a head of a channel, got {heads} x {ch}")
+    v = 4 if ch % 4 == 0 else 2 if ch % 2 == 0 else 1
+    if ch > K9_MAX_HEAD:
+        return K9Plan(v, 0, 1, 1, 32, 1, heads)
+    p = 4 if ch <= 128 else 8
+    lph = _pow2(-(-ch // p))
+    hpg = min(heads, 32 // lph)
+    s = min(4, 32 // _pow2(hpg * lph))
+    return K9Plan(v, p, s, _k9_batch(p, s), lph, hpg, -(-heads // hpg))
+
+
+def k9_plans(heads: int, ch: int) -> List[K9Plan]:
+    """The planned launch first, then every other instantiated launch of the
+    shape: one tile a batch (at four sub-warps), fewer sub-warps, scalar
+    loads.  All give the planned launch's bits (the ``-m cuda`` tests and
+    the smoke run's ``[k9-plan]`` sweep hold that)."""
+    plan = k9_plan(heads, ch)
+    out = [plan]
+    if plan.p == 0:
+        out.append(dataclasses.replace(plan, v=1))
+        return [q for q in dict.fromkeys(out)
+                if (q.v, q.p, q.s, q.b) in K9_INSTANCES]
+    out.append(dataclasses.replace(plan, b=1))
+    s = plan.s
+    while s > 1:
+        s //= 2
+        out.append(dataclasses.replace(plan, s=s, b=_k9_batch(plan.p, s)))
+    if plan.v > 1:
+        out.append(dataclasses.replace(plan, v=1))
+    return [q for q in dict.fromkeys(out)
+            if (q.v, q.p, q.s, q.b) in K9_INSTANCES]
+
+
+# (v, p, s, b) of K9_CASE in gatv2_softmax_agg.cu
+K9_INSTANCES = frozenset(
+    [(4, 4, 1, 1), (4, 4, 2, 1), (4, 4, 4, 2), (4, 4, 4, 1), (4, 8, 1, 1)]
+    + [(v, 4, 1, 1) for v in (2, 1)] + [(v, 4, 2, 1) for v in (2, 1)]
+    + [(v, 4, 4, 2) for v in (2, 1)] + [(v, 8, 1, 1) for v in (2, 1)]
+    + [(v, 0, 1, 1) for v in (4, 2, 1)])
+
+
+def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev,
+                 scores=None):
     heads, ch = att.shape
-    gatv2_lanes(heads, ch)
     hc = heads * ch
     _check(w_src, "w_src", torch.float32, (g.n, hc), dev)
     _check(w_dst, "w_dst", torch.float32, (g.n, hc), dev)
@@ -1468,53 +1643,95 @@ def _check_gatv2(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep, dev):
     _check(g.erow, "erow", torch.int32, (g.n_slots,), dev)
     if keep is not None:
         _check(keep, "keep", torch.float32, (g.n_slots, heads), dev)
+    if scores is not None:
+        _check(scores, "scores", torch.float32, (g.n_slots, heads), dev)
     _i32(max(g.n, g.n_slots) * hc, "slots * channels")
 
 
+def _aligned(plan: K9Plan, *ts) -> K9Plan:
+    """``plan``, or its scalar-load twin where a row pointer is not aligned
+    to its vector loads (the same bits)."""
+    if plan.v > 1 and any(t is not None and t.numel() and
+                          t.data_ptr() % (4 * plan.v) for t in ts):
+        return dataclasses.replace(plan, v=1)
+    return plan
+
+
 def _gatv2_forward(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
-                   with_lse: bool):
-    """K9 or, for CPU tensors, its plain version -> (out, lse or None)."""
+                   with_lse: bool, plan: Optional[K9Plan] = None,
+                   scores: Optional[torch.Tensor] = None):
+    """K9 (launched with ``plan``, None: :func:`k9_plan`) or, for CPU
+    tensors, its plain version -> (out, lse or None); ``scores`` (E', H),
+    where given, receives every slot's score (the training instance; K11
+    forms alpha from them)."""
     k = KERNELS["gatv2_softmax_agg"]
     if _is_cpu(w_src):
         k.plain_calls += 1
         out, lse = _gatv2_plain(g, w_src, w_dst, we, we_loop, att, keep)
+        if scores is not None:
+            scores.copy_(_gatv2_messages(g, w_src, w_dst, we, we_loop,
+                                         att)[2])
         return out, lse if with_lse else None
     dev = w_src.device
-    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
+    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev, scores)
     heads, ch = att.shape
+    if plan is None:
+        plan = _aligned(k9_plan(heads, ch), w_src, w_dst, we, we_loop, att)
+    elif ((plan.v, plan.p, plan.s, plan.b) not in K9_INSTANCES
+          or dataclasses.replace(plan, v=1, s=1, b=1) != dataclasses.replace(
+              k9_plan(heads, ch), v=1, s=1, b=1)
+          or plan.s > k9_plan(heads, ch).s
+          or _aligned(plan, w_src, w_dst, we, we_loop, att) != plan):
+        raise ValueError(f"{plan.describe()} is not a launch of {heads} "
+                         f"heads x {ch} channels on these tensors")
     out = torch.empty((g.n, heads * ch), dtype=torch.float32, device=dev)
     lse = (torch.empty((g.n, heads), dtype=torch.float32, device=dev)
-           if with_lse else None)
+           if with_lse or scores is not None else None)
+    _i32(g.n * plan.groups, "nodes * groups")
     k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
              w_src.data_ptr(), w_dst.data_ptr(),
              we.data_ptr() if g.n_real else None,
              we_loop.data_ptr(), att.data_ptr(), _ptr(keep), g.n, g.n_real,
-             heads, ch, LEAKY_SLOPE, out.data_ptr(), _ptr(lse), _stream(dev))
-    return out, lse
+             heads, ch, plan.lph, plan.hpg, plan.groups, plan.v, plan.p,
+             plan.s, plan.b, LEAKY_SLOPE, out.data_ptr(), _ptr(lse),
+             _ptr(scores), _stream(dev))
+    return out, lse if with_lse else None
+
+
+def gatv2_softmax_agg_with(plan: Optional[K9Plan], g: EdgeCSR, w_src, w_dst,
+                           we, we_loop, att, keep=None, with_lse=False,
+                           scores=None):
+    """K9 launched with ``plan`` (None: :func:`k9_plan`), no autograd node:
+    (out, lse or None), and the scores into ``scores`` where given.  Every
+    plan of :func:`k9_plans` gives the same bits."""
+    return _gatv2_forward(g, w_src, w_dst, we, we_loop, att, keep, with_lse,
+                          plan, scores)
 
 
 def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
-                          lse, out, dout):
+                          lse, out, dout, scores=None):
     """K11: the gradients ``(d_w_src, d_w_dst, d_we, d_we_loop, d_att)`` of
     K9's inputs from ``dout`` (n, heads * ch), the gradient of its output,
-    given K9's ``lse`` and ``out`` for the same inputs (and ``keep``)."""
+    given K9's ``lse``, ``out`` and ``scores`` (:func:`_gatv2_forward`) for
+    the same inputs (and ``keep``).  The kernel takes K9's scores, which the
+    cancelling sums d_w_dst, d_we_loop and d_att need; the plain version
+    evaluates them where they are not given."""
     k = KERNELS["gatv2_softmax_agg_bwd"]
     if _is_cpu(dout):
         k.plain_calls += 1
         return gatv2_softmax_agg_bwd_plain(g, w_src, w_dst, we, we_loop, att,
-                                           keep, lse, out, dout)
+                                           keep, lse, out, dout, scores)
     dev = dout.device
-    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev)
+    if scores is None:
+        raise ValueError("K11 needs K9's scores (_gatv2_forward(scores=))")
+    _check_gatv2(g, w_src, w_dst, we, we_loop, att, keep, dev, scores)
     heads, ch = att.shape
     hc = heads * ch
     _check(lse, "lse", torch.float32, (g.n, heads), dev)
     _check(out, "out", torch.float32, (g.n, hc), dev)
     _check(dout, "dout", torch.float32, (g.n, hc), dev)
     src_ptr, src_slot, src_dst = g.by_src
-    plan = k11_plan(heads, ch)
     stream = _stream(dev)
-    max_blocks = k11_max_blocks(g.n, _sm_count(dev) * k.resident(
-        dev, plan.p, plan.s))
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -1522,20 +1739,46 @@ def gatv2_softmax_agg_bwd(g: EdgeCSR, w_src, w_dst, we, we_loop, att, keep,
     d_w_src, d_w_dst, d_we = empty(g.n, hc), empty(g.n, hc), empty(
         g.n_real, hc)
     d_we_loop, d_att = empty(hc), empty(heads, ch)
-    akds, bits, part = k11_scratch(g.n_slots, g.n, heads, ch, max_blocks,
-                                   dev)
-    k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
-             src_ptr.data_ptr(), src_slot.data_ptr(), src_dst.data_ptr(),
-             w_src.data_ptr(), w_dst.data_ptr(),
-             we.data_ptr() if g.n_real else None,
-             we_loop.data_ptr(), att.data_ptr(), _ptr(keep), lse.data_ptr(),
-             out.data_ptr(), dout.data_ptr(), g.n, g.n_real, heads, ch,
-             LEAKY_SLOPE, plan.p, plan.s, max_blocks,
-             d_w_src.data_ptr(), d_w_dst.data_ptr(),
-             d_we.data_ptr() if g.n_real else None, d_we_loop.data_ptr(),
-             d_att.data_ptr(), akds.data_ptr(), bits.data_ptr(),
-             part.data_ptr(), stream)
+
+    def at(t, h0, per_head):
+        """The address of head h0's first value in ``t`` (None: null),
+        ``per_head`` float32 values a head."""
+        if t is None or not t.numel():
+            return None
+        return t.data_ptr() + 4 * h0 * per_head
+
+    for h0, hg in k11_groups(heads, ch):
+        plan = k11_plan(hg, ch)
+        max_blocks = k11_max_blocks(g.n, _sm_count(dev) * k.resident(
+            dev, plan.p, plan.s))
+        akds, bits, part = k11_scratch(g.n_slots, g.n, hg, ch, max_blocks,
+                                       dev)
+        k.launch(g.indptr.data_ptr(), g.src.data_ptr(), g.erow.data_ptr(),
+                 src_ptr.data_ptr(), src_slot.data_ptr(), src_dst.data_ptr(),
+                 at(w_src, h0, ch), at(w_dst, h0, ch), at(we, h0, ch),
+                 at(we_loop, h0, ch), at(att, h0, ch), at(keep, h0, 1),
+                 at(lse, h0, 1), at(scores, h0, 1), at(out, h0, ch),
+                 at(dout, h0, ch), g.n,
+                 g.n_real, hg, ch, hc, heads, LEAKY_SLOPE, plan.p, plan.s,
+                 max_blocks, at(d_w_src, h0, ch), at(d_w_dst, h0, ch),
+                 at(d_we, h0, ch), at(d_we_loop, h0, ch), at(d_att, h0, ch),
+                 akds.data_ptr(), bits.data_ptr(), part.data_ptr(), stream)
     return d_w_src, d_w_dst, d_we, d_we_loop, d_att
+
+
+def k11_groups(heads: int, ch: int) -> List[Tuple[int, int]]:
+    """K11's calls for ``heads`` x ``ch``: ``(first head, heads)`` of each,
+    in head order.  One call where its lanes (:func:`gatv2_lanes`) take
+    every head; else groups of the largest power of two of heads whose
+    lanes hold a head at 8 channels a lane; a head past ``K9_MAX_HEAD``
+    channels is a call of its own (the wide kernels).  Fixed by the
+    shape."""
+    hg = 32
+    while hg > 1 and -(-ch // (32 // hg)) > K9_MAX_PER_LANE:
+        hg //= 2
+    if _pow2(heads) <= hg:
+        return [(0, heads)]
+    return [(h0, min(hg, heads - h0)) for h0 in range(0, heads, hg)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1556,7 +1799,13 @@ class K11Plan:
 def k11_plan(heads: int, ch: int) -> K11Plan:
     """K11's lanes: where K9's layout (:func:`gatv2_lanes`) leaves a lane
     one channel, four sub-warps (two where it leaves two), as far as the
-    head's lanes divide; one elsewhere."""
+    head's lanes divide; one elsewhere.  A head past ``K9_MAX_HEAD``
+    channels (one a call): the wide kernels, ``p = 0``, 8 sign words a pass
+    of 256 channels."""
+    if ch > K9_MAX_HEAD:
+        if heads != 1:
+            raise ValueError("K11 takes a head past 256 channels alone")
+        return K11Plan(1, 0, 8 * -(-int(ch) // 256))
     lph, per_lane = gatv2_lanes(heads, ch)
     s = min(lph, {1: 4, 2: 2}.get(per_lane, 1))
     p = -(-int(ch) // (lph // s))
@@ -1575,12 +1824,15 @@ def k11_scratch(n_slots: int, n: int, heads: int, ch: int, max_blocks: int,
                 dev) -> Tuple[torch.Tensor, ...]:
     """K11's scratch for one call: per slot and head the float2 (alpha keep,
     ds), per slot :func:`k11_plan`'s words of msg signs, and the
-    destination pass's block partials (``max_blocks``, 2 H C) float64."""
-    return (torch.empty((n_slots, heads, 2), dtype=torch.float32, device=dev),
+    destination pass's block partials (``max_blocks``, 2 H C) float64.  The
+    wide kernels keep (alpha keep, ds) in float64 and a partial a warp."""
+    wide = k11_plan(heads, ch).p == 0
+    return (torch.empty((n_slots, heads, 4 if wide else 2),
+                        dtype=torch.float32, device=dev),
             torch.empty((n_slots, k11_plan(heads, ch).words),
                         dtype=torch.int32, device=dev),
-            torch.empty((max_blocks if n else 0, 2 * heads * ch),
-                        dtype=torch.float64, device=dev))
+            torch.empty(((8 if wide else 1) * max_blocks if n else 0,
+                         2 * heads * ch), dtype=torch.float64, device=dev))
 
 
 class _GATv2SoftmaxAgg(torch.autograd.Function):
@@ -1589,19 +1841,26 @@ class _GATv2SoftmaxAgg(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, keep, w_src, w_dst, we, we_loop, att):
+        # on the card K11 takes K9's own scores; the CPU's plain backward
+        # evaluates them as the plain forward did, to the same bits
+        scores = None if _is_cpu(w_src) else torch.empty(
+            (g.n_slots, att.shape[0]), dtype=torch.float32,
+            device=w_src.device)
         out, lse = _gatv2_forward(g, w_src, w_dst, we, we_loop, att, keep,
-                                  True)
+                                  True, scores=scores)
         ctx.g = g
-        ctx.save_for_backward(w_src, w_dst, we, we_loop, att, keep, lse, out)
+        ctx.save_for_backward(w_src, w_dst, we, we_loop, att, keep, lse, out,
+                              scores)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        w_src, w_dst, we, we_loop, att, keep, lse, out = ctx.saved_tensors
+        (w_src, w_dst, we, we_loop, att, keep, lse, out,
+         scores) = ctx.saved_tensors
         return (None, None) + gatv2_softmax_agg_bwd(
             ctx.g, w_src, w_dst, we, we_loop, att, keep, lse, out,
-            dout.contiguous())
+            dout.contiguous(), scores)
 
 
 def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
@@ -1614,9 +1873,11 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
     projected nodes, ``we`` (n_real, heads * ch) the projected edge features,
     ``we_loop`` (heads * ch,) the self-loops' shared row, ``att`` (heads,
     ch), ``keep`` (n_real + n, heads) an optional dropout keep-scale on alpha
-    in the CSR's slot order.  The kernel takes heads * ch <= 256 (see
-    :func:`gatv2_lanes`).  When an input requires a gradient, the call is an
-    autograd node whose backward is K11."""
+    in the CSR's slot order.  The kernel takes any width (:func:`k9_plan`:
+    head groups, and a warp a head past ``K9_MAX_HEAD`` channels).  When an
+    input requires a
+    gradient, the call is an autograd node whose backward is K11 (in head
+    groups, :func:`k11_groups`)."""
     tensors = (w_src, w_dst, we, we_loop, att)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _GATv2SoftmaxAgg.apply(g, keep, *tensors)
@@ -1628,7 +1889,8 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 K10_CHUNK = 256          # nodes per block of the first pass
-K10_MAX_D = 256          # kMaxD in graph_pool.cu and graph_pool_bwd.cu
+K10_MAX_D = 256          # columns a block (kMaxD in graph_pool*.cu): wider
+                         # rows are cut into column blocks of this width
 
 
 @dataclasses.dataclass
@@ -1745,8 +2007,8 @@ def graph_pool_bwd_plain(seg: GraphSegments, x, score, keep, out, stats,
 
 
 def _check_pool(seg: GraphSegments, x, score, keep, dev):
-    if x.dim() != 2 or not 1 <= x.shape[1] <= K10_MAX_D:
-        raise ValueError(f"x must be (N, d) with d <= {K10_MAX_D}, got "
+    if x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"x must be (N, d) with d >= 1, got "
                          f"{tuple(x.shape)}")
     n, d = x.shape
     B, nc = seg.num_graphs, seg.n_chunks
@@ -1843,7 +2105,8 @@ class _GraphPool(torch.autograd.Function):
 def graph_pool(seg: GraphSegments, x: torch.Tensor, score: torch.Tensor,
                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: per graph, ``[mean x | max x | softmax(score)-weighted sum of
-    x]`` -> (B, 3 d), from x (N, d) with d <= 256, the attention scores (N,)
+    x]`` -> (B, 3 d), from x (N, d) (column blocks of ``K10_MAX_D`` on the
+    card), the attention scores (N,)
     and an optional dropout keep-scale (N,) on the attention weights.  When
     an input requires a gradient, the call is an autograd node whose
     backward is K12."""

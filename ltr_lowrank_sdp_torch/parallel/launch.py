@@ -24,7 +24,8 @@ TIMEOUT_S = 600.0       # a collective that waits longer than this fails
 
 
 def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
-               store: str, out_dir: str, args: Sequence) -> None:
+               store: str, out_dir: str, args: Sequence,
+               timeout: float) -> None:
     torch.set_num_threads(1)
     os.environ["LOCAL_RANK"] = str(rank)
     card = None
@@ -34,7 +35,7 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
         torch.cuda.set_device(card)
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world_size,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+                            timeout=datetime.timedelta(seconds=timeout),
                             device_id=card)
     try:
         result = fn(*args)
@@ -49,16 +50,18 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence = (),
-          backend: str = "gloo") -> List:
+          backend: str = "gloo", timeout: float = TIMEOUT_S) -> List:
     """Run ``fn(*args)`` on ``world_size`` new processes joined in one
     process group (``backend``: ``"gloo"``, which also all-reduces CUDA
     tensors through the host, or ``"nccl"``) and return the list of their
     results, by rank.  ``fn`` and its results must pickle; each rank runs
-    one torch thread (the ranks share the host's cores)."""
+    one torch thread (the ranks share the host's cores).  A collective
+    that waits ``timeout`` seconds fails its rank."""
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(
             _rank_main, args=(fn, world_size, backend,
-                              os.path.join(tmp, "store"), tmp, tuple(args)),
+                              os.path.join(tmp, "store"), tmp, tuple(args),
+                              timeout),
             nprocs=world_size, join=True, start_method="spawn")
         out = []
         for r in range(world_size):

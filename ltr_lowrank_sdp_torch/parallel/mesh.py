@@ -46,6 +46,17 @@ class Mesh:
         """This rank's index along ``axis``."""
         return self.coords[self.axis_names.index(axis)]
 
+    def agree(self, axis: str, *flags: bool) -> Tuple[bool, ...]:
+        """Each flag as set on any rank of this rank's line along ``axis``,
+        the same on every rank of it: one ``all_reduce(MAX)`` of the flags.
+        A sharded solve passes its stop decisions (time up, interrupted)
+        through here, so that its ranks take one branch in one iteration, as
+        the JAX package's single SPMD program does."""
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32,
+                         device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.groups[axis])
+        return tuple(bool(v) for v in t.tolist())
+
 
 def make_mesh(batch: Optional[int] = None, axis_names=("batch", "constr"),
               device=None) -> Mesh:

@@ -49,7 +49,8 @@ from ..config import SolverParams
 from ..ops.cg import cg_solve
 from ..ops.compsum import cvdot
 from . import interrupt
-from .common import Factors, HostSync, ProblemConsts, primal_infeas_l1
+from .common import (Factors, HostSync, ProblemConsts, own_flags,
+                     primal_infeas_l1)
 
 CODE_RUN = 0
 CODE_CONVERGED = 1
@@ -122,8 +123,10 @@ class ADMMInfo:
 
 class ADMMPhase:
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
-                 params: SolverParams, shapes, sync: HostSync, lp=None):
+                 params: SolverParams, shapes, sync: HostSync, lp=None,
+                 agree=own_flags):
         self.cones = cones
+        self.agree = agree      # the stop flags of every rank (driver)
         self.lp = lp
         self.has_lp = lp is not None
         self.b = b
@@ -457,10 +460,13 @@ class ADMMPhase:
                     if plateau_chunks >= max(2, (6 * 25) // chunk):
                         info.plateau = True
                         break
-            if time.time() - time_start >= p.time_sec_limit:
+            time_up, intr = self.agree(
+                time.time() - time_start >= p.time_sec_limit,
+                interrupt.interrupted())
+            if time_up:
                 info.time_limit = True
                 break
-            if interrupt.interrupted():
+            if intr:
                 info.interrupted = True
                 break
         if ctrl.code == CODE_RUN and not (info.time_limit or info.interrupted

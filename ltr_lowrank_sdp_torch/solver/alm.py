@@ -44,7 +44,8 @@ from ..ops.compsum import cvdot
 from ..ops.cubic import quartic_argmin, quartic_coeffs
 from . import interrupt
 from .common import (Factors, HostSync, ProblemConsts, alm_gradient,
-                     flatten_factors, primal_infeas_l1, unflatten_factors)
+                     flatten_factors, own_flags, primal_infeas_l1,
+                     unflatten_factors)
 
 # outer-step exit codes (the JAX package's values)
 CODE_CONTINUE = 0
@@ -168,8 +169,10 @@ class ALMPhase:
     """The ALM phase for a fixed rank signature."""
 
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
-                 params: SolverParams, shapes, sync: HostSync, lp=None):
+                 params: SolverParams, shapes, sync: HostSync, lp=None,
+                 agree=own_flags):
         self.cones = cones
+        self.agree = agree      # the stop flags of every rank (driver)
         self.lp = lp
         self.has_lp = lp is not None
         self.b = b
@@ -587,9 +590,12 @@ class ALMPhase:
             if code == CODE_MAXITER:
                 info.rank_flag = 0
                 return carry, info
-            if time.time() - time_start >= p.time_sec_limit:
+            time_up, intr = self.agree(
+                time.time() - time_start >= p.time_sec_limit,
+                interrupt.interrupted())
+            if time_up:
                 info.time_limit = True
                 return carry, info
-            if interrupt.interrupted():
+            if intr:
                 info.interrupted = True
                 return carry, info

@@ -61,6 +61,13 @@ class HostSync:
         return torch.cat([x.reshape(-1) for x in xs]).tolist()
 
 
+def own_flags(*flags: bool) -> Tuple[bool, ...]:
+    """The stop decisions (time up, interrupted) of a solve on one rank: its
+    own, as read.  A sharded solve combines them over its ranks instead
+    (``Mesh.agree``)."""
+    return tuple(bool(f) for f in flags)
+
+
 def flatten_factors(R: Factors, rlp=None) -> torch.Tensor:
     """One vector of all factors, cone by cone, the LP vector last (the
     order fixes the rounding of the L-BFGS dot products)."""

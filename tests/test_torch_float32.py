@@ -185,7 +185,7 @@ def test_gatv2_lanes_take_every_width_up_to_256(heads, ch, want):
 @pytest.mark.parametrize("heads,ch", [(4, 72), (3, 72), (2, 129), (64, 1),
                                       (1, 257)])
 def test_gatv2_lanes_refuse_wider_rows(heads, ch):
-    with pytest.raises(ValueError, match="heads \\* channels <= 256"):
+    with pytest.raises(ValueError, match="K11"):
         K.gatv2_lanes(heads, ch)
 
 

@@ -15,7 +15,8 @@ that sensitive: perturbing its Y0 by 1e-15 relative moves its own final
 pobj by 3.1e-7 relative, its dval by 7.0e-8 and its Y by 0.05.  Y is not
 unique (Y Q is as good for any orthogonal Q), so X = Y Y^T is compared.
 ``PYTHONPATH=. python tests/test_torch_hallar_solve.py`` prints these
-numbers (:func:`reference_spread`).
+numbers (:func:`reference_spread`) and the float32 case's per-step evidence
+(:func:`float32_stop_evidence`).
 """
 
 import numpy as np
@@ -122,17 +123,26 @@ def test_spec_case_matches_the_jax_solve(case, obj_tol, x_tol):
 
 def test_float32_min_eig_matches_the_jax_float32_solve():
     """float32 (``HallarParams(dtype="float32")``) on K4-K6's float32
-    instances.  The port's <C, X> is K4's float64 sum rounded to float32
-    where JAX sums in float32, so the float32 stop test (which needs Y_n and
-    Z equal to the bit) fires in JAX after 132 steps and not in the port
-    (10,000); the objectives agree to 1e-6 relative, and both to 1e-6 of the
-    float64 optimum."""
+    instances, <C, X> summed in float32 as JAX's ``jnp.sum`` sums it.  The
+    float32 stop test ``L ||Y_n - Z|| <= 1e-8 (1 + ||Y_n||)`` needs Y_n and Z
+    equal to the bit, so it fires only once the backtracking has grown L
+    past the gradient's last bit; how often a test fails there is rounding
+    noise in the values (the two packages part at step 0 by an ulp, in their
+    L sequence at step 16), so the step at which it stops depends on the
+    order of every float32 sum.  <C, X> sums in K4's own fixed order on the
+    CPU as on the card (the same bits on both, whatever the CPU's vector
+    width).  With <C, X> in float64 the port never stopped (10,000 steps);
+    in float32 its one inner solve stops after 2,922 steps on the CPU, JAX's
+    after 132: the port must stop before its cap.  The objectives agree to
+    1e-6 relative, and both to 1e-6 of the float64 optimum."""
     (pt, lam), (pj, _) = min_eig_problem(TS), min_eig_problem(JS)
     got, ref = solve_both(pt, pj, eps_gap=1e-4, maxiter_hallar=200,
                           lanczos_iters=24, dtype="float32")
     assert got.Y.dtype == np.float32 and got.p.dtype == np.float32
     print("f32", rel(got.pobj, ref.pobj), rel(got.dval, ref.dval),
           got.fista_steps)
+    assert got.iters == 1
+    assert got.fista_steps < TS.HallarParams().maxiter_fista
     assert rel(got.pobj, ref.pobj) <= 1e-6
     assert rel(got.dval, ref.dval) <= 1e-6
     assert rel(got.pobj, lam) <= 1e-6 and rel(ref.pobj, lam) <= 1e-6
@@ -183,9 +193,128 @@ def reference_spread():
               f"{np.abs(np.asarray(Yj) - Yt.numpy()).max():.2e}")
 
 
+def float32_stop_evidence(max_steps=600):
+    """The evidence for the float32 min-eig bound above, printed: the first
+    inner solve of that case stepped in both packages from the same Y0, L0,
+    p and beta (the port's machine steps grouped into FISTA steps), with
+    <C, YY^T> summed as the port sums it (float32, K4's order), by
+    ``torch.sum`` in float32, in float64, and in other float32 orders of its
+    terms: the first step where Y or fz part, the
+    first where L or the accept bit parts, the failed backtracking tests in
+    JAX's steps, L at JAX's last step and the step at which each stops."""
+    (pt, _), (pj, _) = min_eig_problem(TS), min_eig_problem(JS)
+    kw = dict(eps_gap=1e-4, maxiter_hallar=200, lanczos_iters=24,
+              dtype="float32")
+    first = {}
+    orig = TS.fista
+
+    def record(ops, params, Y0, p, beta, L0, counters):
+        first.setdefault("args", (Y0.clone(), p.clone(), beta, L0))
+        return orig(ops, params, Y0, p, beta, L0, counters)
+
+    TS.fista = record
+    try:
+        TS.hallar_solve(pt, TS.HallarParams(**kw), device="cpu",
+                        lanczos_start=jax_start("float32"))
+    finally:
+        TS.fista = orig
+    Y0, p, beta, L0 = first["args"]
+    jops, jp = JS._Ops(pj, jnp.float32), JS.HallarParams(**kw)
+
+    def al(Y):
+        resid = jops.AX(Y) - jops.b
+        val = (jops.CX(Y) + jnp.vdot(p.numpy(), resid)
+               + 0.5 * beta * jnp.vdot(resid, resid))
+        return val, 2.0 * jops.SY(p.numpy() + beta * resid, Y)
+
+    @jax.jit
+    def jax_step(Y, Z, tk, L):       # _make_fista's body, counting bt
+        fz, gz = al(Z)
+
+        def bt_cond(c):
+            Yn = jops.project(Z - gz / c[0])
+            diff = Yn - Z
+            return ((al(Yn)[0] > fz + jnp.vdot(gz, diff)
+                     + 0.5 * c[0] * jnp.vdot(diff, diff) + 1e-12)
+                    & (c[0] < 1e12))
+
+        L, n_bt = jax.lax.while_loop(
+            bt_cond, lambda c: (c[0] * jp.L_inc_fista, c[1] + 1), (L, 0))
+        Yn = jops.project(Z - gz / L)
+        tn = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * tk * tk))
+        done = L * jnp.linalg.norm(Yn - Z) <= jp.err_tol_fista * (
+            1.0 + jnp.linalg.norm(Yn))
+        return (Yn, Yn + ((tk - 1.0) / tn) * (Yn - Y), tn,
+                jnp.maximum(L / jp.L_inc_fista, jp.L0_fista), done, L, n_bt,
+                fz)
+
+    Y = Z = jnp.asarray(Y0.numpy())
+    tk, L, ref = jnp.float32(1.0), jnp.float32(L0), []
+    while len(ref) < max_steps:
+        Y, Z, tk, L, done, L_used, n_bt, fz = jax_step(Y, Z, tk, L)
+        ref.append((float(L_used), int(n_bt), np.asarray(Y), float(fz)))
+        if done:
+            break
+
+    def terms(self, Yt):
+        return self.c_dbl * torch.sum(Yt[self.c_rows.long()]
+                                      * Yt[self.c_cols.long()], dim=-1)
+
+    def strided(w):
+        def cx(self, Yt):
+            t = terms(self, Yt)
+            acc = torch.cat([t, t.new_zeros(-t.numel() % w)]).view(
+                -1, w).cumsum(0)[-1]
+            while acc.numel() > 1:
+                acc = acc[:acc.numel() // 2] + acc[acc.numel() // 2:]
+            return acc[0]
+        return cx
+
+    orders = {"port (float32 sum, K4's order)": TS._Ops.CX,
+              "torch.sum in float32": lambda self, Yt: torch.sum(
+                  terms(self, Yt)),
+              "float64 sum": lambda self, Yt: torch.sum(
+                  terms(self, Yt).double()).float(),
+              "sequential": lambda self, Yt: torch.cumsum(
+                  terms(self, Yt), 0)[-1],
+              "16 strided sums": strided(16), "32 strided sums": strided(32)}
+    params = TS.HallarParams(**kw)
+    try:
+        for name, cx in orders.items():
+            TS._Ops.CX = cx
+            ops = TS._Ops(pt, torch.float32, "cpu")
+            val, val_grad = TS.al_functions(ops, p, beta)
+            st, got, n_bt = TS.fista_init(Y0, L0, val_grad), [], 0
+            while not bool(st.done) and int(st.k) < params.maxiter_fista:
+                L_before, k_before = float(st.L), int(st.k)
+                fz = float(st.fz)
+                st = TS._machine_step(st, ops, params, val, val_grad)
+                if int(st.k) > k_before:
+                    got.append((L_before, n_bt, st.Y.numpy().copy(), fz))
+                    n_bt = 0
+                else:
+                    n_bt += 1
+            pair = list(zip(ref, got))
+            bits = next((k for k, (a, b) in enumerate(pair)
+                         if a[3] != b[3] or not np.array_equal(a[2], b[2])),
+                        None)
+            ctrl = next((k for k, (a, b) in enumerate(pair)
+                         if a[:2] != b[:2]), None)
+            print(f"float32 min-eig, first inner solve, <C, X> by {name}: "
+                  f"steps JAX {len(ref)}, port {len(got)}; Y or fz part at "
+                  f"step {bits}, L or the accept bit at step {ctrl}; failed "
+                  f"tests in JAX's steps: JAX {sum(r[1] for r in ref)}, "
+                  f"port {sum(g[1] for g in got[:len(ref)])}; L at JAX's "
+                  f"last step: JAX {ref[-1][0]:g}, port "
+                  f"{got[min(len(ref), len(got)) - 1][0]:g}")
+    finally:
+        TS._Ops.CX = orders["port (float32 sum, K4's order)"]
+
+
 if __name__ == "__main__":
     # PYTHONPATH=. python tests/test_torch_hallar_solve.py (a few minutes)
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(1)
+    float32_stop_evidence()
     reference_spread()

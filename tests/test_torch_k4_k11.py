@@ -231,6 +231,108 @@ def _k4_inputs(case, n, r, dev, dtype):
 K4_SIZES = {"hallar": 3000, "dense": 300, "maxcut": 4096}
 
 
+def _k4_acc32_loop(rows, cols, coef, U, V):
+    """K4's float32-summing instance written out lane by lane as the source
+    reads (numpy float32 scalars, each product and sum rounded): entries of
+    a chunk's warp by steps of 32 / G, a lane's columns in passes, coef times
+    a lane's column sum added in step order, the xor tree over 32 lanes, the
+    balanced tree over 8 warps, then chunks by thread and the same trees."""
+    f = np.float32
+    same = U is V
+    nnz, r = len(rows), U.shape[1]
+    g, cpl = K.lane_group(r)
+    chunks = -(-nnz // 256)
+
+    def tree(v):
+        while len(v) > 1:
+            v = [f(v[i] + v[i + len(v) // 2]) for i in range(len(v) // 2)]
+        return v[0]
+
+    def warps(ws):
+        return f(f(f(ws[0] + ws[1]) + f(ws[2] + ws[3]))
+                 + f(f(ws[4] + ws[5]) + f(ws[6] + ws[7])))
+
+    part = []
+    for c in range(chunks):
+        ws = []
+        for w in range(8):
+            lanes = []
+            for lane in range(32):
+                q, lig = divmod(lane, g)
+                acc = f(0)
+                for step in range(g):
+                    e = c * 256 + w * 32 + step * (32 // g) + q
+                    if e >= nnz:
+                        continue
+                    i, j, d = rows[e], cols[e], f(0)
+                    for c0 in range(0, r, g * cpl):
+                        for k in range(cpl):
+                            col = c0 + lig + g * k
+                            if col >= r:
+                                continue
+                            if same:
+                                d = f(d + f(U[i, col] * U[j, col]))
+                            else:
+                                d = f(d + f(f(U[i, col] * V[j, col])
+                                            + f(U[j, col] * V[i, col])))
+                    acc = f(acc + f(coef[e] * (d if same else f(f(0.5) * d))))
+                lanes.append(acc)
+            ws.append(tree(lanes))
+        part.append(warps(ws))
+    threads = []
+    for t in range(256):
+        acc = f(0)
+        for cc in range(t, chunks, 256):
+            acc = f(acc + part[cc])
+        threads.append(acc)
+    return warps([tree(threads[w * 32:(w + 1) * 32]) for w in range(8)])
+
+
+@pytest.mark.parametrize("nnz,r,same", [
+    (0, 3, True), (1, 5, False), (600, 1, True), (600, 2, False),
+    (600, 7, True), (600, 19, False), (600, 40, True), (300, 300, True),
+    (66000, 1, True)])
+def test_k4_acc32_plain_follows_the_kernel_order(nnz, r, same):
+    """The plain float32-summing K4 (HALLaR's float32 ``CX``) gives the bits
+    of the kernel's order written out lane by lane, so the CPU and the card
+    agree to the bit: one chunk and several, a lane group of 1 to 32, two
+    column passes (r = 300), more than 256 chunks (the last block's walk)."""
+    rng = np.random.default_rng(nnz + r)
+    n = 50
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, n, nnz)
+    coef = (rng.standard_normal(nnz) * 10.0 ** rng.integers(
+        -3, 3, nnz)).astype(np.float32)
+    U = rng.standard_normal((n, r)).astype(np.float32)
+    V = U if same else rng.standard_normal((n, r)).astype(np.float32)
+    want = _k4_acc32_loop(rows, cols, coef, U, V)
+    tu = torch.tensor(U)
+    got = K.sym_contract_sum_plain(torch.tensor(rows), torch.tensor(cols),
+                                   torch.tensor(coef), tu,
+                                   tu if same else torch.tensor(V),
+                                   acc32=True)
+    assert got.dtype == torch.float32
+    assert got.numpy().tobytes() == np.float32(want).tobytes()
+
+
+@cuda
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("r", K4_RANKS)
+@pytest.mark.parametrize("case", ["hallar", "dense", "maxcut"])
+def test_k4_acc32_gives_the_cpu_plain_bits(dev, case, r, same):
+    """K4's float32-summing instance on the card and its plain version on
+    the CPU give the same bits, at every grid of the plan."""
+    rows, cols, coef, U, V = _k4_inputs(case, K4_SIZES[case], r, dev,
+                                        torch.float32)
+    V = U if same else V
+    Uc = U.cpu()
+    want = K.sym_contract_sum_plain(rows.cpu(), cols.cpu(), coef.cpu(), Uc,
+                                    Uc if same else V.cpu(), acc32=True)
+    for plan in K.k4_plans(rows.numel(), r, K.k4_cap(U, same, True)):
+        got = K.sym_contract_sum_with(plan, rows, cols, coef, U, V, True)
+        assert torch.equal(got.cpu(), want), plan.describe()
+
+
 @cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("r", K4_RANKS)
@@ -369,16 +471,19 @@ def _k11_case(heads, ch, dev, keep, n=2000, e=40_000, seed=0):
                                       (2, 48), (4, 24), (4, 64)])
 def test_k11_matches_float64_plain_at_the_width_phase_shapes(dev, heads, ch,
                                                              keep):
+    """K11 on K9's lse, out and scores (the training path's inputs) against
+    the plain backward in float64 on the same inputs."""
     g, args, kp = _k11_case(heads, ch, dev, keep)
-    out, lse = K._gatv2_forward(g, *args, kp, True)
+    sc = torch.empty((g.n_slots, heads), device=dev)
+    out, lse = K._gatv2_forward(g, *args, kp, True, scores=sc)
     dout = torch.randn(out.shape, generator=torch.Generator(
         device=dev).manual_seed(5), device=dev)
-    got = K.gatv2_softmax_agg_bwd(g, *args, kp, lse, out, dout)
-    again = K.gatv2_softmax_agg_bwd(g, *args, kp, lse, out, dout)
+    got = K.gatv2_softmax_agg_bwd(g, *args, kp, lse, out, dout, sc)
+    again = K.gatv2_softmax_agg_bwd(g, *args, kp, lse, out, dout, sc)
     torch.cuda.synchronize()
     want = K.gatv2_softmax_agg_bwd_plain(
         g, *(t.double() for t in args), None if kp is None else kp.double(),
-        lse.double(), out.double(), dout.double())
+        lse.double(), out.double(), dout.double(), sc.double())
     floor = 1e-6 * max(float(w.abs().max()) for w in want)
     for a, b, c in zip(got, want, again):
         assert a.shape == b.shape and a.dtype == torch.float32

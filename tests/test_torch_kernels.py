@@ -516,7 +516,9 @@ def _gat_inputs(case, dev):
     edges, existing self-loops, a hub node with 100 incoming edges (several
     32-edge index loads), or no edge at all; heads x channels from the case
     name (every width the tuner samples, channel counts that are not powers
-    of two, 3 heads, and the widest row K9 takes, 4 x 64)."""
+    of two, 3 heads, 4 x 64, rows past 256 channels: 3 x 96, 8 x 64, 4 x
+    128 and one head of 256, odd and even channel counts for the scalar and float2 loads,
+    and heads past 256 channels, the wide kernels: 1 x 300, 2 x 261)."""
     heads, ch = {"no-edges": (4, 16), "hub": (4, 16)}.get(case) or tuple(
         int(v) for v in case.split("x"))
     rng = np.random.default_rng(len(case))
@@ -540,7 +542,8 @@ def _gat_inputs(case, dev):
 
 
 GAT_CASES = ["4x16", "2x32", "8x8", "no-edges", "hub", "2x16", "4x12",
-             "4x20", "2x48", "4x24", "3x32", "4x64"]
+             "4x20", "2x48", "4x24", "3x32", "4x64", "3x96", "8x64", "1x256",
+             "2x128", "4x128", "3x13", "5x6", "1x300", "2x261"]
 
 
 @cuda
@@ -554,13 +557,34 @@ def test_gatv2_softmax_agg(dev, case):
     assert _maxrel(got, want) <= F32_TOL
     assert torch.equal(K.gatv2_softmax_agg(*args), got)   # no atomics
     assert K.KERNELS["gatv2_softmax_agg"].launches == before + 2
+    # every launch plan of the shape gives the same bits, in the serve and
+    # in the training instance (out and lse)
+    heads, ch = args[-1].shape
+
+    def train_call(plan):
+        sc = torch.empty((args[0].n_slots, heads), device=dev)
+        return K.gatv2_softmax_agg_with(plan, *args, with_lse=True,
+                                        scores=sc) + (sc,)
+
+    train = train_call(None)
+    assert torch.equal(train[0], got)
+    # the scores handed to K11: the training instance's own
+    want_s = K._gatv2_messages(*_f64(args))[2]
+    assert _maxrel(train[2], want_s) <= F32_TOL
+    for plan in K.k9_plans(heads, ch):
+        again, _ = K.gatv2_softmax_agg_with(plan, *args)
+        assert torch.equal(again, got), plan.describe()
+        again = train_call(plan)
+        assert all(torch.equal(a, b) for a, b in zip(again, train)), \
+            plan.describe()
 
 
 @cuda
 @pytest.mark.parametrize("counts,d", [
     ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
     ((0,), 32), ((1000, 3), 128), ((700, 256, 257), 96),
-    ((1000, 3), 200), ((85080,), 256)])
+    ((1000, 3), 200), ((85080,), 256), ((700, 256, 257), 384),
+    ((5, 0, 300, 1), 600)])
 def test_graph_pool(dev, counts, d):
     seg = K.GraphSegments.from_counts(counts, dev)
     gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
@@ -594,20 +618,20 @@ def test_gnn_wrappers_reject_what_the_kernels_do_not_take(dev):
                             w_dst[:, :32].contiguous(),
                             we[:, :32].contiguous(),
                             we_loop[:32].contiguous(), att)
-    # wider than K9 takes: 4 x 72 = 288, and 3 heads x 72 channels (three
-    # heads take 8 lanes each, so at most 64 channels)
-    for heads, ch in ((4, 72), (3, 72)):
-        wide = torch.zeros((g.n, heads * ch), device=dev)
-        with pytest.raises(ValueError, match="heads \\* channels <= 256"):
-            K.gatv2_softmax_agg(
-                g, wide, wide, torch.zeros((g.n_real, heads * ch),
-                                           device=dev),
-                torch.zeros(heads * ch, device=dev),
-                torch.zeros((heads, ch), device=dev))
+    # K11 without K9's scores
+    with pytest.raises(ValueError, match="scores"):
+        K.gatv2_softmax_agg_bwd(g, w_src, w_dst, we, we_loop, att, None,
+                                torch.zeros((g.n, 4), device=dev),
+                                w_src, w_src)
+    # a launch plan that is not one of the shape's (every width runs)
+    with pytest.raises(ValueError, match="not a launch"):
+        K.gatv2_softmax_agg_with(
+            dataclasses.replace(K.k9_plan(4, 16), p=8), g, w_src, w_dst, we,
+            we_loop, att)
     seg = K.GraphSegments.from_counts((10, 20), dev)
     x = torch.zeros((30, 260), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="d <= 256"):
-        K.graph_pool(seg, x, torch.zeros(30, device=dev))
+    with pytest.raises(ValueError, match="d >= 1"):
+        K.graph_pool(seg, x[:, 0].contiguous(), torch.zeros(30, device=dev))
     with pytest.raises(ValueError, match="nodes"):
         K.graph_pool(seg, x[:29, :64].contiguous(),
                      torch.zeros(29, device=dev))
@@ -698,25 +722,89 @@ def test_gatv2_softmax_agg_bwd(dev, case, dropout):
     heads = args[-1].shape[0]
     gen = torch.Generator(device=dev).manual_seed(17)
     keep = _keep((g.n_slots, heads), gen, dev) if dropout else None
-    out, lse = K._gatv2_forward(g, *args, keep, True)
+    sc = torch.empty((g.n_slots, heads), device=dev)
+    out, lse = K._gatv2_forward(g, *args, keep, True, scores=sc)
     want_out, want_lse = K._gatv2_plain(g, *_f64(args), None if keep is None
                                         else keep.double())
     assert _maxrel(out, want_out) <= F32_TOL
     assert _maxrel(lse, want_lse) <= F32_TOL
     dout = torch.randn(out.shape, generator=gen, device=dev)
     before = K.KERNELS["gatv2_softmax_agg_bwd"].launches
-    got = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout)
+    got = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout, sc)
     torch.cuda.synchronize()
-    # the plain backward in float64 on the kernel's own inputs (K9's lse and
-    # out included); with no edge every slot is a self-loop, alpha = 1 and
-    # d_w_dst, d_we_loop and d_att vanish
+    # the plain backward in float64 on the kernel's own inputs (K9's lse, out
+    # and scores included); with no edge every slot is a self-loop, alpha = 1
+    # and d_w_dst, d_we_loop and d_att vanish
     want = K.gatv2_softmax_agg_bwd_plain(
         g, *_f64(args), None if keep is None else keep.double(),
-        lse.double(), out.double(), dout.double())
+        lse.double(), out.double(), dout.double(), sc.double())
     _check_outputs(got, want)
-    again = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout)
+    again = K.gatv2_softmax_agg_bwd(g, *args, keep, lse, out, dout, sc)
     assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
-    assert K.KERNELS["gatv2_softmax_agg_bwd"].launches == before + 2
+    # two calls, each one launch of K11 a head group (``k11_groups``)
+    calls = len(K.k11_groups(heads, args[-1].shape[1]))
+    assert K.KERNELS["gatv2_softmax_agg_bwd"].launches == before + 2 * calls
+
+
+@pytest.mark.parametrize("case", ["4x16", "4x128", "1x256"])
+def test_k11_plain_takes_the_forwards_scores(case):
+    """The plain backward with the forward's own scores: in float32 the
+    same bits as scores it evaluates itself (one function, one order); in
+    float64 on float32 inputs with the float32 forward's scores, as K11 runs
+    on K9's, within F32_TOL of the float64 chain in every output, the
+    cancelling sums included."""
+    cpu = torch.device("cpu")
+    g, *args = _gat_inputs(case, cpu)
+    o32, l32 = K._gatv2_plain(g, *args)
+    s32 = K._gatv2_messages(g, *args)[2]
+    dout = torch.randn(o32.shape, generator=torch.Generator().manual_seed(19))
+    own = K.gatv2_softmax_agg_bwd_plain(g, *args, None, l32, o32, dout, s32)
+    mine = K.gatv2_softmax_agg_bwd_plain(g, *args, None, l32, o32, dout)
+    assert all(torch.equal(a, b) for a, b in zip(own, mine))
+    a64 = _f64(args)
+    o64, l64 = K._gatv2_plain(g, *a64)
+    want = K.gatv2_softmax_agg_bwd_plain(g, *a64, None, l64, o64,
+                                         dout.double())
+    _check_outputs(K.gatv2_softmax_agg_bwd_plain(
+        g, *a64, None, l32.double(), o32.double(), dout.double(),
+        s32.double()), want)
+
+
+@cuda
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("case", [c for c in GAT_CASES if c != "no-edges"])
+def test_k9_then_k11_matches_the_float64_chain(dev, case, dropout):
+    """K11 on K9's own lse, out and scores, as the autograd node runs them,
+    against the float64 forward and backward of the same float32 inputs:
+    d_w_dst, d_we_loop and d_att are sums that cancel, which hold only where
+    K11's softmax weights are the ones K9 aggregated with.  Each output is
+    held to F32_TOL of its largest value, or to twice the float32 plain
+    chain's own error where that chain comes near F32_TOL itself (a head of
+    256 channels).  Not on a graph without edges: there
+    those three are 0 only in exact arithmetic (out = keep w_src rounds to
+    float32), and the float32 plain chain itself misses them by 2 to 8 times
+    their floor; ``test_gatv2_softmax_agg_bwd`` holds that case on K11's own
+    inputs."""
+    g, *args = _gat_inputs(case, dev)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    heads = args[-1].shape[0]
+    keep = _keep((g.n_slots, heads), gen, dev) if dropout else None
+    out = K.gatv2_softmax_agg(g, *leaves, keep=keep)
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    out.backward(dout)
+    a64, k64 = _f64(args), None if keep is None else keep.double()
+    o64, l64 = K._gatv2_plain(g, *a64, k64)
+    want = K.gatv2_softmax_agg_bwd_plain(g, *a64, k64, l64, o64,
+                                         dout.double())
+    o32, l32 = K._gatv2_plain(g, *args, keep)
+    plain = K.gatv2_softmax_agg_bwd_plain(g, *args, keep, l32, o32, dout)
+    floor = 1e-6 * max(float(b.abs().max()) for b in want)
+    for a, p, b in zip((t.grad for t in leaves), plain, want):
+        scale = max(float(b.abs().max()), floor)
+        err_plain = float((p.double() - b).abs().max()) / scale
+        err = float((a.double() - b).abs().max()) / scale
+        assert err <= max(F32_TOL, 2.0 * err_plain), (err, err_plain)
 
 
 @cuda
@@ -724,7 +812,7 @@ def test_gatv2_softmax_agg_bwd(dev, case, dropout):
 @pytest.mark.parametrize("counts,d", [
     ((85080,), 64), ((5, 0, 300, 1), 64), ((700, 256, 257), 100),
     ((1000, 3), 128), ((700, 256, 257), 96), ((1000, 3), 200),
-    ((5, 0, 300, 1), 256)])
+    ((5, 0, 300, 1), 256), ((700, 256, 257), 384)])
 def test_graph_pool_bwd(dev, counts, d, dropout):
     seg = K.GraphSegments.from_counts(counts, dev)
     gen = torch.Generator(device=dev).manual_seed(sum(counts) + d)
