@@ -8,7 +8,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; no CUDA device -> exit 2 before anything else;
 2. build the thirteen CUDA kernels from ``ltr_lowrank_sdp_torch/csrc``
-   (nvcc, sm_90a, all sources at once);
+   (nvcc, sm_90a, all sources at once) and an empty kernel
+   (``launch_floor.cu``), whose time through the same ctypes path and
+   ``time_ms`` is the launch floor (``[launch-floor]``; every row of the
+   ``kernels`` line carries it as ``launch_floor_ms``);
 3. hold each kernel against its plain PyTorch version on the card, in
    float64, at the main paths' shapes: max relative error <= 1e-12, with the
    kernel's time, the plain version's time, the memory bound (bytes / 3.35
@@ -34,7 +37,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
    starting rank, which is the rank that solve ends at, and at 1, with the
    dense C @ Y product timed beside them; K7 and K8 at that path's LP
    shapes (60,000 entries, 20,000 columns, m = 2,400) and at ten times
-   that.  A final rank of phase 6 or 7 that phase 3 did not cover is held
+   that, K7 in both modes bitwise K7's order in plain PyTorch
+   (``[k7-plan]``, also in float32).  A final rank of phase 6 or 7
+   that phase 3 did not cover is held
    right after its solve.  Then the float32 kernel phase: K1-K4 on the
    MaxCut C at rank 20, K5 (pair) and K6 on the matrix-completion cone at
    rank 19, K7 (pair) and K8 on the multi-block + LP path's LP cone, each
@@ -132,7 +137,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
    library call computes) times beside the bound; every launch plan of K9's
    shape (``kernels.k9_plans``: one tile a batch, fewer sub-warps,
    scalar loads) gives the planned launch's bits on two calls, each timed
-   (``[k9-plan]``, here, at the training shapes and at every width);
+   (``[k9-plan]``, here, at the training shapes and at every width), and so
+   does every plan of K10 (``kernels.k10_plans``: rows loaded ahead,
+   float4 or scalar loads; ``[k10-plan]``, here, at the training shapes and
+   at every width of the width phase);
 10. the serve path: ``ltr_lowrank_sdp_torch.infer.main`` with ``runs/r5_theta``
    on ``theta_n300_d75`` and with ``--batch`` on the seeded test split, the
    counters set to 0 just before and read just after: K9 three launches
@@ -176,7 +184,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
    each against the plain version evaluated in float64 as above; then the
    same training step at ``--hidden-dim 96`` (4 heads of 24 channels) and
    ``--hidden-dim 512 --num-heads 8`` (8 heads of 64: head groups), weights
-   from ``init_params``, held to the same tolerances.
+   from ``init_params``, held to the same tolerances, and at ``--hidden-dim
+   512`` (4 heads of 128) on the two smallest graphs of the test split
+   (``[train-step-h512x4]``), held to the same tolerances, with the worst
+   leaf of the CPU's float32 step on that batch printed beside it (the
+   CPU's float32 step and the JAX package's own float32 step miss the
+   per-leaf 1e-4 at this width: ``tests/test_torch_f32_faults.py``).
    Then the entry point
    ``ltr_lowrank_sdp_torch.train.main(["--root", "dataset", "--epochs",
    "2", "--output-dir", ...])``, every other flag at its default (full width,
@@ -377,9 +390,16 @@ POOL_WIDTHS = (96, 256, 384)
 # full-width training steps at --hidden-dim 96 (r5_theta's 4 heads) and
 # 512 (--num-heads 8: 8 x 64, a row past 256 channels in head groups)
 WIDE_STEPS = ((96, None), (512, 8))
+# the 4 heads x 128 channels step, on the two smallest graphs of the seeded
+# test split, held to GRAD_TOL as the other steps; the CPU's float32 step on
+# that batch (printed, on a fixed number of threads) misses GRAD_TOL, and so
+# does the JAX package's own (tests/test_torch_f32_faults.py)
+SMALL_STEP = (512, 4)
+SMALL_STEP_GRAPHS = 2
+SMALL_STEP_THREADS = 4
 # HALLaR's float32 min-eig case, card against CPU: both stop before the
-# inner loop's cap (their steps differ: <C, YY^T> sums in float32 in two
-# orders), pobj within this of each other
+# inner loop's cap (their steps differ by rounding), pobj within this of
+# each other
 HALLAR_F32_POBJ_RTOL = 1e-6
 K4_ACC32_TOL = 1e-5       # K4 summing in float32: of the sum of |terms|
 # the HALLaR path: its CLI on the matrix completion that the HALLaR binary's
@@ -1146,7 +1166,48 @@ def check_lp_kernels(K, lp, dev, tag):
             and torch.equal(K.lp_col_wsum(lp, w, 0.37),
                             K.lp_col_wsum(lp, w, 0.37)),
             f"K7/K8 {shape}: two calls gave different bits")
+    check_k7_plans(K, lp, u, v, shape)
     return rows
+
+
+def _tup(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_k7_plans(K, lp, u, v, tag) -> None:
+    """``[k7-plan]``: K7's one plan (a warp a constraint), in pair and
+    single mode, against K7's order in plain PyTorch on the card
+    (``lp_constr_segsum_order``, the same roundings) bit for bit."""
+    for pair in (True, False):
+        want = _tup(K.lp_constr_segsum(lp, u, v, pair=pair))
+        order = _tup(K.lp_constr_segsum_order(lp, u, v, pair))
+        require(all(torch.equal(a, b) for a, b in zip(order, want)),
+                f"K7 {tag}: the plain order's bits differ from the kernel's")
+        print(f"[k7-plan] {tag} {'pair' if pair else 'single'} (a warp a "
+              f"constraint): the plain order's bits", flush=True)
+
+
+def check_k10_plans(K, seg, x, score, keep, train, tag) -> str:
+    """``[k10-plan]``: K10 with every plan of ``k10_plans`` (rows loaded
+    ahead, float4 or scalar loads), each against the planned launch bit for
+    bit, each timed.  Returns the planned launch's description."""
+    def call(plan):
+        return K.graph_pool_with(plan, seg, x, score, keep, train)
+
+    want = call(None)
+    plans = K.k10_plans(x.shape[1], x.data_ptr() % 16 == 0)
+    times = []
+    for plan in plans:
+        got = call(plan)
+        require(all(a is b is None or torch.equal(a, b)
+                    for a, b in zip(got, want)),
+                f"K10 {tag} {plan.describe()}: other bits than the planned "
+                "launch")
+        times.append(f"{plan.describe()} {time_ms(lambda p=plan: call(p)):.5f}"
+                     " ms")
+    print(f"[k10-plan] {tag}{' train' if train else ''}: every plan gives "
+          f"the planned launch's bits; {', '.join(times)}", flush=True)
+    return plans[0].describe()
 
 
 def _measure_gnn(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
@@ -1333,9 +1394,10 @@ def check_hallar_f32(H, dev) -> None:
     """HALLaR's float32 min-eig case on the card beside the CPU: <C, YY^T>
     sums in float32 (K4's float32 instance on the card, the plain float32
     sum on the CPU), as the reference's ``jnp.sum`` does.  The inner loop's
-    stop test needs Y_n == Z to the bit, so the FISTA steps follow that
-    sum's rounding and differ between the two: both are printed; the solves
-    must converge to pobj within HALLAR_F32_POBJ_RTOL of each other."""
+    stop step follows float32 rounding (its tolerance floored at
+    ``STOP_TOL_EPS`` epsilons, ``hallar/solver.py``) and differs between
+    the two: both are printed; both must stop before the cap and converge
+    to pobj within HALLAR_F32_POBJ_RTOL of each other."""
     params = H.HallarParams(eps_gap=1e-4, maxiter_hallar=200,
                             lanczos_iters=24, dtype="float32")
     res = {}
@@ -1353,6 +1415,9 @@ def check_hallar_f32(H, dev) -> None:
     require(res["gpu"].converged and res["cpu"].converged
             and diff <= HALLAR_F32_POBJ_RTOL,
             "hallar min-eig float32: GPU and CPU part")
+    require(all(r.fista_steps < params.maxiter_fista * r.iters
+                for r in res.values()),
+            "hallar min-eig float32: an inner solve ran to its cap")
 
 
 def check_k4_acc32(K, ops, dev, r, tag) -> None:
@@ -1640,12 +1705,16 @@ def check_graph_pool(K, seg, x, score, tag):
                     f"graph_pool {tag}: segment_reduce differs {err:.2e}")
 
     nbytes = (n * d + n + 2 * (B + 1) + 2 * seg.n_chunks + 3 * B * d) * 4
-    return _measure_gnn(
-        "graph_pool", f"{tag} B={B} N={n} d={d} chunks={seg.n_chunks}",
+    plan = check_k10_plans(K, seg, x, score, None, False, tag)
+    row = _measure_gnn(
+        "graph_pool", f"{tag} B={B} N={n} d={d} chunks={seg.n_chunks} "
+        f"{plan}",
         lambda: K.graph_pool(seg, x, score),
         lambda: K.graph_pool_plain(seg, x, score),
         lambda: K.graph_pool_plain(seg, x.double(), score.double()), nbytes,
         5.0 * n * d + 4.0 * n, lib, lib_check)
+    row["plan"] = plan
+    return row
 
 
 def _keep(shape, dev, seed):
@@ -1800,12 +1869,16 @@ def check_train_kernels(K, layer1, pool, tag, dev):
             B = seg.num_graphs
             pool_bytes = (nn_ * d + nn_ * (2 if dropout else 1) + 2 * (B + 1)
                           + 3 * seg.n_chunks + 3 * B * d + 2 * B + B * d) * f4
+            plan10 = check_k10_plans(K, seg, xt, score, keep_p, True,
+                                     f"{kt}{ttag}")
             row10 = _measure_gnn(
-                "graph_pool", f"{kt}{ttag} train (keep, stats, ties) N={nn_}",
+                "graph_pool", f"{kt}{ttag} train (keep, stats, ties) N={nn_} "
+                f"{plan10}",
                 lambda: K._graph_pool_forward(seg, xt, score, keep_p,
                                               True)[0],
                 lambda: K.graph_pool_plain(seg, xt, score, keep_p),
                 lambda: ref[0], pool_bytes, 6.0 * nn_ * d + 4.0 * nn_)
+            row10["plan"] = plan10
             dpool = torch.randn(out_p.shape, generator=gen, device=dev)
             row12 = _measure_gnn(
                 "graph_pool_bwd", f"{kt}{ttag} B={B} N={nn_} d={d}",
@@ -1827,17 +1900,25 @@ def check_train_kernels(K, layer1, pool, tag, dev):
     return rows
 
 
-def _train_setup(hidden_dim=None, num_heads=None):
+def _train_setup(hidden_dim=None, num_heads=None, small=False):
     """The batch, weights, config, dropout coins and log tag of one
-    full-width training step (:func:`check_train_step`)."""
-    from ltr_lowrank_sdp_torch.data.loader import (create_splits,
+    full-width training step (:func:`check_train_step`): the first batch of
+    16 of the seeded test split or, with ``small``, its
+    ``SMALL_STEP_GRAPHS`` smallest graphs."""
+    from ltr_lowrank_sdp_torch.data.loader import (collate, create_splits,
                                                    iterate_batches)
     from ltr_lowrank_sdp_torch.models.checkpoint import load_model
     from ltr_lowrank_sdp_torch.models.net import (RankSchedulePredictor,
                                                    init_params)
 
     ds, _, _, test_idx = create_splits(DATASET, seed=42)
-    batch = next(iterate_batches(ds, test_idx, 16))
+    if small:
+        sizes = {i: ds.get(i).x.shape[0] for i in test_idx}
+        batch = collate([ds.get(i) for i in sorted(
+            test_idx, key=sizes.get)[:SMALL_STEP_GRAPHS]],
+            pad_graphs_to=SMALL_STEP_GRAPHS)
+    else:
+        batch = next(iterate_batches(ds, test_idx, 16))
     base, cfg = load_model(CKPT, device="cpu")
     cfg = dataclasses.replace(cfg, dropout=0.0)
     tag = "train-step"
@@ -2039,7 +2120,7 @@ def train_step_parts(spec: str) -> int:
     return 0
 
 
-def check_train_step(K, dev, hidden_dim=None, num_heads=None):
+def check_train_step(K, dev, hidden_dim=None, num_heads=None, small=False):
     """Phase 12: one training step at full width (the r5_theta weights,
     dropout 0, fixed coins) on a collated batch of the seeded test split, on
     the card in float32 and on the CPU in float64 (the plain K9-K12 and
@@ -2054,8 +2135,14 @@ def check_train_step(K, dev, hidden_dim=None, num_heads=None):
     against the float64 step from the float64 gradients, every element to
     PARAM_TOL plus the most that a gradient within the gradient tolerance
     changes Adam's first step, lr * g / (|g| + eps), whose direction the
-    rounding of a gradient near 0 decides."""
-    setup = _train_setup(hidden_dim, num_heads)
+    rounding of a gradient near 0 decides.
+
+    With ``small`` the step runs on the ``SMALL_STEP_GRAPHS`` smallest
+    graphs of the test split, held to the same tolerances, and the worst
+    leaf of the CPU's float32 step on that batch (every operation plain, on
+    ``SMALL_STEP_THREADS`` threads) is printed beside it: a width where the
+    CPU's and the JAX package's own float32 steps miss GRAD_TOL."""
+    setup = _train_setup(hidden_dim, num_heads, small)
     cfg, tag, lr = setup[2], setup[4], TRAIN_LR
     cpu = torch.device("cpu")
 
@@ -2065,6 +2152,18 @@ def check_train_step(K, dev, hidden_dim=None, num_heads=None):
     l_g, g_g, p_g, c_g = step(dev, torch.float32)
     l_c, g_c, p_c, _ = step(cpu, torch.float64)
     _, _, p_s, _ = step(cpu, torch.float64, g_g)
+    if small:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(SMALL_STEP_THREADS)
+        try:
+            e32, _ = _leaf_errors(step(cpu, torch.float32)[1], g_c)
+        finally:
+            torch.set_num_threads(threads)
+        worst = max(e32.items(), key=lambda kv: kv[1])
+        print(f"[{tag}] the CPU's float32 step on this batch, every "
+              f"operation plain, {SMALL_STEP_THREADS} threads, against the "
+              f"float64 step: worst leaf {worst[0]} {worst[1]:.2e} (not "
+              f"held; the card is held to {GRAD_TOL:g})", flush=True)
     require_counts(tag, c_g, TRAIN_KERNELS)
     calls = len(K.k11_groups(cfg.num_heads, cfg.hidden_dim // cfg.num_heads))
     require(c_g["gatv2_softmax_agg_bwd"][0] == cfg.num_gnn_layers * calls
@@ -2307,6 +2406,7 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
         lambda: torch.sparse.mm(
             a_sp, torch.stack((2.0 * u * v, v * v), dim=1)).unbind(1),
         _lib_close("lp_constr_segsum", ref7))
+    check_k7_plans(K, lp32, u, v, f"float32 {shape}")
     ref8 = K.lp_col_wsum_plain(lp64, w.double(), 0.37)
     rows["lp_col_wsum"] = _measure32(
         "lp_col_wsum", shape,
@@ -2389,6 +2489,8 @@ def check_gnn_widths(K, edge_index, n, dev):
         ref = K._graph_pool_plain(seg, x.double(), score.double(),
                                   keep.double())
         tag = f"width d={d} N={n} chunks={seg.n_chunks}"
+        check_k10_plans(K, seg, x, score, None, False, tag)
+        plan10 = check_k10_plans(K, seg, x, score, keep, True, tag)
         pool_bytes = (n * d + 2 * n + 4 + 3 * seg.n_chunks + 4 * d + 2) * f4
         _measure_gnn("graph_pool", tag,
                      lambda: K.graph_pool(seg, x, score),
@@ -2401,6 +2503,7 @@ def check_gnn_widths(K, edge_index, n, dev):
             lambda: K._graph_pool_forward(seg, x, score, keep, True)[0],
             lambda: K.graph_pool_plain(seg, x, score, keep),
             lambda: ref[0], pool_bytes, 6.0 * n * d + 4.0 * n)
+        out["graph_pool"][f"d={d}"]["plan"] = plan10
         o, stats, ties = K._graph_pool_forward(seg, x, score, keep, True)
         require(torch.equal(ties.double(), ref[2]),
                 f"K10 {tag}: tie counts differ")
@@ -3178,6 +3281,15 @@ def main() -> int:
                   f"{''.join(f', {x}' for x in key[2])}>: {regs} registers, "
                   f"spill stores / loads {st} / {ld} bytes")
 
+    # the launch floor: an empty kernel through the same ctypes path
+    floor_ms = time_ms(lambda: K.launch_floor(dev))
+    print(f"[launch-floor] an empty kernel (csrc/launch_floor.cu, one block "
+          f"of one warp) launched through the kernels' ctypes path: "
+          f"{floor_ms:.5f} ms a launch on the device (time_ms: CUDA events "
+          f"over 50 launches queued behind a sleep kernel), host-issued "
+          f"call {host_call_ms(lambda: K.launch_floor(dev)):.4f} ms",
+          flush=True)
+
     # ---- phase 3: each kernel against its plain version ---------------- #
     adj = delaunay_maxcut_adjacency(MAIN_N, seed=MAIN_SEED)
     cone = ConeOps(maxcut_problem_from_adjacency(adj).cones[0], dev)
@@ -3456,6 +3568,7 @@ def main() -> int:
             int(z["x"].shape[0]), dev)
     for hidden, heads in WIDE_STEPS:
         check_train_step(K, dev, hidden_dim=hidden, num_heads=heads)
+    check_train_step(K, dev, *SMALL_STEP, small=True)
     print(f"[time] width phase {time.perf_counter() - t:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = run_train_path(K, dev, tmp)
@@ -3543,6 +3656,8 @@ def main() -> int:
         "source": "ltr_lowrank_sdp_torch/csrc/spmm_sym_csr.cu",
         "replaces": "ltr_lowrank_sdp_tpu/parallel/batch.py:76",
         "launches": par_counts["batch"]["spmm_sym_csr"][0], **batch_row})
+    for row in kernels:
+        row["launch_floor_ms"] = floor_ms
     for row in UNPORTED:
         print(f"[unported] {row}")
     for row in LOOPS:

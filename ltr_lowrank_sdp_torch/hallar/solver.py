@@ -48,6 +48,25 @@ from ..ops.lanczos import lanczos_min_eig_vec
 # machine steps between two host reads of the inner loop's (done, k)
 FISTA_CHUNK = 64
 
+# The inner stop test's tolerance is at least this many epsilons of the
+# compute dtype (a deviation in float32 only: in float64 the floor, 8.9e-16,
+# lies far below ``err_tol_fista``).  The reference's 1e-8 is below float32's
+# epsilon, so its test ``L ||Y_n - Z|| <= tol (1 + ||Y_n||)`` can fire only
+# when Y_n equals Z to the bit, which the rounding of one projected step
+# rarely allows.  The JAX package's float32 solve gets there all the same
+# because its compiled backtracking test fails on rounding: on the min-eig
+# case, 115 of its 155 failed tests pass in exact arithmetic on the same
+# float32 iterates (the port's evaluation fails 49 of them), so its L climbs
+# to 2.7e8, gz / L drops below Z's last bit and Y_n = Z.  The port's test
+# passes at the noise floor, L stays small, and without the floor its solve
+# ran to ``maxiter_fista`` on some orders of C's entries.  Over 64 permuted
+# orders, on which the JAX package stops after 38 to 1,265 steps (median
+# 234), a floor of 1, 2, 4 or 8 epsilons stops the port after at most 4,726,
+# 1,337, 827 or 546 steps (median 970, 292.5, 215.5, 153); 4 is the smallest
+# that keeps every order within the JAX spread
+# (``tests/test_torch_f32_faults.py`` prints these numbers).
+STOP_TOL_EPS = 4.0
+
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
 
@@ -271,7 +290,8 @@ def _machine_step(st: FistaState, ops: _Ops, params: HallarParams,
     ``L_inc_fista``; a passed one commits the FISTA update (:236-247) and
     evaluates the value and gradient at the new Z, which the reference does
     at the top of its next iteration.  Only the value is needed for the
-    test, so the candidate's gradient is never formed."""
+    test, so the candidate's gradient is never formed.  The stop test's
+    tolerance is floored at ``STOP_TOL_EPS`` epsilons of the dtype."""
     Yc = ops.project(st.Z - st.gz / st.L)
     fy = val(Yc)
     diff = Yc - st.Z
@@ -283,8 +303,8 @@ def _machine_step(st: FistaState, ops: _Ops, params: HallarParams,
     tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.tk * st.tk))
     Zn = Yc + ((st.tk - 1.0) / tn) * (Yc - st.Y)
     crit = st.L * torch.linalg.vector_norm(diff)
-    done = crit <= params.err_tol_fista * (
-        1.0 + torch.linalg.vector_norm(Yc))
+    tol = max(params.err_tol_fista, STOP_TOL_EPS * torch.finfo(Yc.dtype).eps)
+    done = crit <= tol * (1.0 + torch.linalg.vector_norm(Yc))
     Ln = torch.clamp(st.L / params.L_inc_fista, min=params.L0_fista)
     fzn, gzn = val_grad(Zn)
     return FistaState(

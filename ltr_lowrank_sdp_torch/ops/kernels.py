@@ -64,7 +64,9 @@ the rank-schedule predictor's graph encoder at any width (:func:`k9_plan`,
 and K11 and K12 its training backward pass: K9 + K11 and K10 + K12 are each
 one ``torch.autograd.Function`` (:func:`gatv2_softmax_agg`, :func:`graph_pool`
 when an input requires a gradient), with a plain backward beside the plain
-forward for the CPU.
+forward for the CPU.  One more source, ``csrc/launch_floor.cu``, holds an
+empty kernel built and bound the same way (:func:`launch_floor`): its time on
+the card is the floor of any launch's.
 """
 
 from __future__ import annotations
@@ -192,7 +194,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P,) * 9 + (_I,) * 11 + (_F, _P, _P, _P, _P)),
     Kernel("graph_pool",
            "ltr_lowrank_sdp_tpu/models/layers.py:93",
-           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P)),
+           (_P,) * 6 + (_I,) + (_P,) * 3 + (_I,) * 7 + (_P,) * 6),
     Kernel("gatv2_softmax_agg_bwd",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26 (VJP, train.py:250)",
            (_P,) * 16 + (_I,) * 6 + (_F, _I, _I, _I) + (_P,) * 9),
@@ -203,6 +205,11 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "scripts/pallas_gather_probe.py:41",
            (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
 )}
+
+
+# an empty kernel for the launch floor (csrc/launch_floor.cu): built with the
+# thirteen, counted by no path
+LAUNCH_FLOOR = Kernel("launch_floor", "none", (_P,))
 
 
 def reset_counts() -> None:
@@ -249,7 +256,7 @@ def build_kernels() -> List[str]:
     Returns the names built by this call.  Raises with nvcc's output when a
     build fails."""
     todo = []
-    for k in KERNELS.values():
+    for k in (*KERNELS.values(), LAUNCH_FLOOR):
         k.lib_path = _lib_path(k)
         if not k.lib_path.exists():
             todo.append(k)
@@ -277,6 +284,13 @@ def build_kernels() -> List[str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return [k.name for k, _, _ in procs]
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty kernel on ``device``'s current stream, through the
+    ctypes path every kernel takes: timed, its launch is the floor of any
+    kernel's time on the card."""
+    LAUNCH_FLOOR.launch(_stream(device))
 
 
 def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
@@ -1237,6 +1251,9 @@ def spmm_constr_csr_with(plan: Optional[K6Plan], csr: ConstrCSR,
 # --------------------------------------------------------------------------- #
 
 
+K7_ROUND = 32                  # kRound in lp_constr_segsum.cu: its slots
+
+
 @dataclasses.dataclass
 class LPEntries:
     """The LP cone's constraint entries (column, constraint, value) in two
@@ -1275,7 +1292,8 @@ class LPEntries:
         col = np.asarray(col, np.int64)
         cid = np.asarray(cid, np.int64)
         vals = np.asarray(vals, np.float64)
-        _i32(max(col.size, m + 1, n_cols + 1), "nnz of the LP cone")
+        _i32(max(col.size + K7_ROUND, m + 1, n_cols + 1),
+             "nnz of the LP cone")
 
         def ptr(ids, size):
             out = np.zeros(size + 1, np.int64)
@@ -1309,6 +1327,35 @@ def lp_constr_segsum_plain(lp: LPEntries, u, v, pair: bool = False):
     if pair:
         return 2.0 * segsum(u * v), segsum(v * v)
     return segsum(u * v)
+
+
+def lp_constr_segsum_order(lp: LPEntries, u, v, pair: bool = False):
+    """K7's own sum order in plain PyTorch, each product and sum one
+    rounding as the kernel's intrinsics form it: entry j of a constraint
+    into slot j mod ``K7_ROUND``, the slots added round by round, then one
+    halving tree over the slots.  It gives the kernel's bits (the
+    ``-m cuda`` tests hold that)."""
+    ids = lp.row_ids
+    cols = lp.row_col.long()
+    j = torch.arange(lp.nnz, device=ids.device) - lp.row_ptr.long()[ids]
+    slot, rnd = j % K7_ROUND, j // K7_ROUND
+    uc, vc = u[cols], v[cols]
+    terms = [lp.row_val * (uc * vc)]
+    if pair:
+        terms.append(lp.row_val * (vc * vc))
+    outs = []
+    for t in terms:
+        acc = torch.zeros((lp.m, K7_ROUND), dtype=t.dtype, device=t.device)
+        for r in range(int(rnd.max()) + 1 if lp.nnz else 0):
+            sel = rnd == r
+            acc[ids[sel], slot[sel]] += t[sel]
+        while acc.shape[1] > 1:
+            h = acc.shape[1] // 2
+            acc = acc[:, :h] + acc[:, h:]
+        outs.append(acc[:, 0])
+    if pair:
+        return 2.0 * outs[0], outs[1]
+    return outs[0]
 
 
 def lp_constr_segsum(lp: LPEntries, u: torch.Tensor, v: torch.Tensor,
@@ -1888,9 +1935,74 @@ def gatv2_softmax_agg(g: EdgeCSR, w_src: torch.Tensor, w_dst: torch.Tensor,
 # K10: mean / max / attention pooling per graph, K12: its backward (float32)
 # --------------------------------------------------------------------------- #
 
-K10_CHUNK = 256          # nodes per block of the first pass
+K10_CHUNK = 256          # nodes a block (kChunk in graph_pool.cu, kChunkNodes
+                         # in graph_pool_bwd.cu)
 K10_MAX_D = 256          # columns a block (kMaxD in graph_pool*.cu): wider
                          # rows are cut into column blocks of this width
+K10_BUF = 32             # floats of rows a lane of K10 loads ahead (kBuf)
+K10_DEPTHS = (1, 2, 4, 8)    # rows a sub-warp of K10 may load ahead
+
+
+@dataclasses.dataclass(frozen=True)
+class K10Plan:
+    """K10's launch: ``lanes`` lanes a node (the sub-warp, which fixes the
+    sum order) and ``cpl`` channels a lane, both from d alone; ``vec`` 4
+    for float4 loads or 1 for scalar ones, and ``depth`` rows a sub-warp
+    loads before it adds them (at most ``K10_BUF / cpl``).  ``vec`` and
+    ``depth`` never change the bits."""
+
+    lanes: int
+    cpl: int
+    vec: int
+    depth: int
+
+    def describe(self) -> str:
+        return (f"L={self.lanes} CPL={self.cpl} vec={self.vec} "
+                f"depth={self.depth}")
+
+
+def k10_lanes(d: int) -> int:
+    """K10's lanes a node at width ``d``: the power of two that covers a
+    column block (at most ``K10_MAX_D`` columns) four channels a lane, at
+    most 32 (then 4 or 8 channels a lane).  A function of d alone."""
+    need = -(-min(d, K10_MAX_D) // 4)
+    lanes = 1
+    while lanes < min(need, 32):
+        lanes *= 2
+    return lanes
+
+
+def k10_cpl(d: int) -> int:
+    """K10's channels a lane: 8 where a column block is wider than 32 lanes
+    of 4, else 4."""
+    return 8 if min(d, K10_MAX_D) > 4 * k10_lanes(d) else 4
+
+
+def k10_plan(d: int, aligned: bool = True) -> K10Plan:
+    """K10's planned launch at width ``d``: float4 loads where d is a
+    multiple of 4 and the rows are 16-byte aligned, as many rows ahead as
+    a lane's buffer holds."""
+    cpl = k10_cpl(d)
+    return K10Plan(k10_lanes(d), cpl, 4 if d % 4 == 0 and aligned else 1,
+                   K10_BUF // cpl)
+
+
+def k10_plans(d: int, aligned: bool = True) -> List[K10Plan]:
+    """The planned launch first, then every other depth and the scalar
+    loads: all give the planned launch's bits (the tests and the smoke run's
+    ``[k10-plan]`` sweep hold that)."""
+    plan = k10_plan(d, aligned)
+    out = [plan] + [dataclasses.replace(plan, depth=k) for k in K10_DEPTHS
+                    if k * plan.cpl <= K10_BUF]
+    out.append(dataclasses.replace(plan, vec=1))
+    return list(dict.fromkeys(out))
+
+
+def k10_part_width(d: int) -> int:
+    """Floats of one chunk's partial in K10's scratch: (m, l) padded to 4
+    for each column block of ``K10_MAX_D``, then four columns of d rounded
+    up to a multiple of 4 (float4 aligned)."""
+    return 4 * -(-d // K10_MAX_D) + 4 * (-(-d // 4) * 4)
 
 
 @dataclasses.dataclass
@@ -1899,7 +2011,8 @@ class GraphSegments:
     each cut on the host into chunks of at most ``K10_CHUNK`` nodes
     (``chunk_start`` / ``chunk_end``; graph b owns chunks
     ``chunk_ptr[b]:chunk_ptr[b+1]``, none when it is empty, and
-    ``chunk_graph`` names the graph of each chunk)."""
+    ``chunk_graph`` names the graph of each chunk); ``empty`` lists the
+    graphs without a node (K10 gives each a block that writes zeros)."""
 
     num_graphs: int
     n_nodes: int
@@ -1908,10 +2021,15 @@ class GraphSegments:
     chunk_start: torch.Tensor  # (n_chunks,) int32
     chunk_end: torch.Tensor    # (n_chunks,) int32
     chunk_graph: torch.Tensor  # (n_chunks,) int32
+    empty: torch.Tensor        # (n_empty,) int32
 
     @property
     def n_chunks(self) -> int:
         return int(self.chunk_start.numel())
+
+    @property
+    def n_empty(self) -> int:
+        return int(self.empty.numel())
 
     @functools.cached_property
     def batch_ids(self) -> torch.Tensor:
@@ -1938,7 +2056,8 @@ class GraphSegments:
         return GraphSegments(num_graphs=int(counts.size),
                              n_nodes=int(ptr[-1]), ptr=t(ptr),
                              chunk_ptr=t(chunk_ptr), chunk_start=t(start),
-                             chunk_end=t(end), chunk_graph=t(which))
+                             chunk_end=t(end), chunk_graph=t(which),
+                             empty=t(np.flatnonzero(counts == 0)))
 
     @staticmethod
     def from_batch(batch: torch.Tensor, num_graphs: int) -> "GraphSegments":
@@ -1949,6 +2068,41 @@ class GraphSegments:
             raise ValueError("graph ids must be sorted and in [0, num_graphs)")
         return GraphSegments.from_counts(
             np.bincount(ids, minlength=num_graphs), batch.device)
+
+
+@dataclasses.dataclass
+class _K10Scratch:
+    part: torch.Tensor       # chunk partials, float32
+    ticket: torch.Tensor     # int32 tickets, 0 between calls
+
+
+_K10_SCRATCH: Dict[Tuple[torch.device, int], _K10Scratch] = {}
+
+
+def _k10_scratch(dev: torch.device, stream: int, part: int,
+                 tickets: int) -> _K10Scratch:
+    """K10's scratch for a call of ``part`` partial floats and ``tickets``
+    tickets.  An eager call on ``stream`` shares it with that stream's other
+    eager calls (they run in order), grown to a power of two when a call
+    needs more (new tickets zeroed); a call captured into a CUDA graph gets
+    its own partials and tickets zeroed inside the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return _K10Scratch(
+            torch.empty(max(part, 1), dtype=torch.float32, device=dev),
+            torch.zeros(max(tickets, 1), dtype=torch.int32, device=dev))
+    key = (dev, stream)
+    ws = _K10_SCRATCH.get(key)
+    if ws is None:
+        ws = _K10Scratch(torch.empty(1024, dtype=torch.float32, device=dev),
+                         torch.zeros(64, dtype=torch.int32, device=dev))
+        _K10_SCRATCH[key] = ws
+    if ws.part.numel() < part:
+        ws.part = torch.empty(1 << (part - 1).bit_length(),
+                              dtype=torch.float32, device=dev)
+    if ws.ticket.numel() < tickets:
+        ws.ticket = torch.zeros(1 << (tickets - 1).bit_length(),
+                                dtype=torch.int32, device=dev)
+    return ws
 
 
 def _graph_pool_plain(seg: GraphSegments, x, score, keep=None):
@@ -2023,12 +2177,16 @@ def _check_pool(seg: GraphSegments, x, score, keep, dev):
     _check(seg.chunk_start, "chunk_start", torch.int32, (nc,), dev)
     _check(seg.chunk_end, "chunk_end", torch.int32, (nc,), dev)
     _check(seg.chunk_graph, "chunk_graph", torch.int32, (nc,), dev)
+    _check(seg.empty, "empty", torch.int32, (seg.n_empty,), dev)
     _i32(n * d, "N * d")
+    _i32(nc * k10_part_width(d), "K10's partials")
 
 
-def _graph_pool_forward(seg: GraphSegments, x, score, keep, train: bool):
-    """K10 or, for CPU tensors, its plain version -> (out, stats, ties), the
-    last two only with ``train``."""
+def _graph_pool_forward(seg: GraphSegments, x, score, keep, train: bool,
+                        plan: Optional[K10Plan] = None):
+    """K10 (launched with ``plan``; None: :func:`k10_plan`) or, for CPU
+    tensors, its plain version -> (out, stats, ties), the last two only with
+    ``train``."""
     k = KERNELS["graph_pool"]
     if _is_cpu(x):
         k.plain_calls += 1
@@ -2038,8 +2196,16 @@ def _graph_pool_forward(seg: GraphSegments, x, score, keep, train: bool):
     _check_pool(seg, x, score, keep, dev)
     n, d = x.shape
     B, nc = seg.num_graphs, seg.n_chunks
-    part = torch.empty((max(nc, 1), 2 + 4 * d), dtype=torch.float32,
-                       device=dev)
+    aligned = x.data_ptr() % 16 == 0
+    if plan is None:
+        plan = k10_plan(d, aligned)
+    elif (plan.lanes != k10_lanes(d) or plan.cpl != k10_cpl(d)
+          or plan.depth not in K10_DEPTHS
+          or plan.depth * plan.cpl > K10_BUF or plan.vec not in (1, 4)
+          or (plan.vec == 4 and (d % 4 or not aligned))):
+        raise ValueError(f"{plan.describe()} is not a plan of d = {d}")
+    ny = -(-d // K10_MAX_D)
+    ws = _k10_scratch(dev, _stream(dev), nc * k10_part_width(d), B * ny)
     out = torch.empty((B, 3 * d), dtype=torch.float32, device=dev)
     stats = ties = None
     if train:
@@ -2047,10 +2213,22 @@ def _graph_pool_forward(seg: GraphSegments, x, score, keep, train: bool):
         ties = torch.empty((B, d), dtype=torch.float32, device=dev)
     k.launch(seg.ptr.data_ptr(), seg.chunk_ptr.data_ptr(),
              _ptr(seg.chunk_start) if nc else None,
-             _ptr(seg.chunk_end) if nc else None, x.data_ptr(),
-             score.data_ptr(), _ptr(keep), B, nc, d, part.data_ptr(),
+             _ptr(seg.chunk_end) if nc else None,
+             _ptr(seg.chunk_graph) if nc else None,
+             _ptr(seg.empty) if seg.n_empty else None, seg.n_empty,
+             x.data_ptr() if n else None, score.data_ptr() if n else None,
+             _ptr(keep) if n else None, B, nc, d, plan.lanes, plan.cpl,
+             plan.vec, plan.depth, ws.part.data_ptr(), ws.ticket.data_ptr(),
              out.data_ptr(), _ptr(stats), _ptr(ties), _stream(dev))
     return out, stats, ties
+
+
+def graph_pool_with(plan: Optional[K10Plan], seg: GraphSegments, x, score,
+                    keep=None, train: bool = False):
+    """K10 launched with ``plan`` (no autograd node) -> (out, stats, ties),
+    the last two only with ``train``.  Every plan of :func:`k10_plans` gives
+    the same bits."""
+    return _graph_pool_forward(seg, x, score, keep, train, plan)
 
 
 def graph_pool_bwd(seg: GraphSegments, x, score, keep, out, stats, ties,

@@ -1,0 +1,438 @@
+"""The port's two float32 faults held against the JAX package's own float32
+behaviour, on the CPU.
+
+HALLaR's float32 min-eig inner solve (the case of
+``test_torch_hallar_solve.py``): its stop test ``L ||Y_n - Z|| <= 1e-8 (1 +
+||Y_n||)`` asks for less than float32's epsilon, so it fires only when Y_n
+equals Z to the bit.  The JAX package gets there because its compiled
+backtracking test fails on rounding (115 of its 155 failed tests on the file
+order pass in exact arithmetic), so its L climbs until the step drops below
+Z's last bit; over 64 permuted orders of C's entries (the same matrix,
+another order of every sum) it stops after 38 to 1,265 steps.  The port's
+test passes at the noise floor and its solve ran to the cap of 10,000 on
+some orders, so the port floors the stop tolerance at ``STOP_TOL_EPS`` = 4
+epsilons of the dtype (``hallar/solver.py``; float64 unchanged): over the
+same orders it then stops after at most 827 steps.  The test holds every
+port solve to stop before its cap and no later than the JAX package's
+latest over the same orders, with the objectives of each order within 1e-6.
+
+The float32 training step at 4 heads x 128 channels: each gradient leaf's
+error against the float64 step, as ``chip_smoke.py``'s GRAD_TOL measures it
+(max |g - g64| over the leaf's largest |g64|), for the JAX package's own
+float32 step and for the port's CPU float32 step, with 2 GNN layers.  On the
+two smallest graphs of the seeded test split the JAX package misses 1e-4 as
+the port does, at the same leaf, and the test holds the port within 2x of
+it.  That does not close the fault: on the three smallest graphs the port's
+worst leaf is 2.9x JAX's, in another module (``ROADMAP.md`` Queue 3).  Both
+steps cross a jump of the reference's own function there: the max pooling
+picks another node in float32 than in float64 in some channels, and the
+gradient reaching the encoder's output differs by 40 % of its largest
+value while the decoder's agrees to 6e-7; which channels jump, and how far
+that reaches the parameters, follows each package's rounding.
+
+``PYTHONPATH=. python tests/test_torch_f32_faults.py`` prints the evidence
+behind the numbers above (the 64 JAX orders and the port's over the same
+orders, the 4 x 128 step on four batches of the three graphs) and the
+port's float32 step stage by stage on the three graphs; a batch with the
+23,028-node graph takes about 52 GB.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ltr_lowrank_sdp_torch.data import loader
+from ltr_lowrank_sdp_torch.hallar import solver as TS
+from ltr_lowrank_sdp_torch.models import checkpoint, net
+from ltr_lowrank_sdp_tpu.data import loader as jax_loader
+from ltr_lowrank_sdp_tpu.hallar import solver as JS
+from ltr_lowrank_sdp_tpu.models import net as jax_net
+
+import test_torch_hallar_solve as hallar_case
+import test_torch_train as train_case
+
+GRAD_TOL = 1e-4          # chip_smoke.py's per-leaf gradient bound
+MIN_EIG = dict(eps_gap=1e-4, maxiter_hallar=200, lanczos_iters=24,
+               dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# --------------------------------------------------------------------------- #
+# HALLaR's float32 stop step
+# --------------------------------------------------------------------------- #
+
+
+def _permuted(mod, seed):
+    """The min-eig case with its C entries in a seeded order (None: the
+    file's own)."""
+    prob, lam = hallar_case.min_eig_problem(mod)
+    if seed is None:
+        return prob, lam
+    order = np.random.default_rng(seed).permutation(prob.c_rows.size)
+    return dataclasses.replace(prob, c_rows=prob.c_rows[order],
+                               c_cols=prob.c_cols[order],
+                               c_vals=prob.c_vals[order]), lam
+
+
+def _nudged_y0():
+    """The reference's default Y0 times (1 + 2^-23)."""
+    r = JS.HallarParams().init_rank
+    y0 = np.random.default_rng(0).normal(size=(12, r))
+    return y0 / np.linalg.norm(y0) * (1.0 + 2.0 ** -23)
+
+
+def jax_stop_steps(monkeypatch, cases):
+    """(FISTA steps of each inner solve, result) of the JAX package's
+    float32 solve for each (order seed, Y0) of ``cases``."""
+    steps = hallar_case.counting_jax_steps(monkeypatch)
+    out = []
+    for seed, y0 in cases:
+        steps.clear()
+        res = JS.hallar_solve(_permuted(JS, seed)[0],
+                              JS.HallarParams(**MIN_EIG), Y0=y0)
+        out.append((list(steps), res))
+    return out
+
+
+def port_solve(seed, y0=None):
+    return TS.hallar_solve(_permuted(TS, seed)[0], TS.HallarParams(**MIN_EIG),
+                           device="cpu", Y0=y0,
+                           lanczos_start=hallar_case.jax_start("float32"))
+
+
+CASES = [(None, None)] + [(s, None) for s in range(8)] + [(None, "nudged")]
+
+
+def test_float32_stop_step_lies_within_the_jax_spread(monkeypatch):
+    """The JAX float32 solve and the port's over the file order, eight
+    permuted orders of C's entries and the nudged Y0: every solve converges
+    in one outer iteration, every port solve stops before its cap, the
+    port's largest stop step is no larger than JAX's largest, and on each
+    order the objectives agree to 1e-6 relative."""
+    cases = [(seed, _nudged_y0() if y0 else None) for seed, y0 in CASES]
+    runs = jax_stop_steps(monkeypatch, cases)
+    jax_steps = [s[0] for s, _ in runs]
+    assert all(len(s) == 1 and r.iters == 1 and r.converged
+               for s, r in runs)
+    got = [port_solve(seed, y0) for seed, y0 in cases]
+    port_steps = [g.fista_steps for g in got]
+    print("float32 stop steps (file order, 8 orders, nudged Y0): JAX",
+          jax_steps, "port", port_steps)
+    assert all(g.iters == 1 and g.converged for g in got)
+    assert max(port_steps) < TS.HallarParams().maxiter_fista
+    assert max(port_steps) <= max(jax_steps)
+    for g, (_, r) in zip(got, runs):
+        assert abs(g.pobj - r.pobj) <= 1e-6 * abs(r.pobj)
+
+
+# --------------------------------------------------------------------------- #
+# the float32 training step at 4 heads x 128 channels
+# --------------------------------------------------------------------------- #
+
+WIDE = dict(node_in_dim=16, edge_in_dim=5, global_in_dim=17, hidden_dim=512,
+            edge_dim=32, global_dim=32, num_gnn_layers=2, num_heads=4,
+            decoder_hidden_dim=96, decoder_num_layers=2, max_seq_len=16,
+            dropout=0.0)
+def _leaf_errors(got, want):
+    """chip_smoke.py's measure: each leaf's max |g - g64| over the leaf's
+    largest |g64| (over the model's largest gradient for a leaf that is 0
+    up to rounding)."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    out = {}
+    for k, w in want.items():
+        own = float(w.abs().max())
+        scale = own if own > 1e-12 * largest else largest
+        out[k] = float((got[k] - w).abs().max()) / scale
+    return out
+
+
+def wide_batch(pick=(0, 1)):
+    """The graphs of the seeded test split at the places ``pick`` of its
+    order by size (0 the smallest) collated by both packages, the 512-wide
+    model's JAX parameters (biases moved off 0) and the teacher-forcing
+    coins."""
+    ds_j, _, _, te_j = jax_loader.create_splits(train_case.DATASET, seed=42)
+    ds_t, _, _, te_t = loader.create_splits(train_case.DATASET, seed=42)
+    assert te_j == te_t
+    sizes = {i: ds_j.get(i).x.shape[0] for i in te_j}
+    order = sorted(te_j, key=sizes.get)
+    graphs = [order[k] for k in pick]
+    bj = jax_loader.collate([ds_j.get(i) for i in graphs],
+                            pad_graphs_to=len(graphs))
+    bt = loader.collate([ds_t.get(i) for i in graphs],
+                        pad_graphs_to=len(graphs))
+    model = jax_net.RankSchedulePredictor(jax_net.ModelConfig(**WIDE))
+    args = [jnp.asarray(a) for a in (bj.x, bj.edge_index, bj.edge_attr,
+                                     bj.batch, bj.global_attr)]
+    params = model.init({"params": jax.random.PRNGKey(0),
+                         "dropout": jax.random.PRNGKey(1)}, *args,
+                        bj.num_graphs)
+    params = jax.tree.map(lambda p: p + 0.05 if p.ndim == 1 else p, params)
+    tf_rng = jax.random.fold_in(jax.random.PRNGKey(5), 17)
+    coins = np.asarray(jax.vmap(
+        lambda t: jax.random.uniform(jax.random.fold_in(tf_rng, t)))(
+        jnp.arange(WIDE["max_seq_len"])))
+    return model, params, bj, bt, args, tf_rng, coins
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    """The two smallest graphs of the seeded test split (``wide_batch``)."""
+    return wide_batch()
+
+
+def _jax_grads(case, jdt):
+    model, params, bj, _, args, tf_rng, _ = case
+    p = jax.tree.map(lambda q: q.astype(jdt), params)
+    a = [x.astype(jdt) if jnp.issubdtype(x.dtype, jnp.floating) else x
+         for x in args]
+    _, g = jax.jit(jax.value_and_grad(
+        train_case._jax_loss(model, a, bj, tf_rng, jdt), has_aux=True))(p)
+    return checkpoint.params_from_flax(
+        jax.tree.map(lambda q: np.asarray(q, np.float64), g))
+
+
+def _port_grads(case, tdt):
+    _, params, _, bt, _, _, coins = case
+    m = net.RankSchedulePredictor(net.ModelConfig(**WIDE))
+    m.load_state_dict(checkpoint.params_from_flax(
+        jax.tree.map(np.asarray, params)))
+    m = m.to(tdt).train()
+    total, _ = train_case._port_loss(m, bt, coins, tdt)
+    total.backward()
+    return {k: p.grad.double() for k, p in m.named_parameters()}
+
+
+def _module(leaf):
+    return leaf.rsplit(".", 1)[0]
+
+
+def test_float32_step_at_4x128_against_the_jax_float32_step(wide_case):
+    """On the two smallest test graphs, against the JAX package's float64
+    gradient: its own float32 step misses GRAD_TOL, the port's float32
+    worst leaf is at most twice JAX's, and the two worst leaves sit in the
+    same module.  (On the three smallest the port's is 2.9x JAX's, in
+    another module: the fault stays open, ``ROADMAP.md`` Queue 3; that batch
+    takes 320 s and 52 GB on one thread, beyond a tier-1 test, and
+    :func:`evidence` measures it.)"""
+    g64 = _jax_grads(wide_case, jnp.float64)
+    jax32 = _leaf_errors(_jax_grads(wide_case, jnp.float32), g64)
+    port32 = _leaf_errors(_port_grads(wide_case, torch.float32), g64)
+    port64 = _leaf_errors(_port_grads(wide_case, torch.float64), g64)
+    jw = max(jax32.items(), key=lambda kv: kv[1])
+    pw = max(port32.items(), key=lambda kv: kv[1])
+    print("JAX float32 worst leaf", jw, "port float32", pw,
+          "port float64", max(port64.values()))
+    assert max(port64.values()) <= 1e-6       # the same function
+    assert jw[1] > GRAD_TOL
+    assert pw[1] <= 2.0 * jw[1]
+    assert _module(pw[0]) == _module(jw[0])
+
+
+def failed_tests():
+    """JAX's float32 inner loop on the file order, stepped one FISTA step a
+    call (the body of ``_make_fista``, jitted; it stops at the same step
+    with the same L): its failed backtracking tests, how many of them pass
+    in exact arithmetic (float64 on the same float32 iterates and trial
+    points) and how many the port's evaluation fails on the same inputs."""
+    prob, _ = _permuted(JS, None)
+    jops, jp = JS._Ops(prob, jnp.float32), JS.HallarParams(**MIN_EIG)
+    tops = TS._Ops(_permuted(TS, None)[0], torch.float32, "cpu")
+    p0 = torch.zeros(1)
+    val, val_grad = TS.al_functions(tops, p0, 10.0)
+    C = np.zeros((prob.n, prob.n))
+    C[prob.c_rows, prob.c_cols] = prob.c_vals
+    C = C + np.triu(C, 1).T
+
+    def al(Y):
+        resid = jops.AX(Y) - jops.b
+        return (jops.CX(Y) + 5.0 * jnp.vdot(resid, resid),
+                2.0 * jops.SY(10.0 * resid, Y))
+
+    @jax.jit
+    def step(Y, Z, tk, L):
+        fz, gz = al(Z)
+
+        def bt_cond(c):
+            Yn = jops.project(Z - gz / c[0])
+            diff = Yn - Z
+            return ((al(Yn)[0] > fz + jnp.vdot(gz, diff)
+                     + 0.5 * c[0] * jnp.vdot(diff, diff) + 1e-12)
+                    & (c[0] < 1e12))
+
+        L, n_bt = jax.lax.while_loop(
+            bt_cond, lambda c: (c[0] * jp.L_inc_fista, c[1] + 1), (L, 0))
+        Yn = jops.project(Z - gz / L)
+        tn = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * tk * tk))
+        done = L * jnp.linalg.norm(Yn - Z) <= jp.err_tol_fista * (
+            1.0 + jnp.linalg.norm(Yn))
+        return (Yn, Yn + ((tk - 1.0) / tn) * (Yn - Y), tn,
+                jnp.maximum(L / jp.L_inc_fista, jp.L0_fista), done, n_bt, L)
+
+    y0 = np.random.default_rng(0).normal(size=(prob.n, 2))
+    Y = Z = jnp.asarray(y0 / np.linalg.norm(y0), jnp.float32)
+    tk, L = jnp.float32(1.0), jnp.float32(1.0)
+    fails = exact_pass = port_fails = steps = 0
+    done = False
+    while not done:
+        Zt = torch.tensor(np.asarray(Z))
+        fz, gz = val_grad(Zt)
+        Lt = float(L)
+        Y, Z, tk, L, done, n_bt, L_used = step(Y, Z, tk, L)
+        steps += 1
+        for _ in range(int(n_bt)):
+            Yc = tops.project(Zt - gz / Lt)
+            d = (Yc - Zt).double().numpy()
+            z64, y64 = Zt.double().numpy(), Yc.double().numpy()
+            exact = (np.sum(y64 * (C @ y64)) - np.sum(z64 * (C @ z64))
+                     - np.sum(2.0 * (C @ z64) * d) - 0.5 * Lt * np.sum(d * d))
+            ub = fz + TS._vdot(gz, Yc - Zt) + 0.5 * Lt * TS._vdot(
+                Yc - Zt, Yc - Zt)
+            fails += 1
+            exact_pass += bool(exact <= 0.0)
+            port_fails += bool(val(Yc) > ub)
+            Lt *= 2.0
+    return steps, fails, exact_pass, port_fails, float(L_used)
+
+
+def evidence():
+    """The numbers of the module docstring, of ``hallar/solver.py``'s
+    ``STOP_TOL_EPS`` and of ``ROADMAP.md`` Queue 3: the JAX float32 solve
+    over 64 orders of C's entries and the nudged Y0, the port's over the
+    same at stop floors of 1, 2, 4 and 8 epsilons, JAX's failed
+    backtracking tests on the file order; the 4 x 128 step's worst leaves
+    on four batches of the test split's three graphs (0-1, 0-2, 1-2 and all
+    three by size; a batch with the 23,028-node graph takes about 52 GB and
+    five minutes on one thread); and,
+    with ``chip_smoke.py``'s model (r5_theta's config at that width,
+    ``init_params`` weights), the CPU's float32 steps at its three wide
+    widths on the two-graph batch (several minutes)."""
+    cases = [(None, None)] + [(s, None) for s in range(64)] + [
+        (None, _nudged_y0())]
+    mp = pytest.MonkeyPatch()
+    runs = jax_stop_steps(mp, cases)
+    mp.undo()
+    steps = [s[0] for s, _ in runs]
+    print(f"JAX float32 stop steps: file order {steps[0]}, 64 orders "
+          f"{sorted(steps[1:-1])}, nudged Y0 {steps[-1]}; median of the "
+          f"orders {np.median(steps[1:-1])}", flush=True)
+    n, fails, exact_pass, port_fails, L = failed_tests()
+    print(f"JAX's file order: {n} steps, {fails} failed backtracking tests, "
+          f"{exact_pass} of them pass in exact arithmetic, the port's "
+          f"evaluation fails {port_fails} of them; L at the stop {L:g}",
+          flush=True)
+    floor = TS.STOP_TOL_EPS
+    try:
+        for eps in (1.0, 2.0, 4.0, 8.0):
+            TS.STOP_TOL_EPS = eps
+            port = [port_solve(seed, y0).fista_steps for seed, y0 in cases]
+            print(f"port float32 stop steps, floor {eps:g} eps: file order "
+                  f"{port[0]}, nudged Y0 {port[-1]}, 64 orders at most "
+                  f"{max(port[1:-1])}, median {np.median(port[1:-1])}",
+                  flush=True)
+    finally:
+        TS.STOP_TOL_EPS = floor
+    for pick in ((0, 1), (0, 2), (1, 2), (0, 1, 2)):
+        case = wide_batch(pick)
+        g64 = _jax_grads(case, jnp.float64)
+        for name, g in (("JAX", _jax_grads(case, jnp.float32)),
+                        ("port", _port_grads(case, torch.float32))):
+            worst = max(_leaf_errors(g, g64).items(), key=lambda kv: kv[1])
+            print(f"4 x 128, test graphs {pick} by size: {name} float32 "
+                  f"worst leaf {worst[0]} {worst[1]:.3e}", flush=True)
+    import chip_smoke
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    cpu = torch.device("cpu")
+    for hidden, heads in (*chip_smoke.WIDE_STEPS, chip_smoke.SMALL_STEP):
+        setup = chip_smoke._train_setup(hidden, heads, small=True)
+        g64 = chip_smoke._train_step(K, setup, cpu, torch.float64)[1]
+        g32 = chip_smoke._train_step(K, setup, cpu, torch.float32)[1]
+        worst = max(chip_smoke._leaf_errors(g32, g64)[0].items(),
+                    key=lambda kv: kv[1])
+        print(f"chip_smoke's model at {setup[4]}, two-graph batch: the CPU's "
+              f"float32 step's worst leaf {worst[0]} {worst[1]:.3e}",
+              flush=True)
+
+
+def stages(pick=(0, 1, 2)):
+    """The port's 4 x 128 step on the test graphs ``pick`` in float32 and in
+    float64: each encoder stage's output and the gradient that reaches it
+    (max difference over the float64 one's largest magnitude), and per
+    graph the channels whose max pooling picks another node in float32
+    than in float64 and the channels whose float64 maximum is an exact tie
+    (a jump of the reference's own function: the pooled gradient lands on
+    the other node)."""
+    _, params, _, bt, _, _, coins = wide_batch(pick)
+    names = ["encoder.node_encoder", "encoder.edge_encoder",
+             "encoder.convs.0", "encoder.norms.0", "encoder.convs.1",
+             "encoder.norms.1", "decoder"]
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    pool = K.graph_pool
+
+    def run(dt):
+        m = net.RankSchedulePredictor(net.ModelConfig(**WIDE))
+        m.load_state_dict(checkpoint.params_from_flax(
+            jax.tree.map(np.asarray, params)))
+        m = m.to(dt).train()
+        acts, grads = {}, {}
+
+        def hook(name):
+            def fwd(mod, args, out):
+                t = out[0] if isinstance(out, tuple) else out
+                acts[name] = t.detach().double()
+                t.register_hook(lambda g: grads.__setitem__(name, g.double()))
+            return fwd
+
+        for name in names:
+            m.get_submodule(name).register_forward_hook(hook(name))
+
+        def pooled(seg, x, score, keep=None):
+            acts["pool input"] = x.detach().double()
+            return pool(seg, x, score, keep)
+
+        K.graph_pool = pooled
+        try:
+            train_case._port_loss(m, bt, coins, dt)[0].backward()
+        finally:
+            K.graph_pool = pool
+        return acts, grads
+
+    (a64, g64), (a32, g32) = run(torch.float64), run(torch.float32)
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+
+    for name in names:
+        out, grad = rel(a32[name], a64[name]), rel(g32[name], g64[name])
+        print(f"4 x 128, test graphs {pick}: {name} output {out:.2e}, its "
+              f"gradient {grad:.2e} (float32 against float64)", flush=True)
+    batch = torch.as_tensor(np.asarray(bt.batch)).long()
+    for b in range(len(pick)):
+        x64 = a64["pool input"][batch[:a64["pool input"].shape[0]] == b]
+        x32 = a32["pool input"][batch[:a32["pool input"].shape[0]] == b]
+        top = x64.topk(min(2, x64.shape[0]), dim=0).values
+        print(f"graph {pick[b]} ({x64.shape[0]} nodes): the max pooling "
+              f"picks another node in float32 in "
+              f"{int((x64.argmax(0) != x32.argmax(0)).sum())} of "
+              f"{x64.shape[1]} channels; exact ties at the float64 maximum "
+              f"in {int((top[0] == top[-1]).sum())}", flush=True)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    torch.set_num_threads(1)
+    evidence()
+    stages()

@@ -460,6 +460,58 @@ def test_lp_constr_segsum(dev, case):
     assert K.KERNELS["lp_constr_segsum"].launches == before + 4
 
 
+K7_SIZES = (0, 1, 7, 31, 32, 33, 1000)    # entries of a constraint
+
+
+def _k7_layout(dtype, dev, seed=5):
+    """An LP cone whose constraints have every size of ``K7_SIZES`` (a
+    round of 32 entries, part of one, several), each size 9 times in a
+    shuffled order of constraints and of entries."""
+    rng = np.random.default_rng(seed)
+    n_cols = 3000
+    sizes = rng.permutation(np.repeat(K7_SIZES, 9))
+    cid = np.repeat(np.arange(sizes.size), sizes)
+    col = rng.integers(0, n_cols, cid.size)
+    order = rng.permutation(cid.size)
+    lp = K.LPEntries.from_coo(np.ones(n_cols), col[order], cid[order],
+                              rng.standard_normal(cid.size), sizes.size,
+                              n_cols, dev, dtype)
+    return lp, sizes
+
+
+@cuda
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k7_gives_the_bits_of_its_plain_order(dev, dtype, pair):
+    """K7 gives the bits of a second call and of its order in plain PyTorch
+    (``lp_constr_segsum_order``, the same products and sums one rounding
+    each); the result matches the plain version (float64: 1e-12 in the
+    2-norm; float32 against the plain version in float64, 1e-5 of the
+    largest value), and a constraint without entries gives exactly 0."""
+    lp, sizes = _k7_layout(dtype, dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    u, v = (torch.randn(lp.n_cols, generator=g, dtype=dtype, device=dev)
+            for _ in range(2))
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    planned = tup(K.lp_constr_segsum(lp, u, v, pair=pair))
+    torch.cuda.synchronize()
+    order = tup(K.lp_constr_segsum_order(lp, u, v, pair))
+    lp64 = dataclasses.replace(lp, row_val=lp.row_val.double())
+    want = tup(K.lp_constr_segsum_plain(lp64, u.double(), v.double(), pair))
+    assert all(torch.equal(a, b) for a, b in zip(order, planned))
+    again = tup(K.lp_constr_segsum(lp, u, v, pair=pair))
+    assert all(torch.equal(a, b) for a, b in zip(again, planned))
+    for a, b in zip(planned, want):
+        if dtype == torch.float64:
+            assert _rel(a, b) <= RTOL
+        else:
+            assert _maxrel(a, b) <= F32_TOL
+        assert torch.count_nonzero(a[torch.tensor(sizes == 0)]) == 0
+
+
 @cuda
 @pytest.mark.parametrize("case", LP_CASES)
 def test_lp_col_wsum(dev, case):
@@ -606,6 +658,81 @@ def test_graph_pool(dev, counts, d):
             assert torch.count_nonzero(got[b]) == 0
     assert torch.equal(K.graph_pool(seg, x, score), got)
     assert K.KERNELS["graph_pool"].launches == before + 2
+
+
+K10_SIZES = (0, 1, 255, 256, 257, 85080)    # nodes of a graph
+
+
+@cuda
+@pytest.mark.parametrize("train", [False, True])
+@pytest.mark.parametrize("d", [1, 64, 96, 256, 384])
+def test_k10_every_plan_gives_the_same_bits(dev, d, train):
+    """K10 on graphs of ``K10_SIZES`` nodes (chunk edges, an empty graph,
+    the largest dataset graph) at widths of one lane, the serve
+    checkpoint's, one not a power of two, one column block and two: every
+    plan of ``k10_plans`` gives the planned launch's bits, and so does a
+    second call; out matches the plain version evaluated in float64 (1e-5
+    of the largest value of each part), stats to 1e-5 and the tie counts
+    exactly (training: with a dropout keep-scale and features on a grid of
+    1/2, so that nodes tie); K12 fed by this K10 matches its plain
+    backward."""
+    seg = K.GraphSegments.from_counts(K10_SIZES, dev)
+    n = sum(K10_SIZES)
+    gen = torch.Generator(device=dev).manual_seed(d + 7 * train)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    if train:
+        x = torch.round(2.0 * x) / 2.0
+    score = 5.0 * torch.randn(n, generator=gen, device=dev)
+    keep = _keep((n,), gen, dev) if train else None
+    planned = K.graph_pool_with(None, seg, x, score, keep, train)
+    torch.cuda.synchronize()
+    for plan in K.k10_plans(d):
+        got = K.graph_pool_with(plan, seg, x, score, keep, train)
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(got, planned)), plan.describe()
+    again = K.graph_pool_with(None, seg, x, score, keep, train)
+    assert all(a is b is None or torch.equal(a, b)
+               for a, b in zip(again, planned))
+    k64 = None if keep is None else keep.double()
+    want = K._graph_pool_plain(seg, x.double(), score.double(), k64)
+    out = planned[0]
+    for part in range(3):
+        sl = slice(part * d, (part + 1) * d)
+        assert _maxrel(out[:, sl], want[0][:, sl]) <= F32_TOL, part
+    assert torch.count_nonzero(out[0]) == 0          # the empty graph
+    if not train:
+        return
+    out, stats, ties = planned
+    assert _maxrel(stats, want[1]) <= F32_TOL
+    assert torch.equal(ties.double(), want[2])
+    assert float(ties.max()) > 1
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    got = K.graph_pool_bwd(seg, x, score, keep, out, stats, ties, dout)
+    _check_outputs(got, K.graph_pool_bwd_plain(
+        seg, x.double(), score.double(), k64, out.double(), stats.double(),
+        ties.double(), dout.double()))
+
+
+@cuda
+def test_k10_captured_calls_keep_tickets_of_their_own(dev):
+    """Two calls captured into one CUDA graph, replayed twice, give the
+    eager call's bits: each captured call has its own tickets and
+    partials."""
+    seg = K.GraphSegments.from_counts((3000, 700), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((3700, 64), generator=gen, device=dev)
+    score = torch.randn(3700, generator=gen, device=dev)
+    want = K.graph_pool(seg, x, score)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        a = K.graph_pool(seg, x, score)
+        b = K.graph_pool(seg, x, score)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, want) and torch.equal(b, want)
 
 
 @cuda
