@@ -38,7 +38,16 @@ Phases, in order; any failed check raises and the script exits nonzero:
    dense C @ Y product timed beside them; K7 and K8 at that path's LP
    shapes (60,000 entries, 20,000 columns, m = 2,400) and at ten times
    that, K7 in both modes bitwise K7's order in plain PyTorch
-   (``[k7-plan]``, also in float32).  A final rank of phase 6 or 7
+   (``[k7-plan]``, also in float32), K8 in every block size bitwise its
+   plain version evaluated on the host, in both value types, with an
+   infinity and a NaN in w, also on a cone with 500- and 40-entry columns
+   (``[k8-plan]``).  K1 on the MaxCut, matrix-completion and phase 14's
+   batched CSRs at r = 1, 19, 20, 33 and 64 in both value types: every
+   plan of ``k1_plans`` in its three modes (C Y, C Y with the row scale
+   diag_val * w folded in, the row scale alone) bitwise the planned
+   launch, the folded row scale bitwise the launch given d = diag_val * w,
+   the planned launch within the unit roundoff of the plain version, every
+   plan timed (``[k1-plan]``).  A final rank of phase 6 or 7
    that phase 3 did not cover is held
    right after its solve.  Then the float32 kernel phase: K1-K4 on the
    MaxCut C at rank 20, K5 (pair) and K6 on the matrix-completion cone at
@@ -84,7 +93,11 @@ Phases, in order; any failed check raises and the script exits nonzero:
    100``), with every launch counter set to 0 just before and read just
    after: status primal_dual_optimal, DIMACS errors <= 1e-5 (primal
    infeasibility and gap recomputed in float64 on the host), the trajectory
-   JSON, K1-K4 launched and no plain version run; then a warm solve and one
+   JSON, K1-K4 launched and no plain version run, and (``[main-counts]``,
+   likewise ``[matcomp-counts]`` and ``[multiblock_lp-counts]`` after
+   phases 5 and 6) the ALM / ADMM / CG counts, host syncs and final ranks
+   equal to ``SOLVE_COUNTS`` (``PERF.md`` section 5), printed with K1's and
+   K8's launches and K1's folded row scales; then a warm solve and one
    under the profiler;
 5. the sparse-cone main path: matrix completion of a 5000 x 5000 rank-3
    matrix (``matcomp_problem(5000, 5000, 3, 2.0, seed=0)``: n = 10^4, the
@@ -430,6 +443,18 @@ SHARD_REPLACES = {"coo_contract_segsum":
                   "ltr_lowrank_sdp_tpu/parallel/meshops.py:220"}
 BATCH_B, BATCH_RANK, BATCH_STEPS, BATCH_RHO = 8, 20, 25, 1.0
 BATCH_TOL = 1e-10
+# K1's plans ([k1-plan]): the ranks and, per value type, the bound on the
+# planned launch against the plain version (2-norm relative: the unit
+# roundoff, as the sums differ only by fused multiply-adds)
+K1_PLAN_RANKS = (1, 19, 20, 33, 64)
+K1_PLAIN_TOL = {torch.float64: 2.2e-16, torch.float32: 1.2e-7}
+# PERF.md section 5's float64 rows: ALM outer /
+# inner, ADMM and CG iterations, host syncs and final ranks of each main
+# path's CLI solve
+SOLVE_COUNTS = {"main": (6, 107, 8, 46, 305, [20]),
+                "matcomp": (9, 43, 1, 43, 161, [19]),
+                "multiblock_lp": (10, 955, 13, 2205, 4252, [14, 14, 13])}
+K1_FOLDS = {}             # K1's launches with the row scale folded, per path
 UNPORTED = []
 # The reference's device-resident solver loops are jnp loops over the
 # operators above, with no gather or segment-reduction kernel of their own;
@@ -1185,6 +1210,130 @@ def check_k7_plans(K, lp, u, v, tag) -> None:
                 f"K7 {tag}: the plain order's bits differ from the kernel's")
         print(f"[k7-plan] {tag} {'pair' if pair else 'single'} (a warp a "
               f"constraint): the plain order's bits", flush=True)
+
+
+def check_k1_plans(K, csr, dev, tag) -> None:
+    """``[k1-plan]``: at each of K1_PLAN_RANKS and in both value types, K1
+    with every plan of ``k1_plans`` in its three modes (``alpha C Y``, ``C Y
+    + (dv w) o Y`` with the row scale folded in, and the row scale alone),
+    each bitwise equal to the planned launch; the folded row scale bitwise
+    equal to the launch given ``d = dv * w`` formed first, the planned
+    launch within K1_PLAIN_TOL of the plain version.  Every plan's time is
+    printed (CUDA events, ``alpha C Y``)."""
+    g = torch.Generator(device=dev).manual_seed(1313)
+    for dt in (torch.float64, torch.float32):
+        c = as_dtype(csr, dt)
+        for r in K1_PLAN_RANKS:
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, dtype=torch.float64,
+                                   device=dev).to(dt)
+
+            Y, w = rnd(csr.n, r), rnd(csr.n)
+            dv = (torch.rand(csr.n, generator=g, dtype=torch.float64,
+                             device=dev) + 0.5).to(dt)
+            modes = {"C": (c, Y, 0.37, None, None),
+                     "C+fold": (c, Y, 1.0, dv, w),
+                     "fold": (None, Y, 0.0, dv, w)}
+            want = {m: K.spmm_sym_csr(*a) for m, a in modes.items()}
+            require(torch.equal(want["C+fold"],
+                                K.spmm_sym_csr(c, Y, 1.0, dv * w))
+                    and torch.equal(want["fold"],
+                                    K.spmm_sym_csr(None, Y, 0.0, dv * w)),
+                    f"K1 {tag} r={r} {dt}: the folded row scale differs "
+                    "from d = dv * w formed first")
+            for m, args in modes.items():
+                err = rel_err(want[m], K.spmm_sym_csr_plain(*args))
+                require(err <= K1_PLAIN_TOL[dt],
+                        f"K1 {tag} r={r} {dt} {m}: {err:.2e} from plain")
+            times = {}
+            for plan in K.k1_plans(r, dt):
+                for m, args in modes.items():
+                    require(torch.equal(K.spmm_sym_csr_with(plan, *args),
+                                        want[m]),
+                        f"K1 {tag} r={r} {dt} {m}: {plan.describe()} gave "
+                        "other bits than the planned launch")
+                times[plan.describe()] = time_ms(
+                    lambda: K.spmm_sym_csr_with(plan, c, Y, 0.37))
+            planned = K.k1_plan(r, dt).describe()
+            print(f"[k1-plan] {tag} n={csr.n} nnz={csr.nnz} r={r} "
+                  f"{str(dt)[6:]}: {len(times)} plans, every one the planned "
+                  f"launch's bits in all three modes (C, C + folded row "
+                  f"scale, row scale alone); planned {planned} "
+                  f"{times[planned]:.5f} ms; ms by plan "
+                  f"{json.dumps({k: round(v, 5) for k, v in times.items()})}",
+                  flush=True)
+
+
+def _nan_equal(a, b) -> bool:
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_k8_plans(K, lp, dev, tag) -> None:
+    """``[k8-plan]``: K8 with every block size of ``K8_THREADS``, in
+    float64 and float32, bitwise equal to the plain version evaluated on
+    the host (its sequential index_add_: the CSC order, each product and
+    sum rounded once), also where w holds an infinity and a NaN (a padded
+    slot reads constraint 0); every block size timed."""
+    g = torch.Generator(device=dev).manual_seed(88)
+    host = K.LPEntries(**{f.name: (v.cpu() if torch.is_tensor(v) else v)
+                          for f in dataclasses.fields(lp)
+                          for v in (getattr(lp, f.name),)})
+    for dt in (torch.float64, torch.float32):
+        lpd, hd = as_dtype(lp, dt), as_dtype(host, dt)
+        w = torch.randn(lp.m, generator=g, dtype=torch.float64,
+                        device=dev).to(dt)
+        bad = w.clone()
+        bad[0], bad[lp.m // 2] = float("inf"), float("nan")
+        times = {}
+        for ww in (w, bad):
+            want = K.lp_col_wsum_plain(hd, ww.cpu(), 0.37)
+            for t in K.K8_THREADS:
+                got = K.lp_col_wsum_with(t, lpd, ww, 0.37).cpu()
+                require(_nan_equal(got, want),
+                        f"K8 {tag} {dt} threads={t}: not the plain "
+                        "version's bits")
+                if ww is w:
+                    times[t] = time_ms(
+                        lambda: K.lp_col_wsum_with(t, lpd, ww, 0.37))
+        planned = K.k8_plan(lp.n_cols)
+        print(f"[k8-plan] {tag} cols={lp.n_cols} nnz={lp.nnz} ELL width "
+              f"{lp.ell_width}, {lp.n_tail} tail columns, {str(dt)[6:]}: "
+              f"every block size the plain version's bits (also with an "
+              f"inf and a NaN in w); planned {planned} threads "
+              f"{times[planned]:.5f} ms; ms by block size "
+              f"{json.dumps({str(k): round(v, 5) for k, v in times.items()})}",
+              flush=True)
+
+
+def long_column_lp(dev):
+    """``LPEntries`` of the multi-block + LP cone's size with a 500-entry
+    and a 40-entry column added (past the ELL width: the tail list)."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    rng = np.random.default_rng(8)
+    col = np.concatenate([np.repeat(np.arange(MB_NLP), 3),
+                          np.full(500, 77), np.full(40, 5)])
+    cid = rng.integers(0, MB_M, col.size)
+    return K.LPEntries.from_coo(rng.uniform(0.5, 1.5, MB_NLP), col, cid,
+                                rng.normal(size=col.size), MB_M, MB_NLP, dev)
+
+
+def check_solve_counts(tag, res, counts) -> None:
+    """``[{tag}-counts]``: the float64 CLI solve's ALM, ADMM and CG counts,
+    host syncs and final ranks against SOLVE_COUNTS (PERF.md section 5),
+    with K1's and K8's launches and the elementwise launches that K1's
+    folded row scale saved."""
+    got = (res.alm_outer_iters, res.alm_inner_iters, res.admm_iters,
+           res.cg_iters, res.host_syncs, list(res.final_ranks))
+    print(f"[{tag}-counts] status {res.status.value}; ALM outer, inner, "
+          f"ADMM, CG, host syncs, final ranks {got} (PERF.md: "
+          f"{SOLVE_COUNTS[tag]}); K1 launches {counts['spmm_sym_csr'][0]}, "
+          f"{K1_FOLDS[tag]} of them with the row scale folded in (each saves "
+          f"the elementwise launch that formed diag_val * w); K8 launches "
+          f"{counts['lp_col_wsum'][0]}", flush=True)
+    require(got == SOLVE_COUNTS[tag],
+            f"{tag}: counts {got}, PERF.md section 5 has {SOLVE_COUNTS[tag]}")
 
 
 def check_k10_plans(K, seg, x, score, keep, train, tag) -> str:
@@ -2839,6 +2988,7 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     wall = time.perf_counter() - t
     counts = K.counts()
     counts32 = K.counts_f32()
+    K1_FOLDS[tag] = K.KERNELS["spmm_sym_csr"].folds
     print(f"[{tag}] counts {json.dumps(counts)}")
     if f32:
         print(f"[{tag}] float32 launches {json.dumps(counts32)}, float64 "
@@ -3122,6 +3272,7 @@ def run_parallel_paths(K, dev, solves):
         2.0 * csr.nnz * r + 2.0 * csr.n * r,
         lib=lambda: torch.sparse.mm(c_sparse, Y),
         lib_ref=lambda: K.spmm_sym_csr(csr, Y, 1.0))
+    check_k1_plans(K, csr, dev, f"batch {BATCH_B // 2} x n={bprob.n}")
     del lb, csr, Y, w, c_sparse
 
     counts = {}
@@ -3297,6 +3448,8 @@ def main() -> int:
           f"{adj.nnz // 2} edges, C upper nnz {cone.c_nnz}, "
           f"full CSR nnz {cone.c_csr.nnz}", flush=True)
     report = {"maxcut": check_kernels(K, cone, dev)}
+    t = time.perf_counter()
+    check_k1_plans(K, cone.c_csr, dev, "maxcut")
 
     t = time.perf_counter()
     mc_data = matcomp_sdpa(*MC_ARGS)
@@ -3314,6 +3467,9 @@ def main() -> int:
                                   MC_REPORT_RANK, "matcomp"),
         **check_general_kernels(K, mc_cone.a_seg, mc_cone.a_csr, dev,
                                 MC_CHECK_RANKS, MC_REPORT_RANK, "matcomp")}
+    check_k1_plans(K, mc_cone.c_csr, dev, "matcomp")
+    print(f"[time] K1 plans (maxcut, matcomp) {time.perf_counter() - t:.1f} "
+          "s", flush=True)
     trace_entries = trace_cone_entries()
     rows, cols, vals, cid, tn, tm = trace_entries
     check_general_kernels(
@@ -3362,6 +3518,8 @@ def main() -> int:
     big_lp = canonicalize(multiblock_lp_sdpa((2,), 10 * MB_M, 10 * MB_NLP,
                                              1)).lp
     check_lp_kernels(K, LPOps(big_lp, dev).entries, dev, "10x LP")
+    check_k8_plans(K, mb_lp.entries, dev, "multiblock+lp")
+    check_k8_plans(K, long_column_lp(dev), dev, "long columns")
 
     # row 16: K5 and K6 on each shard's layouts of the matrix-completion
     # cone at world size 2 (rank 0's is the row of the kernels line)
@@ -3398,6 +3556,7 @@ def main() -> int:
         counts, main_res, _ = run_main_path(
             "main", path, MAIN_FLAGS, MAXCUT_KERNELS, optimal[:1],
             (1e-5, 1e-5, 1e-5), dev)
+        check_solve_counts("main", main_res, counts)
 
         # ---- phase 5: the sparse-cone main path through the CLI -------- #
         path = os.path.join(tmp, f"mc{2 * MC_N1}.dat-s")
@@ -3409,6 +3568,7 @@ def main() -> int:
         mc_counts, mc_res, _ = run_main_path("matcomp", path, MC_FLAGS,
                                              SPARSE_KERNELS, optimal,
                                              (1e-5, 5e-5, 5e-5), dev)
+        check_solve_counts("matcomp", mc_res, mc_counts)
 
         # ---- phase 6: the multi-block + LP main path through the CLI --- #
         path = os.path.join(tmp, "multiblock_lp.dat-s")
@@ -3420,6 +3580,7 @@ def main() -> int:
         mb_counts, mb_res, _ = run_main_path(
             "multiblock_lp", path, (), MB_KERNELS, optimal,
             (1e-5, 5e-5, 5e-5), dev, n_blocks=len(MB_DIMS))
+        check_solve_counts("multiblock_lp", mb_res, mb_counts)
         for k, (c, r0, r) in enumerate(zip(mb_prob.cones, mb_ranks,
                                            mb_res.final_ranks)):
             if r != r0:     # a rank the solve grew to: hold the kernels there

@@ -6,13 +6,20 @@
 //   alpha_e  = exp(s_e - lse[i,h])    (K9's lse and K9's own float32 s_e)
 //   dalpha_e = keep[e,h] * <dout[i,h,:], w_src[j,h,:]>
 //   D_i      = <dout[i,h,:], out[i,h,:]>  (= sum_e alpha_e dalpha_e, keep or not)
-//   ds_e     = alpha_e * (dalpha_e - D_i)
+//   ds_e     = alpha_e * (dalpha_e - D_i) - [s_e = max_i] sum_e' ds_e' / T_i
 //   dmsg_e   = ds_e * att[h,:] * leaky'(msg_e)       (leaky' = 1 where msg >= 0)
 //
 //   d_w_dst[i]  = sum_e dmsg_e                  d_we[e]  = dmsg_e (a real edge)
 //   d_w_src[j]  = sum_{e: src e = j} alpha_e keep[e,h] dout[i] + dmsg_e
 //   d_we_loop   = sum over the self-loop slots of dmsg_e
 //   d_att[h,:]  = sum_e ds_e * leaky(msg_e)
+//
+// The last term of ds_e is the gradient that JAX's VJP routes through the
+// softmax's stabiliser s - segment_max(s) (gatv2.py:28): destination i's
+// sum of the first terms, 0 in exact arithmetic and the rounding of D_i and
+// lse otherwise, taken from the T_i slots whose score is i's largest (K9's
+// float32 scores).  Without it that rounding stays in d_w_dst, d_att and
+// every leaf behind them.
 //
 // Replaces: the VJP that jax.value_and_grad (train.py:250) takes of
 // ltr_lowrank_sdp_tpu/models/gatv2.py segment_softmax (:26-33) and the
@@ -202,6 +209,10 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
     const double ls = lse[i * lds + ln.hs];
     const int beg = indptr[i];
     const int end = indptr[i + 1];
+    // the stabiliser's term: the destination's sum of ds, its largest score,
+    // how many slots reach it and the first of them (this lane's head)
+    double tot = 0.0, smax = -INFINITY;
+    int nmax = 0, kmax = 0x7fffffff;
     for (int base = beg; base < end; base += 32) {
       const int cnt_e = min(32, end - base);
       const int mine = base + min(ln.lane, cnt_e - 1);
@@ -266,6 +277,17 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
           const int r = rr[b];
           const double alpha = exp(s[b] - ls);
           const double ds = alpha * (kp[b] * gx[b] - dd);
+          if (valid) {
+            tot += ds;
+            if (s[b] > smax) {
+              smax = s[b];
+              nmax = 1;
+              kmax = static_cast<int>(e);
+            } else if (s[b] == smax) {
+              nmax += 1;
+              kmax = min(kmax, static_cast<int>(e));
+            }
+          }
           unsigned word[W];
 #pragma unroll
           for (int w = 0; w < W; ++w) word[w] = 0u;
@@ -301,6 +323,78 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_kernel(
           }
         }
         cur = ahead;
+      }
+    }
+    // the sub-warps' sums and maxima (every sub-warp ends with the same),
+    // then -tot / nmax added to the ds of each slot at the maximum, by
+    // sub-warp 0 (its d_w_dst, d_att and d_we_loop terms, its d_we row and
+    // its (alpha keep, ds)); the slot's row is loaded again
+    tot = sub_sum<S>(tot);
+#pragma unroll
+    for (int off = 32 / S; off < 32; off <<= 1) {
+      const double os = __shfl_xor_sync(kFull, smax, off);
+      const int on = __shfl_xor_sync(kFull, nmax, off);
+      const int ok = __shfl_xor_sync(kFull, kmax, off);
+      if (os > smax) {
+        smax = os;
+        nmax = on;
+        kmax = ok;
+      } else if (os == smax) {
+        nmax += on;
+        kmax = min(kmax, ok);
+      }
+    }
+    __syncwarp();
+    const double share = nmax > 0 ? -tot / nmax : 0.0;
+    auto correct = [&](int e, bool mine) {
+      const int ee = mine ? e : beg;      // a valid slot for the loads
+      const long long j = src[ee];
+      const int r = erow[ee];
+      const float* ev_row =
+          r < n_real ? we + static_cast<long long>(r) * ld : we_loop;
+      double msg[P];
+      double gx = 0.0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const double x = w_src[j * ld + ln.chan(p)];
+        msg[p] = x + xd[p] + static_cast<double>(ev_row[ln.chan(p)]);
+        if (p < ln.cnt) gx += g[p] * x;
+      }
+      gx = head_sum(gx, ln.hw);
+      const long long es = static_cast<long long>(ee) * lds + ln.hs;
+      const double kp = keep ? keep[es] : 1.f;
+      const double alpha = exp(static_cast<double>(scores[es]) - ls);
+      const double ds = alpha * (kp * gx - dd) + share;
+      if (!mine || ln.sub != 0) return;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (p >= ln.cnt) continue;
+        const bool pos = msg[p] >= 0.0;
+        const double lk = a[p] * (pos ? 1.0 : slope);
+        acc[p] += share * lk;
+        datt[p] += share * (pos ? msg[p] : slope * msg[p]);
+        if (r < n_real) {
+          d_we[static_cast<long long>(r) * ld + ln.c0 + p] =
+              static_cast<float>(ds * lk);
+        } else {
+          dloop[p] += share * lk;
+        }
+      }
+      if (ln.leader) {
+        akds[static_cast<long long>(ee) * heads + ln.head] = make_float2(
+            static_cast<float>(alpha * kp), static_cast<float>(ds));
+      }
+    };
+    const bool mine = ln.live && nmax > 0;
+    if (beg == end) {
+      // no slot: nothing to correct
+    } else if (!__any_sync(kFull, mine && nmax > 1)) {
+      correct(kmax, mine);
+    } else {
+      for (int e = beg; e < end; ++e) {   // ties: every slot at the maximum
+        correct(e, mine && static_cast<double>(
+                               scores[static_cast<long long>(e) * lds +
+                                      ln.hs]) == smax);
       }
     }
 #pragma unroll
@@ -479,6 +573,8 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_wide_kernel(
     const double ls = lse[i * lds];
     const int beg = indptr[i];
     const int end = indptr[i + 1];
+    double tot = 0.0, smax = -INFINITY;
+    int nmax = 0;
     for (int e = beg; e < end; ++e) {       // the slots' (alpha keep, ds)
       const long long j = src[e];
       double gx = 0.0;
@@ -497,6 +593,25 @@ __global__ void __launch_bounds__(kThreads) gatv2_bwd_dst_wide_kernel(
               ls);
       const double ds = alpha * (kp * gx - dd);
       if (lane == 0) akds[e] = make_double2(alpha * kp, ds);
+      const double sc = scores[static_cast<long long>(e) * lds];
+      tot += ds;
+      if (sc > smax) {
+        smax = sc;
+        nmax = 1;
+      } else if (sc == smax) {
+        nmax += 1;
+      }
+    }
+    __syncwarp();
+    // the stabiliser's term, before the slots' ds are used: -tot / nmax
+    // added to the ds of each slot at the destination's largest score
+    if (lane == 0 && nmax > 0) {
+      for (int e = beg; e < end; ++e) {
+        if (static_cast<double>(scores[static_cast<long long>(e) * lds]) ==
+            smax) {
+          akds[e].y += -tot / nmax;
+        }
+      }
     }
     __syncwarp();
     for (int c0 = 0; c0 < ch; c0 += kPass) {

@@ -240,7 +240,7 @@ class ConeOps:
         """A*(w) @ Y: a row scale by diag_val * w under ``diag_identity``,
         else the constraint-weighted SpMM."""
         if self.diag_identity:
-            return K.spmm_sym_csr(None, Y, 0.0, d=self.diag_val * w)
+            return K.spmm_sym_csr(None, Y, 0.0, d=self.diag_val, w=w)
         if self.a_csr is None:
             return torch.zeros_like(Y)
         return K.spmm_constr_csr(self.a_csr, w, Y)
@@ -257,7 +257,7 @@ class ConeOps:
                 return self.apply_a(w, Y) + cy
         elif self.diag_identity:
             return K.spmm_sym_csr(self.c_csr, Y, float(obj_coef),
-                                  d=self.diag_val * w)
+                                  d=self.diag_val, w=w)
         else:
             cy = K.spmm_sym_csr(self.c_csr, Y, float(obj_coef))
         if self.a_csr is None:

@@ -84,6 +84,8 @@ import tempfile
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import scipy.sparse
+import scipy.sparse.csgraph
 import torch
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
@@ -109,6 +111,8 @@ class Kernel:
     launches: int = 0       # kernel launches (CUDA tensors)
     launches_f32: int = 0   # of which on float32 values
     plain_calls: int = 0    # plain PyTorch version calls (CPU tensors)
+    folds: int = 0          # launches that formed their row scale inside
+                            # (K1's d * w; each saves an elementwise launch)
     lib_path: Optional[pathlib.Path] = None
     build_log: str = ""
     _lib: Optional[ctypes.CDLL] = None
@@ -164,7 +168,8 @@ class Kernel:
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("spmm_sym_csr",
            "ltr_lowrank_sdp_tpu/ops/gatherseg.py:248",
-           (_I, _P, _P, _P, _P, _P, _P, _I, _I, _D, _P), typed=True),
+           (_I,) + (_P,) * 8 + (_I, _I, _D, _I, _I, _I, _I, _I, _P),
+           typed=True),
     Kernel("diag_rowdot",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:231",
            (_I, _P, _P, _P, _D, _P, _P, _I, _I, _P), typed=True),
@@ -188,7 +193,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P), typed=True),
     Kernel("lp_col_wsum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:443",
-           (_I, _P, _P, _P, _P, _P, _D, _I, _P, _P), typed=True),
+           (_I,) + (_P,) * 9 + (_D, _I, _I, _I, _I, _P, _P), typed=True),
     Kernel("gatv2_softmax_agg",
            "ltr_lowrank_sdp_tpu/models/gatv2.py:26",
            (_P,) * 9 + (_I,) * 11 + (_F, _P, _P, _P, _P)),
@@ -200,7 +205,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P,) * 16 + (_I,) * 6 + (_F, _I, _I, _I) + (_P,) * 9),
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
-           (_P,) * 11 + (_I, _I) + (_P,) * 3),
+           (_P,) * 12 + (_I, _I, _I) + (_P,) * 5),
     Kernel("gather_rowsum",
            "scripts/pallas_gather_probe.py:41",
            (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
@@ -217,6 +222,7 @@ def reset_counts() -> None:
         k.launches = 0
         k.launches_f32 = 0
         k.plain_calls = 0
+        k.folds = 0
 
 
 def counts() -> Dict[str, Tuple[int, int]]:
@@ -412,12 +418,19 @@ def _ids_from_ptr(ptr: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class SymCSR:
     """A symmetric sparse matrix stored once as a full CSR (both triangles,
-    diagonal once), built on the host from its upper-triangle COO."""
+    diagonal once), built on the host from its upper-triangle COO, with the
+    order in which K1's warps take the rows: the reverse Cuthill-McKee
+    order of its graph (None for a diagonal matrix), so the rows of one
+    block are near one another and gather many of the same rows of Y (L1
+    hits); a row's own sum does not depend on it.  Plans of fewer than
+    ``K1_ORDER_MIN_G`` lanes a row keep the file order: with 16 or 32 rows
+    a warp the rows' own loads and stores coalesce only there."""
 
     n: int
     indptr: torch.Tensor     # (n+1,) int32
     indices: torch.Tensor    # (nnz,) int32
     vals: torch.Tensor       # (nnz,) float64 or float32
+    order: Optional[torch.Tensor]   # (n,) int32, None: 0 .. n-1
 
     @property
     def nnz(self) -> int:
@@ -443,39 +456,151 @@ class SymCSR:
         _i32(max(r_all.size, n + 1), "nnz of C")
         indptr = np.zeros(n + 1, np.int64)
         np.cumsum(np.bincount(r_all, minlength=n), out=indptr[1:])
+        order = None
+        if (r_all != c_all).any():
+            order = torch.tensor(
+                scipy.sparse.csgraph.reverse_cuthill_mckee(
+                    scipy.sparse.csr_matrix(
+                        (np.ones(c_all.size, np.int8), c_all, indptr),
+                        shape=(n, n)), symmetric_mode=True).copy(),
+                dtype=torch.int32, device=device)
         return SymCSR(
             n=n,
             indptr=torch.tensor(indptr, dtype=torch.int32, device=device),
             indices=torch.tensor(c_all, dtype=torch.int32, device=device),
-            vals=torch.tensor(v_all, dtype=dtype, device=device))
+            vals=torch.tensor(v_all, dtype=dtype, device=device),
+            order=order)
 
 
 def spmm_sym_csr_plain(csr: Optional[SymCSR], Y: torch.Tensor,
                        alpha: float = 1.0,
-                       d: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K1: ``alpha * C @ Y + d[:, None] * Y``."""
+                       d: Optional[torch.Tensor] = None,
+                       w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K1: ``alpha * C @ Y + d[:, None] * Y``, the row
+    scale ``d * w`` when ``w`` is given."""
     out = None
     if csr is not None:
         cy = torch.zeros_like(Y).index_add_(
             0, csr.row_ids, csr.vals[:, None] * Y[csr.indices.long()])
         out = alpha * cy
     if d is not None:
-        dy = d[:, None] * Y
+        dy = (d if w is None else d * w)[:, None] * Y
         out = dy if out is None else out + dy
     return out
 
 
+K1_NV = (1, 2, 4)        # vectors a lane and pass (instantiated in the .cu)
+K1_STEPS = (2, 4, 8)     # entries whose gathers a lane has in flight
+K1_MAX_IN_FLIGHT = 32    # kMaxInFlight: steps x NV x V at most
+K1_STEP_BYTES = 64       # the planned step's gathered bytes a lane
+K1_ORDER_MIN_G = 4       # lanes a row from which K1 takes rows in RCM order
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """K1's instantiation at one rank: ``v`` columns a vector load, ``g``
+    lanes a row, ``nv`` vectors a lane and pass and ``s`` entries a step
+    (their gathers all in flight before the step's first add).  Every
+    output element adds its row's entries in CSR order whatever the plan,
+    so every plan gives the same bits."""
+
+    v: int
+    g: int
+    nv: int
+    s: int
+
+    def covers(self, r: int) -> bool:
+        return r % self.v == 0 and (self.g == 32
+                                    or r <= self.g * self.nv * self.v)
+
+    def describe(self) -> str:
+        return f"V={self.v} G={self.g} NV={self.nv} S={self.s}"
+
+
+def _k1_widths(r: int, dtype: torch.dtype) -> List[int]:
+    """The vector widths (columns a load, at most 16 bytes) that divide r,
+    widest first."""
+    widest = 4 if dtype == torch.float32 else 2
+    return [v for v in (4, 2, 1) if v <= widest and r % v == 0]
+
+
+def _k1_group(r: int, v: int, nv: int) -> int:
+    g = 1
+    while g < 32 and g * nv * v < r:
+        g *= 2
+    return g
+
+
+def k1_plans(r: int, dtype: torch.dtype) -> List[K1Plan]:
+    """Every K1 plan for rank ``r`` and value type ``dtype``: each vector
+    width that divides r with each ``K1_NV``, the group the smallest power
+    of two whose lanes cover r (at most 32, wider r in passes), and each of
+    ``K1_STEPS`` whose gathers fit ``K1_MAX_IN_FLIGHT`` values; a (v, g)
+    whose group a smaller ``nv`` already covers in one pass is left out."""
+    if r < 1:
+        raise ValueError(f"rank {r} < 1")
+    out = []
+    for v in _k1_widths(r, dtype):
+        for nv in K1_NV:
+            g = _k1_group(r, v, nv)
+            if any(p.v == v and p.g == g and p.nv < nv and g < 32
+                   for p in out):
+                continue
+            out.extend(K1Plan(v, g, nv, s) for s in K1_STEPS
+                       if s * nv * v <= K1_MAX_IN_FLIGHT)
+    return out
+
+
+def k1_plan(r: int, dtype: torch.dtype, align: int = 16) -> K1Plan:
+    """K1's plan at rank ``r``: the widest vector that divides r and that
+    Y's address alignment ``align`` (bytes) allows, the fewest vectors a
+    lane that leave a group of at most 8 lanes (4 rows or more a warp), and
+    as many entries a step as keep a lane's gathers in flight within
+    ``K1_STEP_BYTES`` (at least 2): the fastest plan, or within 13 % of
+    it, at every shape ``chip_smoke.py``'s ``[k1-plan]`` times on the H100
+    (``PERF.md``)."""
+    if r < 1:
+        raise ValueError(f"rank {r} < 1")
+    size = 4 if dtype == torch.float32 else 8
+    v = next(v for v in _k1_widths(r, dtype) if align % (v * size) == 0)
+    nv = next((nv for nv in K1_NV if _k1_group(r, v, nv) <= 8), K1_NV[-1])
+    s = max([K1_STEPS[0]] + [s for s in K1_STEPS
+                             if s * nv * v * size <= K1_STEP_BYTES])
+    return K1Plan(v, _k1_group(r, v, nv), nv, s)
+
+
+def k1_cap(dev: torch.device, dtype: torch.dtype, plan: K1Plan) -> int:
+    """The blocks of K1's instantiation that fit ``dev`` at once: its SMs
+    times the occupancy query's blocks an SM."""
+    return _sm_count(dev) * KERNELS["spmm_sym_csr"].resident(
+        dev, _f32(dtype), plan.v, plan.g, plan.nv, plan.s)
+
+
 def spmm_sym_csr(csr: Optional[SymCSR], Y: torch.Tensor, alpha: float = 1.0,
-                 d: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1: ``alpha * C @ Y (+ d[:, None] * Y)`` for a static symmetric C.
+                 d: Optional[torch.Tensor] = None,
+                 w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1: ``alpha * C @ Y (+ d[:, None] * Y)`` for a static symmetric C;
+    with ``w`` the row scale is ``d * w``, formed inside the kernel.
 
     ``csr=None`` applies only the diagonal term (``d`` is then required)."""
+    return spmm_sym_csr_with(None, csr, Y, alpha, d, w)
+
+
+def spmm_sym_csr_with(plan: Optional[K1Plan], csr: Optional[SymCSR],
+                      Y: torch.Tensor, alpha: float = 1.0,
+                      d: Optional[torch.Tensor] = None,
+                      w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`spmm_sym_csr` launched with ``plan`` (None: :func:`k1_plan`
+    of the call).  Every plan gives the same bits; the tests and the smoke
+    run hold each of :func:`k1_plans` to that."""
     k = KERNELS["spmm_sym_csr"]
     if csr is None and d is None:
         raise ValueError("spmm_sym_csr needs C, d, or both")
+    if w is not None and d is None:
+        raise ValueError("spmm_sym_csr: w scales d, which is missing")
     if _is_cpu(Y):
         k.plain_calls += 1
-        return spmm_sym_csr_plain(csr, Y, alpha, d)
+        return spmm_sym_csr_plain(csr, Y, alpha, d, w)
     dev = Y.device
     if Y.dim() != 2:
         raise ValueError(f"Y must be (n, r), got {tuple(Y.shape)}")
@@ -489,14 +614,31 @@ def spmm_sym_csr(csr: Optional[SymCSR], Y: torch.Tensor, alpha: float = 1.0,
         _check(csr.indptr, "indptr", torch.int32, (n + 1,), dev)
         _check(csr.indices, "indices", torch.int32, (csr.nnz,), dev)
         _check(csr.vals, "vals", dt, (csr.nnz,), dev)
+        if csr.order is not None:
+            _check(csr.order, "order", torch.int32, (n,), dev)
     if d is not None:
         _check(d, "d", dt, (n,), dev)
+    if w is not None:
+        _check(w, "w", dt, (n,), dev)
     out = torch.empty((n, r), dtype=dt, device=dev)
+    if n == 0 or r == 0:
+        return out
+    size = Y.element_size()
+    if plan is None:
+        plan = k1_plan(r, dt, Y.data_ptr() & -Y.data_ptr())
+    elif not plan.covers(r) or Y.data_ptr() % (plan.v * size):
+        raise ValueError(f"{plan.describe()} does not cover r = {r} at "
+                         f"Y's address")
     k.launch(_f32(dt), _ptr(csr.indptr) if csr else None,
              _ptr(csr.indices) if csr else None,
              _ptr(csr.vals) if csr else None,
-             Y.data_ptr(), _ptr(d), out.data_ptr(), n, r, float(alpha),
+             _ptr(csr.order) if csr and plan.g >= K1_ORDER_MIN_G else None,
+             Y.data_ptr(), _ptr(d), _ptr(w), out.data_ptr(), n, r,
+             float(alpha), plan.v, plan.g, plan.nv, plan.s,
+             k1_cap(dev, dt, plan),
              _stream(dev))
+    if w is not None:
+        k.folds += 1
     return out
 
 
@@ -1252,6 +1394,20 @@ def spmm_constr_csr_with(plan: Optional[K6Plan], csr: ConstrCSR,
 
 
 K7_ROUND = 32                  # kRound in lp_constr_segsum.cu: its slots
+K8_MAX_W = 8                   # K8's widest ELL (instantiated in the .cu)
+
+
+def k8_width(counts: np.ndarray) -> int:
+    """K8's ELL width for columns of ``counts`` entries: the longest column
+    when it has at most ``K8_MAX_W`` entries (no tail), else the 99th
+    percentile of the counts, at most ``K8_MAX_W`` (the longer columns go to
+    the tail list), and at least 1."""
+    if counts.size == 0:
+        return 1
+    top = int(counts.max())
+    if top <= K8_MAX_W:
+        return max(1, top)
+    return int(min(K8_MAX_W, max(1, np.ceil(np.percentile(counts, 99)))))
 
 
 @dataclasses.dataclass
@@ -1259,8 +1415,12 @@ class LPEntries:
     """The LP cone's constraint entries (column, constraint, value) in two
     static orders built once on the host, each a stable sort of the problem's
     own entry order: by constraint (a CSR over the m constraints, for K7) and
-    by column (a CSC over the n_cols columns, for K8), with the LP objective
-    ``c``."""
+    by column (a CSC over the n_cols columns, for K8's tail and the plain
+    version), with the LP objective ``c``.  K8 reads the CSC as a slot-major
+    ELL of ``ell_width`` slots (slot k of column j at ``k * n_cols + j``,
+    the CSC's order kept, padding (0, 0)) with each column's count, -1 for a
+    column longer than the width, whose entries stay in the CSC and whose id
+    is on ``tail_col``."""
 
     m: int
     n_cols: int
@@ -1271,10 +1431,19 @@ class LPEntries:
     col_ptr: torch.Tensor    # (n_cols+1,) int32
     col_cid: torch.Tensor    # (nnz,) int32, constraint of each entry, CSC order
     col_val: torch.Tensor    # (nnz,) float64 or float32
+    ell_width: int
+    ell_cnt: torch.Tensor    # (n_cols,) int32, -1 for a tail column
+    ell_cid: torch.Tensor    # (ell_width * n_cols,) int32
+    ell_val: torch.Tensor    # (ell_width * n_cols,) float64 or float32
+    tail_col: torch.Tensor   # (n_tail,) int32, ascending
 
     @property
     def nnz(self) -> int:
         return int(self.row_col.numel())
+
+    @property
+    def n_tail(self) -> int:
+        return int(self.tail_col.numel())
 
     @functools.cached_property
     def row_ids(self) -> torch.Tensor:
@@ -1302,6 +1471,19 @@ class LPEntries:
 
         by_cid = np.argsort(cid, kind="stable")
         by_col = np.argsort(col, kind="stable")
+        counts = np.bincount(col, minlength=n_cols)
+        width = k8_width(counts)
+        _i32(width * max(n_cols, 1), "K8's ELL slots")
+        col_s = col[by_col]
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.arange(col.size) - starts[col_s]
+        long_col = counts > width
+        keep = ~long_col[col_s]
+        at = slot[keep] * n_cols + col_s[keep]
+        ell_cid = np.zeros(width * n_cols, np.int64)
+        ell_val = np.zeros(width * n_cols, np.float64)
+        ell_cid[at] = cid[by_col][keep]
+        ell_val[at] = vals[by_col][keep]
         return LPEntries(
             m=m, n_cols=n_cols,
             c=torch.tensor(np.asarray(c, np.float64), dtype=dtype,
@@ -1313,7 +1495,14 @@ class LPEntries:
             col_ptr=ptr(col, n_cols),
             col_cid=torch.tensor(cid[by_col], dtype=torch.int32,
                                  device=device),
-            col_val=torch.tensor(vals[by_col], dtype=dtype, device=device))
+            col_val=torch.tensor(vals[by_col], dtype=dtype, device=device),
+            ell_width=width,
+            ell_cnt=torch.tensor(np.where(long_col, -1, counts),
+                                 dtype=torch.int32, device=device),
+            ell_cid=torch.tensor(ell_cid, dtype=torch.int32, device=device),
+            ell_val=torch.tensor(ell_val, dtype=dtype, device=device),
+            tail_col=torch.tensor(np.flatnonzero(long_col),
+                                  dtype=torch.int32, device=device))
 
 
 def lp_constr_segsum_plain(lp: LPEntries, u, v, pair: bool = False):
@@ -1389,10 +1578,31 @@ def lp_col_wsum_plain(lp: LPEntries, w, c0: float = 1.0):
     return c0 * lp.c + s
 
 
+K8_THREADS = (1024, 512, 256, 128, 64, 32)   # K8's block sizes
+
+
+def k8_plan(n_cols: int) -> int:
+    """K8's block size: 512 threads, or the smallest block (at least a
+    warp) that holds all ``n_cols`` columns: a few large blocks were
+    faster than many small ones on the H100 (``PERF.md``; a column is one
+    thread's chain of two dependent loads)."""
+    t = 32
+    while t < 512 and t < n_cols:
+        t *= 2
+    return t
+
+
 def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
                 c0: float = 1.0) -> torch.Tensor:
     """K8: per LP column j, ``c0 * c[j] + sum_e val_e * w[cid_e]`` over its
     entries -> (n_cols,), the weight gather inside the kernel."""
+    return lp_col_wsum_with(None, lp, w, c0)
+
+
+def lp_col_wsum_with(threads: Optional[int], lp: LPEntries, w: torch.Tensor,
+                     c0: float = 1.0) -> torch.Tensor:
+    """:func:`lp_col_wsum` launched in blocks of ``threads`` (None:
+    :func:`k8_plan` of the card).  Every block size gives the same bits."""
     k = KERNELS["lp_col_wsum"]
     if _is_cpu(w):
         k.plain_calls += 1
@@ -1404,10 +1614,23 @@ def lp_col_wsum(lp: LPEntries, w: torch.Tensor,
     _check(lp.col_ptr, "col_ptr", torch.int32, (lp.n_cols + 1,), dev)
     _check(lp.col_cid, "col_cid", torch.int32, (lp.nnz,), dev)
     _check(lp.col_val, "col_val", dt, (lp.nnz,), dev)
+    slots = lp.ell_width * lp.n_cols
+    _check(lp.ell_cnt, "ell_cnt", torch.int32, (lp.n_cols,), dev)
+    _check(lp.ell_cid, "ell_cid", torch.int32, (slots,), dev)
+    _check(lp.ell_val, "ell_val", dt, (slots,), dev)
+    _check(lp.tail_col, "tail_col", torch.int32, (lp.n_tail,), dev)
+    if threads is None:
+        threads = k8_plan(lp.n_cols)
+    elif threads not in K8_THREADS:
+        raise ValueError(f"K8 takes blocks of {K8_THREADS} threads, got "
+                         f"{threads}")
     out = torch.empty(lp.n_cols, dtype=dt, device=dev)
-    k.launch(_f32(dt), lp.col_ptr.data_ptr(), lp.col_cid.data_ptr(),
-             lp.col_val.data_ptr(), w.data_ptr(), lp.c.data_ptr(), float(c0),
-             lp.n_cols, out.data_ptr(), _stream(dev))
+    k.launch(_f32(dt), lp.ell_cnt.data_ptr(), lp.ell_cid.data_ptr(),
+             lp.ell_val.data_ptr(), _ptr(lp.tail_col) if lp.n_tail else None,
+             lp.col_ptr.data_ptr(), _ptr(lp.col_cid) if lp.nnz else None,
+             _ptr(lp.col_val) if lp.nnz else None, w.data_ptr(),
+             lp.c.data_ptr(), float(c0), lp.n_cols, lp.n_tail, lp.ell_width,
+             threads, out.data_ptr(), _stream(dev))
     return out
 
 
@@ -1543,7 +1766,9 @@ def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
 def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
                                 keep, lse, out, dout, scores=None):
     """Plain version of K11: explicit formulas of K9's VJP, with the
-    LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it;
+    LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it and
+    the softmax's score gradient with the stabiliser's term of
+    :func:`_max_path`, as the JAX package's VJP has it;
     ``scores`` (E', H), the forward's own scores where given (else evaluated
     here)."""
     heads, ch = att.shape
@@ -1556,7 +1781,7 @@ def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
     go = dout.view(-1, heads, ch)
     dalpha = kp * torch.sum(go[dst] * xs, dim=-1)
     dd = torch.sum(go * out.view(-1, heads, ch), dim=-1)       # (n, H)
-    ds = alpha * (dalpha - dd[dst])
+    ds = _max_path(alpha * (dalpha - dd[dst]), scores, dst, g.n)
     act = torch.where(msg >= 0, msg, LEAKY_SLOPE * msg)
     dmsg = (ds[..., None] * att * torch.where(msg >= 0, 1.0, LEAKY_SLOPE)
             ).reshape(-1, hc)
@@ -2138,11 +2363,33 @@ def graph_pool_plain(seg: GraphSegments, x, score, keep=None):
     return _graph_pool_plain(seg, x, score, keep)[0]
 
 
+def _max_path(ds, score, seg, n_seg):
+    """The score gradient ``ds`` of a segment softmax plus the term that
+    the JAX package's VJP routes through the softmax's stabiliser
+    (``score - segment_max(score)``, ``gatv2.py:28``, ``layers.py:93``): each
+    segment's ``-sum ds``, split equally among the scores that equal the
+    segment's maximum.  In exact arithmetic that sum is 0; in float32 it is
+    the rounding left in ``ds``, and without this term it stays in every
+    leaf behind the softmax."""
+    shape = (n_seg,) + tuple(score.shape[1:])
+    top = torch.full(shape, -torch.inf, dtype=score.dtype,
+                     device=score.device).scatter_reduce_(
+        0, seg.view(-1, *([1] * (score.dim() - 1))).expand_as(score), score,
+        "amax")
+    hit = (score == top[seg]).to(ds.dtype)
+    ties = torch.zeros(shape, dtype=ds.dtype, device=ds.device).index_add_(
+        0, seg, hit)
+    total = torch.zeros(shape, dtype=ds.dtype, device=ds.device).index_add_(
+        0, seg, ds)
+    return ds - hit * (total / torch.clamp(ties, min=1.0))[seg]
+
+
 def graph_pool_bwd_plain(seg: GraphSegments, x, score, keep, out, stats,
                          ties, dout):
-    """Plain version of K12: explicit formulas of K10's VJP (the max's
+    """Plain version of K12: explicit formulas of K10's VJP, the max's
     gradient split equally among tied nodes, as ``jax.ops.segment_max``'s
-    is)."""
+    is, and the attention softmax's score gradient with the stabiliser's
+    term of :func:`_max_path`, as the JAX package's VJP has it."""
     d = x.shape[1]
     batch = seg.batch_ids
     counts = (seg.ptr[1:] - seg.ptr[:-1]).to(x.dtype)
@@ -2152,11 +2399,12 @@ def graph_pool_bwd_plain(seg: GraphSegments, x, score, keep, out, stats,
     w = torch.exp(score - stats[batch, 0]) / (stats[batch, 1] + 1e-16)
     kw = w if keep is None else keep * w
     a = torch.sum(x * dattn[batch], dim=1)
+    ka = a if keep is None else keep * a
     dot = torch.sum(dattn * out[:, 2 * d:], dim=1)
     dx = (dmean[batch]
           + torch.where(x == out[batch, d:2 * d], dmax[batch], 0.0)
           + kw[:, None] * dattn[batch])
-    dscore = w * ((a if keep is None else keep * a) - dot[batch])
+    dscore = _max_path(w * (ka - dot[batch]), score, batch, len(counts))
     return dx, dscore
 
 
@@ -2251,13 +2499,16 @@ def graph_pool_bwd(seg: GraphSegments, x, score, keep, out, stats, ties,
     _check(dout, "dout", torch.float32, (B, 3 * d), dev)
     dx = torch.empty((n, d), dtype=torch.float32, device=dev)
     dscore = torch.empty(n, dtype=torch.float32, device=dev)
-    k.launch(seg.ptr.data_ptr(), _ptr(seg.chunk_start) if nc else None,
+    part_ds = torch.empty(max(nc, 1), dtype=torch.float64, device=dev)
+    part_tie = torch.empty(2 * max(nc, 1), dtype=torch.int32, device=dev)
+    k.launch(seg.ptr.data_ptr(), seg.chunk_ptr.data_ptr(),
+             _ptr(seg.chunk_start) if nc else None,
              _ptr(seg.chunk_end) if nc else None,
              _ptr(seg.chunk_graph) if nc else None, x.data_ptr(),
              score.data_ptr(), _ptr(keep), out.data_ptr(), stats.data_ptr(),
-             ties.data_ptr(), dout.data_ptr(), nc, d,
+             ties.data_ptr(), dout.data_ptr(), B, nc, d,
              dx.data_ptr() if n else None, dscore.data_ptr() if n else None,
-             _stream(dev))
+             part_ds.data_ptr(), part_tie.data_ptr(), _stream(dev))
     return dx, dscore
 
 

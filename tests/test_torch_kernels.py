@@ -530,6 +530,63 @@ def test_lp_col_wsum(dev, case):
 
 
 @cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", LP_CASES)
+def test_lp_col_wsum_has_the_plain_bits_with_every_block(dev, case, dtype):
+    """K8 in every block size of ``K8_THREADS`` equals its plain version
+    evaluated on the host bit for bit (the CSC order, no fused
+    multiply-add), the ELL's padded slots and the tail columns included,
+    also where w holds an infinity and a NaN (a padded slot reads
+    constraint 0)."""
+    m, n_cols, c, col, cid, vals = _lp_entries(case)
+    lp = K.LPEntries.from_coo(c, col, cid, vals, m, n_cols, dev, dtype)
+    host = K.LPEntries.from_coo(c, col, cid, vals, m, n_cols, "cpu", dtype)
+    g = torch.Generator(device=dev).manual_seed(m)
+    w = torch.randn(m, generator=g, dtype=torch.float64, device=dev).to(dtype)
+    bad = w.clone()
+    bad[0], bad[m // 2] = float("inf"), float("nan")
+    for ww in (w, bad):
+        want = K.lp_col_wsum_plain(host, ww.cpu(), 0.37)
+        for threads in K.K8_THREADS:
+            got = K.lp_col_wsum_with(threads, lp, ww, 0.37).cpu()
+            same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), (threads, int((~same).sum()))
+
+
+@cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("r", [1, 19, 20, 33, 64])
+def test_spmm_sym_csr_every_plan_gives_the_planned_bits(dev, r, dtype):
+    """K1 in every plan of ``k1_plans``, in its three modes (``alpha C Y``,
+    ``C Y`` plus the row scale ``dv * w`` folded in, the row scale alone),
+    bitwise equal to the planned launch; the folded row scale bitwise equal
+    to ``d = dv * w`` formed first; the planned launch within the value
+    type's unit roundoff of the plain version (2-norm relative)."""
+    n = 1000
+    rows, cols, vals = _upper(n, 3)
+    csr = K.SymCSR.from_upper_coo(rows, cols, vals, n, dev, dtype)
+    g = torch.Generator(device=dev).manual_seed(r)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=dev).to(dtype)
+
+    Y, w = rnd(n, r), rnd(n)
+    dv = rnd(n).abs() + 0.5
+    tol = 2.2e-16 if dtype == torch.float64 else 1.2e-7
+    modes = [(csr, Y, 0.37, None, None), (csr, Y, 1.0, dv, w),
+             (None, Y, 0.0, dv, w)]
+    want = [K.spmm_sym_csr(*m) for m in modes]
+    assert torch.equal(want[1], K.spmm_sym_csr(csr, Y, 1.0, dv * w))
+    assert torch.equal(want[2], K.spmm_sym_csr(None, Y, 0.0, dv * w))
+    for m, planned in zip(modes, want):
+        assert _rel(planned, K.spmm_sym_csr_plain(*m)) <= tol
+    for plan in K.k1_plans(r, dtype):
+        for m, planned in zip(modes, want):
+            assert torch.equal(K.spmm_sym_csr_with(plan, *m), planned), plan
+
+
+@cuda
 def test_lp_wrappers_reject_what_the_kernels_do_not_take(dev):
     m, n_cols, c, col, cid, vals = _lp_entries("three")
     lp = K.LPEntries.from_coo(c, col, cid, vals, m, n_cols, dev)
