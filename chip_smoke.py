@@ -47,8 +47,13 @@ Phases, in order; any failed check raises and the script exits nonzero:
    diag_val * w folded in, the row scale alone) bitwise the planned
    launch, the folded row scale bitwise the launch given d = diag_val * w,
    the planned launch within the unit roundoff of the plain version, every
-   plan timed (``[k1-plan]``).  A final rank of phase 6 or 7
-   that phase 3 did not cover is held
+   plan timed (``[k1-plan]``).  K2 at the MaxCut path's n at r = 1, 5, 19,
+   20, 33, 64 and 141 in both value types (and on the path's rank-20
+   inputs in each type): every plan of ``k2_plans`` and a one-block grid
+   bitwise the planned launch in both modes, the planned launch on its
+   first 256 rows bitwise K2's sum order evaluated on the host
+   (``diag_rowdot_order``), every plan timed (``[k2-plan]``).  A final
+   rank of phase 6 or 7 that phase 3 did not cover is held
    right after its solve.  Then the float32 kernel phase: K1-K4 on the
    MaxCut C at rank 20, K5 (pair) and K6 on the matrix-completion cone at
    rank 19, K7 (pair) and K8 on the multi-block + LP path's LP cone, each
@@ -180,6 +185,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
    version evaluated in float64 on the kernel's inputs (max |kernel - plain|
    / max |plain| <= 1e-5, the backward's scale floored at 1e-6 of its
    largest output), the same bits on two calls, times beside the bound;
+   every K12 plan (``kernels.k10_plans``) bitwise the planned launch, each
+   timed (``[k12-plan]``, also at the width phase's d), one device kernel
+   a call (``[k12-kernels]``: a CUDA graph captured from one call);
    K11's scratch, measured as one call's peak-memory delta beyond its
    outputs, under a fifth of E' H C 4 bytes (``[k11-scratch]``).  Then one training step at full width
    (``runs/r5_theta``'s weights, dropout 0, fixed coins) on a collated batch of the seeded test split, on
@@ -202,7 +210,14 @@ Phases, in order; any failed check raises and the script exits nonzero:
    (``[train-step-h512x4]``), held to the same tolerances, with the worst
    leaf of the CPU's float32 step on that batch printed beside it (the
    CPU's float32 step and the JAX package's own float32 step miss the
-   per-leaf 1e-4 at this width: ``tests/test_torch_f32_faults.py``).
+   per-leaf 1e-4 at this width: ``tests/test_torch_f32_faults.py``), and
+   on the three smallest (``[train-step-h512x4-3g]``): the card's float32
+   kernel step against the card's float64 plain step, both with the max
+   pooling's node fixed to the float64 step's, the float64 step once with
+   its own LeakyReLU branches (printed: a message within float32 rounding
+   of 0 takes the other branch, a jump of the function) and once with the
+   card's (the worst leaf held to 1.39e-3, twice the JAX package's own
+   float32 worst leaf there).
    Then the entry point
    ``ltr_lowrank_sdp_torch.train.main(["--root", "dataset", "--epochs",
    "2", "--output-dir", ...])``, every other flag at its default (full width,
@@ -409,6 +424,13 @@ WIDE_STEPS = ((96, None), (512, 8))
 # does the JAX package's own (tests/test_torch_f32_faults.py)
 SMALL_STEP = (512, 4)
 SMALL_STEP_GRAPHS = 2
+# the 4 x 128 step on the test split's three graphs with the max pooling's
+# node fixed to the float64 step's (tests/test_torch_f32_faults.py): its
+# worst leaf held to twice the JAX package's own float32 worst there (6.97e-4)
+STEP_3G_GRAPHS = 3
+STEP_3G_TOL = 1.39e-3
+K2_RANKS = (1, 5, 19, 20, 33, 64, 141)   # [k2-plan]: every plan's bits
+K2_EMU_ROWS = 256         # rows held to K2's order evaluated on the host
 SMALL_STEP_THREADS = 4
 # HALLaR's float32 min-eig case, card against CPU: both stop before the
 # inner loop's cap (their steps differ by rounding), pobj within this of
@@ -860,10 +882,19 @@ def check_kernels(K, cone, dev):
             if r == REPORT_RANK:
                 report[name] = row
         if r == REPORT_RANK:
+            report["diag_rowdot"]["plan"] = check_k2_plans(
+                K, U, V, dv, f"maxcut n={n} r={r}")
+        if r == REPORT_RANK:
             report["sym_contract_sum"].update(check_k4_plans(
                 K, rows, cols, coef, U, U, f"maxcut n={n} r={r}"))
             check_k4_plans(K, rows, cols, coef, U, V, f"maxcut n={n} r={r}")
             count_k4_kernels(K, rows, cols, coef, U, f"maxcut n={n} r={r}")
+    # every rank of K2_RANKS in both value types at the MaxCut path's n
+    for dt in (torch.float64, torch.float32):
+        for r in K2_RANKS:
+            U, V = (torch.randn((n, r), generator=g, dtype=torch.float64,
+                                device=dev).to(dt) for _ in range(2))
+            check_k2_plans(K, U, V, dv.to(dt), f"n={n} r={r}")
     return report
 
 
@@ -1356,6 +1387,69 @@ def check_k10_plans(K, seg, x, score, keep, train, tag) -> str:
                      " ms")
     print(f"[k10-plan] {tag}{' train' if train else ''}: every plan gives "
           f"the planned launch's bits; {', '.join(times)}", flush=True)
+    return plans[0].describe()
+
+
+def check_k2_plans(K, U, V, dv, tag) -> str:
+    """``[k2-plan]``: K2 with every plan of ``k2_plans`` (G lanes a row),
+    each also on a one-block grid, in both modes, against the planned
+    launch bit for bit, and the planned launch on its first K2_EMU_ROWS rows
+    against ``diag_rowdot_order`` (K2's sum order evaluated on the host);
+    every plan timed.  Returns the planned launch's description."""
+    r = U.shape[1]
+    rows = slice(0, K2_EMU_ROWS)
+    host = [t[rows].cpu() for t in (U, V, dv)]
+    for s, second in ((2.0, True), (1.0, False)):
+        def tup(out):
+            return out if second else (out,)
+
+        want = tup(K.diag_rowdot(U, V, dv, s, second=second))
+        emu = tup(K.diag_rowdot_order(*host, s, second))
+        require(all(torch.equal(a[rows].cpu(), b) for a, b in zip(want, emu)),
+                f"K2 {tag} second={second}: not the bits of its order")
+        for plan in K.k2_plans(r, U.dtype):
+            for grid in (None, 1):
+                got = tup(K.diag_rowdot_with(plan, U, V, dv, s, second, grid))
+                require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                        f"K2 {tag} {plan.describe()} grid={grid}: other "
+                        "bits than the planned launch")
+    planned = K.k2_plan(r, U.dtype)
+    times = {p.describe(): round(time_ms(
+        lambda p=p: K.diag_rowdot_with(p, U, V, dv, 2.0, True)), 5)
+        for p in K.k2_plans(r, U.dtype)}
+    print(f"[k2-plan] {tag} {str(U.dtype)[6:]}: every plan (and a one-block "
+          f"grid) the planned launch's bits in both modes, the planned "
+          f"launch the host order's on {K2_EMU_ROWS} rows; planned "
+          f"{planned.describe()} {times[planned.describe()]:.5f} ms; ms by "
+          f"plan {json.dumps(times)}", flush=True)
+    return planned.describe()
+
+
+def check_k12_plans(K, args, tag) -> str:
+    """``[k12-plan]``: K12 with every plan of ``k10_plans`` (K12 walks its
+    nodes in K10's layout), each against the planned launch bit for bit and
+    timed, and one call one device kernel (``[k12-kernels]``: the nodes of
+    a CUDA graph captured from one call).  Returns the planned launch's
+    description."""
+    from ltr_lowrank_sdp_torch.testing import captured_kernel_nodes
+
+    seg, x = args[0], args[1]
+    want = K.graph_pool_bwd(*args)
+    plans = K.k10_plans(x.shape[1], x.data_ptr() % 16 == 0)
+    times = []
+    for plan in plans:
+        got = K.graph_pool_bwd_with(plan, *args)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K12 {tag} {plan.describe()}: other bits than the planned "
+                "launch")
+        ms = time_ms(lambda p=plan: K.graph_pool_bwd_with(p, *args))
+        times.append(f"{plan.describe()} {ms:.5f} ms")
+    nodes = captured_kernel_nodes(lambda: K.graph_pool_bwd(*args))
+    print(f"[k12-plan] {tag}: every plan gives the planned launch's bits; "
+          f"{', '.join(times)}", flush=True)
+    print(f"[k12-kernels] {tag}: {nodes} device kernel(s) in a CUDA graph "
+          f"captured from one call", flush=True)
+    require(nodes == 1, f"K12 {tag}: {nodes} kernels a call")
     return plans[0].describe()
 
 
@@ -2042,6 +2136,9 @@ def check_train_kernels(K, layer1, pool, tag, dev):
                 (2 * nn_ * d + nn_ * (3 if dropout else 2) + 2 * (B + 1)
                  + 3 * seg.n_chunks + 7 * B * d + 2 * B) * f4,
                 6.0 * nn_ * d)
+            row12["plan"] = check_k12_plans(
+                K, (seg, xt, score, keep_p, out_p, stats, ties, dpool),
+                f"{kt}{ttag} N={nn_} d={d}")
             if dropout and not ttag:
                 rows = {"gatv2_softmax_agg": row9, "graph_pool": row10,
                         "gatv2_softmax_agg_bwd": row11,
@@ -2049,11 +2146,12 @@ def check_train_kernels(K, layer1, pool, tag, dev):
     return rows
 
 
-def _train_setup(hidden_dim=None, num_heads=None, small=False):
+def _train_setup(hidden_dim=None, num_heads=None, small=False,
+                 graphs=SMALL_STEP_GRAPHS):
     """The batch, weights, config, dropout coins and log tag of one
     full-width training step (:func:`check_train_step`): the first batch of
-    16 of the seeded test split or, with ``small``, its
-    ``SMALL_STEP_GRAPHS`` smallest graphs."""
+    16 of the seeded test split or, with ``small``, its ``graphs``
+    smallest graphs."""
     from ltr_lowrank_sdp_torch.data.loader import (collate, create_splits,
                                                    iterate_batches)
     from ltr_lowrank_sdp_torch.models.checkpoint import load_model
@@ -2064,8 +2162,7 @@ def _train_setup(hidden_dim=None, num_heads=None, small=False):
     if small:
         sizes = {i: ds.get(i).x.shape[0] for i in test_idx}
         batch = collate([ds.get(i) for i in sorted(
-            test_idx, key=sizes.get)[:SMALL_STEP_GRAPHS]],
-            pad_graphs_to=SMALL_STEP_GRAPHS)
+            test_idx, key=sizes.get)[:graphs]], pad_graphs_to=graphs)
     else:
         batch = next(iterate_batches(ds, test_idx, 16))
     base, cfg = load_model(CKPT, device="cpu")
@@ -2365,6 +2462,154 @@ def check_train_step(K, dev, hidden_dim=None, num_heads=None, small=False):
             f"{tag}: card and CPU parameters differ after one step")
 
 
+@contextlib.contextmanager
+def _plain_gnn(K, branches=None, record=None):
+    """K9-K12 as their plain versions on the card's tensors, for a float64
+    step there (the kernels take float32): the GATv2 backward evaluates its
+    own scores in the step's type and, with ``branches``, takes each
+    call's LeakyReLU branches from the next of them; ``record`` receives
+    each call's own branches (``msg >= 0``)."""
+    saved = (K._gatv2_forward, K.gatv2_softmax_agg_bwd,
+             K._graph_pool_forward, K.graph_pool_bwd)
+    given = iter(branches or ())
+
+    def fwd(g, w_src, w_dst, we, we_loop, att, keep, with_lse, plan=None,
+            scores=None):
+        out, lse = K._gatv2_plain(g, w_src, w_dst, we, we_loop, att, keep)
+        return out, lse if with_lse else None
+
+    def bwd(g, w_src, w_dst, we, we_loop, att, keep, lse, out, dout,
+            scores=None):
+        if record is not None:
+            record.append(K._gatv2_messages(g, w_src, w_dst, we, we_loop,
+                                            att)[1] >= 0)
+        return K.gatv2_softmax_agg_bwd_plain(
+            g, w_src, w_dst, we, we_loop, att, keep, lse, out, dout,
+            branch=next(given) if branches is not None else None)
+
+    def pool_fwd(seg, x, score, keep, train, plan=None):
+        out, stats, ties = K._graph_pool_plain(seg, x, score, keep)
+        return (out, stats, ties) if train else (out, None, None)
+
+    (K._gatv2_forward, K.gatv2_softmax_agg_bwd, K._graph_pool_forward,
+     K.graph_pool_bwd) = fwd, bwd, pool_fwd, K.graph_pool_bwd_plain
+    try:
+        yield
+    finally:
+        (K._gatv2_forward, K.gatv2_softmax_agg_bwd, K._graph_pool_forward,
+         K.graph_pool_bwd) = saved
+
+
+@contextlib.contextmanager
+def _fixed_max_node(K, w=None, seen=None):
+    """``graph_pool`` with the ``max x`` third of its ``[mean | max |
+    attention]`` output replaced by the gather ``sum_i w[i] x[i]`` per graph
+    (``w`` (N, d): 1 / k at the k nodes of the float64 step's maximum):
+    the max pooling's node fixed, as ``tests/test_torch_f32_faults.py``
+    fixes it.  Without ``w`` the pooling is K10's own; ``seen`` receives
+    its input and graphs."""
+    pool = K.graph_pool
+
+    def fixed(seg, x, score, keep=None):
+        out = pool(seg, x, score, keep)
+        if seen is not None:
+            seen["x"], seen["seg"] = x.detach().clone(), seg
+        if w is None:
+            return out
+        d = x.shape[1]
+        mx = torch.zeros((seg.num_graphs, d), dtype=x.dtype,
+                         device=x.device).index_add_(
+            0, seg.batch_ids, x * w.to(x.dtype))
+        return torch.cat([out[:, :d], mx, out[:, 2 * d:]], dim=1)
+
+    K.graph_pool = fixed
+    try:
+        yield
+    finally:
+        K.graph_pool = pool
+
+
+def _max_node_weights(seg, x):
+    """(N, d) weights of the max pooling's node: per graph and channel 1 / k
+    at the k nodes where x equals the graph's maximum, else 0."""
+    ids = seg.batch_ids
+    top = torch.full((seg.num_graphs, x.shape[1]), -math.inf,
+                     dtype=x.dtype, device=x.device).scatter_reduce_(
+        0, ids[:, None].expand_as(x), x, "amax")
+    hit = (x == top[ids]).to(x.dtype)
+    count = torch.zeros_like(top).index_add_(0, ids, hit)
+    return hit / count[ids]
+
+
+def check_train_step_3g(K, dev) -> None:
+    """``[train-step-h512x4-3g]``: the training step at ``--hidden-dim 512``
+    (4 heads of 128 channels) on the test split's STEP_3G_GRAPHS smallest
+    graphs, the card's float32 kernel step against the card's float64 step
+    of the plain versions (``_plain_gnn``), both with the max pooling's node
+    fixed to the float64 step's (``_fixed_max_node``: without it both the
+    card's and the JAX package's float32 steps cross a jump of that max).
+    A second jump of the function: a GATv2 message within float32 rounding
+    of 0 takes the other LeakyReLU branch in the float32 step than in the
+    float64 one, which moves the leaves behind that layer's softmax by 0.8
+    ds att (``tests/test_torch_f32_faults.py``: the JAX package's float32
+    step crosses it too).  So the float64 step runs twice: with its own
+    branches (printed) and with the card's, each message's sign as K11
+    takes it (the float32 inputs summed in float64).  Held: against the
+    latter, the worst gradient leaf to STEP_3G_TOL (twice the JAX
+    package's float32 worst leaf with the node fixed, on the CPU); printed:
+    the worst leaves, ``convs.0.lin_dst.weight`` and the branches the
+    programs take apart per layer."""
+    setup = _train_setup(*SMALL_STEP, small=True, graphs=STEP_3G_GRAPHS)
+    tag = f"{setup[4]}-{STEP_3G_GRAPHS}g"
+    setup = setup[:4] + (tag,)
+    t = time.perf_counter()
+    seen = {}
+    with _plain_gnn(K), _fixed_max_node(K, None, seen):
+        _train_step(K, setup, dev, torch.float64)
+    w = _max_node_weights(seen["seg"], seen["x"])
+    del seen
+    card, bwd = [], K.gatv2_softmax_agg_bwd
+
+    def keep_branches(g, w_src, w_dst, we, we_loop, att, *rest):
+        card.append(K._gatv2_messages(g, *(t.double() for t in (
+            w_src, w_dst, we, we_loop, att)))[1] >= 0)
+        return bwd(g, w_src, w_dst, we, we_loop, att, *rest)
+
+    K.gatv2_softmax_agg_bwd = keep_branches
+    try:
+        with _fixed_max_node(K, w):
+            _, g32, _, c32 = _train_step(K, setup, dev, torch.float32)
+    finally:
+        K.gatv2_softmax_agg_bwd = bwd
+    require_counts(tag, c32, TRAIN_KERNELS)
+    own = []
+    with _plain_gnn(K, record=own), _fixed_max_node(K, w):
+        g64 = _train_step(K, setup, dev, torch.float64)[1]
+    apart = [int((a != b).sum()) for a, b in zip(card, own)]
+    del own
+    with _plain_gnn(K, branches=card), _fixed_max_node(K, w):
+        g64c = _train_step(K, setup, dev, torch.float64)[1]
+    del card
+    worst = {}
+    for name, ref in (("own", g64), ("card", g64c)):
+        per_leaf, _ = _leaf_errors(g32, ref)
+        top = sorted(per_leaf.items(), key=lambda kv: -kv[1])
+        worst[name] = top[0]
+        whose = "its own" if name == "own" else "the card's"
+        print(f"[{tag}] max pooling's node fixed, card float32 kernels vs "
+              f"card float64 plain with {whose} LeakyReLU branches: worst "
+              f"leaves {', '.join(f'{k} {v:.3e}' for k, v in top[:3])}; "
+              f"convs.0.lin_dst.weight "
+              f"{per_leaf['encoder.convs.0.lin_dst.weight']:.3e}", flush=True)
+    print(f"[{tag}] messages on other LeakyReLU branches in the two steps, "
+          f"by K11 call (last layer first): {apart}; held: the worst leaf "
+          f"against the float64 step with the card's branches <= "
+          f"{STEP_3G_TOL:g}; {time.perf_counter() - t:.1f} s", flush=True)
+    require(worst["card"][1] <= STEP_3G_TOL,
+            f"{tag}: worst leaf {worst['card'][0]} {worst['card'][1]:.3e}")
+    torch.cuda.empty_cache()
+
+
 def as_dtype(layout, dtype):
     """A kernel layout (``SymCSR``, ``SegCOO``, ``ConstrCSR``,
     ``LPEntries``) with its values in ``dtype``; the index arrays are
@@ -2483,6 +2728,8 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
         lambda: ref2, 2 * n * r * f4 + n * f4 + 2 * n * f4,
         4.0 * n * r + 3 * n, lambda: torch.linalg.vecdot(U, V),
         _lib_close("diag_rowdot", torch.sum(U64 * V64, dim=-1)))
+    rows["diag_rowdot"]["plan"] = check_k2_plans(K, U, V, dv,
+                                                 f"maxcut {shape}")
     ref3 = K.diag_normal_matvec_plain(U64, V64, dv.double())
     rows["diag_normal_matvec"] = _measure32(
         "diag_normal_matvec", shape,
@@ -2668,6 +2915,8 @@ def check_gnn_widths(K, edge_index, n, dev):
                 stats.double(), ties.double(), dpool.double()),
             (2 * n * d + 3 * n + 4 + 3 * seg.n_chunks + 7 * d + 2) * f4,
             6.0 * n * d)
+        out["graph_pool_bwd"][f"d={d}"]["plan"] = check_k12_plans(
+            K, (seg, x, score, keep, o, stats, ties, dpool), tag)
     return out
 
 
@@ -3730,6 +3979,7 @@ def main() -> int:
     for hidden, heads in WIDE_STEPS:
         check_train_step(K, dev, hidden_dim=hidden, num_heads=heads)
     check_train_step(K, dev, *SMALL_STEP, small=True)
+    check_train_step_3g(K, dev)
     print(f"[time] width phase {time.perf_counter() - t:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = run_train_path(K, dev, tmp)

@@ -75,6 +75,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import math
 import os
 import pathlib
 import re
@@ -172,7 +173,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            typed=True),
     Kernel("diag_rowdot",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:231",
-           (_I, _P, _P, _P, _D, _P, _P, _I, _I, _P), typed=True),
+           (_I, _P, _P, _P, _D, _P, _P, _I, _I, _I, _I, _I, _P), typed=True),
     Kernel("diag_normal_matvec",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:272",
            (_I, _P, _P, _P, _P, _I, _I, _P), typed=True),
@@ -205,7 +206,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P,) * 16 + (_I,) * 6 + (_F, _I, _I, _I) + (_P,) * 9),
     Kernel("graph_pool_bwd",
            "ltr_lowrank_sdp_tpu/models/layers.py:93 (VJP, train.py:250)",
-           (_P,) * 12 + (_I, _I, _I) + (_P,) * 5),
+           (_P,) * 12 + (_I,) * 7 + (_P,) * 7),
     Kernel("gather_rowsum",
            "scripts/pallas_gather_probe.py:41",
            (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
@@ -655,10 +656,153 @@ def diag_rowdot_plain(U, V, dv, s: float = 1.0, second: bool = False):
     return o1, dv * torch.sum(V * V, dim=-1)
 
 
+K2_MAX_SLOTS = 8          # virtual lanes a lane of K2 holds at most
+K2_PLAN_SLOTS = (4, 2)    # ... in the planned launch: one 32-column pass
+                          # of a row, more than one
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """K2's launch: ``lanes`` (G) lanes a row, each holding ``slots`` (J)
+    of the 32 virtual lanes of K2's sum order (J a power of two, J G >=
+    min(r, 32)).  Every plan gives the same bits."""
+
+    lanes: int
+    slots: int
+
+    def describe(self) -> str:
+        return f"G={self.lanes} J={self.slots}"
+
+
+def _k2_slots(r: int, lanes: int) -> int:
+    need = -(-min(max(r, 1), 32) // lanes)
+    return min(_pow2(need), 32 // lanes)
+
+
+def k2_plans(r: int, dtype: torch.dtype) -> List[K2Plan]:
+    """The planned launch first, then every other instantiated group size
+    (``csrc/diag_rowdot.cu``'s ``K2_CASE``: at most ``K2_MAX_SLOTS``
+    virtual lanes a lane)."""
+    plans = [K2Plan(g, _k2_slots(r, g)) for g in (1, 2, 4, 8, 16, 32)]
+    plans = [p for p in plans if p.slots <= K2_MAX_SLOTS]
+    plan = k2_plan(r, dtype)
+    return [plan] + [p for p in plans if p != plan]
+
+
+def k2_plan(r: int, dtype: torch.dtype) -> K2Plan:
+    """K2's lanes a row: the fewest (a power of two) that leave a lane at
+    most ``K2_PLAN_SLOTS`` virtual lanes: 4 where a row is one pass of 32
+    columns, 2 where it takes more (the fastest or within 3 % of it at
+    every rank timed on the card, ``PERF.md``; the same in both value
+    types)."""
+    cap = K2_PLAN_SLOTS[0] if r <= 32 else K2_PLAN_SLOTS[1]
+    g = 1
+    while _k2_slots(r, g) > cap:
+        g *= 2
+    return K2Plan(g, _k2_slots(r, g))
+
+
+def _k2_cap(dev: torch.device, dtype: torch.dtype, plan: K2Plan) -> int:
+    """The blocks of ``plan`` that fit the card at once."""
+    return _sm_count(dev) * KERNELS["diag_rowdot"].resident(
+        dev, _f32(dtype), plan.lanes, plan.slots)
+
+
+def _round_bits(num: int, shift: int, mant: int) -> float:
+    """``num * 2**shift`` rounded to ``mant`` significant bits, ties to
+    even (``num`` != 0; no overflow or subnormal)."""
+    m = abs(num)
+    extra = m.bit_length() - mant
+    if extra > 0:
+        q, rem = m >> extra, m & ((1 << extra) - 1)
+        half = 1 << (extra - 1)
+        if rem > half or (rem == half and q & 1):
+            q += 1
+        m, shift = q, shift + extra
+    v = math.ldexp(m, shift)
+    return -v if num < 0 else v
+
+
+def _fma_exact(a: float, b: float, c: float, mant: int) -> float:
+    """``a * b + c`` rounded once to ``mant`` significant bits (53:
+    float64's fused multiply-add, 24: float32's), from exact integers."""
+    if not (math.isfinite(a) and math.isfinite(b) and math.isfinite(c)):
+        return a * b + c
+    (an, ad), (bn, bd), (cn, cd) = (a.as_integer_ratio(),
+                                    b.as_integer_ratio(),
+                                    c.as_integer_ratio())
+    den = max(ad * bd, cd)          # powers of two
+    num = an * bn * (den // (ad * bd)) + cn * (den // cd)
+    if num == 0:     # -0 only where a * b and c are both -0
+        neg = (math.copysign(1.0, a) * math.copysign(1.0, b) < 0
+               and math.copysign(1.0, c) < 0 and (a == 0 or b == 0))
+        return -0.0 if neg else 0.0
+    return _round_bits(num, 1 - den.bit_length(), mant)
+
+
+def k2_chains(U: np.ndarray, V: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """K2's 32 virtual lanes of every row, (n, 32) each of ``uv`` and
+    ``vv``: virtual lane l adds columns l, l + 32, ... from 0 by fused
+    multiply-adds in U's value type, ``uv = fma(U, V, uv)``, ``vv = fma(V,
+    V, vv)``."""
+    dt = U.dtype
+    mant = 24 if dt == np.float32 else 53
+    fma = np.frompyfunc(lambda a, b, c: _fma_exact(a, b, c, mant), 3, 1)
+    n, r = U.shape
+    uv = np.zeros((n, 32), dt)
+    vv = np.zeros((n, 32), dt)
+    for c in range(r):
+        u, v = U[:, c].astype(np.float64), V[:, c].astype(np.float64)
+        l = c % 32
+        uv[:, l] = fma(u, v, uv[:, l].astype(np.float64)).astype(dt)
+        vv[:, l] = fma(v, v, vv[:, l].astype(np.float64)).astype(dt)
+    return uv, vv
+
+
+def diag_rowdot_order(U, V, dv, s: float = 1.0, second: bool = False,
+                      plan: Optional[K2Plan] = None):
+    """K2's result, bit for bit, evaluated on the host in its order
+    (:func:`k2_chains`, then the halving tree over the virtual lanes) and
+    as ``plan`` (None: :func:`k2_plan`) takes it: a lane's slots j and j + o
+    / G added in registers for the offsets o >= G, skipping the slots past
+    J, which hold 0; the group's last levels as shuffles (lane k adds lane
+    k + o).  Tensors or arrays on the host; returns tensors."""
+    U, V, dv = (np.asarray(torch.as_tensor(t).cpu()) for t in (U, V, dv))
+    n, r = U.shape
+    dt = U.dtype
+    plan = plan or k2_plan(r, torch.float32 if dt == np.float32
+                           else torch.float64)
+    g, j_max = plan.lanes, plan.slots
+    uv, vv = k2_chains(U, V)
+    held = np.zeros(32, bool)        # the virtual lanes the lanes hold
+    for k in range(g):
+        held[[k + j * g for j in range(j_max)]] = True
+    for o in (16, 8, 4, 2, 1):
+        for l in range(o):
+            if o >= g and not held[l + o]:
+                continue             # a register slot past J: 0, skipped
+            uv[:, l] = uv[:, l] + uv[:, l + o]
+            vv[:, l] = vv[:, l] + vv[:, l + o]
+    o1 = (dt.type(s) * dv) * uv[:, 0]
+    out = torch.from_numpy(np.ascontiguousarray(o1))
+    if not second:
+        return out
+    return out, torch.from_numpy(np.ascontiguousarray(dv * vv[:, 0]))
+
+
 def diag_rowdot(U: torch.Tensor, V: torch.Tensor, dv: torch.Tensor,
                 s: float = 1.0, second: bool = False):
     """K2: ``(s*dv) * rowsum(U*V)``, and with ``second`` also
     ``dv * rowsum(V*V)`` from the same pass."""
+    return diag_rowdot_with(None, U, V, dv, s, second)
+
+
+def diag_rowdot_with(plan: Optional[K2Plan], U: torch.Tensor,
+                     V: torch.Tensor, dv: torch.Tensor, s: float = 1.0,
+                     second: bool = False, grid: Optional[int] = None):
+    """K2 launched with ``plan`` (None: :func:`k2_plan`) on ``grid`` blocks
+    (None: the blocks its rows need, at most those that fit the card at
+    once).  Every plan and grid gives the same bits."""
     k = KERNELS["diag_rowdot"]
     if _is_cpu(U):
         k.plain_calls += 1
@@ -672,10 +816,17 @@ def diag_rowdot(U: torch.Tensor, V: torch.Tensor, dv: torch.Tensor,
     _check(V, "V", dt, (n, r), dev)
     _check(dv, "dv", dt, (n,), dev)
     _i32(n * max(r, 1), "n * r")
+    if plan is None:
+        plan = k2_plan(r, dt)
+    elif plan not in k2_plans(r, dt):
+        raise ValueError(f"{plan.describe()} is not a plan of r = {r}")
+    if grid is None:
+        grid = min(-(-n // (256 // plan.lanes)), _k2_cap(dev, dt, plan))
     o1 = torch.empty(n, dtype=dt, device=dev)
     o2 = torch.empty(n, dtype=dt, device=dev) if second else None
     k.launch(_f32(dt), U.data_ptr(), V.data_ptr(), dv.data_ptr(), float(s),
-             o1.data_ptr(), _ptr(o2), n, r, _stream(dev))
+             o1.data_ptr(), _ptr(o2), n, r, plan.lanes, plan.slots,
+             max(int(grid), 1), _stream(dev))
     return (o1, o2) if second else o1
 
 
@@ -794,7 +945,7 @@ def _k4_scratch(dev: torch.device, stream: int, chunks: int) -> _K4Scratch:
     """K4's scratch for an eager call on ``stream``: made once (the ticket
     zeroed then), the partials grown to a power of two when a call needs
     more.  Eager calls on one stream run in order, so they share it.  Also
-    keeps the pool of zeroed tickets of :func:`_k4_graph_ticket` stocked."""
+    keeps the pool of zeroed tickets of :func:`_graph_tickets` stocked."""
     key = (dev, stream)
     ws = _K4_SCRATCH.get(key)
     if ws is None:
@@ -804,6 +955,13 @@ def _k4_scratch(dev: torch.device, stream: int, chunks: int) -> _K4Scratch:
     if ws.part.numel() < chunks:
         ws.part = torch.empty(1 << (chunks - 1).bit_length(),
                               dtype=torch.float64, device=dev)
+    _stock_graph_tickets(dev)
+    return ws
+
+
+def _stock_graph_tickets(dev: torch.device) -> None:
+    """Keeps the pool of zeroed tickets of :func:`_graph_tickets` stocked
+    (from an eager call: it may synchronize)."""
     pool = _K4_TICKETS.get(dev)
     if pool is None or pool.next > K4_TICKET_BLOCK // 2:
         block = torch.zeros(K4_TICKET_BLOCK, dtype=torch.int32, device=dev)
@@ -811,20 +969,20 @@ def _k4_scratch(dev: torch.device, stream: int, chunks: int) -> _K4Scratch:
         # a used block stays held: captured graphs keep its tickets
         _K4_TICKETS[dev] = _K4Tickets(block, 0, [] if pool is None else
                                       pool.spent + [pool.block])
-    return ws
 
 
-def _k4_graph_ticket(dev: torch.device) -> torch.Tensor:
-    """A ticket of its own for a call captured into a CUDA graph, so that no
-    two graphs, nor a graph and the eager calls on its capture stream, share
-    one: the pool's next zeroed ticket, never handed out again (the graph's
-    last block leaves it at 0 for the next replay).  With the pool spent, a
-    ticket zeroed inside the graph (one memset node more)."""
+def _graph_tickets(dev: torch.device, count: int = 1) -> torch.Tensor:
+    """``count`` tickets of its own for a call captured into a CUDA graph
+    (K4, K12), so that no two graphs, nor a graph and the eager calls on its
+    capture stream, share one: the pool's next zeroed tickets, never handed
+    out again (the graph's last blocks leave them at 0 for the next
+    replay).  With the pool spent, tickets zeroed inside the graph (one
+    memset node more)."""
     pool = _K4_TICKETS.get(dev)
-    if pool is None or pool.next == K4_TICKET_BLOCK:
-        return torch.zeros(1, dtype=torch.int32, device=dev)
-    pool.next += 1
-    return pool.block[pool.next - 1:pool.next]
+    if pool is None or pool.next + count > K4_TICKET_BLOCK:
+        return torch.zeros(count, dtype=torch.int32, device=dev)
+    pool.next += count
+    return pool.block[pool.next - count:pool.next]
 
 
 @functools.lru_cache(maxsize=None)
@@ -967,7 +1125,7 @@ def sym_contract_sum_with(plan: Optional[K4Plan], rows: torch.Tensor,
         # the graph's own partials (its pool holds them) and ticket
         part = torch.empty(max(1, plan.chunks), dtype=torch.float64,
                            device=dev)
-        ticket = _k4_graph_ticket(dev)
+        ticket = _graph_tickets(dev)
     else:
         ws = _k4_scratch(dev, stream, plan.chunks)
         part, ticket = ws.part, ws.ticket
@@ -1764,13 +1922,18 @@ def gatv2_softmax_agg_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
 
 
 def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
-                                keep, lse, out, dout, scores=None):
+                                keep, lse, out, dout, scores=None,
+                                branch=None):
     """Plain version of K11: explicit formulas of K9's VJP, with the
     LeakyReLU's derivative 1 at 0 as ``jnp.where(x >= 0, ...)`` has it and
     the softmax's score gradient with the stabiliser's term of
     :func:`_max_path`, as the JAX package's VJP has it;
     ``scores`` (E', H), the forward's own scores where given (else evaluated
-    here)."""
+    here); ``branch`` (E', H, C) bool, each message's LeakyReLU branch
+    (True: the identity's) where given, else ``msg >= 0``: a reference
+    that follows another program's branches, where a message within
+    rounding of 0 makes the function jump (``chip_smoke.py``'s
+    ``[train-step-h512x4-3g]``)."""
     heads, ch = att.shape
     hc = heads * ch
     dst = g.dst_ids
@@ -1782,8 +1945,9 @@ def gatv2_softmax_agg_bwd_plain(g: EdgeCSR, w_src, w_dst, we, we_loop, att,
     dalpha = kp * torch.sum(go[dst] * xs, dim=-1)
     dd = torch.sum(go * out.view(-1, heads, ch), dim=-1)       # (n, H)
     ds = _max_path(alpha * (dalpha - dd[dst]), scores, dst, g.n)
-    act = torch.where(msg >= 0, msg, LEAKY_SLOPE * msg)
-    dmsg = (ds[..., None] * att * torch.where(msg >= 0, 1.0, LEAKY_SLOPE)
+    pos = msg >= 0 if branch is None else branch
+    act = torch.where(pos, msg, LEAKY_SLOPE * msg)
+    dmsg = (ds[..., None] * att * torch.where(pos, 1.0, LEAKY_SLOPE)
             ).reshape(-1, hc)
     d_att = torch.sum(ds[..., None] * act, dim=0)
     zeros = torch.zeros((g.n, hc), dtype=w_src.dtype, device=w_src.device)
@@ -2483,7 +2647,16 @@ def graph_pool_bwd(seg: GraphSegments, x, score, keep, out, stats, ties,
                    dout):
     """K12: the gradients ``(dx (N, d), dscore (N,))`` of K10's inputs from
     ``dout`` (B, 3 d), given K10's ``out``, ``stats`` and ``ties`` for the
-    same inputs (and ``keep``)."""
+    same inputs (and ``keep``); one launch."""
+    return graph_pool_bwd_with(None, seg, x, score, keep, out, stats, ties,
+                               dout)
+
+
+def graph_pool_bwd_with(plan: Optional[K10Plan], seg: GraphSegments, x,
+                        score, keep, out, stats, ties, dout):
+    """K12 launched with ``plan`` (None: :func:`k10_plan`; K12 walks its
+    nodes in K10's layout).  Every plan of :func:`k10_plans` gives the same
+    bits."""
     k = KERNELS["graph_pool_bwd"]
     if _is_cpu(dout):
         k.plain_calls += 1
@@ -2497,19 +2670,42 @@ def graph_pool_bwd(seg: GraphSegments, x, score, keep, out, stats, ties,
     _check(stats, "stats", torch.float32, (B, 2), dev)
     _check(ties, "ties", torch.float32, (B, d), dev)
     _check(dout, "dout", torch.float32, (B, 3 * d), dev)
+    aligned = x.data_ptr() % 16 == 0
+    if plan is None:
+        plan = k10_plan(d, aligned)
+    elif plan not in k10_plans(d, aligned):
+        raise ValueError(f"{plan.describe()} is not a plan of d = {d}")
+    ny = -(-d // K10_MAX_D)
     dx = torch.empty((n, d), dtype=torch.float32, device=dev)
     dscore = torch.empty(n, dtype=torch.float32, device=dev)
     part_ds = torch.empty(max(nc, 1), dtype=torch.float64, device=dev)
     part_tie = torch.empty(2 * max(nc, 1), dtype=torch.int32, device=dev)
+    part_a = (torch.empty(nc * ny * K10_CHUNK, dtype=torch.float64,
+                          device=dev) if ny > 1 and nc else None)
+    if torch.cuda.is_current_stream_capturing():
+        ticket = _graph_tickets(dev, k12_tickets(B, nc, d))
+    else:
+        ticket = _k10_scratch(dev, _stream(dev), 0,
+                              k12_tickets(B, nc, d)).ticket
+        _stock_graph_tickets(dev)
     k.launch(seg.ptr.data_ptr(), seg.chunk_ptr.data_ptr(),
              _ptr(seg.chunk_start) if nc else None,
              _ptr(seg.chunk_end) if nc else None,
-             _ptr(seg.chunk_graph) if nc else None, x.data_ptr(),
-             score.data_ptr(), _ptr(keep), out.data_ptr(), stats.data_ptr(),
-             ties.data_ptr(), dout.data_ptr(), B, nc, d,
-             dx.data_ptr() if n else None, dscore.data_ptr() if n else None,
-             part_ds.data_ptr(), part_tie.data_ptr(), _stream(dev))
+             _ptr(seg.chunk_graph) if nc else None,
+             x.data_ptr() if n else None, score.data_ptr() if n else None,
+             _ptr(keep) if n else None, out.data_ptr(), stats.data_ptr(),
+             ties.data_ptr(), dout.data_ptr(), B, nc, d, plan.lanes,
+             plan.cpl, plan.vec, plan.depth, dx.data_ptr() if n else None,
+             dscore.data_ptr() if n else None, part_ds.data_ptr(),
+             part_tie.data_ptr(), _ptr(part_a), ticket.data_ptr(),
+             _stream(dev))
     return dx, dscore
+
+
+def k12_tickets(n_graphs: int, n_chunks: int, d: int) -> int:
+    """K12's tickets: one a graph, then one a chunk where d is cut into
+    column blocks (the chunk's last column block adds their dots)."""
+    return n_graphs + (n_chunks if d > K10_MAX_D else 0)
 
 
 class _GraphPool(torch.autograd.Function):

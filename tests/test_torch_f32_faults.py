@@ -37,20 +37,32 @@ there cancels the rounding left in them; the leaves behind the softmaxes
 (``convs.*.att``, ``attn_pool``, the edge encoder) were 5-11x JAX's.  The
 port's plain versions and kernels now add it (``kernels._max_path``), and
 the test holds that repair against the previous plain formulas (kept here
-as ``_unrepaired_*``).  On the three graphs together a second departure remains
-(``ROADMAP.md`` Queue 3, open): the port's gradients at GAT layer 0's
-inputs are 23x JAX's there, and ``evidence("fixed")`` measures it.
+as ``_unrepaired_*``).  On the three graphs together the port's worst leaf
+stayed 25x JAX's at ``convs.0.lin_dst.weight``.  Swapping each input of
+GAT layer 0's backward for the JAX step's value (``evidence("inputs")``)
+showed a second jump of the function there, not a departure of the port: a
+message within float32 rounding of 0 takes the other LeakyReLU branch in
+float32 than in float64 (0.8 att ds at that slot); the JAX step crosses
+such kinks too.  With every message's branch fixed to the float64 step's as
+well (``evidence("branches")``; the JAX package through a stand-in for its
+``gatv2`` module's ``nn`` name, the port through its plain backward's
+``branch``), the port's worst leaf lies below JAX's on all four batches.
+``test_leaky_relu_kink_is_a_jump_of_the_function`` pins the mechanism on a
+planted message.
 
 ``PYTHONPATH=. python tests/test_torch_f32_faults.py [part ...]`` prints the
 evidence behind the numbers above (``evidence``'s parts: the 64 JAX orders
 and the port's over the same orders; the 4 x 128 step on four batches of the
-three graphs, with and without the node fixed; the wide widths of
+three graphs, with and without the node fixed, and with the LeakyReLU
+branches fixed too; K11's inputs swapped one by one; the wide widths of
 ``chip_smoke.py``; the port's float32 step stage by stage); a batch with the
 23,028-node graph takes about 52 GB without the node fixed and 27 GB with it.
+``F32_FAULT_THREADS`` sets the torch threads (default 1).
 """
 
 import dataclasses
 import gc
+import os
 import sys
 import types
 
@@ -239,9 +251,10 @@ def test_float32_step_at_4x128_against_the_jax_float32_step(wide_case):
     gradient: its own float32 step misses GRAD_TOL, the port's float32
     worst leaf is at most twice JAX's, and the two worst leaves sit in the
     same module.  (On the three smallest the port's is 2.9x JAX's, in
-    another module: the fault stays open, ``ROADMAP.md`` Queue 3; that batch
-    takes 320 s and 52 GB on one thread, beyond a tier-1 test, and
-    :func:`evidence` measures it.)"""
+    another module, from two jumps of the function that float32 and
+    float64 take apart, the max pooling's node and LeakyReLU branches,
+    ``ROADMAP.md`` Queue 3; that batch takes 320 s and 52 GB on one thread,
+    beyond a tier-1 test, and :func:`evidence` measures it.)"""
     g64 = _jax_grads(wide_case, jnp.float64)
     jax32 = _leaf_errors(_jax_grads(wide_case, jnp.float32), g64)
     port32 = _leaf_errors(_port_grads(wide_case, torch.float32), g64)
@@ -275,17 +288,61 @@ class _NetJax:
         return getattr(jax, name)
 
 
-def _jax_step(case, jdt, seg_max, w=None):
+class _GatNn:
+    """Stands for the ``nn`` name (flax.linen) of
+    ``ltr_lowrank_sdp_tpu.models.gatv2``: every attribute is flax's own,
+    but ``leaky_relu`` takes each message's branch from
+    ``held["masks"][held["layer"]]`` (True: the identity, False: the slope),
+    the layer whose ``__call__`` runs (set by :func:`_layer_tracker`)."""
+
+    def __init__(self, held):
+        self.held = held
+
+    def leaky_relu(self, x, negative_slope=0.01):
+        import flax.linen as nn
+        layer = self.held.get("layer")
+        if self.held.get("masks") is None or layer is None:
+            return nn.leaky_relu(x, negative_slope=negative_slope)
+        return jnp.where(self.held["masks"][layer], x, negative_slope * x)
+
+    def __getattr__(self, name):
+        import flax.linen as nn
+        return getattr(nn, name)
+
+
+def _layer_tracker(held):
+    """A ``flax.linen.intercept_methods`` interceptor that holds the index
+    of the GATv2 layer whose ``__call__`` runs in ``held["layer"]``."""
+    def intercept(next_fun, args, kwargs, context):
+        path = tuple(p.replace("Checkpoint", "") for p in context.module.path)
+        if (context.method_name == "__call__" and len(path) == 2
+                and path[0] == "encoder" and path[1].startswith("GATv2Conv_")):
+            held["layer"] = int(path[1].rsplit("_", 1)[1])
+            try:
+                return next_fun(*args, **kwargs)
+            finally:
+                held["layer"] = None
+        return next_fun(*args, **kwargs)
+
+    return intercept
+
+
+def _jax_step(case, jdt, seg_max, w=None, masks=None):
     """``_jax_grads`` with the ``jax`` name of the JAX package's ``net``
     module bound to ``_NetJax(seg_max)``; ``seg_max`` reads the weights
-    ``w`` (if any) from ``held["w"]``.  The inputs and ``w`` enter the jitted
-    step as arguments: closed over, XLA folds gathers of them into
-    constants, which takes tens of GB on the 23,028-node graph."""
+    ``w`` (if any) from ``held["w"]``.  With ``masks`` (one (E, H, C) bool
+    array a GATv2 layer, in JAX's layout), every LeakyReLU of a GATv2
+    message takes the branch the mask gives (``_GatNn``).  The inputs,
+    ``w`` and the masks enter the jitted step as arguments: closed over,
+    XLA folds gathers of them into constants, which takes tens of GB on the
+    23,028-node graph."""
+    import flax.linen as nn
+    from ltr_lowrank_sdp_tpu.models import gatv2 as jax_gatv2
     model, params, bj, _, args, tf_rng, _ = case
     held = {}
 
-    def loss(p, a, wt):
-        held["w"] = wt
+    def loss(p, a, wt, mk):
+        held["w"], held["masks"] = wt, mk
         return train_case._jax_loss(model, a, bj, tf_rng, jdt)(p)
 
     p = jax.tree.map(lambda q: q.astype(jdt), params)
@@ -294,9 +351,13 @@ def _jax_step(case, jdt, seg_max, w=None):
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_net, "jax", _NetJax(lambda x, ids, num:
                                        seg_max(x, ids, num, held["w"])))
+    if masks is not None:
+        mp.setattr(jax_gatv2, "nn", _GatNn(held))
     try:
-        _, g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-            p, a, None if w is None else jnp.asarray(w, jdt))
+        with nn.intercept_methods(_layer_tracker(held)):
+            _, g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+                p, a, None if w is None else jnp.asarray(w, jdt),
+                None if masks is None else [jnp.asarray(m) for m in masks])
     finally:
         mp.undo()
     return checkpoint.params_from_flax(
@@ -329,8 +390,8 @@ def _gather(x, ids, num, w):
     return jax.ops.segment_sum(x * w, ids, num)
 
 
-def _fixed_jax_grads(case, jdt, w):
-    return _jax_step(case, jdt, _gather, w)
+def _fixed_jax_grads(case, jdt, w, masks=None):
+    return _jax_step(case, jdt, _gather, w, masks)
 
 
 def _fixed_port_grads(case, tdt, w):
@@ -535,6 +596,77 @@ def test_float32_step_with_the_max_node_fixed(wide_case):
     assert max(port64.values()) <= 1e-6
     assert _worst(port32)[1] <= 2.0 * _worst(jax32)[1]
     assert ratio[0] <= 4.0 < before_ratio[0]
+
+
+def _planted_kink(seed=0):
+    """A GATv2 layer (60 nodes, 400 edges, 2 heads x 8 channels) in float64
+    with one real edge's message at one channel planted at the LeakyReLU's
+    kink: its float32 inputs (the float64 ones rounded) sum to -2^-24 in
+    float32 (the slope's branch), the float64 inputs, one float32 ulp of
+    w_dst apart, to +2^-24 (the identity's); -> (float64 arguments of K11,
+    float32 arguments, the planted slot, head, channel)."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    rng = np.random.default_rng(seed)
+    n, e, heads, ch = 60, 400, 2, 8
+    ei = rng.integers(0, n, size=(2, e))
+    g = K.EdgeCSR.from_edge_index(torch.tensor(ei), n)
+    hc = heads * ch
+    w_src, w_dst = rng.normal(size=(n, hc)), rng.normal(size=(n, hc))
+    we, we_loop = rng.normal(size=(e, hc)), rng.normal(size=hc)
+    att = 2.0 * rng.normal(size=(heads, ch))
+    slot = int(np.flatnonzero(g.erow.numpy() < e)[5])
+    j, i, r = int(g.src[slot]), int(g.dst_ids[slot]), int(g.erow[slot])
+    h, c = 1, 3
+    col = h * ch + c
+    w_src[j, col], we[r, col] = 0.5, 0.25
+    w_dst[i, col] = -0.75 - 2.0 ** -24       # exact in float32
+    args32 = [torch.tensor(a, dtype=torch.float32)
+              for a in (w_src, w_dst, we, we_loop, att)]
+    w_dst64 = w_dst.copy()
+    w_dst64[i, col] += 2.0 ** -23
+    args64 = [torch.tensor(a) for a in (w_src, w_dst64, we, we_loop, att)]
+    return g, args64, args32, slot, h, c
+
+
+def test_leaky_relu_kink_is_a_jump_of_the_function():
+    """The 4 x 128 departure on the test split's three graphs (``python
+    tests/test_torch_f32_faults.py inputs`` and ``branches``): a message
+    within float32 rounding of 0 takes the slope's branch of the LeakyReLU
+    in float32 and the identity's in float64, so K11's d_w_dst at its
+    destination jumps by 0.8 ds att there, as the max pooling's node jumps:
+    no float32 program avoids it, and with the float64 step's branch the
+    port's float32 backward agrees with the float64 one to rounding.  Also
+    the copy of the plain backward that the evidence swaps inputs in
+    (``_k11_with``) gives the plain backward's bits."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    g, args64, args32, slot, h, c = _planted_kink()
+    msg32 = K._gatv2_messages(g, *args32)[1]
+    msg64 = K._gatv2_messages(g, *args64)[1]
+    assert float(msg32[slot, h, c]) == -2.0 ** -24
+    assert float(msg64[slot, h, c]) == 2.0 ** -24
+    flips = (msg32 >= 0) != (msg64 >= 0)
+    assert int(flips.sum()) == 1
+    out64, lse64 = K._gatv2_plain(g, *args64)
+    out32, lse32 = K._gatv2_plain(g, *args32)
+    gen = np.random.default_rng(1)
+    dout = gen.normal(size=tuple(out64.shape))
+    want = K.gatv2_softmax_agg_bwd_plain(g, *args64, None, lse64, out64,
+                                         torch.tensor(dout))
+    f32 = (g, *args32, None, lse32, out32,
+           torch.tensor(dout, dtype=torch.float32))
+    own = K.gatv2_softmax_agg_bwd_plain(*f32)
+    assert all(torch.equal(a, b) for a, b in zip(_k11_with(*f32), own))
+    fixed = K.gatv2_softmax_agg_bwd_plain(*f32, branch=msg64 >= 0)
+
+    def err(got):
+        return float((got[1].double() - want[1]).abs().max()
+                     / want[1].abs().max())
+
+    # d_w_dst: the jump against float32 rounding
+    print("d_w_dst error, float32 branch / float64 branch:", err(own),
+          err(fixed))
+    assert err(fixed) <= 1e-5
+    assert err(own) >= 100.0 * err(fixed)
 
 
 def failed_tests():
@@ -792,6 +924,451 @@ def departure_evidence(pick=(0, 1, 2)):
           f"attention pooling)", flush=True)
 
 
+K11_INPUTS = ("w_src", "w_dst", "we", "we_loop", "scores", "alpha", "out",
+              "dout")
+
+
+class _GatJax:
+    """Stands for the ``jax`` name of ``ltr_lowrank_sdp_tpu.models.gatv2``:
+    every attribute is jax's own, but ``vmap`` hands the scores entering the
+    segment softmax of the first layer traced, and the weights leaving it,
+    to ``keep(name, value)`` (outside the vmap: inside it a callback sees
+    one head at a time)."""
+
+    def __init__(self, keep):
+        self.keep, self.calls = keep, 0
+
+    def vmap(self, fun, **kw):
+        mapped = jax.vmap(fun, **kw)
+
+        def run(scores):
+            first = self.calls == 0
+            self.calls += 1
+            alpha = mapped(scores)
+            if first:
+                self.keep("scores", scores)
+                self.keep("alpha", alpha)
+            return alpha
+
+        return run
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+def jax_layer0_values(case, w):
+    """(values, gradients) of the JAX package's float32 step with the max
+    node fixed by ``w``: ``values`` holds what K11 reads at GAT layer 0 as
+    JAX forms it (its Dense outputs, its scores and softmax weights, its
+    output and the gradient reaching it), as numpy arrays in JAX's layout
+    (nodes and edges padded to the envelope, the self-loops after the
+    edges), each the last value its step computed (the backward recomputes
+    the layer: ``nn.remat``), and ``values["recomputed"]`` the names whose
+    recomputed value differs from the forward's."""
+    import flax.linen as nn
+    from ltr_lowrank_sdp_tpu.models import gatv2 as jax_gatv2
+    n_edges = int(case[3].edge_index.shape[1])
+    e_pad = int(case[2].edge_index.shape[1])
+    seen = {}
+
+    def keep(name, v):
+        jax.debug.callback(lambda a: seen.setdefault(name, []).append(
+            np.asarray(a)), v)
+
+    @jax.custom_vjp
+    def tap(x):
+        return x
+
+    def tap_bwd(_, g):
+        keep("dout", g)
+        return (g,)
+
+    tap.defvjp(lambda x: (x, None), tap_bwd)
+    layer0 = ("encoder", "GATv2Conv_0")
+
+    def intercept(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        path = tuple(p.replace("Checkpoint", "") for p in context.module.path)
+        if context.method_name != "__call__":
+            return out
+        if path == layer0:
+            keep("out", out)
+            out = tap(out)
+        elif path[:2] == layer0 and path[2:] in (("lin_src",), ("lin_dst",)):
+            keep("w_" + path[2][4:], out)
+        elif path == layer0 + ("lin_edge",):
+            keep("we", out[:n_edges])
+            keep("we_loop", out[e_pad])
+        return out
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_gatv2, "jax", _GatJax(keep))
+    try:
+        with nn.intercept_methods(intercept):
+            grads = _fixed_jax_grads(case, jnp.float32, w)
+    finally:
+        mp.undo()
+    values = {k: v[-1] for k, v in seen.items()}
+    values["recomputed"] = [k for k, v in seen.items()
+                            if any(not np.array_equal(v[0], u) for u in v)]
+    return values, grads
+
+
+def _port_layout(g, name, v, n_edges, e_pad):
+    """JAX's value ``v`` of K11's input ``name`` in the port's layout: the
+    real nodes, the real edges, the CSR's slot order (a self-loop of node i
+    is JAX's edge e_pad + i)."""
+    if name in ("scores", "alpha"):
+        erow, dst = g.erow.long(), g.dst_ids
+        idx = torch.where(erow < n_edges, erow, e_pad + dst)
+        return torch.as_tensor(v)[idx]
+    if name in ("we", "we_loop"):
+        return torch.as_tensor(v)
+    return torch.as_tensor(v[:g.n])
+
+
+def _k11_with(g, w_src, w_dst, we, we_loop, att, keep, lse, out, dout,
+              scores=None, alpha=None, branch=None):
+    """``kernels.gatv2_softmax_agg_bwd_plain`` with the softmax weights
+    ``alpha`` given (None: its own) and the LeakyReLU's branch of every
+    message (``msg >= 0``, (E', H, C) bool) given (None: its own);
+    otherwise the same formulas, in the same order."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    heads, ch = att.shape
+    hc = heads * ch
+    dst = g.dst_ids
+    xs, msg, s = K._gatv2_messages(g, w_src, w_dst, we, we_loop, att)
+    scores = s if scores is None else scores.to(s.dtype)
+    own = torch.exp(scores - lse[dst])
+    alpha = own if alpha is None else alpha.to(own.dtype)
+    kp = torch.ones_like(alpha) if keep is None else keep
+    go = dout.view(-1, heads, ch)
+    dalpha = kp * torch.sum(go[dst] * xs, dim=-1)
+    dd = torch.sum(go * out.view(-1, heads, ch), dim=-1)
+    ds = K._max_path(alpha * (dalpha - dd[dst]), scores, dst, g.n)
+    pos = msg >= 0 if branch is None else branch
+    act = torch.where(pos, msg, K.LEAKY_SLOPE * msg)
+    dmsg = (ds[..., None] * att * torch.where(pos, 1.0, K.LEAKY_SLOPE)
+            ).reshape(-1, hc)
+    d_att = torch.sum(ds[..., None] * act, dim=0)
+    zeros = torch.zeros((g.n, hc), dtype=w_src.dtype, device=w_src.device)
+    d_w_dst = zeros.clone().index_add_(0, dst, dmsg)
+    d_w_src = zeros.index_add_(
+        0, g.src.long(),
+        ((alpha * kp)[..., None] * go[dst]).reshape(-1, hc) + dmsg)
+    erow = g.erow.long()
+    real = erow < g.n_real
+    d_we = torch.zeros_like(we).index_add_(0, erow[real], dmsg[real])
+    return d_w_src, d_w_dst, d_we, torch.sum(dmsg[~real], dim=0), d_att
+
+
+def _branches(args):
+    """The LeakyReLU's branch (``msg >= 0``) of every slot's message, from
+    K11's arguments (a dict)."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    return K._gatv2_messages(args["g"], *(args[k] for k in _Layer0.ARGS[:5])
+                             )[1] >= 0
+
+
+class _Layer0:
+    """Stands for ``kernels.gatv2_softmax_agg_bwd_plain`` in a step: the
+    second call of a backward (layer 0's: layer 1's comes first) goes to
+    ``self.call(g, args)``, which defaults to the plain backward and may be
+    replaced; with ``capture``, ``self.args`` keeps the last layer-0 call's
+    arguments, scores and softmax weights; ``self.calls`` counts the
+    calls."""
+
+    ARGS = ("w_src", "w_dst", "we", "we_loop", "att", "keep", "lse", "out",
+            "dout")
+
+    def __init__(self, capture=False):
+        from ltr_lowrank_sdp_torch.ops import kernels as K
+        self.plain, self.capture = K.gatv2_softmax_agg_bwd_plain, capture
+        self.calls, self.args, self.call = 0, None, None
+
+    def __call__(self, g, *args):
+        self.calls += 1
+        if self.calls % 2:
+            return self.plain(g, *args)
+        named = dict(zip(self.ARGS, args))
+        if self.capture:
+            from ltr_lowrank_sdp_torch.ops import kernels as K
+            s = K._gatv2_messages(g, *args[:5])[2]
+            self.args = dict(named, g=g, scores=s,
+                             alpha=torch.exp(s - named["lse"][g.dst_ids]))
+        if self.call is None:
+            return self.plain(g, *args)
+        return self.call(g, named)
+
+
+def _rel(x, ref):
+    ref = torch.as_tensor(ref).double()
+    return float((torch.as_tensor(x).double() - ref).abs().max()
+                 / ref.abs().max())
+
+
+def inputs_evidence(pick=(0, 1, 2)):
+    """K11's inputs at GAT layer 0 one by one (``ROADMAP.md`` Queue 3): on
+    the test graphs ``pick`` with the max pooling's node fixed, against the
+    port's float64 step, (1) how far each input of the port's float32 step
+    and of the JAX package's float32 step lies from the float64 one (its
+    largest difference over the float64 value's largest magnitude); (2) the
+    port's float32 worst leaf and ``convs.0.lin_dst.weight`` with each input
+    of layer 0's K11 replaced by the JAX float32 step's value of the same
+    tensor (the softmax weights ``alpha`` in place of the port's own), with
+    the port's own weights in JAX's form ``ex / (sum + 1e-16)`` (the form of
+    its plain forward), and with all of JAX's at once.  One float32 forward
+    serves every variant: each is a backward of the same graph."""
+    import time
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    case = wide_batch(pick)
+    bt = case[3]
+    n_edges = int(bt.edge_index.shape[1])
+    e_pad = int(case[2].edge_index.shape[1])
+    t0 = time.time()
+
+    def stamp(what):
+        print(f"[{time.time() - t0:7.0f} s] {what}", flush=True)
+
+    ref = _Layer0(capture=True)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(K, "gatv2_softmax_agg_bwd_plain", ref)
+    try:
+        w, g64 = port_float64_reference(case)
+    finally:
+        mp.undo()
+    ref64 = {k: ref.args[k] for k in K11_INPUTS}
+    branch64 = _branches(ref.args)
+    ref.args = None
+    gc.collect()
+    stamp("port float64 reference")
+    jx, jgrads = jax_layer0_values(case, w)
+    jax.clear_caches()
+    je = _leaf_errors(jgrads, g64)
+    del jgrads
+    gc.collect()
+    stamp(f"JAX float32 step: worst leaf {_worst(je)[0]} {_worst(je)[1]:.3e}, "
+          f"convs.0.lin_dst.weight {je['encoder.convs.0.lin_dst.weight']:.3e}"
+          f"; recomputed values that differ from the forward's: "
+          f"{jx['recomputed']}")
+
+    # one float32 forward, then a backward a variant
+    _, params, _, _, _, _, coins = case
+    m = net.RankSchedulePredictor(net.ModelConfig(**WIDE))
+    m.load_state_dict(checkpoint.params_from_flax(
+        jax.tree.map(np.asarray, params)))
+    m = m.to(torch.float32).train()
+    pool = K.graph_pool
+
+    def fixed(seg, x, score, keep=None):
+        out = pool(seg, x, score, keep)
+        n, d = x.shape
+        ids = torch.as_tensor(np.asarray(bt.batch)[:n]).long()
+        mx = torch.zeros((bt.num_graphs, d), dtype=x.dtype).index_add_(
+            0, ids, x * torch.as_tensor(w[:n], dtype=x.dtype))
+        return torch.cat([out[:, :d], mx, out[:, 2 * d:]], dim=1)
+
+    K.graph_pool = fixed
+    try:
+        total = train_case._port_loss(m, bt, coins, torch.float32)[0]
+    finally:
+        K.graph_pool = pool
+    stamp("port float32 forward")
+    layer0 = _Layer0(capture=True)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(K, "gatv2_softmax_agg_bwd_plain", layer0)
+
+    def backward(tag, call=None):
+        layer0.call = call
+        for p in m.parameters():
+            p.grad = None
+        total.backward(retain_graph=True)
+        e = _leaf_errors({k: p.grad.double() for k, p in m.named_parameters()},
+                         g64)
+        stamp(f"4 x 128, test graphs {pick}, node fixed, {tag}: port float32 "
+              f"worst leaf {_worst(e)[0]} {_worst(e)[1]:.3e}, "
+              f"convs.0.lin_dst.weight "
+              f"{e['encoder.convs.0.lin_dst.weight']:.3e}")
+        return e
+
+    try:
+        backward("as it is")
+        got, layer0.capture = layer0.args, False
+        g = got["g"]
+        jax_in = {k: _port_layout(g, k, jx[k], n_edges, e_pad)
+                  for k in K11_INPUTS}
+        del jx
+        gc.collect()
+        for k in K11_INPUTS:
+            print(f"K11's {k} at layer 0 against the port's float64 value: "
+                  f"port float32 {_rel(got[k], ref64[k]):.3e}, JAX float32 "
+                  f"{_rel(jax_in[k], ref64[k]):.3e}", flush=True)
+        del ref64
+        gc.collect()
+        # where the float32 messages take the other branch of the LeakyReLU
+        # than the float64 ones (a jump of the function, as the max
+        # pooling's node is)
+        real = (g.erow < g.n_real)[:, None, None]
+        for name, a in (("port", got), ("JAX", dict(got, **jax_in))):
+            flip = _branches(a) != branch64
+            print(f"layer 0's messages on the other LeakyReLU branch than "
+                  f"the float64 step's: {name} float32 "
+                  f"{int((flip & real).sum())} on edges, "
+                  f"{int((flip & ~real).sum())} on self-loops",
+                  flush=True)
+            del flip
+        got_flip = _branches(got) != branch64
+        where = torch.nonzero(got_flip)
+        for e, h, c in where[:8].tolist():
+            kind = "edge" if int(g.erow[e]) < g.n_real else "self-loop"
+            print(f"  port flip: slot {e} (node {int(g.dst_ids[e])} <- "
+                  f"{int(g.src[e])}, {kind}), head {h}, channel {c}",
+                  flush=True)
+        del got_flip, where
+        gc.collect()
+
+        def swapped(names, own_form=False, branch=None):
+            def call(g, a):
+                a = dict(a)
+                extra = {} if branch is None else {"branch": branch}
+                for k in names:
+                    if k == "alpha":
+                        extra["alpha"] = jax_in["alpha"]
+                    elif k == "scores":
+                        extra["scores"] = jax_in["scores"]
+                    else:
+                        a[k] = jax_in[k]
+                if own_form:
+                    s = K._gatv2_messages(
+                        g, *(a[k] for k in _Layer0.ARGS[:5]))[2]
+                    extra["alpha"] = K._segment_softmax(s, g.dst_ids, g.n)[0]
+                return _k11_with(g, *(a[k] for k in _Layer0.ARGS), **extra)
+            return call
+
+        backward("the copy of the plain backward (the same bits)",
+                 swapped(()))
+        for k in K11_INPUTS:
+            backward(f"JAX's {k}", swapped((k,)))
+        backward("the port's own alpha in JAX's form ex / (sum + 1e-16)",
+                 swapped((), own_form=True))
+        backward("all of JAX's inputs", swapped(K11_INPUTS))
+        backward("the float64 step's LeakyReLU branches",
+                 swapped((), branch=branch64))
+        backward("JAX's w_src with the float64 step's LeakyReLU branches",
+                 swapped(("w_src",), branch=branch64))
+        backward("all of JAX's inputs with the float64 step's LeakyReLU "
+                 "branches", swapped(K11_INPUTS, branch=branch64))
+    finally:
+        mp.undo()
+    assert layer0.calls % 2 == 0
+
+
+class _Branches:
+    """Stands for ``kernels.gatv2_softmax_agg_bwd_plain`` in a step of the
+    2-layer model (its backward calls layer 1 first, then layer 0): with
+    ``capture``, ``self.masks[layer]`` keeps each layer's LeakyReLU
+    branches (``msg >= 0``) of the last call; given ``masks``, each layer's
+    backward takes its messages' branches from them (``_k11_with``)."""
+
+    def __init__(self, masks=None, capture=False):
+        from ltr_lowrank_sdp_torch.ops import kernels as K
+        self.plain, self.capture = K.gatv2_softmax_agg_bwd_plain, capture
+        self.masks, self.calls = ({} if masks is None else masks), 0
+        self.fixed = masks is not None
+
+    def __call__(self, g, *args):
+        self.calls += 1
+        layer = 1 if self.calls % 2 else 0
+        if self.capture:
+            self.masks[layer] = _branches(dict(zip(_Layer0.ARGS, args), g=g))
+        if not self.fixed:
+            return self.plain(g, *args)
+        return _k11_with(g, *args, branch=self.masks[layer])
+
+
+def _jax_masks(case, masks):
+    """The port's per-layer branches (``_Branches.masks``) in JAX's layout:
+    a real edge's slot at its edge row, node i's self-loop at e_pad + i;
+    the envelope's padded edges and nodes, which reach no loss, True."""
+    bt, bj = case[3], case[2]
+    g = _edge_csr(bt)
+    n_edges = int(bt.edge_index.shape[1])
+    e_pad, n_pad = int(bj.edge_index.shape[1]), int(bj.x.shape[0])
+    erow, dst = g.erow.long(), g.dst_ids
+    idx = torch.where(erow < n_edges, erow, e_pad + dst).numpy()
+    out = []
+    for layer in sorted(masks):
+        m = np.ones((e_pad + n_pad,) + tuple(masks[layer].shape[1:]), bool)
+        m[idx] = masks[layer].numpy()
+        out.append(m)
+    return out
+
+
+def _edge_csr(bt):
+    """The port's CSR of the batch's edges with their self-loops."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    return K.EdgeCSR.from_edge_index(
+        torch.as_tensor(np.asarray(bt.edge_index)).long(), int(bt.x.shape[0]))
+
+
+def branch_evidence(pick):
+    """The 4 x 128 step on the test graphs ``pick`` with the max pooling's
+    node fixed (``fixed_node_evidence``'s measure), then with every GATv2
+    message's LeakyReLU branch fixed too, to the float64 step's, in the
+    JAX package's float32 step (``_GatNn``: forward and VJP) and in the
+    port's (its backward: the forward's own branch moves a score by under
+    1e-7 of it): a message
+    within float32 rounding of 0 takes the other branch in float32 than in
+    float64, a jump of the function (0.8 att ds at that slot), as the max
+    pooling's node is.  The worst leaves and the largest port / JAX ratio
+    at one leaf, against the JAX float64 step (the port's on a batch with
+    graph 2)."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    case = wide_batch(pick)
+    cap = _Branches(capture=True)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(K, "gatv2_softmax_agg_bwd_plain", cap)
+    try:
+        w, g64 = port_float64_reference(case)
+    finally:
+        mp.undo()
+    masks, ref = dict(cap.masks), "port"
+    del cap
+    gc.collect()
+    if 2 not in pick:
+        w = float64_max_nodes(case)
+        ref, g64 = "JAX", _fixed_jax_grads(case, jnp.float64, w)
+    jm = _jax_masks(case, masks)
+    errs = {"JAX": _leaf_errors(_fixed_jax_grads(case, jnp.float32, w),
+                                g64)}
+    jax.clear_caches()
+    errs["JAX, branches fixed"] = _leaf_errors(
+        _fixed_jax_grads(case, jnp.float32, w, jm), g64)
+    del jm
+    jax.clear_caches()
+    gc.collect()
+    errs["port"] = _leaf_errors(_fixed_port_grads(case, torch.float32, w),
+                                g64)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(K, "gatv2_softmax_agg_bwd_plain", _Branches(masks))
+    try:
+        errs["port, branches fixed"] = _leaf_errors(
+            _fixed_port_grads(case, torch.float32, w), g64)
+    finally:
+        mp.undo()
+    gc.collect()
+    for name, e in errs.items():
+        worst = _worst(e)
+        base = "JAX, branches fixed" if "fixed" in name else "JAX"
+        ratio = ("" if name.startswith("JAX") else
+                 ", largest port / JAX at one leaf %.2f (%s)"
+                 % leaf_ratio(e, errs[base]))
+        print(f"4 x 128, test graphs {pick} by size, max node fixed "
+              f"({ref} float64 reference): {name}: float32 worst leaf "
+              f"{worst[0]} {worst[1]:.3e}, convs.0.lin_dst.weight "
+              f"{e['encoder.convs.0.lin_dst.weight']:.3e}{ratio}", flush=True)
+
+
 def _port_grads_forward_only(case):
     _, params, _, bt, _, _, coins = case
     m = net.RankSchedulePredictor(net.ModelConfig(**WIDE))
@@ -801,7 +1378,8 @@ def _port_grads_forward_only(case):
                           torch.float32)
 
 
-EVIDENCE = ("hallar", "unfixed", "fixed", "departure", "widths", "stages")
+EVIDENCE = ("hallar", "unfixed", "fixed", "departure", "inputs", "branches",
+            "widths", "stages")
 
 
 def evidence(parts=EVIDENCE):
@@ -816,7 +1394,10 @@ def evidence(parts=EVIDENCE):
     thread); ``fixed``, the same batches with the max pooling's node fixed
     (``fixed_node_evidence``: about 27 GB and 15 minutes a batch with that
     graph); ``departure``, :func:`departure_evidence` on the three graphs
-    (about 35 GB, 40 minutes); ``widths``, with ``chip_smoke.py``'s model
+    (about 35 GB, 40 minutes); ``inputs``, :func:`inputs_evidence` on the
+    three graphs (about 35 GB; 10 minutes on 6 threads); ``branches``,
+    :func:`branch_evidence` on the four batches (about 25 minutes on 6
+    threads); ``widths``, with ``chip_smoke.py``'s model
     (r5_theta's config at that width, ``init_params`` weights), the CPU's
     float32 steps at its three wide widths on the two-graph batch (several
     minutes); ``stages``, :func:`stages` on the three graphs."""
@@ -827,6 +1408,13 @@ def evidence(parts=EVIDENCE):
             gc.collect()
     if "departure" in parts:
         departure_evidence()
+    if "inputs" in parts:
+        inputs_evidence()
+    if "branches" in parts:
+        for pick in ((0, 1), (0, 2), (1, 2), (0, 1, 2)):
+            branch_evidence(pick)
+            jax.clear_caches()
+            gc.collect()
     if "stages" in parts:
         stages()
     if "hallar" in parts:
@@ -956,5 +1544,5 @@ def stages(pick=(0, 1, 2)):
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    torch.set_num_threads(1)
+    torch.set_num_threads(int(os.environ.get("F32_FAULT_THREADS", "1")))
     evidence(sys.argv[1:] or EVIDENCE)
