@@ -52,7 +52,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
    inputs in each type): every plan of ``k2_plans`` and a one-block grid
    bitwise the planned launch in both modes, the planned launch on its
    first 256 rows bitwise K2's sum order evaluated on the host
-   (``diag_rowdot_order``), every plan timed (``[k2-plan]``).  A final
+   (``diag_rowdot_order``), every plan timed (``[k2-plan]``); K3 likewise,
+   which keeps K2's lane groups and dot order: every plan of ``k2_plans``
+   and a one-block grid bitwise the planned launch, the planned launch on
+   its first 256 rows bitwise ``diag_normal_matvec_order`` (the
+   one-warp-a-row kernel's arithmetic evaluated on the host), every plan
+   timed (``[k3-plan]``).  A final
    rank of phase 6 or 7 that phase 3 did not cover is held
    right after its solve.  Then the float32 kernel phase: K1-K4 on the
    MaxCut C at rank 20, K5 (pair) and K6 on the matrix-completion cone at
@@ -88,7 +93,18 @@ Phases, in order; any failed check raises and the script exits nonzero:
    and 64, float32, against its plain version evaluated in float64 (max
    |kernel - plain| / max |plain| <= 1e-5), the same bits on two calls,
    timed beside the float32 plain version (one PyTorch call, also the
-   library yardstick) and the bound; then the probe twin
+   library yardstick), ``torch.bincount`` then ``torch.mv`` (two calls)
+   and the bound; every plan (the gather and the two counts plans: the
+   histogram in shared memory or by warp-aggregated atomics) there, at an
+   M < N shape, with M = 0, at N = 16,384 to 49,152 (where the planned
+   histogram turns from shared memory to the atomics) and at two skewed
+   index sets (all equal, a Zipf draw) within 1e-5 as above (the gather on
+   all-equal indices within its float32 rounding bound,
+   ``kernels.k13_gather_bound``, instead), the same bits on two calls, the
+   counts plans bitwise ``gather_rowsum_order`` (their order evaluated on
+   the host), each timed (``[k13-plan]``), and the device kernels of one
+   call of each plan, the kernel nodes of a CUDA graph captured from it
+   (``[k13-kernels]``); then the probe twin
    (``ltr_lowrank_sdp_torch.scripts.gather_probe``) through its entry
    point, counters set to 0 just before and read just after: K13 launched,
    no plain version run, ``kernel_ok``;
@@ -362,7 +378,8 @@ THETA_RANKS = (141, 1)           # the solve's rank, Lanczos
 THETA_LIMIT_S = 180.0
 DENSE_KERNELS = ("coo_contract_segsum", "spmm_constr_csr")
 PTXAS_BY_INSTANCE = DENSE_KERNELS + ("sym_contract_sum", "gatv2_softmax_agg",
-                                     "gatv2_softmax_agg_bwd")
+                                     "gatv2_softmax_agg_bwd",
+                                     "diag_normal_matvec", "gather_rowsum")
 SLEEP_CYCLES = 50_000_000  # about 30 ms at the H100's clocks
 # the rank-schedule predictor: a checkpoint of the repo's one model width
 # (hidden 64, 3 GATv2 layers x 4 heads, LSTM 96 x 2), its serve path's
@@ -450,8 +467,17 @@ HALLAR_POBJ_RTOL = 1e-5
 HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
 HALLAR_PROFILE_FISTA = 500   # inner steps of the profiled outer iteration
 
-# the repo's one pl.pallas_call: K13 at the probe's defaults, R = 8 and 64
+# the repo's one pl.pallas_call: K13 at the probe's defaults, R = 8 and 64;
+# every plan also at an M < N shape (the gather's plan), with no index (what
+# a call costs without its work), at N from 16,384 to the largest the
+# shared histogram takes (K13_MAX_SMEM_BINS: past N grid = 16 M the
+# warp-aggregated atomics are planned) and at two skewed index sets of the
+# default shape
 GATHER_SHAPES = ((8192, 262144, 32), (8192, 262144, 8), (8192, 262144, 64))
+K13_PLAN_SHAPES = ((100000, 20000, 32, None), (8192, 0, 32, None),
+                   (16384, 262144, 32, None), (32768, 262144, 32, None),
+                   (49152, 262144, 32, None), (8192, 262144, 32, "equal"),
+                   (8192, 262144, 32, "zipf"))
 # the parallel modes: each sharded main path at world size 1 (NCCL) and 2
 # (gloo), held to its unsharded solve; batched ALM steps on BATCH_B MaxCut
 # instances of n = 2^14
@@ -884,17 +910,21 @@ def check_kernels(K, cone, dev):
         if r == REPORT_RANK:
             report["diag_rowdot"]["plan"] = check_k2_plans(
                 K, U, V, dv, f"maxcut n={n} r={r}")
+            report["diag_normal_matvec"]["plan"] = check_k3_plans(
+                K, U, V, dv, f"maxcut n={n} r={r}")
         if r == REPORT_RANK:
             report["sym_contract_sum"].update(check_k4_plans(
                 K, rows, cols, coef, U, U, f"maxcut n={n} r={r}"))
             check_k4_plans(K, rows, cols, coef, U, V, f"maxcut n={n} r={r}")
             count_k4_kernels(K, rows, cols, coef, U, f"maxcut n={n} r={r}")
-    # every rank of K2_RANKS in both value types at the MaxCut path's n
+    # every rank of K2_RANKS in both value types at the MaxCut path's n: K2
+    # and K3 (x, F = U, V)
     for dt in (torch.float64, torch.float32):
         for r in K2_RANKS:
             U, V = (torch.randn((n, r), generator=g, dtype=torch.float64,
                                 device=dev).to(dt) for _ in range(2))
             check_k2_plans(K, U, V, dv.to(dt), f"n={n} r={r}")
+            check_k3_plans(K, U, V, dv.to(dt), f"n={n} r={r}")
     return report
 
 
@@ -1423,6 +1453,37 @@ def check_k2_plans(K, U, V, dv, tag) -> str:
           f"{planned.describe()} {times[planned.describe()]:.5f} ms; ms by "
           f"plan {json.dumps(times)}", flush=True)
     return planned.describe()
+
+
+def check_k3_plans(K, x, F, dv, tag) -> str:
+    """``[k3-plan]``: K3 with every plan of ``k2_plans`` (K3 takes K2's lane
+    groups), each also on a one-block grid, against the planned launch bit
+    for bit, and the planned launch on its first K2_EMU_ROWS rows against
+    ``diag_normal_matvec_order`` (the one-warp-a-row kernel's arithmetic
+    evaluated on the host); every plan timed.  Returns the planned launch's
+    description."""
+    r = x.shape[1]
+    rows = slice(0, K2_EMU_ROWS)
+    want = K.diag_normal_matvec(x, F, dv)
+    emu = K.diag_normal_matvec_order(*(t[rows].cpu() for t in (x, F, dv)))
+    require(torch.equal(want[rows].cpu(), emu),
+            f"K3 {tag}: not the bits of its order")
+    for plan in K.k2_plans(r, x.dtype):
+        for grid in (None, 1):
+            require(torch.equal(
+                K.diag_normal_matvec_with(plan, x, F, dv, grid), want),
+                f"K3 {tag} {plan.describe()} grid={grid}: other bits than "
+                "the planned launch")
+    planned = K.k2_plan(r, x.dtype).describe()
+    times = {p.describe(): round(time_ms(
+        lambda p=p: K.diag_normal_matvec_with(p, x, F, dv)), 5)
+        for p in K.k2_plans(r, x.dtype)}
+    print(f"[k3-plan] {tag} {str(x.dtype)[6:]}: every plan (and a one-block "
+          f"grid) the planned launch's bits, the planned launch the host "
+          f"order's on {K2_EMU_ROWS} rows; planned {planned} "
+          f"{times[planned]:.5f} ms; ms by plan {json.dumps(times)}",
+          flush=True)
+    return planned
 
 
 def check_k12_plans(K, args, tag) -> str:
@@ -2736,6 +2797,8 @@ def check_f32_kernels(K, cone, mc_cone, lp, dev):
         lambda: K.diag_normal_matvec(U, V, dv),
         lambda: K.diag_normal_matvec_plain(U, V, dv), lambda: ref3,
         3 * n * r * f4 + n * f4, 4.0 * n * r + 2 * n)
+    rows["diag_normal_matvec"]["plan"] = check_k3_plans(K, U, V, dv,
+                                                        f"maxcut {shape}")
     coef64 = coef.double()
     ref4 = K.sym_contract_sum_plain(crows, ccols, coef64, U64, U64)
     terms = torch.sum(torch.abs(coef64 * torch.sum(
@@ -3397,9 +3460,13 @@ def check_gather_rowsum(K, dev):
     evaluated in float64 (max |kernel - plain| / max |plain| <= GNN_TOL),
     the same bits on two calls, timed beside the float32 plain version (one
     PyTorch call, ``index_select`` then ``sum``: also the probe's own XLA
-    baseline, so it is the library yardstick too) and the bound (idx, Y and
-    out once over 3.35 TB/s).  Returns {name: row} at the default shape."""
-    from ltr_lowrank_sdp_torch.scripts.gather_probe import probe_inputs
+    baseline, so it is the library yardstick too), ``torch.bincount`` then
+    ``torch.mv`` (two calls, ``two_call_ms``) and the bound (idx, Y and out
+    once over 3.35 TB/s); every plan there and at K13_PLAN_SHAPES
+    (``[k13-plan]``), the device kernels of a call (``[k13-kernels]``).
+    Returns {name: row} at the default shape."""
+    from ltr_lowrank_sdp_torch.scripts.gather_probe import (probe_inputs,
+                                                            skewed_indices)
 
     def lib_check(got, ref):
         err = float((got.double() - ref).abs().max() / ref.abs().max())
@@ -3409,18 +3476,99 @@ def check_gather_rowsum(K, dev):
     report = {}
     for N, M, R in GATHER_SHAPES:
         Y, idx = probe_inputs(N, M, R, dev)
+        tag = f"N={N} M={M} R={R}"
         row = _measure_gnn(
             "gather_rowsum",
-            f"N={N} M={M} R={R} (gathered {M * R * 4 / 1e6:.1f} MB)",
+            f"{tag} (gathered {M * R * 4 / 1e6:.1f} MB)",
             lambda: K.gather_rowsum(Y, idx),
             lambda: K.gather_rowsum_plain(Y, idx),
             lambda: K.gather_rowsum_plain(Y.double(), idx),
             M * 4 + N * R * 4 + R * 4, M * R,
             lib=lambda: K.gather_rowsum_plain(Y, idx), lib_check=lib_check)
         row["gathered_bytes"] = M * R * 4
+        row["plan"], row["two_call_ms"] = check_k13_plans(K, Y, idx, tag)
         if not report:
             report = {"gather_rowsum": row}
+            count_k13_kernels(K, Y, idx, tag)
+    for N, M, R, kind in K13_PLAN_SHAPES:
+        Y, idx = probe_inputs(N, M, R, dev)
+        if kind is not None:
+            idx = skewed_indices(N, M, kind, dev)
+        check_k13_plans(K, Y, idx, f"N={N} M={M} R={R} "
+                                   f"{kind or 'uniform'} indices",
+                        equal=kind == "equal")
     return report
+
+
+def check_k13_plans(K, Y, idx, tag, equal=False):
+    """``[k13-plan]``: K13 with every plan of ``k13_plans`` (the gather and
+    the counts plans) within GNN_TOL of the plain version evaluated in
+    float64 (the gather on all-equal indices, ``equal``, within its float32
+    rounding bound ``k13_gather_bound`` instead: 1e-5 does not hold for it
+    there) and the same bits on two calls, the counts plans bitwise
+    ``gather_rowsum_order``; every plan timed beside the library call and
+    ``torch.bincount`` + ``torch.mv``, whose time is returned with the
+    planned launch's description."""
+    N, R = Y.shape
+    M = idx.numel()
+    ref = K.gather_rowsum_plain(Y.double(), idx)
+    scale = max(float(ref.abs().max()), 1e-30)
+    host = K.gather_rowsum_order(Y.cpu(), idx.cpu())
+    times, errs = {}, {}
+    for plan in K.k13_plans(N, M, R):
+        def call(plan=plan):
+            return K.gather_rowsum_with(plan, Y, idx)
+
+        got = call()
+        torch.cuda.synchronize()
+        name = plan.describe()
+        errs[name] = float((got.double() - ref).abs().max()) / scale
+        tol = (K.k13_gather_bound(Y, idx) / scale if equal and not
+               plan.counts else GNN_TOL)
+        require(errs[name] <= tol, f"K13 {tag} {name}: error "
+                                   f"{errs[name]:.2e} > {tol:.2e}")
+        require(torch.equal(call(), got),
+                f"K13 {tag} {name}: two calls gave different bits")
+        require(not plan.counts or torch.equal(got.cpu(), host),
+                f"K13 {tag} {name}: not the bits of gather_rowsum_order")
+        times[name] = round(time_ms(call), 5)
+
+    def two_calls():
+        return torch.mv(Y.t(), torch.bincount(idx, minlength=N).to(Y.dtype))
+
+    err = float((two_calls().double() - ref[0]).abs().max()) / scale
+    require(err <= GNN_TOL, f"K13 {tag}: bincount + mv is {err:.2e} off")
+    lib_ms = time_ms(lambda: K.gather_rowsum_plain(Y, idx))
+    two_ms = time_ms(two_calls)
+    planned = K.k13_plan(N, M, R).describe()
+    within = (f"the gather within its rounding bound "
+              f"{K.k13_gather_bound(Y, idx) / scale:.2e}, every other plan"
+              if equal else "every plan")
+    print(f"[k13-plan] {tag}: {within} within {GNN_TOL:g} of float64 and "
+          f"the same bits on two calls, every counts plan the bits of "
+          f"gather_rowsum_order; planned {planned} {times[planned]:.5f} ms; "
+          f"ms by plan {json.dumps(times)}; errors "
+          f"{json.dumps({k: f'{v:.2e}' for k, v in errs.items()})}; "
+          f"index_select + sum {lib_ms:.5f} ms, bincount + mv {two_ms:.5f} "
+          "ms", flush=True)
+    return planned, two_ms
+
+
+def count_k13_kernels(K, Y, idx, tag) -> None:
+    """``[k13-kernels]``: the device kernels of one call of each plan of
+    K13, exactly: the kernel nodes of a CUDA graph captured from one call
+    (``testing.captured_kernel_nodes``): two, the gather and its combine,
+    or the histogram and the pass."""
+    from ltr_lowrank_sdp_torch.testing import captured_kernel_nodes
+
+    N, R = Y.shape
+    nodes = {p.describe(): captured_kernel_nodes(
+        lambda p=p: K.gather_rowsum_with(p, Y, idx))
+        for p in K.k13_plans(N, idx.numel(), R)}
+    print(f"[k13-kernels] {tag}: kernel nodes in a graph captured from one "
+          f"call, by plan {json.dumps(nodes)}", flush=True)
+    require(all(n == 2 for n in nodes.values()),
+            f"K13 {tag}: a plan launched other kernels than its own")
 
 
 def run_gather_probe(K):

@@ -176,7 +176,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_I, _P, _P, _P, _D, _P, _P, _I, _I, _I, _I, _I, _P), typed=True),
     Kernel("diag_normal_matvec",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:272",
-           (_I, _P, _P, _P, _P, _I, _I, _P), typed=True),
+           (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), typed=True),
     Kernel("sym_contract_sum",
            "ltr_lowrank_sdp_tpu/ops/coneops.py:332",
            (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -209,7 +209,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            (_P,) * 12 + (_I,) * 7 + (_P,) * 7),
     Kernel("gather_rowsum",
            "scripts/pallas_gather_probe.py:41",
-           (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P)),
+           (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P)),
 )}
 
 
@@ -306,11 +306,12 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
     kernel's source, read from ``-Xptxas -v`` in this process's build log
     (empty when the library was already built).  ``kind`` is ``"main"``,
     K5's second launch ``"long_reduce"``, K11's two passes ``"dst"`` and
-    ``"src"``; the value type ``"f64"``, ``"f32"`` or ``"-"`` (a float32
-    kernel with no value template); the ints the template's int and bool
-    arguments in order, e.g. ``(32, 5)`` for K6's G = 32, CPL = 5, ``(2, 16,
-    2, 2)`` for K5's pair mode at G = 16, CPL = 2, KC = 2 and ``(1, 8, 1)``
-    for K4's U-is-V at G = 8, CPL = 1."""
+    ``"src"``, K13's ``"hist"`` and ``"pass"`` (the counts plan) and
+    ``"tiles"`` (the gather); the value type ``"f64"``, ``"f32"`` or
+    ``"-"`` (a float32 kernel with no value template); the ints the
+    template's int and bool arguments in order, e.g. ``(32, 5)`` for K6's G
+    = 32, CPL = 5, ``(2, 16, 2, 2)`` for K5's pair mode at G = 16, CPL = 2,
+    KC = 2 and ``(1, 8, 1)`` for K4's U-is-V at G = 8, CPL = 1."""
     out: Dict[Tuple, Tuple[int, int, int]] = {}
     key, spill = None, (0, 0)
     for line in KERNELS[name].build_log.splitlines():
@@ -318,7 +319,8 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
         if m:
             fn = m.group(1)
             t = re.search(r"_kernelI((?:L[ib]\d+E|[df])+)E", fn)
-            kind = next((k for k in ("long_reduce", "dst", "src")
+            kind = next((k for k in ("long_reduce", "dst", "src", "hist",
+                                     "pass", "tiles")
                          if f"{k}_kernel" in fn), "main")
             types = "" if t is None else re.sub(r"L[ib]\d+E", "", t.group(1))
             key = None if t is None else (
@@ -681,7 +683,8 @@ def _k2_slots(r: int, lanes: int) -> int:
 
 def k2_plans(r: int, dtype: torch.dtype) -> List[K2Plan]:
     """The planned launch first, then every other instantiated group size
-    (``csrc/diag_rowdot.cu``'s ``K2_CASE``: at most ``K2_MAX_SLOTS``
+    (``csrc/diag_rowdot.cu``'s ``K2_CASE`` and, the same list,
+    ``csrc/diag_normal_matvec.cu``'s ``K3_CASE``: at most ``K2_MAX_SLOTS``
     virtual lanes a lane)."""
     plans = [K2Plan(g, _k2_slots(r, g)) for g in (1, 2, 4, 8, 16, 32)]
     plans = [p for p in plans if p.slots <= K2_MAX_SLOTS]
@@ -690,11 +693,12 @@ def k2_plans(r: int, dtype: torch.dtype) -> List[K2Plan]:
 
 
 def k2_plan(r: int, dtype: torch.dtype) -> K2Plan:
-    """K2's lanes a row: the fewest (a power of two) that leave a lane at
-    most ``K2_PLAN_SLOTS`` virtual lanes: 4 where a row is one pass of 32
-    columns, 2 where it takes more (the fastest or within 3 % of it at
-    every rank timed on the card, ``PERF.md``; the same in both value
-    types)."""
+    """K2's and K3's lanes a row: the fewest (a power of two) that leave a
+    lane at most ``K2_PLAN_SLOTS`` virtual lanes: 4 where a row is one pass
+    of 32 columns, 2 where it takes more (K2: the fastest or within 3 % of
+    it at every rank timed on the card; K3: within 4 % of the fastest at r
+    <= 32 and of the one-warp-a-row kernel it replaced above, ``PERF.md``;
+    the same in both value types)."""
     cap = K2_PLAN_SLOTS[0] if r <= 32 else K2_PLAN_SLOTS[1]
     g = 1
     while _k2_slots(r, g) > cap:
@@ -702,10 +706,12 @@ def k2_plan(r: int, dtype: torch.dtype) -> K2Plan:
     return K2Plan(g, _k2_slots(r, g))
 
 
-def _k2_cap(dev: torch.device, dtype: torch.dtype, plan: K2Plan) -> int:
-    """The blocks of ``plan`` that fit the card at once."""
-    return _sm_count(dev) * KERNELS["diag_rowdot"].resident(
-        dev, _f32(dtype), plan.lanes, plan.slots)
+def _group_cap(name: str, dev: torch.device, dtype: torch.dtype,
+               plan: K2Plan, *wide: int) -> int:
+    """The blocks of K2's or K3's ``plan`` (K3: and its instantiation for
+    rows of more than 32 columns, ``wide``) that fit the card at once."""
+    return _sm_count(dev) * KERNELS[name].resident(
+        dev, _f32(dtype), plan.lanes, plan.slots, *wide)
 
 
 def _round_bits(num: int, shift: int, mant: int) -> float:
@@ -740,40 +746,36 @@ def _fma_exact(a: float, b: float, c: float, mant: int) -> float:
     return _round_bits(num, 1 - den.bit_length(), mant)
 
 
+def _fma_chains(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """The 32 virtual lanes of every row, (n, 32): virtual lane l adds
+    columns l, l + 32, ... of ``A * B`` from 0 by fused multiply-adds in A's
+    value type, ``acc = fma(A, B, acc)``."""
+    dt = A.dtype
+    mant = 24 if dt == np.float32 else 53
+    fma = np.frompyfunc(lambda a, b, c: _fma_exact(a, b, c, mant), 3, 1)
+    acc = np.zeros((A.shape[0], 32), dt)
+    for c in range(A.shape[1]):
+        l = c % 32
+        acc[:, l] = fma(A[:, c].astype(np.float64), B[:, c].astype(np.float64),
+                        acc[:, l].astype(np.float64)).astype(dt)
+    return acc
+
+
 def k2_chains(U: np.ndarray, V: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """K2's 32 virtual lanes of every row, (n, 32) each of ``uv`` and
     ``vv``: virtual lane l adds columns l, l + 32, ... from 0 by fused
     multiply-adds in U's value type, ``uv = fma(U, V, uv)``, ``vv = fma(V,
     V, vv)``."""
-    dt = U.dtype
-    mant = 24 if dt == np.float32 else 53
-    fma = np.frompyfunc(lambda a, b, c: _fma_exact(a, b, c, mant), 3, 1)
-    n, r = U.shape
-    uv = np.zeros((n, 32), dt)
-    vv = np.zeros((n, 32), dt)
-    for c in range(r):
-        u, v = U[:, c].astype(np.float64), V[:, c].astype(np.float64)
-        l = c % 32
-        uv[:, l] = fma(u, v, uv[:, l].astype(np.float64)).astype(dt)
-        vv[:, l] = fma(v, v, vv[:, l].astype(np.float64)).astype(dt)
-    return uv, vv
+    return _fma_chains(U, V), _fma_chains(V, V)
 
 
-def diag_rowdot_order(U, V, dv, s: float = 1.0, second: bool = False,
-                      plan: Optional[K2Plan] = None):
-    """K2's result, bit for bit, evaluated on the host in its order
-    (:func:`k2_chains`, then the halving tree over the virtual lanes) and
-    as ``plan`` (None: :func:`k2_plan`) takes it: a lane's slots j and j + o
-    / G added in registers for the offsets o >= G, skipping the slots past
-    J, which hold 0; the group's last levels as shuffles (lane k adds lane
-    k + o).  Tensors or arrays on the host; returns tensors."""
-    U, V, dv = (np.asarray(torch.as_tensor(t).cpu()) for t in (U, V, dv))
-    n, r = U.shape
-    dt = U.dtype
-    plan = plan or k2_plan(r, torch.float32 if dt == np.float32
-                           else torch.float64)
+def _group_tree(v: np.ndarray, plan: K2Plan) -> np.ndarray:
+    """The halving tree over the 32 virtual lanes ``v`` (n, 32) as ``plan``
+    takes it: a lane's slots j and j + o / G added in registers for the
+    offsets o >= G, skipping the slots past J, which hold 0; the group's
+    last levels as shuffles (lane k adds lane k + o).  Returns virtual lane
+    0, the row's dot (``v`` is summed in place)."""
     g, j_max = plan.lanes, plan.slots
-    uv, vv = k2_chains(U, V)
     held = np.zeros(32, bool)        # the virtual lanes the lanes hold
     for k in range(g):
         held[[k + j * g for j in range(j_max)]] = True
@@ -781,13 +783,34 @@ def diag_rowdot_order(U, V, dv, s: float = 1.0, second: bool = False,
         for l in range(o):
             if o >= g and not held[l + o]:
                 continue             # a register slot past J: 0, skipped
-            uv[:, l] = uv[:, l] + uv[:, l + o]
-            vv[:, l] = vv[:, l] + vv[:, l + o]
-    o1 = (dt.type(s) * dv) * uv[:, 0]
+            v[:, l] = v[:, l] + v[:, l + o]
+    return v[:, 0]
+
+
+def _host(*ts) -> List[np.ndarray]:
+    return [np.asarray(torch.as_tensor(t).cpu()) for t in ts]
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    return torch.float32 if dt == np.float32 else torch.float64
+
+
+def diag_rowdot_order(U, V, dv, s: float = 1.0, second: bool = False,
+                      plan: Optional[K2Plan] = None):
+    """K2's result, bit for bit, evaluated on the host in its order
+    (:func:`k2_chains`, then the halving tree over the virtual lanes) and
+    as ``plan`` (None: :func:`k2_plan`) takes it (:func:`_group_tree`).
+    Tensors or arrays on the host; returns tensors."""
+    U, V, dv = _host(U, V, dv)
+    dt = U.dtype
+    plan = plan or k2_plan(U.shape[1], _torch_dtype(dt))
+    uv, vv = k2_chains(U, V)
+    o1 = (dt.type(s) * dv) * _group_tree(uv, plan)
     out = torch.from_numpy(np.ascontiguousarray(o1))
     if not second:
         return out
-    return out, torch.from_numpy(np.ascontiguousarray(dv * vv[:, 0]))
+    return out, torch.from_numpy(np.ascontiguousarray(
+        dv * _group_tree(vv, plan)))
 
 
 def diag_rowdot(U: torch.Tensor, V: torch.Tensor, dv: torch.Tensor,
@@ -821,7 +844,8 @@ def diag_rowdot_with(plan: Optional[K2Plan], U: torch.Tensor,
     elif plan not in k2_plans(r, dt):
         raise ValueError(f"{plan.describe()} is not a plan of r = {r}")
     if grid is None:
-        grid = min(-(-n // (256 // plan.lanes)), _k2_cap(dev, dt, plan))
+        grid = min(-(-n // (256 // plan.lanes)),
+                   _group_cap("diag_rowdot", dev, dt, plan))
     o1 = torch.empty(n, dtype=dt, device=dev)
     o2 = torch.empty(n, dtype=dt, device=dev) if second else None
     k.launch(_f32(dt), U.data_ptr(), V.data_ptr(), dv.data_ptr(), float(s),
@@ -841,9 +865,37 @@ def diag_normal_matvec_plain(x, F, dv):
     return x + (dv * w)[:, None] * F
 
 
+def diag_normal_matvec_order(x, F, dv, plan: Optional[K2Plan] = None):
+    """K3's result, bit for bit, evaluated on the host: K2's dot order on
+    (x, F) (:func:`_fma_chains`, then :func:`_group_tree` as ``plan``, None:
+    :func:`k2_plan`, takes it), ``coef = d * (d * dot)`` with each product
+    rounded, and ``y = fma(coef, F, x)`` rounded once.  Exact fused
+    multiply-adds, so slow: hold a few hundred rows to it.  Tensors or
+    arrays on the host; returns a tensor."""
+    x, F, dv = _host(x, F, dv)
+    dt = x.dtype
+    plan = plan or k2_plan(x.shape[1], _torch_dtype(dt))
+    dot = _group_tree(_fma_chains(x, F), plan)
+    coef = dv * (dv * dot)
+    mant = 24 if dt == np.float32 else 53
+    fma = np.frompyfunc(lambda a, b, c: _fma_exact(a, b, c, mant), 3, 1)
+    y = fma(coef.astype(np.float64)[:, None], F.astype(np.float64),
+            x.astype(np.float64)).astype(dt)
+    return torch.from_numpy(np.ascontiguousarray(y))
+
+
 def diag_normal_matvec(x: torch.Tensor, F: torch.Tensor,
                        dv: torch.Tensor) -> torch.Tensor:
     """K3: ``x + (dv^2 * rowsum(x*F))[:, None] * F`` in one pass."""
+    return diag_normal_matvec_with(None, x, F, dv)
+
+
+def diag_normal_matvec_with(plan: Optional[K2Plan], x: torch.Tensor,
+                            F: torch.Tensor, dv: torch.Tensor,
+                            grid: Optional[int] = None) -> torch.Tensor:
+    """K3 launched with ``plan`` (K2's lane groups, None: :func:`k2_plan`)
+    on ``grid`` blocks (None: the blocks its rows need, at most those that
+    fit the card at once).  Every plan and grid gives the same bits."""
     k = KERNELS["diag_normal_matvec"]
     if _is_cpu(x):
         k.plain_calls += 1
@@ -857,8 +909,17 @@ def diag_normal_matvec(x: torch.Tensor, F: torch.Tensor,
     _check(F, "F", dt, (n, r), dev)
     _check(dv, "dv", dt, (n,), dev)
     _i32(n * max(r, 1), "n * r")
+    if plan is None:
+        plan = k2_plan(r, dt)
+    elif plan not in k2_plans(r, dt):
+        raise ValueError(f"{plan.describe()} is not a plan of r = {r}")
+    if grid is None:
+        grid = min(-(-n // (256 // plan.lanes)),
+                   _group_cap("diag_normal_matvec", dev, dt, plan,
+                              int(r > 32)))
     y = torch.empty((n, r), dtype=dt, device=dev)
-    k.launch(_f32(dt), x.data_ptr(), F.data_ptr(), dv.data_ptr(), y.data_ptr(), n, r,
+    k.launch(_f32(dt), x.data_ptr(), F.data_ptr(), dv.data_ptr(),
+             y.data_ptr(), n, r, plan.lanes, plan.slots, max(int(grid), 1),
              _stream(dev))
     return y
 
@@ -2745,16 +2806,99 @@ def graph_pool(seg: GraphSegments, x: torch.Tensor, score: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 K13_MAX_R = 256          # kMaxR in gather_rowsum.cu: 8 columns per lane
-K13_MIN_TILE = 256       # indices per block at least
-K13_MAX_BLOCKS = 8 * 132  # 8 blocks per SM of the H100
+K13_MIN_TILE = 256       # the gather plan: indices per block at least,
+K13_MAX_BLOCKS = 8 * 132  # and at most 8 blocks per SM of the H100
+K13_STEPS = 8            # kSteps: rows a strand of a counts-plan chunk
+K13_HIST = 2048          # indices a block of the histogram at least (its
+                         # 256 threads load 8 each, kBatch, at once)
+K13_MAX_SMEM_BINS = 48 * 1024   # kMaxSmemBins: the shared histogram's N
+K13_SMEM_RATIO = 16      # the shared histogram planned while N grid <= 16 M
+
+
+@dataclasses.dataclass(frozen=True)
+class K13Plan:
+    """K13's launch: the counts plan (``counts``: a histogram of the
+    indices, then one pass over Y; the histogram in shared memory with
+    ``smem``, else by warp-aggregated global atomics), or the gather (a
+    tile of indices a block, the kernel's first design).  Both counts plans
+    give the same bits."""
+
+    counts: bool
+    smem: bool = False
+
+    @property
+    def mode(self) -> int:
+        """The C entry point's ``mode``."""
+        return 1 + self.smem if self.counts else 0
+
+    def describe(self) -> str:
+        if not self.counts:
+            return "gather"
+        return f"counts {'smem' if self.smem else 'match'}"
+
+
+def k13_lanes(R: int) -> int:
+    """L: lanes a row of Y (C = ceil(R / L) <= 8 columns a lane)."""
+    return min(32, _pow2(R))
+
+
+def k13_chunk_rows(R: int) -> int:
+    """Rows of Y a chunk of the counts plan's pass: ``K13_STEPS`` rows a
+    strand of L lanes, 256 / L strands."""
+    return K13_STEPS * (256 // k13_lanes(R))
+
+
+def k13_plan(N: int, M: int, R: int) -> K13Plan:
+    """The counts plan where its bytes, 4 (M + N (R + 2)) (idx, Y, the
+    counts written and read), are fewer than the gather's, 4 M (R + 1) (idx
+    and the gathered rows); else the gather."""
+    if M + N * (R + 2) >= M * (R + 1):
+        return K13Plan(False)
+    # each block of the shared histogram zeroes and flushes N bins: it is
+    # planned where N fits and a block's indices are at least N / 16, since
+    # on the card it ties with the warp-aggregated atomics at N grid = 16 M
+    # and loses past it (PERF.md, [k13-plan])
+    return K13Plan(True, smem=N <= K13_MAX_SMEM_BINS and N * k13_grid(
+        N, M, R) <= K13_SMEM_RATIO * M)
+
+
+def k13_plans(N: int, M: int, R: int) -> List[K13Plan]:
+    """The planned launch first, then every other plan: the gather and the
+    two counts plans (the shared histogram where N fits)."""
+    plans = [K13Plan(False), K13Plan(True)] + (
+        [K13Plan(True, smem=True)] if N <= K13_MAX_SMEM_BINS else [])
+    plan = k13_plan(N, M, R)
+    return [plan] + [p for p in plans if p != plan]
 
 
 def gather_rowsum_grid(M: int) -> Tuple[int, int]:
-    """(blocks, indices per block) of K13's first launch: tiles of at least
-    ``K13_MIN_TILE`` indices, at most ``K13_MAX_BLOCKS`` blocks, none
-    empty (one block for M = 0, which writes zeros)."""
+    """(blocks, indices per block) of the gather plan's first launch: tiles
+    of at least ``K13_MIN_TILE`` indices, at most ``K13_MAX_BLOCKS``
+    blocks, none empty (one block for M = 0, which writes zeros)."""
     tile = max(K13_MIN_TILE, -(-M // K13_MAX_BLOCKS))
     return max(1, -(-M // tile)), tile
+
+
+def k13_gather_bound(Y, idx) -> float:
+    """The gather plan's float32 rounding bound, max |gather - exact|: a
+    term passes at most tile / 8 additions in its lane, 8 across the warps
+    and one a block in the combine, each rounded to 2^-24, so the bound is
+    (tile / 8 + 8 + blocks) 2^-24 max_j sum_i |Y[idx[i], j]|.  On many equal
+    indices the gather's error can pass 1e-5 of the sum (PERF.md) while it
+    stays within this bound; the counts plans round one product a row
+    instead."""
+    Y, idx = _host(Y, idx)
+    blocks, tile = gather_rowsum_grid(idx.size)
+    terms = np.abs(Y.astype(np.float64)[idx.astype(np.int64)]).sum(0)
+    return (tile // 8 + 8 + blocks) * 2.0 ** -24 * float(terms.max(initial=0))
+
+
+def k13_grid(N: int, M: int, R: int) -> int:
+    """The counts plan's blocks: one a chunk of the pass or one a
+    ``K13_HIST`` indices of the histogram, whichever is more, at most
+    ``K13_MAX_BLOCKS``."""
+    chunks = -(-N // k13_chunk_rows(R))
+    return max(1, min(K13_MAX_BLOCKS, max(chunks, -(-M // K13_HIST))))
 
 
 def gather_rowsum_plain(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -2762,10 +2906,102 @@ def gather_rowsum_plain(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return Y.index_select(0, idx).sum(0, keepdim=True)
 
 
+def gather_rowsum_order(Y, idx) -> torch.Tensor:
+    """The counts plan's result, bit for bit, evaluated on the host with
+    numpy in the kernel's order: c_k = #{i : idx[i] = k} (indices outside
+    [0, N) add nothing); a chunk's strand s adds float32(c_k) * Y[k] (each
+    product rounded, a row with c_k = 0 adding nothing) over its rows s, s +
+    S, ... in order; the strands pairwise, (0 + 1) + (2 + 3) ...; the chunk
+    partials in chunk order.  Tensors or arrays on the host."""
+    Y, idx = _host(Y, idx)
+    N, R = Y.shape
+    idx = idx[(idx >= 0) & (idx < N)].astype(np.int64)
+    c = np.bincount(idx, minlength=N)
+    rows = k13_chunk_rows(R)
+    S = rows // K13_STEPS
+    chunks = -(-N // rows)
+    prod = np.zeros((chunks * rows, R), np.float32)
+    nz = np.flatnonzero(c)
+    prod[nz] = c[nz].astype(np.float32)[:, None] * Y[nz].astype(np.float32)
+    v = prod.reshape(chunks, K13_STEPS, S, R)
+    acc = np.zeros((chunks, S, R), np.float32)
+    for i in range(K13_STEPS):
+        acc = acc + v[:, i]
+    while acc.shape[1] > 1:
+        acc = acc[:, 0::2] + acc[:, 1::2]
+    out = np.zeros(R, np.float32)
+    for part in acc[:, 0]:
+        out = out + part
+    return torch.from_numpy(out[None])
+
+
+@dataclasses.dataclass
+class _K13Scratch:
+    part: torch.Tensor       # float32 partial rows
+    counts: torch.Tensor     # int32 counts, 0 between calls
+    ticket: torch.Tensor     # (1,) int32, 0 between calls
+
+
+_K13_SCRATCH: Dict[Tuple[torch.device, int], _K13Scratch] = {}
+# zeroed counts and ticket (n + 1 ints) an eager call leaves for the next
+# call captured into a CUDA graph, and those handed out: a graph keeps them
+_K13_SPARE: Dict[torch.device, torch.Tensor] = {}
+_K13_HELD: List[torch.Tensor] = []
+
+
+def _k13_scratch(dev: torch.device, stream: int, part: int,
+                 n: int) -> _K13Scratch:
+    """K13's scratch for a call of ``part`` partial floats and ``n`` counts
+    (0 for the gather).  The counts plan leaves its counts and ticket at 0,
+    so the eager calls on ``stream``, which run in order, share one, made
+    once and grown to a power of two when a call needs more (new counts
+    zeroed).  A call captured into a CUDA graph gets its own partials, and
+    counts and ticket of its own: the spare an eager call zeroed, never
+    handed out again (the graph's pass leaves them at 0 for the next
+    replay), or, with no spare as large, zeroed inside the graph (one node
+    more).  So no two graphs, nor a graph and the eager calls on its capture
+    stream, share them."""
+    if torch.cuda.is_current_stream_capturing():
+        own = torch.empty(max(part, 1), dtype=torch.float32, device=dev)
+        if n == 0:
+            return _K13Scratch(own, own[:0].view(torch.int32),
+                               own[:0].view(torch.int32))
+        spare = _K13_SPARE.pop(dev, None)
+        if spare is None or spare.numel() < n + 1:
+            spare = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+        else:
+            _K13_HELD.append(spare)
+        return _K13Scratch(own, spare[:n], spare[n:n + 1])
+    spare = _K13_SPARE.get(dev)
+    if n > 0 and (spare is None or spare.numel() < n + 1):
+        _K13_SPARE[dev] = torch.zeros(_pow2(n + 1), dtype=torch.int32,
+                                      device=dev)
+        torch.cuda.current_stream(dev).synchronize()   # zero before a replay
+    key = (dev, stream)
+    ws = _K13_SCRATCH.get(key)
+    if ws is None:
+        ws = _K13Scratch(torch.empty(0, dtype=torch.float32, device=dev),
+                         torch.zeros(0, dtype=torch.int32, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+        _K13_SCRATCH[key] = ws
+    if ws.part.numel() < part:
+        ws.part = torch.empty(_pow2(part), dtype=torch.float32, device=dev)
+    if ws.counts.numel() < n:
+        ws.counts = torch.zeros(_pow2(n), dtype=torch.int32, device=dev)
+    return ws
+
+
 def gather_rowsum(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K13: ``out (1, R) = sum_i Y[idx[i], :]`` for float32 Y (N, R), R <=
     256, and int32 indices in [0, N) (not checked on the card), summed in
     float32 in a fixed order: the same bits on every call."""
+    return gather_rowsum_with(None, Y, idx)
+
+
+def gather_rowsum_with(plan: Optional[K13Plan], Y: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """K13 launched with ``plan`` (None: :func:`k13_plan`).  Every counts
+    plan gives :func:`gather_rowsum_order`'s bits."""
     k = KERNELS["gather_rowsum"]
     if _is_cpu(Y):
         k.plain_calls += 1
@@ -2782,9 +3018,24 @@ def gather_rowsum(Y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(idx, "idx", torch.int32, (M,), dev)
     _i32(N * R, "N * R")
     _i32(M, "M")
-    n_blocks, tile = gather_rowsum_grid(M)
-    part = torch.empty((n_blocks, R), dtype=torch.float32, device=dev)
+    if plan is None:
+        plan = k13_plan(N, M, R)
+    elif plan not in k13_plans(N, M, R):
+        raise ValueError(f"{plan.describe()} is not a plan of N = {N}")
+    stream = _stream(dev)
+    if plan.counts:
+        grid, tile = k13_grid(N, M, R), 0
+        part = -(-N // k13_chunk_rows(R)) * R
+    else:
+        grid, tile = gather_rowsum_grid(M)
+        part = grid * R
+    ws = _k13_scratch(dev, stream, part, N if plan.counts else 0)
     out = torch.empty((1, R), dtype=torch.float32, device=dev)
-    k.launch(Y.data_ptr(), idx.data_ptr(), N, M, R, tile, n_blocks,
-             part.data_ptr(), out.data_ptr(), _stream(dev))
+    try:
+        k.launch(Y.data_ptr(), idx.data_ptr(), N, M, R, plan.mode, grid,
+                 tile, ws.part.data_ptr(), ws.counts.data_ptr(),
+                 ws.ticket.data_ptr(), out.data_ptr(), stream)
+    except RuntimeError:
+        _K13_SCRATCH.pop((dev, stream), None)   # its counts may not be 0
+        raise
     return out

@@ -60,6 +60,23 @@ def probe_inputs(N: int, M: int, R: int, device, seed: int = 0):
     return Y.to(device), idx.to(device)
 
 
+ZIPF_S = 1.1                   # the exponent of skewed_indices' Zipf draw
+
+
+def skewed_indices(N: int, M: int, kind: str, device, seed: int = 0):
+    """M int32 indices in [0, N) with repeats: ``"equal"``, every index the
+    same (N // 2); ``"zipf"``, index k drawn with weight 1 / (k + 1)^ZIPF_S
+    from a seeded ``torch.Generator``."""
+    if kind == "equal":
+        return torch.full((M,), N // 2, dtype=torch.int32, device=device)
+    if kind != "zipf":
+        raise ValueError(f"unknown index skew {kind!r}")
+    g = torch.Generator().manual_seed(seed)
+    w = torch.arange(1, N + 1, dtype=torch.float64) ** -ZIPF_S
+    return torch.multinomial(w, M, replacement=True, generator=g).to(
+        torch.int32).to(device)
+
+
 def probe(N: int = 8192, M: int = 262144, R: int = 32,
           device=None) -> dict:
     dev = resolve_device(device)

@@ -14,7 +14,10 @@ tests/test_torch_k2_k12.py -m cuda``): every K2 plan and grid gives
 ``diag_rowdot_order``'s bits at r = 1, 5, 19, 20, 33, 64 and 141 in both
 types, with and without the second output; every K12 plan gives the
 planned launch's bits, ``dx`` the float64 plain version's within float32
-rounding, and one call is one device kernel.
+rounding, and one call is one device kernel.  K3, which keeps K2's lane
+groups and dot order: every plan and grid gives
+``diag_normal_matvec_order``'s bits at the same ranks (its host side is in
+``test_torch_k3_k13.py``).
 """
 
 import re
@@ -266,6 +269,30 @@ def test_k2_every_plan_gives_the_order_bits(dev, dtype, r):
                 plan, grid)
             one = K.diag_rowdot_with(plan, U, V, dv, 1.0, False, grid)
             assert torch.equal(one, K.diag_rowdot(U, V, dv, 1.0))
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r", K2_RANKS)
+def test_k3_every_plan_gives_the_order_bits(dev, dtype, r):
+    """K3 (``diag_normal_matvec``), which keeps K2's lane groups and dot
+    order: every plan of ``k2_plans`` and a one-block grid give the planned
+    launch's bits, and those are ``diag_normal_matvec_order``'s (on the
+    first 300 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(100 + r)
+    n = 3000
+    x, F = (torch.randn((n, r), generator=gen, device=dev,
+                        dtype=torch.float64).to(dtype) for _ in range(2))
+    dv = torch.rand(n, generator=gen, device=dev, dtype=torch.float64).to(
+        dtype)
+    want = K.diag_normal_matvec_order(x[:300].cpu(), F[:300].cpu(),
+                                      dv[:300].cpu())
+    planned = K.diag_normal_matvec(x, F, dv)
+    assert torch.equal(planned[:300].cpu(), want)
+    for plan in K.k2_plans(r, dtype):
+        for grid in (None, 1):
+            got = K.diag_normal_matvec_with(plan, x, F, dv, grid)
+            assert torch.equal(got, planned), (plan, grid)
 
 
 @cuda

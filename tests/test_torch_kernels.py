@@ -28,8 +28,11 @@ whose exact value vanishes is rounding); the plain backwards themselves pass
 K13 (``gather_rowsum``, float32) is held like K9: against its plain version
 evaluated in float64, max |kernel - plain| / max |plain| <= 1e-5, at the
 gather probe's shape and at widths and index counts that leave partial
-tiles, lanes and warps; its plain version against the Pallas ``kern`` it
-replaces is in ``test_torch_gather_probe.py``.
+tiles, lanes and warps, every plan of it (the gather and the counts plans)
+also at a skewed index set, the counts plans bitwise
+``gather_rowsum_order``; its plain version against the Pallas ``kern`` it
+replaces is in ``test_torch_gather_probe.py``, that order against it in
+``test_torch_k3_k13.py``.
 """
 
 import dataclasses
@@ -39,7 +42,8 @@ import pytest
 import torch
 
 from ltr_lowrank_sdp_torch.ops import kernels as K
-from ltr_lowrank_sdp_torch.scripts.gather_probe import probe_inputs
+from ltr_lowrank_sdp_torch.scripts.gather_probe import (probe_inputs,
+                                                        skewed_indices)
 from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
 
 cuda = pytest.mark.cuda
@@ -1171,6 +1175,73 @@ def test_gather_rowsum_matches_float64_plain(dev, n, m, r):
     want = K.gather_rowsum_plain(Y.double(), idx)
     err = float((got.double() - want).abs().max())
     assert err <= 1e-5 * max(float(want.abs().max()), 1e-30)
+
+
+@cuda
+@pytest.mark.parametrize("n, m, r, kind", [
+    (8192, 262144, 32, None), (8192, 262144, 8, None),
+    (8192, 262144, 64, None), (4096, 100_003, 64, None),
+    (1000, 77_777, 200, None), (1, 5000, 32, None), (300, 10, 17, None),
+    (50, 0, 3, None), (2000, 300_001, 256, None), (100_000, 20_000, 32, None),
+    (60_000, 1_000_000, 16, None), (8192, 262144, 32, "equal"),
+    (8192, 262144, 32, "zipf")])
+def test_gather_rowsum_every_plan(dev, n, m, r, kind):
+    """Every plan of ``k13_plans`` (the gather and the counts plans) within
+    1e-5 of the float64 plain version and the same bits on two calls; every
+    counts plan ``gather_rowsum_order``'s bits."""
+    Y, idx = probe_inputs(n, m, r, dev, seed=5)
+    if kind is not None:
+        idx = skewed_indices(n, m, kind, dev, seed=5)
+    want = K.gather_rowsum_plain(Y.double(), idx)
+    host = K.gather_rowsum_order(Y.cpu(), idx.cpu())
+    tol = 1e-5 * max(float(want.abs().max()), 1e-30)
+    for plan in K.k13_plans(n, m, r):
+        got = K.gather_rowsum_with(plan, Y, idx)
+        again = K.gather_rowsum_with(plan, Y, idx)
+        err = float((got.double() - want).abs().max())
+        if kind == "equal" and not plan.counts:
+            # the gather adds M equal terms in float32 along chains of up to
+            # a lane's tile / 8 indices, 8 warps and every block in order:
+            # 1.14e-5 of the sum here, so it is held to that chain's rounding
+            # bound, as chip_smoke.py holds it (the counts plans are exact
+            # there: one product a column)
+            assert err <= K.k13_gather_bound(Y, idx), plan
+        else:
+            assert err <= tol, plan
+        assert torch.equal(got, again), plan
+        if plan.counts:
+            assert torch.equal(got.cpu(), host), plan
+
+
+@cuda
+def test_k13_captured_calls_keep_scratch_of_their_own(dev):
+    """Calls of each plan captured into one CUDA graph on a stream keep
+    their own partials, counts and ticket: an eager call on that stream
+    that grows the stream's scratch between the capture and the replays,
+    and two replays, leave the captured calls with the eager call's bits
+    (for the counts plans ``gather_rowsum_order``'s)."""
+    Y, idx = probe_inputs(8192, 262144, 32, dev, seed=7)
+    big_Y, big_idx = probe_inputs(60_000, 1_000_000, 64, dev, seed=8)
+    plans = K.k13_plans(8192, 262144, 32)
+    want = [K.gather_rowsum_with(p, Y, idx) for p in plans]
+    host = K.gather_rowsum_order(Y.cpu(), idx.cpu())
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        got = [K.gather_rowsum_with(p, Y, idx) for p in plans]
+    with torch.cuda.stream(stream):
+        big = K.gather_rowsum(big_Y, big_idx)     # grows the scratch
+    stream.synchronize()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for p, a, b in zip(plans, got, want):
+            assert torch.equal(a, b), p
+            assert not p.counts or torch.equal(a.cpu(), host), p
+    with torch.cuda.stream(stream):
+        assert torch.equal(K.gather_rowsum(big_Y, big_idx), big)
+    stream.synchronize()
 
 
 @cuda
