@@ -68,7 +68,12 @@ Phases, in order; any failed check raises and the script exits nonzero:
    the sum of its terms' magnitudes), the same bits on two calls, the
    kernel's, the float32 plain version's and a float32 library call's
    time (``torch.sparse.mm`` for K1, K6, K7, K8, ``torch.linalg.vecdot``
-   for K2) beside the bound at 4-byte values.  K5 and K6 on each shard's
+   for K2) beside the bound at 4-byte values.  Then ``[capture-kernels]``:
+   each of K1-K8 at its main path's shapes captured inside the conditional
+   bodies of a CUDA graph (a WHILE of two runs, each an IF around the call;
+   ``solver.devloop.DeviceGraph``, the solver's replayed loops' machinery)
+   and replayed twice: every replay the eager call's bits, and the launches
+   accounted from the body runs twice the eager call's.  K5 and K6 on each shard's
    layouts of the matrix-completion cone at world size 2 (row 16: a rank's
    constraint segment and its row slice of the CSR), as above, and their
    outputs there bitwise the whole layouts' (``[shard-bits]``).  Every K5 /
@@ -118,8 +123,15 @@ Phases, in order; any failed check raises and the script exits nonzero:
    likewise ``[matcomp-counts]`` and ``[multiblock_lp-counts]`` after
    phases 5 and 6) the ALM / ADMM / CG counts, host syncs and final ranks
    equal to ``SOLVE_COUNTS`` (``PERF.md`` section 5), printed with K1's and
-   K8's launches and K1's folded row scales; then a warm solve and one
-   under the profiler;
+   K8's launches, K1's folded row scales, the host reads, the CUDA-graph
+   replays and each graph's nodes and instantiation time; every CLI solve
+   (these and phase 7b's) must run the replayed ALM and ADMM loops (graph
+   replays > 0, no call of the eager inner pass or ADMM loop); then a warm
+   solve (a new Solver: its graphs captured anew), a solve again on the
+   same Solver (its graphs reused, the same result) and one more with the
+   graph replays timed by CUDA events (the graph span share; the graphs
+   refuse ``torch.profiler``, and ``[profiler-refused]`` checks that a
+   solve under it raises);
 5. the sparse-cone main path: matrix completion of a 5000 x 5000 rank-3
    matrix (``matcomp_problem(5000, 5000, 3, 2.0, seed=0)``: n = 10^4, the
    dimension of the LoRADS MC_10000 row, about 552,000 one-entry
@@ -298,10 +310,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
 Two measurements outside the smoke run, for a Lovasz theta instance too long
 for it.  The first builds the kernels, solves the one instance through the
 CLI on the card and prints its status, ranks, counts and times, nothing
-else; with ``--profile`` it instead runs the solve under ``torch.profiler``
-until the solver's first time-limit check after S seconds (one per ALM outer
-iteration) and prints the device's busy share of that window (the profiler
-needs minutes to digest some 10^5 device kernels):
+else; with ``--profile`` it instead runs the solve until the solver's first
+time-limit check after S seconds (one per ALM outer iteration) with its
+graph replays timed by CUDA events and prints their share of that window:
 
     python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S [--logfile PATH] [--dtype float32]
     python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S --profile [--dtype float32]
@@ -351,7 +362,6 @@ MC_FLAGS = ("--heuristicFactor", "10")
 MC_CHECK_RANKS = (19, 64)
 MC_REPORT_RANK = 19       # ceil(2 ln 10^4): that path's starting rank
 MC_SMALL_ARGS = (200, 200, 2, 1.0, 0)
-PROFILE_WINDOW_S = 2.0    # a longer solve is profiled for about this long
 MAXCUT_KERNELS = ("spmm_sym_csr", "diag_rowdot", "diag_normal_matvec",
                   "sym_contract_sum")
 SPARSE_KERNELS = ("spmm_sym_csr", "sym_contract_sum", "coo_contract_segsum",
@@ -497,22 +507,28 @@ BATCH_TOL = 1e-10
 K1_PLAN_RANKS = (1, 19, 20, 33, 64)
 K1_PLAIN_TOL = {torch.float64: 2.2e-16, torch.float32: 1.2e-7}
 # PERF.md section 5's float64 rows: ALM outer /
-# inner, ADMM and CG iterations, host syncs and final ranks of each main
-# path's CLI solve
-SOLVE_COUNTS = {"main": (6, 107, 8, 46, 305, [20]),
-                "matcomp": (9, 43, 1, 43, 161, [19]),
-                "multiblock_lp": (10, 955, 13, 2205, 4252, [14, 14, 13])}
+# inner, ADMM and CG iterations, host syncs (one a chunk or pass of the
+# replayed loops; the eager loops read 305, 161 and 4,252 times) and final
+# ranks of each main path's CLI solve
+SOLVE_COUNTS = {"main": (6, 107, 8, 46, 20, [20]),
+                "matcomp": (9, 43, 1, 43, 28, [19]),
+                "multiblock_lp": (10, 955, 13, 2205, 41, [14, 14, 13])}
 K1_FOLDS = {}             # K1's launches with the row scale folded, per path
 UNPORTED = []
 # The reference's device-resident solver loops are jnp loops over the
 # operators above, with no gather or segment-reduction kernel of their own;
-# the port carries them as plain torch loops over K1-K8.  A fused or
-# CUDA-graph version is performance work, not a kernel still to be ported.
+# the port carries them as torch loops over K1-K8: the CG, the L-BFGS
+# recursion and the line search inside the ALM inner pass and the ADMM
+# chunks, replayed as CUDA graphs with conditional nodes.  Fusing
+# their elementwise work is performance work, not a kernel still to be
+# ported.
 LOOPS = [
     "11 ltr_lowrank_sdp_tpu/ops/cg.py:31 cg_solve, ops/lanczos.py:23 "
-    "lanczos_tridiag -> ltr_lowrank_sdp_torch/ops/cg.py, ops/lanczos.py",
+    "lanczos_tridiag -> ltr_lowrank_sdp_torch/ops/cg.py (cg_device, a WHILE "
+    "node of the ADMM chunk's graph), ops/lanczos.py",
     "12 ltr_lowrank_sdp_tpu/ops/lbfgs.py:71,48 direction, push_pair -> "
-    "ltr_lowrank_sdp_torch/ops/lbfgs.py",
+    "ltr_lowrank_sdp_torch/ops/lbfgs.py (direction_t, push_pair_t in the "
+    "ALM pass's graph)",
     "13 ltr_lowrank_sdp_tpu/ops/lanczos.py:162 oracle_rank_gram -> "
     "ltr_lowrank_sdp_torch/ops/lanczos.py (torch.matmul + host eigh)",
     "15 ltr_lowrank_sdp_tpu/hallar/solver.py:205,258 _make_fista, "
@@ -520,6 +536,27 @@ LOOPS = [
     "ltr_lowrank_sdp_torch/hallar/solver.py (a torch.where state machine "
     "over K4-K6, replayed as CUDA graphs), ops/lanczos.py",
 ]
+
+
+# calls of the eager ALM pass and ADMM loop (those of a sharded solve) in
+# the CLI solves, which must take the replayed loops only
+EAGER_STEPS: dict = {}
+
+
+def count_eager_steps() -> None:
+    """Wraps the eager ALM inner pass and ADMM loop so that a call is
+    counted in EAGER_STEPS."""
+    from ltr_lowrank_sdp_torch.solver import admm, alm
+
+    for cls, name in ((alm.ALMPhase, "_inner_pass_eager"),
+                      (admm.ADMMPhase, "loop_eager")):
+        orig = getattr(cls, name)
+
+        def counted(self, *a, _orig=orig, _name=name, **kw):
+            EAGER_STEPS[_name] = EAGER_STEPS.get(_name, 0) + 1
+            return _orig(self, *a, **kw)
+
+        setattr(cls, name, counted)
 
 
 def require(cond: bool, what: str) -> None:
@@ -760,13 +797,6 @@ def check_shard_bits(K, cone, mops, dev, r, tag) -> None:
           f"rows {a}..{b - 1} bitwise the whole layouts'", flush=True)
 
 
-def profile_solve(solver, tag: str = "profile") -> None:
-    """One solve under ``torch.profiler``: device busy share of the wall
-    time and the kernels that take it.  (A solver whose params carry a time
-    limit stops there: the window of a long solve.)"""
-    profile_call(solver.solve, tag, "solve")
-
-
 def profile_call(fn, tag: str, what: str) -> None:
     """``fn()`` under ``torch.profiler``: device busy share of the wall time
     and the kernels that take it."""
@@ -781,9 +811,13 @@ def profile_call(fn, tag: str, what: str) -> None:
     print_profile(prof, wall, tag, what)
 
 
-def print_profile(prof, wall: float, tag: str, what: str) -> None:
-    """The device busy share of ``wall`` in a finished profile, and the
-    kernels that take it."""
+def print_profile(prof, wall: float, tag: str, what: str,
+                  graph_s: float = 0.0, replays: int = 0) -> None:
+    """The device busy share of ``wall`` in a finished profile (the kernels
+    the profiler recorded) and the kernels that take it; with ``replays``,
+    beside it and not added to it, the graph span share: ``graph_s``, the
+    device spans of that many CUDA-graph replays, first node to last with
+    the gaps between nodes, over ``wall``."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
@@ -792,8 +826,11 @@ def print_profile(prof, wall: float, tag: str, what: str) -> None:
         by_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values()) / 1e6
     print(f"[{tag}] {what} wall {wall:.3f} s under the profiler, device "
-          f"busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
-          f"{len(kernels)} device kernels")
+          f"busy {busy:.4f} s ({100 * busy / wall:.1f} %): "
+          f"{len(kernels)} device kernels (profiler)"
+          + (f"; graph span share {100 * graph_s / wall:.1f} %: {replays} "
+             f"graph replays {graph_s:.4f} s (CUDA events, first node to "
+             f"last, gaps included)" if replays else ""))
     for name, (c, us) in sorted(by_name.items(), key=lambda x: -x[1][1])[:12]:
         print(f"[{tag}] {us / 1e3:9.3f} ms {c:6d} x {name[:90]}", flush=True)
 
@@ -1392,7 +1429,9 @@ def check_solve_counts(tag, res, counts) -> None:
           f"{SOLVE_COUNTS[tag]}); K1 launches {counts['spmm_sym_csr'][0]}, "
           f"{K1_FOLDS[tag]} of them with the row scale folded in (each saves "
           f"the elementwise launch that formed diag_val * w); K8 launches "
-          f"{counts['lp_col_wsum'][0]}", flush=True)
+          f"{counts['lp_col_wsum'][0]}; host reads {res.host_syncs}, graph "
+          f"replays {res.graph_replays}, graphs (name, nodes, instantiation "
+          f"ms) {json.dumps(res.graphs)}", flush=True)
     require(got == SOLVE_COUNTS[tag],
             f"{tag}: counts {got}, PERF.md section 5 has {SOLVE_COUNTS[tag]}")
 
@@ -2741,6 +2780,112 @@ def _lib_close(name, ref):
     return check
 
 
+def check_capture_kernels(K, cone, mc_cone, lp, dev) -> None:
+    """``[capture-kernels]``: each of K1-K8, at its main path's shapes
+    (K1-K4 the MaxCut C at rank REPORT_RANK, K5 / K6 the matrix-completion
+    cone at MC_REPORT_RANK, K7 / K8 the multi-block + LP path's LP cone),
+    captured inside a conditional body of a CUDA graph
+    (``solver.devloop.DeviceGraph``: a WHILE of two runs, each an IF around
+    the call) and replayed twice.  Each replay's outputs must be the eager
+    call's bits, and the launches the graph accounts from its body runs
+    (``DeviceGraph.account``) twice the eager call's, float32 and folded
+    launches included.  Any failed capture, node or replay raises."""
+    from types import SimpleNamespace
+
+    from ltr_lowrank_sdp_torch.solver.devloop import DeviceGraph
+
+    g = torch.Generator(device=dev).manual_seed(1616)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=dev)
+
+    n, r = cone.n, REPORT_RANK
+    U, V, Y = rnd(n, r), rnd(n, r), rnd(n, r)
+    w = rnd(cone.m)
+    nm, rm = mc_cone.n, MC_REPORT_RANK
+    Um, Vm = rnd(nm, rm), rnd(nm, rm)
+    wm = rnd(mc_cone.m)
+    u, v = rnd(lp.n_cols).abs(), rnd(lp.n_cols).abs()
+    wl = rnd(lp.m)
+    mv = cone.cg_normal_matvec(V)
+    calls = (
+        ("spmm_sym_csr", "C Y", lambda: cone.apply_c(Y)),
+        ("spmm_sym_csr", "A*(w) Y, folded", lambda: cone.apply_a(w, Y)),
+        ("diag_rowdot", "A(sym(U V^T))", lambda: cone.constr_vals(U, V)),
+        ("diag_rowdot", "pair", lambda: cone.constr_vals_pair(U, V)),
+        ("diag_normal_matvec", "CG operator", lambda: mv(Y)),
+        ("sym_contract_sum", "<C, sym(U V^T)>", lambda: cone.obj_value(U, V)),
+        ("coo_contract_segsum", "A(sym(U V^T))",
+         lambda: mc_cone.constr_vals(Um, Vm)),
+        ("coo_contract_segsum", "pair",
+         lambda: mc_cone.constr_vals_pair(Um, Vm)),
+        ("spmm_constr_csr", "A*(w) Y", lambda: mc_cone.apply_a(wm, Um)),
+        ("lp_constr_segsum", "A_lp(u o v)", lambda: lp.constr_vals(u, v)),
+        ("lp_constr_segsum", "pair", lambda: lp.constr_vals_pair(u, v)),
+        ("lp_col_wsum", "c + A_lp^T w",
+         lambda: lp.weighted_col_sums(wl, obj_coef=3.0)),
+    )
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def snap():
+        return {k.name: (k.launches, k.launches_f32, k.folds)
+                for k in K.KERNELS.values()}
+
+    seen = set()
+    for name, what, fn in calls:
+        before = snap()
+        want = [t.clone() for t in tup(fn())]
+        torch.cuda.synchronize()
+        eager = {k: tuple(a - b for a, b in zip(v, before[k]))
+                 for k, v in snap().items() if v != before[k]}
+        S = SimpleNamespace(out=[torch.zeros_like(t) for t in want],
+                            k=torch.zeros((), dtype=torch.int64, device=dev))
+
+        def body(flow, st):
+            st.k.zero_()
+
+            def run():
+                for o, x in zip(st.out, tup(fn())):
+                    o.copy_(x)
+
+            def step():
+                flow.if_(st.k >= 0, run)
+                st.k.add_(1)
+
+            flow.while_(lambda: st.k < 2, step)
+
+        t = time.perf_counter()
+        graph = DeviceGraph(f"capture-{name}", dev, body, S, lambda: (
+            SimpleNamespace(out=[o.clone() for o in S.out], k=S.k.clone())))
+        cap_ms = (time.perf_counter() - t) * 1e3
+        for rep in range(2):
+            for o in S.out:
+                o.zero_()
+            before = snap()
+            graph.launch()
+            torch.cuda.synchronize()
+            graph.account(graph.runs[:len(graph.bodies)].tolist())
+            got = {k: tuple(a - b for a, b in zip(v, before[k]))
+                   for k, v in snap().items() if v != before[k]}
+            same = all(torch.equal(o, x) for o, x in zip(S.out, want))
+            twice = {k: tuple(2 * x for x in v) for k, v in eager.items()}
+            print(f"[capture-kernels] {name} ({what}) replay {rep + 1}: "
+                  f"bitwise the eager call {same}; launches, float32, "
+                  f"folded {got} (eager x 2: {twice}); graph {graph.nodes} "
+                  f"nodes, warm-up + capture {cap_ms:.1f} ms, instantiation "
+                  f"{graph.instantiate_ms:.2f} ms", flush=True)
+            require(same, f"{name} ({what}): a replay is not the eager bits")
+            require(got == twice and set(eager) == {name},
+                    f"{name} ({what}): launches accounted {got}, the eager "
+                    f"calls {twice}")
+        seen.add(name)
+        del graph
+    require(seen == set(list(K.KERNELS)[:8]), "K1-K8 captured")
+
+
 def check_f32_kernels(K, cone, mc_cone, lp, dev):
     """The float32 kernel phase: K1-K4 on the MaxCut main path's C at rank
     REPORT_RANK, K5 (pair mode) and K6 on the matrix-completion cone at
@@ -3281,8 +3426,9 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
                   pobj_rtol=1e-8):
     """Drive one main path through the CLI with the launch counters set to 0
     just before and read just after, check the result by the repo's own
-    means, then (with ``repeat``) solve again warm and (with ``profile``)
-    once under the profiler.  With ``f32`` the flags ask for float32: every
+    means, then (with ``repeat``) solve again warm with a new Solver and
+    again with the same one, and (with ``profile``) once more with its graph
+    replays timed (``graph_spans``).  With ``f32`` the flags ask for float32: every
     kernel of ``launched`` must have float32 launches (a float64 polish adds
     float64 ones).  Returns the counts of the CLI run, its result and its
     float32 launches per kernel."""
@@ -3294,11 +3440,18 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
 
     jpath = os.path.join(os.path.dirname(path), f"{tag}_solution.json")
     K.reset_counts()
+    EAGER_STEPS.clear()
     t = time.perf_counter()
     res = cli.main([path, *flags, "--jsonfile", jpath])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = K.counts()
+    print(f"[{tag}] host reads {res.host_syncs}, graph replays "
+          f"{res.graph_replays}, graphs (name, nodes, instantiation ms) "
+          f"{json.dumps(res.graphs)}; eager loop calls {dict(EAGER_STEPS)}",
+          flush=True)
+    require(res.graph_replays > 0 and not EAGER_STEPS,
+            f"{tag}: the solve left the replayed loops")
     counts32 = K.counts_f32()
     K1_FOLDS[tag] = K.KERNELS["spmm_sym_csr"].folds
     print(f"[{tag}] counts {json.dumps(counts)}")
@@ -3353,7 +3506,8 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     if not repeat:
         return counts, res, counts32
 
-    # the same solve again, warm, then once more under the profiler
+    # the same solve again, warm, then again on the same Solver, then once
+    # more under the profiler
     params = cli.params_from_args(cli.build_arg_parser().parse_args(
         [path, *flags]))
     solver = Solver(prob, params, device=dev)
@@ -3363,19 +3517,80 @@ def run_main_path(tag, path, flags, launched, statuses, limits, dev,
     warm_s = time.perf_counter() - t
     print(f"[{tag}] warm solve {warm_s:.3f} s (status {warm.status.value}, "
           f"ALM inner {warm.alm_inner_iters}, ADMM {warm.admm_iters}, "
-          f"float64 polish runs {warm.polish_runs})")
+          f"float64 polish runs {warm.polish_runs}; a new Solver captures "
+          f"its graphs: {len(warm.graphs)})")
+    # the same Solver again: its phases keep their captured graphs
+    t = time.perf_counter()
+    again = solver.solve()
+    torch.cuda.synchronize()
+    print(f"[{tag}] solve again on the same Solver {time.perf_counter() - t:.3f}"
+          f" s (graphs reused, {len(again.graphs)} captured; host reads "
+          f"{again.host_syncs}, graph replays {again.graph_replays})",
+          flush=True)
+    require((again.pobj, again.alm_inner_iters, again.admm_iters)
+            == (warm.pobj, warm.alm_inner_iters, warm.admm_iters),
+            f"{tag}: a solve on reused graphs differs")
     if not profile:
         return counts, res, counts32
-    ptag = "profile" if tag == "main" else f"{tag}-profile"
-    if warm_s > PROFILE_WINDOW_S:
-        # a long solve: profile its first PROFILE_WINDOW_S seconds (the
-        # solver leaves at its next time-limit check after that)
-        print(f"[{ptag}] the window: a solve with a time limit of "
-              f"{PROFILE_WINDOW_S} s")
-        solver = Solver(prob, dataclasses.replace(
-            params, time_sec_limit=PROFILE_WINDOW_S), device=dev)
-    profile_solve(solver, ptag)
+    graph_spans(solver, "profile" if tag == "main" else f"{tag}-profile")
+    if tag == "main":
+        check_profiler_refused(prob, params, dev)
     return counts, res, counts32
+
+
+def graph_spans(solver, tag: str, what: str = "solve") -> None:
+    """``[tag]``: one more solve with each CUDA-graph replay timed by CUDA
+    events around it, no profiler (the graphs refuse it: PERF.md section
+    7): the graph span share, the replays' device spans (first node to
+    last, the gaps between nodes included) over the solve's wall time.  The
+    kernels' own time inside the graphs is not measured."""
+    from ltr_lowrank_sdp_torch.solver import devloop
+
+    spans = []
+    launch = devloop.DeviceGraph.launch
+
+    def timed(graph):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        launch(graph)
+        b.record()
+        spans.append((a, b))
+
+    devloop.DeviceGraph.launch = timed
+    try:
+        t = time.perf_counter()
+        res = solver.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        devloop.DeviceGraph.launch = launch
+    span_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    print(f"[{tag}] {what} wall {wall:.3f} s, graph span share "
+          f"{100 * span_s / wall:.1f} %: {len(spans)} graph replays "
+          f"{span_s:.4f} s (CUDA events, first node to last, gaps "
+          f"included); status {res.status.value}", flush=True)
+
+
+def check_profiler_refused(prob, params, dev) -> None:
+    """``[profiler-refused]``: a new Solver's solve under ``torch.profiler``
+    (host activity only) must raise before it captures a graph, with the
+    reason (PERF.md section 7)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ltr_lowrank_sdp_torch.solver.driver import Solver
+
+    solver = Solver(prob, params, device=dev)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            solver.solve()
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        msg = ""
+    require("torch.profiler is active" in msg,
+            "a solve under torch.profiler did not refuse its graphs")
+    print(f"[profiler-refused] a solve under torch.profiler raised: "
+          f"{msg[:120]}...", flush=True)
 
 
 def run_f32_paths(paths, dev):
@@ -3424,10 +3639,9 @@ def theta_solve(spec: str, limit_s: float, profile: bool, logfile,
     if profile:
         print(f"[theta-profile] theta_sdpa({n}, {deg}, {seed}), the window: "
               f"a solve with a time limit of {limit_s:g} s")
-        profile_solve(Solver(theta_problem(n, deg, seed),
-                             SolverParams(time_sec_limit=limit_s,
-                                          dtype=dtype)),
-                      "theta-profile")
+        graph_spans(Solver(theta_problem(n, deg, seed),
+                           SolverParams(time_sec_limit=limit_s,
+                                        dtype=dtype)), "theta-profile")
         return 0
     log_flags = ("--logfile", logfile) if logfile else ()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3942,6 +4156,13 @@ def main() -> int:
     report_f32 = check_f32_kernels(K, cone, mc_cone, mb_lp.entries, dev)
     print(f"[time] float32 kernel phase {time.perf_counter() - t:.1f} s",
           flush=True)
+    # K1-K8 inside the conditional bodies of a CUDA graph, as the solver's
+    # replayed loops run them
+    t = time.perf_counter()
+    check_capture_kernels(K, cone, mc_cone, mb_lp, dev)
+    print(f"[time] capture-kernels phase {time.perf_counter() - t:.1f} s",
+          flush=True)
+    count_eager_steps()
     del mb_lp, big_lp, mc_cone
 
     optimal = (SolverStatus.PRIMAL_DUAL_OPTIMAL, SolverStatus.PRIMAL_OPTIMAL)

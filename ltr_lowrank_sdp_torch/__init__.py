@@ -1,10 +1,16 @@
 """ltr_lowrank_sdp_torch — the PyTorch/CUDA port of ``ltr_lowrank_sdp_tpu``.
 
 The LoRADS-class Burer-Monteiro solver (ALM -> ADMM -> Lanczos dual
-certificate) on an NVIDIA GPU.  The hot conic operators of single-block
-problems with diag or sparse constraints and a sparse objective (MaxCut,
-matrix completion) run through hand-written CUDA kernels (``csrc/``, bound in
-:mod:`.ops.kernels`); everything around them is plain PyTorch in float64.
+certificate) for every cone the JAX package reads (diag, sparse and dense
+constraints, several blocks, an LP cone), in float64 or float32, with its
+float64 polish; the HALLaR solver; the rank-schedule predictor (GATv2 + LSTM)
+with its serve, benchmark and training entry points; and the parallel modes
+(constraint-sharded solves, batched ALM steps).  The conic operators, the
+predictor's segment softmax and pooling and their backward passes run
+through thirteen hand-written CUDA kernels (``csrc/``, bound in
+:mod:`.ops.kernels`); the ALM inner pass and the ADMM chunks with their CG
+run as device-resident loops, replayed as CUDA graphs with conditional nodes
+(:mod:`.solver.devloop`).
 
 Entry points run on ``cuda:0`` unless the caller asks for the CPU; with no
 GPU present they raise instead of falling back silently.
@@ -15,6 +21,8 @@ from __future__ import annotations
 import torch
 
 __version__ = "0.1.0"
+
+__all__ = ["SDPProblem", "SolverParams", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,3 +42,9 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# the JAX package's two exports (after resolve_device, which the solver's
+# modules import from here)
+from .config import SolverParams  # noqa: E402,F401
+from .problem import SDPProblem  # noqa: E402,F401

@@ -21,7 +21,8 @@ each subtype it
 
 Pass ``--lorads-binary`` to also run an external LoRADS CPU binary for
 cross-solver objective validation.  Everything runs on ``cuda:0`` unless
-``--device cpu`` is given; without a GPU it stops with an error.
+``--device cpu`` (or ``--cpu``) is given; without a GPU it stops with an
+error.
 """
 
 from __future__ import annotations
@@ -135,6 +136,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the predictor and the solves run (default: "
                          "the first GPU)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the same as --device cpu, the "
+                         "root script's flag)")
     ap.add_argument("--merge", action="store_true",
                     help="update rows in an existing results.json instead "
                          "of overwriting it")
@@ -148,7 +152,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
     # a missing GPU is reported before anything is read
-    device = resolve_device(None if args.device == "cuda" else "cpu")
+    device = resolve_device(
+        "cpu" if args.cpu or args.device == "cpu" else None)
 
     os.makedirs(args.output_dir, exist_ok=True)
     results = {}

@@ -11,7 +11,8 @@ fly), runs the predictor, and if the instance has a solver JSON with a
 ground-truth trajectory, reports schedule-comparison metrics (log-MAE per
 position, length error, final-rank error).  Batch mode re-derives the
 seeded test split and aggregates.  The predictor runs on ``cuda:0`` unless
-``--device cpu`` is given; without a GPU it stops with an error.
+``--device cpu`` (or ``--cpu``) is given; without a GPU it stops with an
+error.
 """
 
 from __future__ import annotations
@@ -77,6 +78,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--output", default=None, help="write predictions JSON")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the predictor runs (default: the first GPU)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the same as --device cpu, the "
+                         "root script's flag)")
     return ap
 
 
@@ -84,7 +88,8 @@ def main(argv=None):
     ap = build_arg_parser()
     args = ap.parse_args(argv)
     # a missing GPU is reported before anything is read
-    device = resolve_device(None if args.device == "cuda" else "cpu")
+    device = resolve_device(
+        "cpu" if args.cpu or args.device == "cpu" else None)
 
     from .models.checkpoint import load_model, predict_schedule_for_graph
 

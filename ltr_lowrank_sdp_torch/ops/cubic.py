@@ -18,10 +18,12 @@ ALM loop reads tau there anyway to decide whether the step is taken.
 ``root_num == 0`` (the degenerate discriminant case) maps to a
 numerical-error exit in the caller, as in the reference.
 
-The batched ALM steps (``parallel/batch.py``) take no host read per step,
-as the JAX ``fori_loop`` takes none: :func:`quartic_argmin_t` is the JAX
-package's branch-free line search on tensors of any shape, every case
-computed and selected with ``torch.where`` on the device.
+:func:`quartic_argmin_t` is the JAX package's branch-free line search on
+tensors of any shape, every case computed and selected with ``torch.where``
+on the device (on the CPU it gives :func:`quartic_argmin`'s bits on 0-dim
+coefficients).  The batched ALM steps (``parallel/batch.py``) and both ALM
+inner loops take their step from it: the device-resident pass with no host
+read, the eager pass with one read of the step it chose.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import math
 from typing import List, Tuple
 
 import torch
+
+from .scalars import sdiv, smul
 
 
 def _nthroot3(x: float) -> float:
@@ -82,14 +86,15 @@ def cubic_roots(a: float, b: float, c: float, d: float
     return [0.0, 0.0, 0.0], 0                       # NaN / degenerate
 
 
-def quartic_coeffs(rho: float, lam, p1, p2, q0, q1, q2) -> torch.Tensor:
+def quartic_coeffs(rho, lam, p1, p2, q0, q1, q2) -> torch.Tensor:
     """(a, b, c, d) of phi as a (4,) device tensor.  ``q0 = b - A(RR^T)``
-    without the lambda/rho shift (applied here)."""
-    q0s = q0 + lam / rho
-    a = rho * torch.dot(q2, q2) / 2.0
-    b = rho * torch.dot(q1, q2)
-    c = p2 - rho * torch.dot(q0s, q2) + rho * torch.dot(q1, q1) / 2.0
-    d = p1 - rho * torch.dot(q0s, q1)
+    without the lambda/rho shift (applied here).  ``rho``: a host float or
+    a 0-dim device tensor, rounded alike (:mod:`.scalars`)."""
+    q0s = q0 + sdiv(lam, rho)
+    a = smul(rho, torch.dot(q2, q2)) / 2.0
+    b = smul(rho, torch.dot(q1, q2))
+    c = p2 - smul(rho, torch.dot(q0s, q2)) + smul(rho, torch.dot(q1, q1)) / 2.0
+    d = p1 - smul(rho, torch.dot(q0s, q1))
     return torch.stack([a, b, c, d])
 
 
@@ -185,21 +190,45 @@ def cubic_roots_t(a, b, c, d):
     return torch.stack([root0, root1, root2], dim=-1), root_num
 
 
-def quartic_argmin_t(a, b, c, d):
-    """:func:`quartic_argmin` on [0, 1] for tensors of any shape, on their
-    device with no host read: (tau, root_num).  Candidates 0, 1 and the
-    valid roots; the first minimum wins, as ``jnp.argmin`` picks it."""
+def quartic_argmin_t(a, b, c, d, tau_max=1.0):
+    """:func:`quartic_argmin` on [0, tau_max] for tensors of any shape, on
+    their device with no host read: (tau, root_num).  Candidates 0,
+    ``tau_max`` (a float or a tensor broadcast against ``a``) and the valid
+    roots; the first minimum wins, as ``jnp.argmin`` picks it (the JAX
+    package's ``quartic_linesearch(..., tau_max=d_nrm)``)."""
     roots, root_num = cubic_roots_t(4.0 * a, 3.0 * b, 2.0 * c, d)
     a, b, c, d = (x[..., None] for x in (a, b, c, d))
 
     def phi(x):
         return ((a * x + b) * x + c) * x * x + d * x
 
-    tmax = torch.ones_like(a)
-    valid = ((roots > 1e-20) & (roots <= 1.0)
+    tmax = (tau_max.to(a.dtype)[..., None].expand(a.shape)
+            if isinstance(tau_max, torch.Tensor)
+            else torch.full_like(a, tau_max))
+    valid = ((roots > 1e-20) & (roots <= tmax)
              & (torch.arange(3, device=roots.device) < root_num[..., None]))
     froots = torch.where(valid, phi(roots), torch.full_like(roots, 1e30))
     cand_f = torch.cat([torch.zeros_like(a), phi(tmax), froots], dim=-1)
     cand_tau = torch.cat([torch.zeros_like(a), tmax, roots], dim=-1)
     idx = torch.argmin(cand_f, dim=-1, keepdim=True)
     return torch.gather(cand_tau, -1, idx)[..., 0], root_num
+
+
+def quartic_step(coef: torch.Tensor, tau_max: torch.Tensor):
+    """The ALM inner step's exact line search: ``(tau, root_num)`` as 0-dim
+    float64 / int64 tensors from the (4,) coefficients of
+    :func:`quartic_coeffs` on [0, ``tau_max``].
+
+    On the card :func:`quartic_argmin_t`, with no host read.  On the CPU,
+    where a read is free, :func:`quartic_argmin` in host float64: PyTorch's
+    CPU cube roots and trigonometric functions part from the host's libm in
+    the last bits of a root (in about 3 of 1,000 seeded cases), and the
+    host's are the ones the port's CPU solves have always taken."""
+    if coef.is_cuda:
+        a, b, c, d = coef.double()
+        return quartic_argmin_t(a, b, c, d, tau_max=tau_max.double())
+    a, b, c, d, tm = torch.cat([coef.double(),
+                                tau_max.double().reshape(1)]).tolist()
+    tau, root_num = quartic_argmin(a, b, c, d, tau_max=tm)
+    return (torch.tensor(tau, dtype=torch.float64),
+            torch.tensor(root_num, dtype=torch.int64))

@@ -216,6 +216,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
 # an empty kernel for the launch floor (csrc/launch_floor.cu): built with the
 # thirteen, counted by no path
 LAUNCH_FLOOR = Kernel("launch_floor", "none", (_P,))
+# the conditional graph nodes of the solver's device-resident loops
+# (csrc/graph_cond.cu, bound in solver/devloop.py): built with the thirteen;
+# its symbol reports the CUDA runtime's version
+GRAPH_COND = Kernel("graph_cond", "none", (ctypes.POINTER(_I),))
 
 
 def reset_counts() -> None:
@@ -263,7 +267,7 @@ def build_kernels() -> List[str]:
     Returns the names built by this call.  Raises with nvcc's output when a
     build fails."""
     todo = []
-    for k in (*KERNELS.values(), LAUNCH_FLOOR):
+    for k in (*KERNELS.values(), LAUNCH_FLOOR, GRAPH_COND):
         k.lib_path = _lib_path(k)
         if not k.lib_path.exists():
             todo.append(k)

@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.scalars import smul
 from ..problem import SDPProblem
 
 Factors = Tuple[torch.Tensor, ...]
@@ -42,12 +43,19 @@ class ProblemConsts:
 class HostSync:
     """Brings device scalars to the host and counts how often it did.
 
-    Every control decision of the eager solver that depends on a device
-    value goes through one call; ``count`` is the number of device->host
-    synchronizations a solve made."""
+    Every control decision of the solver that depends on a device value
+    goes through one call: in the eager loops one a decision, in the
+    device-resident loops (:mod:`.devloop`) one a chunk, whose ``replays``
+    of CUDA graphs are counted beside it; ``graphs`` lists each captured
+    graph's (name, nodes, instantiation ms).  ``count`` is the number of
+    device->host synchronizations a solve made.  (On the CPU the device
+    loops' driver reads each predicate as well, free there and not
+    counted.)"""
 
     def __init__(self):
         self.count = 0
+        self.replays = 0
+        self.graphs: List[Tuple[str, int, float]] = []
 
     def __call__(self, *xs) -> List[float]:
         self.count += 1
@@ -124,14 +132,14 @@ def pad_rank_columns(F: torch.Tensor, new_rank: int) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def alm_gradient(cones, lp, R: Factors, rlp, dual, constr_sum, b, rho: float,
+def alm_gradient(cones, lp, R: Factors, rlp, dual, constr_sum, b, rho,
                  obj_scale: float, CR: Factors):
     """grad of L_rho = 2 (obj_scale*C + A*(w)) R, w = -lambda + rho(A(X)-b)
     (``ALMSetGrad``, ``lorads_alm.c:32-61``), with the objective term taken
     from the carried C·R; the LP factor's gradient is 2 (obj_scale*c +
-    A_lp^T w) o r_lp.  Returns (grads, grad_lp, ||grad||^2 as a 0-dim
-    tensor)."""
-    w = -dual + rho * (constr_sum - b)
+    A_lp^T w) o r_lp.  ``rho``: a host float or a 0-dim device tensor.
+    Returns (grads, grad_lp, ||grad||^2 as a 0-dim tensor)."""
+    w = -dual + smul(rho, constr_sum - b)
     grads = tuple(
         2.0 * (obj_scale * cr + ops.apply_w(w, r, include_obj=False))
         for ops, r, cr in zip(cones, R, CR))

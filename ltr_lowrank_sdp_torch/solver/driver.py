@@ -103,6 +103,9 @@ class SolveResult:
     obj_scale: float = 1.0
     host_syncs: int = 0          # device->host reads the solve made
     polish_runs: int = 0         # float64 polish runs (float32 compute)
+    graph_replays: int = 0       # CUDA-graph replays of the device loops
+    # (name, nodes, instantiation ms) of each graph the solve captured
+    graphs: Optional[List[Tuple[str, int, float]]] = None
 
     @property
     def errors_ok(self) -> bool:
@@ -156,6 +159,10 @@ class Solver:
         self.device = resolve_device(device)
         self.agree = (own_flags if mesh is None else
                       functools.partial(mesh.agree, mesh_axis))
+        # the device-resident ALM / ADMM loops (CUDA graphs on the card);
+        # a sharded solve keeps the eager loops, whose all-reduces run
+        # through the host
+        self.device_loops = mesh is None
         # C = 0 (driver.py:141-153): lambda = 0 is an exact optimal dual, so
         # the solve reduces to primal feasibility; phase 1 is tightened to the
         # l1 equivalent of the final bar so that ALM alone can finish
@@ -178,6 +185,7 @@ class Solver:
             b_np = b_np[self.constr_order]
         self.b = torch.tensor(b_np, dtype=self.dtype, device=self.device)
         self._ops64 = None      # float64 operators of the polish
+        self._phase_cache = {}  # phases (and their graphs) by ranks
 
     def _dual_out(self, dual: np.ndarray) -> np.ndarray:
         if self.constr_order is None:
@@ -187,11 +195,25 @@ class Solver:
         return out
 
     def _phases(self, ranks, sync: HostSync) -> Tuple[ALMPhase, ADMMPhase]:
+        """The phases of a rank signature, kept for the solver's later
+        solves (with their captured graphs) and given this solve's
+        ``sync``."""
+        key = tuple(int(r) for r in ranks)
+        if key not in self._phase_cache:
+            self._phase_cache[key] = self._new_phases(ranks, sync)
+        for ph in self._phase_cache[key]:
+            ph.sync = sync
+        return self._phase_cache[key]
+
+    def _new_phases(self, ranks, sync: HostSync
+                    ) -> Tuple[ALMPhase, ADMMPhase]:
         shapes = [(n, r) for n, r in zip(self.prob.block_dims, ranks)]
         return (ALMPhase(self.cones, self.b, self.consts, self.params,
-                         shapes, sync, lp=self.lp, agree=self.agree),
+                         shapes, sync, lp=self.lp, agree=self.agree,
+                         device_loop=self.device_loops),
                 ADMMPhase(self.cones, self.b, self.consts, self.params,
-                          shapes, sync, lp=self.lp, agree=self.agree))
+                          shapes, sync, lp=self.lp, agree=self.agree,
+                          device_loop=self.device_loops))
 
     def _phases64(self, ranks, sync: HostSync) -> ADMMPhase:
         """A float64 ADMM phase over the same internal layout, the engine
@@ -203,9 +225,15 @@ class Solver:
             assert (order is None) == (self.constr_order is None)
             self._ops64 = (cones, lp, self.b.to(torch.float64))
         cones, lp, b64 = self._ops64
-        shapes = [(n, r) for n, r in zip(self.prob.block_dims, ranks)]
-        return ADMMPhase(cones, b64, self.consts, self.params, shapes, sync,
-                         lp=lp, agree=self.agree)
+        key = ("f64",) + tuple(int(r) for r in ranks)
+        if key not in self._phase_cache:
+            shapes = [(n, r) for n, r in zip(self.prob.block_dims, ranks)]
+            self._phase_cache[key] = (ADMMPhase(
+                cones, b64, self.consts, self.params, shapes, sync, lp=lp,
+                agree=self.agree, device_loop=self.device_loops),)
+        (ph,) = self._phase_cache[key]
+        ph.sync = sync
+        return ph
 
     # ------------------------------------------------------------------ #
     # dual certificate
@@ -767,7 +795,8 @@ class Solver:
             oracle_rank=oracle, logger=logger, stage_times=stages,
             U=U_h, V=V_h, ulp=ulp_h, vlp=vlp_h, dual=dual_h,
             obj_scale=obj_scale_h,
-            host_syncs=sync.count, polish_runs=polish_runs)
+            host_syncs=sync.count, polish_runs=polish_runs,
+            graph_replays=sync.replays, graphs=list(sync.graphs))
 
 
 def solve(prob: SDPProblem, params: Optional[SolverParams] = None,

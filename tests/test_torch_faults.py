@@ -6,7 +6,9 @@
   its k-th ADMM iteration) and rank 0's never does.  Both ranks must end
   with the status and counts of an unsharded solve whose own clock jumps at
   the same iteration, and neither may wait in a collective the other never
-  reaches (the ranks' collectives time out after ``HANG_S`` seconds).
+  reaches (the ranks' collectives time out after ``HANG_S`` seconds).  The
+  sharded ranks run the eager loops, the unsharded solve the device-resident
+  ones; both read the clock where a chunk of ADMM iterations ends.
 * GNN widths past 256 channels a row, which the card refused: K9's launch
   plan (``k9_plan`` / ``k9_plans``) over every head width and the source's
   instantiations, K11's head groups (``k11_groups``), K10 / K12's column
@@ -44,6 +46,7 @@ from ltr_lowrank_sdp_torch.solver import alm as alm_mod
 from ltr_lowrank_sdp_torch.solver import driver as driver_mod
 from ltr_lowrank_sdp_torch.solver.common import own_flags
 from ltr_lowrank_sdp_torch.solver.driver import Solver
+from ltr_lowrank_sdp_torch.solver.logging import TrajectoryLogger
 from ltr_lowrank_sdp_torch.testing import random_maxcut_problem
 from tests.test_torch_train import (T, TF_RATIO, _jax_loss, _port_loss,
                                     datasets)  # noqa: F401 (a fixture)
@@ -54,11 +57,12 @@ EXPIRE_AT = {"alm": 2, "admm": 5}
 
 def _expire_clock(phase: str, k: int) -> None:
     """From this process's k-th ``phase`` iteration on (ALM outer iterations
-    counted by ``ALMPhase.record``, ADMM iterations by ``ADMMPhase.step``),
-    the solver's clock reads a day later."""
+    counted by ``ALMPhase.record``, ADMM iterations by the stats rows the
+    trajectory logger records, one an iteration in either loop), the
+    solver's clock reads a day later."""
     seen = [0]
     cls, name = ((alm_mod.ALMPhase, "record") if phase == "alm"
-                 else (admm_mod.ADMMPhase, "step"))
+                 else (TrajectoryLogger, "record_admm_row"))
     orig = getattr(cls, name)
 
     def counted(self, *a, **kw):
@@ -110,7 +114,8 @@ def one_thread():
 def _restore_clock():
     saved = [(m, m.time) for m in (driver_mod, alm_mod, admm_mod)]
     methods = [(alm_mod.ALMPhase, "record", alm_mod.ALMPhase.record),
-               (admm_mod.ADMMPhase, "step", admm_mod.ADMMPhase.step)]
+               (TrajectoryLogger, "record_admm_row",
+                TrajectoryLogger.record_admm_row)]
     yield
     for m, t in saved:
         m.time = t
