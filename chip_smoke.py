@@ -501,6 +501,24 @@ SHARD_REPLACES = {"coo_contract_segsum":
                   "ltr_lowrank_sdp_tpu/parallel/meshops.py:220"}
 BATCH_B, BATCH_RANK, BATCH_STEPS, BATCH_RHO = 8, 20, 25, 1.0
 BATCH_TOL = 1e-10
+# the row-sharded mode (mesh_axis="row"): bench.py:73-78's delaunay_n20_gen
+# (n = 2^20, the construction of its _ensure_dn20, phase1_tol=1e+1,
+# heuristic_factor=100) unsharded through the CLI and row-sharded at world
+# size 1 over NCCL ([dn20]); phase 4's file row-sharded at world size 2 over
+# gloo on this card ([mc-row2]); K1-K4 on each of ROW_WORLD ranks' shards of
+# the n = 2^20 cone ([row-kernels])
+DN20_N, DN20_SEED = 2 ** 20, 20
+DN20_LIMITS = (1e-5, 5e-5, 5e-5)      # host float64 pinf, gap; dinf
+ROW_POBJ_RTOL = 1e-9
+ROW_WORLD = 2
+ROW_REPLACES = {"spmm_sym_csr": "ltr_lowrank_sdp_tpu/ops/gatherseg.py:248 "
+                "(rows sharded: solver/driver.py:169-174)",
+                "diag_rowdot": "ltr_lowrank_sdp_tpu/ops/coneops.py:231 "
+                "(rows sharded: solver/driver.py:169-174)",
+                "diag_normal_matvec": "ltr_lowrank_sdp_tpu/ops/coneops.py:272 "
+                "(rows sharded: solver/driver.py:169-174)",
+                "sym_contract_sum": "ltr_lowrank_sdp_tpu/ops/coneops.py:332 "
+                "(rows sharded: solver/driver.py:169-174)"}
 # K1's plans ([k1-plan]): the ranks and, per value type, the bound on the
 # planned launch against the plain version (2-norm relative: the unit
 # roundoff, as the sums differ only by fused multiply-adds)
@@ -3975,6 +3993,266 @@ def run_parallel_paths(K, dev, solves):
     return counts, row_b
 
 
+def check_row_kernels(K, cone_data, inner, dev, r) -> dict:
+    """``[row-kernels]``: K1-K4 on each of ROW_WORLD ranks' shard layouts of
+    ``inner``'s cone (built with no process group; the halo rows taken from
+    the whole factor), each against its plain version on the same inputs
+    (the ``[kernel]`` tolerance) and against the rank's rows of the
+    unsharded operator's output; K4's partials added in rank order against
+    the unsharded value.  Returns rank 0's kernels-line rows."""
+    from ltr_lowrank_sdp_torch.parallel.rowshard import (RowPartition,
+                                                         ShardLayout)
+
+    t = time.perf_counter()
+    part = RowPartition.for_cone(cone_data, inner, ROW_WORLD)
+    print(f"[row-kernels] n={inner.n} r={r}, {ROW_WORLD} ranks (blocks of "
+          f"K1's RCM order): {part.describe()}; partition "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    g = torch.Generator(device=dev).manual_seed(2025)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64,
+                           device=dev)
+
+    n = inner.n
+    Y, U, V, w = rnd(n, r), rnd(n, r), rnd(n, r), rnd(n)
+    dv = inner.diag_val
+    full = {"spmm_sym_csr": K.spmm_sym_csr(inner.c_csr, Y, 1.0, d=dv, w=w),
+            "diag_rowdot": K.diag_rowdot(U, V, dv, 2.0, second=True),
+            "diag_normal_matvec": K.diag_normal_matvec(U, V, dv)}
+    obj_full = float(K.sym_contract_sum(inner.c_rows, inner.c_cols,
+                                        inner.c_double_coef, U, U))
+    f8, i4 = 8, 4
+    report, parts = {}, []
+    for s in range(ROW_WORLD):
+        lay = ShardLayout.build(cone_data, inner, part, s)
+        own, no = lay.owned, lay.n_own
+        ne = no + lay.n_halo
+        Ye = lay.extend(Y[own], lay.halo_from_full(Y, part)).contiguous()
+        Ue = lay.extend(U[own], lay.halo_from_full(U, part)).contiguous()
+        Uo, Vo, wo, dvo = U[own], V[own], w[own], lay.diag_val
+        csr = lay.csr
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # "sparse CSR support is beta"
+            c_sparse = torch.sparse_csr_tensor(csr.indptr, csr.indices,
+                                               csr.vals, size=(no, ne))
+        nk4 = int(lay.k4_rows.numel())
+        tag = (f"rank {s}/{ROW_WORLD} of n={n}: {no} rows, {lay.n_halo} "
+               f"halo, r={r}")
+        cases = {
+            "spmm_sym_csr": (
+                lambda: K.spmm_sym_csr(csr, Ye, 1.0, d=dvo, w=wo),
+                lambda: K.spmm_sym_csr_plain(csr, Ye, 1.0, d=dvo, w=wo),
+                (no + 1) * i4 + csr.nnz * (i4 + f8) + (ne + no) * r * f8
+                + 2 * no * f8, 2.0 * csr.nnz * r + 2.0 * no * r,
+                lambda: torch.sparse.mm(c_sparse, Ye),
+                lambda: K.spmm_sym_csr(csr, Ye, 1.0)),
+            "diag_rowdot": (
+                lambda: K.diag_rowdot(Uo, Vo, dvo, 2.0, second=True),
+                lambda: K.diag_rowdot_plain(Uo, Vo, dvo, 2.0, second=True),
+                2 * no * r * f8 + 3 * no * f8, 4.0 * no * r + 3 * no,
+                lambda: torch.linalg.vecdot(Uo, Vo),
+                lambda: torch.sum(Uo * Vo, dim=-1)),
+            "diag_normal_matvec": (
+                lambda: K.diag_normal_matvec(Uo, Vo, dvo),
+                lambda: K.diag_normal_matvec_plain(Uo, Vo, dvo),
+                3 * no * r * f8 + no * f8, 4.0 * no * r + 2 * no, None,
+                None),
+            "sym_contract_sum": (
+                lambda: K.sym_contract_sum(lay.k4_rows, lay.k4_cols,
+                                           lay.k4_coef, Ue, Ue),
+                lambda: K.sym_contract_sum_plain(lay.k4_rows, lay.k4_cols,
+                                                 lay.k4_coef, Ue, Ue),
+                nk4 * (2 * i4 + f8) + ne * r * f8 + f8,
+                (2.0 * r + 1) * nk4, None, None),
+        }
+        rows = {}
+        for name, (kern, plain, nbytes, flops, lib, ref) in cases.items():
+            rows[name] = _measure(name, f"[row] {tag}", kern, plain, nbytes,
+                                  flops, lib, lib_ref=ref)
+            if name == "sym_contract_sum":
+                parts.append(float(kern()))
+                continue
+            got = kern()
+            got = got if isinstance(got, tuple) else (got,)
+            want = full[name]
+            want = want if isinstance(want, tuple) else (want,)
+            err = max(rel_err(a, b[own]) for a, b in zip(got, want))
+            same = all(torch.equal(a, b[own]) for a, b in zip(got, want))
+            print(f"[row-kernels] {name} {tag}: against the unsharded "
+                  f"output's rows {err:.2e} relative (tol {KERNEL_RTOL:g}), "
+                  f"bitwise equal {same}", flush=True)
+            require(err <= KERNEL_RTOL,
+                    f"{name} on rank {s}'s shard differs from the unsharded "
+                    f"rows")
+        if s == 0:
+            report = rows
+        del lay, csr, c_sparse, Ye, Ue
+    total = parts[0]
+    for x in parts[1:]:
+        total += x
+    rel = abs(total - obj_full) / abs(obj_full)
+    print(f"[row-kernels] sym_contract_sum: the {ROW_WORLD} partials added "
+          f"in rank order {total!r}, unsharded {obj_full!r} ({rel:.2e} "
+          f"relative, tol {KERNEL_RTOL:g})", flush=True)
+    require(rel <= KERNEL_RTOL, "K4's shard partials miss the unsharded sum")
+    return report
+
+
+def _row_line(tag, backend, o, ref_counts=None):
+    print(f"[{tag}] {backend}, {o['world']} rank(s) on {o['device']}: "
+          f"{o['status']} pobj {o['pobj']:.12e} gap {o['gap']:.3e} pinf_l1 "
+          f"{o['pinf_l1']:.3e} dinf_l1 {o['dinf_l1']:.3e}; ALM outer / "
+          f"inner, ADMM, CG {o['counts']} (unsharded {ref_counts}); final "
+          f"ranks {o['final_ranks']}; solve {o['solve_time']:.3f} s, stages "
+          f"{json.dumps({k: round(v, 4) for k, v in o['stage_times'].items()})}"
+          f"; host syncs {o['host_syncs']}; collectives "
+          f"{o['collectives']} of {o['collective_bytes'] / 1e6:.3f} MB on "
+          f"this rank; peak device memory "
+          f"{o.get('peak_bytes', 0) / 2 ** 30:.2f} GiB; partition "
+          f"{o['partitions']}", flush=True)
+
+
+def _require_row(tag, o, ranks, ref_status, ref_counts, ref_pobj):
+    rel = abs(o["pobj"] - ref_pobj) / abs(ref_pobj)
+    print(f"[{tag}] pobj against the unsharded solve {rel:.2e} relative "
+          f"(tol {ROW_POBJ_RTOL:g})", flush=True)
+    require(o["status"] == ref_status,
+            f"{tag}: status {o['status']}, unsharded {ref_status}")
+    require(tuple(o["counts"]) == tuple(ref_counts),
+            f"{tag}: counts {o['counts']}, unsharded {ref_counts}")
+    require(rel <= ROW_POBJ_RTOL, f"{tag}: pobj {rel:.2e} from unsharded")
+    for p in ranks[1:]:
+        require(all(p[f] == o[f] for f in ("status", "pobj", "dobj", "gap",
+                                           "counts")),
+                f"{tag}: rank {p['rank']}'s solve parts from rank 0's")
+    require_counts(tag, o["kernels"], MAXCUT_KERNELS)
+
+
+def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
+    """Phase 16: the row-sharded mode.  ``[mc-row2]``: phase 4's problem
+    row-sharded at world size ROW_WORLD over gloo, both ranks on this card;
+    ``[dn20]``: the n = 2^20 Delaunay MaxCut through the CLI (the replayed
+    loops) and row-sharded at world size 1 over NCCL, both held to the host
+    float64 DIMACS limits and to each other; ``[row-kernels]`` on its cone.
+    Every rank's counters are set to 0 just before its solve and read just
+    after.  Returns ({path: rank 0's counts}, the kernels-line rows)."""
+    import scipy.io
+
+    from ltr_lowrank_sdp_torch import cli
+    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
+    from ltr_lowrank_sdp_torch.ops.coneops import ConeOps
+    from ltr_lowrank_sdp_torch.parallel.dryrun import row_solve
+    from ltr_lowrank_sdp_torch.parallel.launch import spawn
+    from ltr_lowrank_sdp_torch.problem import initial_ranks, load_problem
+    from ltr_lowrank_sdp_torch.solver.common import host_metrics_f64
+    from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
+
+    counts = {}
+    ref_counts = (mc_res.alm_outer_iters, mc_res.alm_inner_iters,
+                  mc_res.admm_iters, mc_res.cg_iters)
+    t = time.perf_counter()
+    ranks = spawn(row_solve, ROW_WORLD, (mc_prob, mc_params), backend="gloo")
+    print(f"[mc-row2] {ROW_WORLD} ranks, gloo: start to join "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    o = ranks[0]
+    _row_line("mc-row2", "gloo", o, ref_counts)
+    _require_row("mc-row2", o, ranks, mc_res.status.value, ref_counts,
+                 mc_res.pobj)
+    counts["mc-row2"] = o["kernels"]
+
+    t = time.perf_counter()
+    adj = delaunay_maxcut_adjacency(DN20_N, seed=DN20_SEED)
+    build_s = time.perf_counter() - t
+    print(f"[dn20] Delaunay triangulation of {DN20_N} seeded points (seed "
+          f"{DN20_SEED}): {adj.nnz // 2} edges, built in {build_s:.1f} s "
+          f"(apart from the solve)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "delaunay_n20_gen.mat")
+        t = time.perf_counter()
+        scipy.io.savemat(path, {"Problem": {"A": adj}})
+        print(f"[dn20] wrote {os.path.getsize(path) / 1e6:.1f} MB .mat in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dn_counts, res, _ = run_main_path(
+            "dn20", path, MAIN_FLAGS, MAXCUT_KERNELS, optimal[:1],
+            DN20_LIMITS, dev, repeat=False)
+        print(f"[dn20] unsharded (CLI, replayed loops): peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB, "
+              f"final ranks {res.final_ranks}", flush=True)
+        prob = load_problem(path)
+        params = cli.params_from_args(cli.build_arg_parser().parse_args(
+            [path, *MAIN_FLAGS]))
+    counts["dn20"] = dn_counts
+    ref = ((res.alm_outer_iters, res.alm_inner_iters, res.admm_iters,
+            res.cg_iters), res.status.value, res.pobj)
+    del res
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    (o,) = spawn(row_solve, 1, (prob, params, None, None, None, True),
+                 backend="nccl")
+    print(f"[dn20-row1] 1 rank, nccl: start to join "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    _row_line("dn20-row1", "nccl", o, ref[0])
+    Ravg = tuple(0.5 * (u + v) for u, v in zip(o["U"], o["V"]))
+    pobj, dobj, pinf, _, gap = host_metrics_f64(prob, Ravg, Ravg, None, None,
+                                                o["dual"], o["obj_scale"])
+    print(f"[dn20-row1] host f64: pobj {pobj:.10e} dobj {dobj:.10e} pinf_l1 "
+          f"{pinf:.3e} gap {gap:.3e}; solver dinf_l1 {o['dinf_l1']:.3e}",
+          flush=True)
+    require(o["status"] == "primal_dual_optimal",
+            f"dn20-row1: status {o['status']}")
+    require(pinf <= DN20_LIMITS[0] and gap <= DN20_LIMITS[1]
+            and o["dinf_l1"] <= DN20_LIMITS[2],
+            f"dn20-row1: DIMACS errors above {DN20_LIMITS}")
+    _require_row("dn20-row1", o, [o], ref[1], ref[0], ref[2])
+    counts["dn20-row1"] = o["kernels"]
+    del o, Ravg
+
+    cone_data = maxcut_problem_from_adjacency(adj).cones[0]
+    inner = ConeOps(cone_data, dev)
+    r = initial_ranks(prob)[0][0]
+    del prob, adj
+    rows = check_row_kernels(K, cone_data, inner, dev, r)
+    del inner
+    torch.cuda.empty_cache()
+    return counts, rows
+
+
+def row_paths_alone() -> int:
+    """``--row-paths``: the build, phase 4's MaxCut solve through the CLI,
+    then phase 16 (the row-sharded mode) alone."""
+    import scipy.io
+
+    from ltr_lowrank_sdp_torch import cli
+    from ltr_lowrank_sdp_torch.config import SolverStatus
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    from ltr_lowrank_sdp_torch.problem import load_problem
+    from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
+
+    t0 = time.perf_counter()
+    print(f"[card] {card_line()}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.perf_counter()
+    K.build_kernels()
+    print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    optimal = (SolverStatus.PRIMAL_DUAL_OPTIMAL, SolverStatus.PRIMAL_OPTIMAL)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"delaunay_n14_seed{MAIN_SEED}.mat")
+        scipy.io.savemat(path, {"Problem": {"A": delaunay_maxcut_adjacency(
+            MAIN_N, seed=MAIN_SEED)}})
+        _, res, _ = run_main_path("main", path, MAIN_FLAGS, MAXCUT_KERNELS,
+                                  optimal[:1], (1e-5, 1e-5, 1e-5), dev,
+                                  repeat=False)
+        prob = load_problem(path)
+        params = cli.params_from_args(cli.build_arg_parser().parse_args(
+            [path, *MAIN_FLAGS]))
+    counts, rows = run_row_paths(K, dev, prob, params, res, optimal)
+    print(json.dumps({"row_counts": counts, "row_kernels": rows}))
+    print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3985,6 +4263,8 @@ def main() -> int:
         mode = ap.add_mutually_exclusive_group(required=True)
         mode.add_argument("--theta-solve", metavar="N,AVG_DEGREE,SEED")
         mode.add_argument("--train-step", metavar="HIDDEN,HEADS")
+        mode.add_argument("--row-paths", action="store_true",
+                          help="phase 16 alone, after phase 4's solve")
         ap.add_argument("--time-limit", type=float, default=600.0)
         ap.add_argument("--profile", action="store_true")
         ap.add_argument("--logfile", default=None)
@@ -3994,6 +4274,8 @@ def main() -> int:
         args = ap.parse_args()
         if args.train_step:
             return train_step_parts(args.train_step)
+        if args.row_paths:
+            return row_paths_alone()
         return theta_solve(args.theta_solve, args.time_limit, args.profile,
                            args.logfile, args.dtype)
     card = card_line()
@@ -4363,9 +4645,18 @@ def main() -> int:
     # ---- phase 14: the parallel modes ----------------------------------- #
     t14 = time.perf_counter()
     par_counts, batch_row = run_parallel_paths(K, dev, par_solves)
+    _, mc_prob, mc_params, _ = par_solves[0]
     del par_solves
     print(f"[time] phase 14 (parallel modes) {time.perf_counter() - t14:.1f} s",
           flush=True)
+
+    # ---- phase 16: the row-sharded mode --------------------------------- #
+    t16 = time.perf_counter()
+    row_counts, row_rows = run_row_paths(K, dev, mc_prob, mc_params,
+                                         main_res, optimal)
+    del mc_prob
+    print(f"[time] phase 16 (row-sharded mode) "
+          f"{time.perf_counter() - t16:.1f} s", flush=True)
 
     # ---- phase 15: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
@@ -4436,6 +4727,17 @@ def main() -> int:
         "source": "ltr_lowrank_sdp_torch/csrc/spmm_sym_csr.cu",
         "replaces": "ltr_lowrank_sdp_tpu/parallel/batch.py:76",
         "launches": par_counts["batch"]["spmm_sym_csr"][0], **batch_row})
+    # rows 1+2 to 6 on a rank's shard: K1-K4 on rank 0 of ROW_WORLD's
+    # layouts of the n = 2^20 cone, launches from the n = 2^20 row-sharded
+    # solve (world size 1, column DN-R of PERF.md's table)
+    for name, row in row_rows.items():
+        kernels.append({
+            "name": f"{name}[row]", "route": "cuda",
+            "source": f"ltr_lowrank_sdp_torch/csrc/{name}.cu",
+            "replaces": ROW_REPLACES[name],
+            "launches": row_counts["dn20-row1"][name][0], **row,
+            "launches_by_path": {path: c[name][0]
+                                 for path, c in row_counts.items()}})
     for row in kernels:
         row["launch_floor_ms"] = floor_ms
     for row in UNPORTED:

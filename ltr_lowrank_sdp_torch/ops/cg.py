@@ -48,16 +48,21 @@ def _read_one(t: torch.Tensor) -> List[float]:
 
 def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
              max_iter: int, restart_freq: int = 20,
-             read: Callable = _read_one) -> CGResult:
+             read: Callable = _read_one, red=None) -> CGResult:
     """Solve ``M x = b`` from ``x0``; ``read(t) -> [float(t)]`` brings one
-    0-dim tensor to the host (the caller's sync counter)."""
+    0-dim tensor to the host (the caller's sync counter).  ``red``: a
+    row-sharded solve's :class:`~..parallel.rowshard.RowReduce` (the
+    vectors are this rank's rows), which combines each step's sums in one
+    collective."""
     bnorm1 = torch.sum(torch.abs(b))
-    bnorm1 = torch.where(bnorm1 == 0.0, torch.ones_like(bnorm1), bnorm1)
 
     x = x0
     r = b - matvec(x0)
     p = r
     res_t = torch.linalg.vector_norm(r)
+    if red is not None:
+        (bnorm1,), (res_t,) = red.reduce([bnorm1], [res_t])
+    bnorm1 = torch.where(bnorm1 == 0.0, torch.ones_like(bnorm1), bnorm1)
     ratio = read(res_t / bnorm1)[0]
     k = 0
     guard = b.dtype == torch.float32
@@ -68,6 +73,8 @@ def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
         Q = matvec(p)
         qtr_cur = torch.dot(r.reshape(-1), r.reshape(-1))
         ptq = torch.dot(p.reshape(-1), Q.reshape(-1))
+        if red is not None:
+            (qtr_cur, ptq), _ = red.reduce([qtr_cur, ptq])
         alpha = qtr_cur / ptq
         x = x + alpha * p
         r = r - alpha * Q
@@ -75,9 +82,11 @@ def cg_solve(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, tol: float,
             # periodic residual recomputation for numerical hygiene
             r = b - matvec(x)
         qtr_new = torch.dot(r.reshape(-1), r.reshape(-1))
+        res_t = torch.linalg.vector_norm(r)
+        if red is not None:
+            (qtr_new,), (res_t,) = red.reduce([qtr_new], [res_t])
         beta = qtr_new / qtr_cur
         p = r + beta * p
-        res_t = torch.linalg.vector_norm(r)
         k += 1
         ratio = read(res_t / bnorm1)[0]
         if guard and ratio < best_ratio:

@@ -86,15 +86,24 @@ def cubic_roots(a: float, b: float, c: float, d: float
     return [0.0, 0.0, 0.0], 0                       # NaN / degenerate
 
 
-def quartic_coeffs(rho, lam, p1, p2, q0, q1, q2) -> torch.Tensor:
+def quartic_coeffs(rho, lam, p1, p2, q0, q1, q2, red=None) -> torch.Tensor:
     """(a, b, c, d) of phi as a (4,) device tensor.  ``q0 = b - A(RR^T)``
     without the lambda/rho shift (applied here).  ``rho``: a host float or
-    a 0-dim device tensor, rounded alike (:mod:`.scalars`)."""
+    a 0-dim device tensor, rounded alike (:mod:`.scalars`).  ``red``: a
+    row-sharded solve's :class:`~..parallel.rowshard.RowReduce`; ``p1``,
+    ``p2`` are then this rank's partials, and they and the five dots are
+    combined in one collective."""
     q0s = q0 + sdiv(lam, rho)
-    a = smul(rho, torch.dot(q2, q2)) / 2.0
-    b = smul(rho, torch.dot(q1, q2))
-    c = p2 - smul(rho, torch.dot(q0s, q2)) + smul(rho, torch.dot(q1, q1)) / 2.0
-    d = p1 - smul(rho, torch.dot(q0s, q1))
+    dots = [torch.dot(q2, q2), torch.dot(q1, q2), torch.dot(q0s, q2),
+            torch.dot(q1, q1), torch.dot(q0s, q1)]
+    if red is not None:
+        (p1, p2, *dots), _ = red.reduce([p1, p2]
+                                        + [red.own_m(t) for t in dots])
+    d22, d12, d02, d11, d01 = dots
+    a = smul(rho, d22) / 2.0
+    b = smul(rho, d12)
+    c = p2 - smul(rho, d02) + smul(rho, d11) / 2.0
+    d = p1 - smul(rho, d01)
     return torch.stack([a, b, c, d])
 
 

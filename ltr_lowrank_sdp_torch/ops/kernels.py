@@ -484,14 +484,17 @@ def spmm_sym_csr_plain(csr: Optional[SymCSR], Y: torch.Tensor,
                        d: Optional[torch.Tensor] = None,
                        w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K1: ``alpha * C @ Y + d[:, None] * Y``, the row
-    scale ``d * w`` when ``w`` is given."""
+    scale ``d * w`` when ``w`` is given.  Y may hold rows past C's (a row
+    shard's halo, :mod:`..parallel.rowshard`): the output has C's rows, and
+    the row scale reads Y's first rows."""
     out = None
+    n = Y.shape[0] if csr is None else csr.n
     if csr is not None:
-        cy = torch.zeros_like(Y).index_add_(
+        cy = Y.new_zeros((n,) + tuple(Y.shape[1:])).index_add_(
             0, csr.row_ids, csr.vals[:, None] * Y[csr.indices.long()])
         out = alpha * cy
     if d is not None:
-        dy = (d if w is None else d * w)[:, None] * Y
+        dy = (d if w is None else d * w)[:, None] * Y[:n]
         out = dy if out is None else out + dy
     return out
 
@@ -589,7 +592,10 @@ def spmm_sym_csr(csr: Optional[SymCSR], Y: torch.Tensor, alpha: float = 1.0,
     """K1: ``alpha * C @ Y (+ d[:, None] * Y)`` for a static symmetric C;
     with ``w`` the row scale is ``d * w``, formed inside the kernel.
 
-    ``csr=None`` applies only the diagonal term (``d`` is then required)."""
+    ``csr=None`` applies only the diagonal term (``d`` is then required).
+    Y may have more rows than C: a row shard's C (``parallel/rowshard.py``)
+    numbers its columns into the shard's own rows, then its halo rows, which
+    follow them in Y; the output has C's rows."""
     return spmm_sym_csr_with(None, csr, Y, alpha, d, w)
 
 
@@ -611,13 +617,15 @@ def spmm_sym_csr_with(plan: Optional[K1Plan], csr: Optional[SymCSR],
     dev = Y.device
     if Y.dim() != 2:
         raise ValueError(f"Y must be (n, r), got {tuple(Y.shape)}")
-    n, r = Y.shape
+    n_y, r = Y.shape
     dt = _value_dtype(Y, "Y")
-    _check(Y, "Y", dt, (n, r), dev)
-    _i32(n * max(r, 1), "n * r")
+    _check(Y, "Y", dt, (n_y, r), dev)
+    _i32(n_y * max(r, 1), "n * r")
+    n = n_y
     if csr is not None:
-        if csr.n != n:
-            raise ValueError(f"C is {csr.n} x {csr.n}, Y has {n} rows")
+        n = csr.n
+        if n > n_y:
+            raise ValueError(f"C has {n} rows, Y only {n_y}")
         _check(csr.indptr, "indptr", torch.int32, (n + 1,), dev)
         _check(csr.indices, "indices", torch.int32, (csr.nnz,), dev)
         _check(csr.vals, "vals", dt, (csr.nnz,), dev)

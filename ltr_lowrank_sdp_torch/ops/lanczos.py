@@ -17,28 +17,36 @@ import torch
 
 
 def lanczos_tridiag(matvec: Callable, n: int, v0: torch.Tensor,
-                    num_iters: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+                    num_iters: int = 64, red=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k-step Lanczos with full reorthogonalization from start vector ``v0``
     (normalized here).  Returns the device tensors ``(alphas, betas)`` of the
     k x k tridiagonal, ``betas[j]`` the subdiagonal between j and j+1; no
-    host read happens inside the loop."""
+    host read happens inside the loop.  ``red``: a row-sharded solve's
+    :class:`~..parallel.rowshard.RowReduce` (``v0`` and the basis are this
+    rank's rows of the n-vectors), which combines every dot and norm."""
     k = min(num_iters, n)
-    v = v0 / torch.linalg.vector_norm(v0)
-    V = torch.zeros((k, n), dtype=v0.dtype, device=v0.device)
+    dot = torch.dot if red is None else red.dot
+    norm = torch.linalg.vector_norm if red is None else red.norm
+    v = v0 / norm(v0)
+    V = torch.zeros((k, v0.shape[0]), dtype=v0.dtype, device=v0.device)
     V[0] = v
     alphas = torch.zeros((k,), dtype=v0.dtype, device=v0.device)
     betas = torch.zeros((k,), dtype=v0.dtype, device=v0.device)
     for j in range(k):
         v = V[j]
         w = matvec(v)
-        alpha = torch.dot(v, w)
+        alpha = dot(v, w)
         w = w - alpha * v
         if j > 0:
             w = w - betas[j - 1] * V[j - 1]
         # full reorthogonalization against v_0 .. v_j
         Vj = V[: j + 1]
-        w = w - (Vj @ w) @ Vj
-        beta = torch.linalg.vector_norm(w)
+        proj = Vj @ w
+        if red is not None:
+            proj = red.sum(proj)
+        w = w - proj @ Vj
+        beta = norm(w)
         alphas[j] = alpha
         betas[j] = beta
         if j + 1 < k:

@@ -42,13 +42,24 @@ def init_history(n_elems: int, length: int, device,
         beta=torch.zeros((length,), dtype=dtype, device=device))
 
 
-def push_pair(hist: LBFGSHistory, s: torch.Tensor, y: torch.Tensor) -> None:
+def push_pair(hist: LBFGSHistory, s: torch.Tensor, y: torch.Tensor,
+              red=None, head=None) -> None:
     """Insert (s, y) at the ring head, in place.
 
     Cautious update: a pair with vanishing curvature <y,s> gets beta = 0,
-    which makes it an exact no-op in both recursion loops."""
-    ys = torch.dot(y, s)
-    curv_ok = ys > 1e-8 * torch.linalg.vector_norm(y) * torch.linalg.vector_norm(s)
+    which makes it an exact no-op in both recursion loops.  ``red``: a
+    row-sharded solve's :class:`~..parallel.rowshard.RowReduce` (the
+    vectors' first ``head`` entries are this rank's rows), which combines
+    the three sums in one collective."""
+    if red is None:
+        ys = torch.dot(y, s)
+        y_nrm = torch.linalg.vector_norm(y)
+        s_nrm = torch.linalg.vector_norm(s)
+    else:
+        (ys,), (y_nrm, s_nrm) = red.reduce(
+            [red.part_dot(y, s, head)],
+            [red.part_norm(y, head), red.part_norm(s, head)])
+    curv_ok = ys > 1e-8 * y_nrm * s_nrm
     beta = torch.where(curv_ok, 1.0 / torch.where(curv_ok, ys,
                                                   torch.ones_like(ys)),
                        torch.zeros_like(ys))
@@ -61,27 +72,29 @@ def push_pair(hist: LBFGSHistory, s: torch.Tensor, y: torch.Tensor) -> None:
 
 
 def direction(hist: LBFGSHistory, grad: torch.Tensor,
-              n_valid=None) -> torch.Tensor:
+              n_valid=None, dot=torch.dot) -> torch.Tensor:
     """Two-loop recursion: D = -H grad, with -grad fallback on non-descent.
 
-    ``n_valid`` limits the usable pairs (the reference's ``clearLBFGS``)."""
+    ``n_valid`` limits the usable pairs (the reference's ``clearLBFGS``);
+    ``dot`` is the inner product (a row-sharded solve's combines its
+    ranks' partials)."""
     L = hist.s.shape[0]
     n_use = hist.count if n_valid is None else min(n_valid, hist.count)
     q = grad
     alphas = {}
     for k in range(n_use):                      # newest -> oldest
         slot = (hist.head - 1 - k) % L
-        alpha = hist.beta[slot] * torch.dot(hist.s[slot], q)
+        alpha = hist.beta[slot] * dot(hist.s[slot], q)
         q = q - alpha * hist.y[slot]
         alphas[slot] = alpha
     for k in range(n_use):                      # oldest -> newest
         slot = (hist.head - 1 - (n_use - 1 - k)) % L
-        w = alphas[slot] - hist.beta[slot] * torch.dot(hist.y[slot], q)
+        w = alphas[slot] - hist.beta[slot] * dot(hist.y[slot], q)
         q = q + w * hist.s[slot]
     D = -q
     if n_use == 0:
         return -grad
-    descent = torch.dot(D, grad) < 0.0
+    descent = dot(D, grad) < 0.0
     return torch.where(descent, D, -grad)
 
 

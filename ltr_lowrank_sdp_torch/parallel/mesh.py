@@ -7,7 +7,11 @@ cover the problem domain:
   communication between instances (:mod:`.batch`);
 * ``constr`` — the constraint axis of one large instance: each rank owns a
   share of the cone's constraint entries, factors are replicated, and each
-  hot operator ends in one all-reduce over the axis (:mod:`.meshops`).
+  hot operator ends in one all-reduce over the axis (:mod:`.meshops`);
+* ``row`` (``make_mesh(axis_names=("batch", "row"))``, in place of
+  ``constr``) — the factor rows of one huge instance: each rank owns a
+  share of every cone's rows, and every sum over rows ends in one
+  collective over the axis (:mod:`.rowshard`).
 
 Where the JAX package lays devices out under one controller, here every rank
 is its own process: :func:`make_mesh` lays the ranks of the default process

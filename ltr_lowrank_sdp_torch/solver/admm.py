@@ -138,8 +138,10 @@ class ADMMInfo:
 class ADMMPhase:
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
                  params: SolverParams, shapes, sync: HostSync, lp=None,
-                 agree=own_flags, device_loop: bool = True):
+                 agree=own_flags, device_loop: bool = True, red=None):
         self.cones = cones
+        # the row-sharded mode's reduction point (parallel/rowshard.py)
+        self.red = red
         self.agree = agree      # the stop flags of every rank (driver)
         self.lp = lp
         self.has_lp = lp is not None
@@ -153,7 +155,7 @@ class ADMMPhase:
         # so the penalty stops where the normal operator is representable
         self.rho_ceiling = (min(params.rho_ceiling_admm, F32_RHO_CEILING)
                             if self.f32 else params.rho_ceiling_admm)
-        # the device-resident loop (else the eager one: the sharded mode)
+        # the device-resident loop (else the eager one: the sharded modes)
         self.device_loop = device_loop
         self._graphs = {}
 
@@ -175,7 +177,8 @@ class ADMMPhase:
     def _eager_solve(self, cg_tol: float):
         def solve(mv, b_lin, x0):
             res = cg_solve(mv, b_lin, x0, cg_tol, self.params.cg_max_iter,
-                           self.params.cg_restart_freq, read=self.sync)
+                           self.params.cg_restart_freq, read=self.sync,
+                           red=self.red)
             return res.x, res.iters
         return solve
 
@@ -309,9 +312,15 @@ class ADMMPhase:
             obj = obj + self.lp.obj_value(rlp_avg, rlp_avg)
             constr_lp = self.lp.constr_vals(rlp_avg, rlp_avg)
         csum = sum(cvals) + (constr_lp if self.has_lp else 0.0)
-        dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
-        pinf_t = primal_infeas_l1(csum, self.b, self.consts.b_nrm1)
         grams = ([torch.matmul(r.T, r) for r in Ravg] if want_grams else [])
+        if self.red is None:
+            dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
+            pinf_t = primal_infeas_l1(csum, self.b, self.consts.b_nrm1)
+        else:
+            obj, bd, rn, grams = self.red.metric_terms(
+                obj, self.b, carry.dual, csum, grams)
+            dobj_t = bd / carry.obj_scale
+            pinf_t = rn / (1.0 + self.consts.b_nrm1)
         carry = carry.replace(CV=CV, constr_val=tuple(cvals),
                               constr_lp=constr_lp, constr_sum=csum)
         return carry, obj, dobj_t, pinf_t, grams

@@ -181,11 +181,14 @@ class ALMPhase:
 
     def __init__(self, cones, b: torch.Tensor, consts: ProblemConsts,
                  params: SolverParams, shapes, sync: HostSync, lp=None,
-                 agree=own_flags, device_loop: bool = True):
+                 agree=own_flags, device_loop: bool = True, red=None):
         self.cones = cones
         # the device-resident inner pass (else the eager one: the sharded
-        # mode)
+        # modes)
         self.device_loop = device_loop
+        # the row-sharded mode's reduction point (parallel/rowshard.py):
+        # every sum over factor rows is combined over the ranks
+        self.red = red
         self._graphs = {}
         self.agree = agree      # the stop flags of every rank (driver)
         self.lp = lp
@@ -195,8 +198,10 @@ class ALMPhase:
         self.params = params
         self.shapes = tuple(tuple(s) for s in shapes)
         self.sync = sync
-        self.n_elems = int(sum(np.prod(s) for s in shapes)) + (
-            lp.n_cols if self.has_lp else 0)
+        # the factor rows' share of the flat L-BFGS vectors (the LP factor
+        # follows them)
+        self.flat_head = int(sum(np.prod(s) for s in shapes))
+        self.n_elems = self.flat_head + (lp.n_cols if self.has_lp else 0)
         work = 1.0
         for ops, (n, r) in zip(cones, self.shapes):
             work += 3.0 * ops.constr_flops(r) + ops.apply_flops(r)
@@ -233,7 +238,8 @@ class ALMPhase:
     def _grad_cert(self, carry: ALMCarry) -> ALMCarry:
         grads, grad_lp, gsq = alm_gradient(
             self.cones, self.lp, carry.R, carry.rlp, carry.dual,
-            carry.constr_sum, self.b, carry.rho, carry.obj_scale, carry.CR)
+            carry.constr_sum, self.b, carry.rho, carry.obj_scale, carry.CR,
+            red=self.red)
         (gsq_h,) = self.sync(gsq)
         cert = math.sqrt(gsq_h) / (1.0 + self.consts.c_nrminf)
         return carry.replace(grad=grads, grad_lp=grad_lp, cert_val=cert)
@@ -248,10 +254,16 @@ class ALMPhase:
         read).  pObj = <C, X>, dObj = b'lambda / obj_scale."""
         obj, cvals = self._obj_and_constr(carry.R, carry.R, carry.rlp,
                                           carry.rlp)
-        dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
-        pinf_t = primal_infeas_l1(cvals, self.b, self.consts.b_nrm1)
         grams = ([torch.matmul(r.T, r) for r in carry.R]
                  if want_grams else [])
+        if self.red is None:
+            dobj_t = cvdot(self.b, carry.dual) / carry.obj_scale
+            pinf_t = primal_infeas_l1(cvals, self.b, self.consts.b_nrm1)
+        else:
+            obj, bd, rn, grams = self.red.metric_terms(
+                obj, self.b, carry.dual, cvals, grams)
+            dobj_t = bd / carry.obj_scale
+            pinf_t = rn / (1.0 + self.consts.b_nrm1)
         vals = self.sync.flat(obj, dobj_t, pinf_t, *grams)
         pobj, dobj, pinf = vals[:3]
         gram_h = None
@@ -316,7 +328,8 @@ class ALMPhase:
         """D / ||D|| (as the JAX package does for float32 range; the search
         interval [0, ||D||] keeps the math of the reference's unnormalized
         [0, 1] search) -> (D per cone, D of the LP, D flat, ||D||)."""
-        d_nrm_t = torch.linalg.vector_norm(D_flat)
+        d_nrm_t = (torch.linalg.vector_norm(D_flat) if self.red is None
+                   else self.red.norm(D_flat, self.flat_head))
         d_safe_t = torch.where(d_nrm_t > 0.0, d_nrm_t,
                                torch.ones_like(d_nrm_t))
         D_flat = D_flat / d_safe_t
@@ -332,6 +345,9 @@ class ALMPhase:
         clear = 0
         num_err = tau_small = early = False
         b = self.b
+        red = self.red
+        dot = (torch.dot if red is None else
+               lambda x, y: red.dot(x, y, self.flat_head))
         while (c.cert_val - c.cert_tol > p.end_alm_sub_tol
                and local_iter <= self.inner_pass_cap
                and not (num_err or tau_small or early)):
@@ -339,10 +355,11 @@ class ALMPhase:
                 clear = 0
             grad_flat = flatten_factors(c.grad, c.grad_lp)
             D, dlp, D_flat, d_nrm_t = self._normalized_direction(
-                lbfgs_mod.direction(c.hist, grad_flat, n_valid=clear))
+                lbfgs_mod.direction(c.hist, grad_flat, n_valid=clear,
+                                    dot=dot))
             q0, q1, q2, p1, p2, CD = self._search_terms(
                 c.R, c.rlp, c.constr_sum, D, dlp, c.obj_scale)
-            coef = quartic_coeffs(c.rho, c.dual, p1, p2, q0, q1, q2)
+            coef = quartic_coeffs(c.rho, c.dual, p1, p2, q0, q1, q2, red=red)
             tau_t, root_t = quartic_step(coef, d_nrm_t)
             tau, root_num, d_nrm = self.sync(tau_t, root_t.double(),
                                              d_nrm_t.double())
@@ -370,11 +387,12 @@ class ALMPhase:
 
             grads, grad_lp, gsq = alm_gradient(
                 self.cones, self.lp, R_new, rlp_new, c.dual, cvals, b, c.rho,
-                c.obj_scale, CR_new)
+                c.obj_scale, CR_new, red=red)
             grad_flat_new = flatten_factors(grads, grad_lp)
             lbfgs_mod.push_pair(c.hist, tau_eff * D_flat,
-                                grad_flat_new - grad_flat)
-            pinf_t = primal_infeas_l1(cvals, b, self.consts.b_nrm1)
+                                grad_flat_new - grad_flat, red=red,
+                                head=self.flat_head)
+            pinf_t = primal_infeas_l1(cvals, b, self.consts.b_nrm1, red=red)
             gsq_h, pinf = self.sync(gsq, pinf_t)
             cert = math.sqrt(gsq_h) / (1.0 + self.consts.c_nrminf)
             pinf_inf = pinf * (1.0 + self.consts.b_nrm1) / (

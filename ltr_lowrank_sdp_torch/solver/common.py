@@ -133,12 +133,14 @@ def pad_rank_columns(F: torch.Tensor, new_rank: int) -> torch.Tensor:
 
 
 def alm_gradient(cones, lp, R: Factors, rlp, dual, constr_sum, b, rho,
-                 obj_scale: float, CR: Factors):
+                 obj_scale: float, CR: Factors, red=None):
     """grad of L_rho = 2 (obj_scale*C + A*(w)) R, w = -lambda + rho(A(X)-b)
     (``ALMSetGrad``, ``lorads_alm.c:32-61``), with the objective term taken
     from the carried C·R; the LP factor's gradient is 2 (obj_scale*c +
     A_lp^T w) o r_lp.  ``rho``: a host float or a 0-dim device tensor.
-    Returns (grads, grad_lp, ||grad||^2 as a 0-dim tensor)."""
+    Returns (grads, grad_lp, ||grad||^2 as a 0-dim tensor); with ``red``
+    (a row-sharded solve's ``RowReduce``) the norm is combined over the
+    ranks, the LP factor's share counted once."""
     w = -dual + smul(rho, constr_sum - b)
     grads = tuple(
         2.0 * (obj_scale * cr + ops.apply_w(w, r, include_obj=False))
@@ -147,14 +149,22 @@ def alm_gradient(cones, lp, R: Factors, rlp, dual, constr_sum, b, rho,
     grad_lp = None
     if lp is not None and rlp is not None:
         grad_lp = 2.0 * lp.weighted_col_sums(w, obj_coef=obj_scale) * rlp
-        norm_sq = norm_sq + torch.dot(grad_lp, grad_lp)
+        lp_sq = torch.dot(grad_lp, grad_lp)
+        norm_sq = norm_sq + (lp_sq if red is None else red.rep(lp_sq))
+    if red is not None:
+        norm_sq = red.sum(norm_sq)
     return grads, grad_lp, norm_sq
 
 
-def primal_infeas_l1(constr_sum, b, b_nrm1: float) -> torch.Tensor:
+def primal_infeas_l1(constr_sum, b, b_nrm1: float, red=None
+                     ) -> torch.Tensor:
     """||b - A(X)||_2 / (1 + ||b||_1), the reference's 'L1' DIMACS error
-    (``primalInfeasibility``, ``lorads_alg_common.c:386-394``)."""
-    return torch.linalg.vector_norm(b - constr_sum) / (1.0 + b_nrm1)
+    (``primalInfeasibility``, ``lorads_alg_common.c:386-394``); ``red``
+    combines a row-sharded constraint vector's norm."""
+    nrm = torch.linalg.vector_norm(b - constr_sum)
+    if red is not None:
+        nrm = red.reduce((), [red.own_m(nrm)])[1][0]
+    return nrm / (1.0 + b_nrm1)
 
 
 def host_metrics_f64(prob, U, V, ulp, vlp, dual, obj_scale: float):

@@ -283,13 +283,18 @@ def multiblock_lp_problem(dims=(100, 80, 60), m: int = 240, n_lp: int = 2000,
     return canonicalize(multiblock_lp_sdpa(dims, m, n_lp, seed), name=name)
 
 
-def theta_sdpa(n: int, avg_degree: int, seed: int) -> SDPAData:
+def theta_sdpa(n: int, avg_degree: int, seed: int,
+               relabel: int = 0) -> SDPAData:
     """Lovasz theta SDP of a random G(n, avg_degree) graph: max <J, X> s.t.
     tr X = 1, X_ij = 0 for every edge, X >= 0.  The draws of
     ``scripts/gen_instances.py`` ``gen_theta``, passed through the SDPA
     reader's conventions: the objective is the full upper triangle of J,
     negated (the solver minimizes), constraint 0 is the trace and constraint
-    1 + k the k-th edge."""
+    1 + k the k-th edge.
+
+    ``relabel`` > 0 renames the vertices by the permutation
+    ``default_rng(relabel).permutation(n)`` after the draws (constraint k
+    keeps its edge): the same SDP, its sums taken in another order."""
     rng = np.random.default_rng(seed)
     m_edges = n * avg_degree // 2
     u = rng.integers(0, n, size=m_edges)
@@ -299,6 +304,10 @@ def theta_sdpa(n: int, avg_degree: int, seed: int) -> SDPAData:
     lo, hi = np.minimum(u, v), np.maximum(u, v)
     uniq = np.unique(lo.astype(np.int64) * n + hi)
     lo, hi = uniq // n, uniq % n
+    if relabel:
+        perm = np.random.default_rng(relabel).permutation(n)
+        lo, hi = (np.minimum(perm[lo], perm[hi]),
+                  np.maximum(perm[lo], perm[hi]))
     iu = np.triu_indices(n)
     diag = np.arange(n, dtype=np.int64)
     n_obj, n_e = iu[0].size, lo.size

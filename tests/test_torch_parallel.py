@@ -21,7 +21,8 @@ per rank), and every rank runs every case and returns its arrays.
 * The sharded solves take the port's unsharded path: the same status and
   counts, pobj to 1e-9.
 * A rank that owns nothing: world size 3 on a 2-constraint cone.
-* ``mesh_axis="row"`` raises.
+* ``mesh_axis="row"`` on a mesh without a ``row`` axis raises (the row
+  mode itself: ``tests/test_torch_row_shard.py``).
 """
 
 import jax
@@ -299,7 +300,7 @@ def test_row_mode_and_a_foreign_device_raise():
     mesh = Mesh(shape={"batch": 1, "constr": 1},
                 axis_names=("batch", "constr"), rank=0, coords=(0, 0),
                 device=torch.device("cpu"), groups={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no axis 'row'"):
         Solver(prob, mesh=mesh, mesh_axis="row")
     with pytest.raises(ValueError, match="not the mesh's"):
         Solver(prob, device="cuda:0", mesh=mesh)
