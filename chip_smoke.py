@@ -295,6 +295,27 @@ Phases, in order; any failed check raises and the script exits nonzero:
    the card (1e-10), and K1 on one rank's block-diagonal CSR of its 4
    instances (row B, which the JAX package computes with a scatter-add)
    against its plain version as in phase 3; ``dryrun`` at world size 2;
+16. the row-sharded mode (``mesh_axis="row"``): phase 4's file on two gloo
+   ranks of this card (``[mc-row2]``), the n = 2^20 Delaunay MaxCut through
+   the CLI (``[dn20]``) and row-sharded at world size 1 over NCCL
+   (``[dn20-row1]``), K1-K4 on each half of that cone (``[row-kernels]``);
+17. the label pipeline: the native SDPA parser (built with g++) against the
+   Python tokenizer on phase 5's and 6's files (``[parse]``: identical
+   arrays, each reader's seconds); the generator twin writes the dataset's
+   ``maxcut_n3200_d14`` and ``MC_100x100_r2`` names and the harvest twin
+   solves and processes them on the card, solves them again there, then
+   runs on the CPU on one torch thread (``[harvest]``: every solve
+   ``primal_dual_optimal``, the card's label trajectories equal to its
+   first run's and the CPU's, the graph features equal to the CPU run's (a
+   check of the host path: the same numpy processor on both sides), each
+   instance's parse, first and repeated solve and processing seconds);
+   ``predict_all`` over the ten
+   benchmark names' cached graphs on the card against its CPU run and the
+   committed ``benchmark/r_sched`` (``[predict-all]``: raw within 1e-4);
+   one tuner trial (a stub for Optuna's), 2 epochs on the 20 smallest
+   labelled graphs (``[tune]``: a finite val log-MAE each epoch); each
+   path's counters set to 0 just before it and read just after, its
+   kernels launched and no plain version run;
 15. the ``kernels`` JSON line (each kernel's row, and under ``by_path`` its
    row at every main path's shapes; K9-K12's rows at the width phase's
    widths under ``widths``; a ``NAME[float32]`` row for each of K1-K8 with
@@ -302,7 +323,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
    row for K5 and K6 on a shard's layouts, row 16, with its launches on
    rank 0 of the matrix-completion path's world-size-2 sharded solve;
    ``spmm_sym_csr[batch]``, row B, with its launches on rank 0 of the
-   batched steps), the
+   batched steps; each kernel's launches on phase 17's paths under
+   ``label_path_launches``), the
    kernels still to be ported (none), the
    solver loops carried as plain torch over the kernels, the card line
    and, last, ``{"ok": true, "device": {...}}``.
@@ -316,6 +338,11 @@ graph replays timed by CUDA events and prints their share of that window:
 
     python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S [--logfile PATH] [--dtype float32]
     python3 chip_smoke.py --theta-solve N,AVG_DEGREE,SEED --time-limit S --profile [--dtype float32]
+
+Phase 16 or 17 alone, after the build (phase 16 after phase 4's solve):
+
+    python3 chip_smoke.py --row-paths
+    python3 chip_smoke.py --label-paths
 
 One diagnosis: the float32 training step of phase 12 at one GNN width with
 K9 and K11 each swapped for its plain version in float32 or float64, each
@@ -4219,6 +4246,292 @@ def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
     return counts, rows
 
 
+# phase 17: the label pipeline.  The dataset's instance families at the
+# names that pick harvest's presets (gen_instances' default seed 0), the
+# kernels their solves launch, the CPU twin's torch threads (the host flow
+# with torch's default thread count ran 70x slower on a loaded host), the
+# predictor that writes benchmark/r_sched/ and a tuner trial: the stub's
+# answers to the search space and the smallest labelled graphs it trains on
+LABEL_INSTANCES = (
+    ("maxcut_n3200_d14", ("maxcut", "--n", "3200", "--avg-degree", "14")),
+    ("MC_100x100_r2", ("matcomp", "--n1", "100", "--n2", "100", "--rank",
+                       "2")))
+HARVEST_KERNELS = MAXCUT_KERNELS + DENSE_KERNELS
+HARVEST_CPU_THREADS = 1
+LABEL_CKPT = os.path.join(ROOT, "runs", "r5")
+TUNE_TRIAL = dict(hidden_dim=64, num_heads=4, edge_dim=32, global_dim=32,
+                  num_gnn_layers=3, decoder_hidden_dim=96,
+                  decoder_num_layers=2, dropout=0.15, length_weight=0.5,
+                  mono_weight=0.1, initial_weight=0.25, final_weight=0.25,
+                  under_weight=3.67, lr=3e-4, weight_decay=1e-4,
+                  batch_size=16)
+TUNE_EPOCHS = 2
+TUNE_GRAPHS = 20
+
+
+def check_parse(files) -> None:
+    """``[parse]``: the native parser, which the card's machine must build,
+    against the Python tokenizer on each (tag, path): identical arrays,
+    each reader's seconds."""
+    from ltr_lowrank_sdp_torch.io import native, sdpa
+    from ltr_lowrank_sdp_torch.testing import same_sdpa
+
+    fresh = not native.lib_path().exists()
+    t = time.perf_counter()
+    require(native.available(), f"the native SDPA parser builds "
+                                f"({native.build_error()})")
+    built = (f"built with g++ in {time.perf_counter() - t:.2f} s" if fresh
+             else "built by an earlier phase's first read")
+    print(f"[parse] native parser {native.lib_path().name}: {built}",
+          flush=True)
+    for tag, path in files:
+        t = time.perf_counter()
+        got = sdpa.read_sdpa(path)
+        t_native = time.perf_counter() - t
+        t = time.perf_counter()
+        want = sdpa.read_sdpa(path, use_native=False)
+        t_py = time.perf_counter() - t
+        require(same_sdpa(got, want),
+                f"parse: the native and Python readers part on {tag}")
+        print(f"[parse] {tag} ({os.path.getsize(path) / 1e6:.1f} MB, m = "
+              f"{got.n_constrs}): native {t_native:.3f} s, Python "
+              f"{t_py:.3f} s ({t_py / t_native:.1f}x), identical arrays",
+              flush=True)
+
+
+def _labels_agree(tag, got, want) -> None:
+    """The card's label file against the CPU's: the same keys and rank
+    trajectories, the final oracle rank within one."""
+    require(got.keys() == want.keys()
+            and got["metrics"].keys() == want["metrics"].keys(),
+            f"{tag}: label keys")
+    final = (got["metrics"]["oracle_rank"], want["metrics"]["oracle_rank"])
+    require(abs(final[0] - final[1]) <= 1, f"{tag}: final oracle rank "
+                                           f"{final} (card, CPU)")
+    for phase in ("phase_1", "phase_2"):
+        g, w = got["trajectory"][phase], want["trajectory"][phase]
+        require(g == w, f"{tag}: {phase} trajectory card {g} CPU {w}")
+
+
+def run_harvest(K, dev, tmp) -> dict:
+    """``[harvest]``: the generator twin writes LABEL_INSTANCES, the harvest
+    twin solves and processes them on the card, then solves them again in
+    the same process (``--overwrite --skip-parse``: the kernels loaded, each
+    new Solver's graphs captured again), then runs on the CPU (one torch
+    thread); the counts set to 0 just before the card's first run and read
+    just after its second.  Returns its counts."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.scripts import gen_instances, harvest
+
+    inst = os.path.join(tmp, "instances")
+    for name, argv in LABEL_INSTANCES:
+        require(gen_instances.main([*argv, "--out", os.path.join(
+            inst, f"{name}.dat-s")]) == 0, f"gen_instances {name}")
+    roots = {side: os.path.join(tmp, side) for side in ("card", "cpu")}
+
+    def labels(side, name):
+        with open(os.path.join(roots[side], "sol_json", f"{name}.json")) as f:
+            return json.load(f)
+
+    def run(side, device, *flags):
+        return harvest.harvest(harvest.build_argparser().parse_args(
+            ["--instances", inst, "--root", roots[side], *flags]), device)
+
+    K.reset_counts()
+    t = time.perf_counter()
+    rows = run("card", dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    first = {r["name"]: labels("card", r["name"]) for r in rows}
+    t = time.perf_counter()
+    again = run("card", dev, "--overwrite", "--skip-parse")
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t
+    counts = K.counts()
+    require_counts("harvest", counts, HARVEST_KERNELS)
+    n = torch.get_num_threads()
+    torch.set_num_threads(HARVEST_CPU_THREADS)
+    try:
+        t = time.perf_counter()
+        cpu_rows = run("cpu", torch.device("cpu"))
+        cpu_wall = time.perf_counter() - t
+    finally:
+        torch.set_num_threads(n)
+    for row, row2, cpu in zip(rows, again, cpu_rows):
+        name = row["name"]
+        for r in (row, row2, cpu):
+            require(r["status"] == "primal_dual_optimal",
+                    f"harvest: {name} {r['status']}")
+        # the graph features: a check of the host path (the same numpy
+        # processor on both sides), that the card run wrote them whole
+        require(row["process_s"] is not None and cpu["process_s"] is not None,
+                f"harvest: {name}'s graph features")
+        with np.load(os.path.join(roots["card"], "proc", f"{name}.npz")) as a, \
+                np.load(os.path.join(roots["cpu"], "proc",
+                                     f"{name}.npz")) as b:
+            require(sorted(a.files) == sorted(b.files) and all(
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                for k in a.files), f"harvest: {name}'s graph features")
+        card = labels("card", name)
+        _labels_agree(f"harvest {name} (again)", card, first[name])
+        _labels_agree(f"harvest {name}", card, labels("cpu", name))
+        traj = card["trajectory"]
+        print(f"[harvest] {name}: card parse {row['parse_s']:.3f} s, solve "
+              f"{row['solve_s']:.3f} s (first, its graphs captured) / "
+              f"{row2['solve_s']:.3f} s (again, captured again in a warm "
+              f"process), process {row['process_s']:.3f} s (host); CPU "
+              f"solve {cpu['solve_s']:.3f} s; oracle ranks phase 1 "
+              f"{traj['phase_1']['oracle_rank']} phase 2 "
+              f"{traj['phase_2']['oracle_rank']}, final "
+              f"{card['metrics']['oracle_rank']} (CPU "
+              f"{labels('cpu', name)['metrics']['oracle_rank']}); "
+              f"trajectories equal to the first run's and the CPU's, graph "
+              f"features equal to the CPU run's (host path)",
+              flush=True)
+    print(f"[harvest] {len(rows)} instances: card first run {wall:.3f} s, "
+          f"again {wall_again:.3f} s (solves only), CPU run "
+          f"({HARVEST_CPU_THREADS} torch thread) {cpu_wall:.3f} s",
+          flush=True)
+    return counts
+
+
+def run_predict_all(K, dev, tmp) -> dict:
+    """``[predict-all]``: the twin on the card over the benchmark names'
+    cached graphs, the counts set to 0 just before and read just after,
+    against its CPU run (schedules equal, raw within PREDICT_RTOL) and the
+    committed ``benchmark/r_sched``.  Returns its counts."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.scripts import predict_all
+
+    insts = os.path.join(ROOT, "benchmark", "instances")
+    K.reset_counts()
+    t = time.perf_counter()
+    done = predict_all.predict_all(LABEL_CKPT, insts, os.path.join(
+        tmp, "card"), DATASET, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.counts()
+    require_counts("predict-all", counts, GNN_KERNELS, per_graph=len(done))
+    t = time.perf_counter()
+    ref = predict_all.predict_all(LABEL_CKPT, insts, os.path.join(
+        tmp, "cpu"), DATASET, "cpu")
+    cpu_wall = time.perf_counter() - t
+    require(len(done) == len(ref) == 10, "predict-all: ten schedules")
+    worst = 0.0
+    for (art, raw), (art_c, raw_c) in zip(done, ref):
+        name = art["name"]
+        with open(os.path.join(ROOT, "benchmark", "r_sched",
+                               f"{name}.json")) as f:
+            committed = json.load(f)
+        for key in ("rank_schedule", "schedule_length"):
+            require(art[key] == art_c[key] == committed[key],
+                    f"predict-all: {name}'s {key}")
+        require(bool((abs(raw - raw_c) <= PREDICT_RTOL * abs(raw_c)).all()),
+                f"predict-all: {name}'s raw schedule, card against CPU")
+        worst = max(worst, float(np.max(abs(raw - raw_c) / abs(raw_c))))
+    print(f"[predict-all] {len(done)} schedules on the card in {wall:.3f} s "
+          f"(the model's load included), CPU {cpu_wall:.3f} s; equal to the "
+          f"CPU run's and the committed benchmark/r_sched, raw within "
+          f"{worst:.3e} relative (tol {PREDICT_RTOL:g})", flush=True)
+    return counts
+
+
+def run_tune_trial(K, dev, tmp) -> dict:
+    """``[tune]``: one trial of the tuner's objective on the card (a stub in
+    place of Optuna's trial), TUNE_EPOCHS epochs on the TUNE_GRAPHS
+    smallest labelled graphs, the counts set to 0 just before and read
+    just after.  Returns its counts."""
+    import argparse
+
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch import tune
+    from ltr_lowrank_sdp_torch.testing import StubTrial
+
+    src = os.path.join(DATASET, "sol_json")
+    names = [f[:-5] for f in os.listdir(src) if os.path.exists(
+        os.path.join(DATASET, "proc", f[:-5] + ".npz"))]
+    sizes = {}
+    for name in names:
+        with np.load(os.path.join(DATASET, "proc", f"{name}.npz")) as z:
+            sizes[name] = z["x"].shape[0]
+    root = os.path.join(tmp, "dataset")
+    for sub, ext in (("proc", "npz"), ("sol_json", "json")):
+        os.makedirs(os.path.join(root, sub))
+        for name in sorted(names, key=lambda n: (sizes[n], n))[:TUNE_GRAPHS]:
+            os.symlink(os.path.join(DATASET, sub, f"{name}.{ext}"),
+                       os.path.join(root, sub, f"{name}.{ext}"))
+    args = argparse.Namespace(root=root, seed=42, cpu=False, device=str(dev),
+                              epochs_per_trial=TUNE_EPOCHS)
+    trial = StubTrial(TUNE_TRIAL)
+    K.reset_counts()
+    t = time.perf_counter()
+    best = tune.objective(trial, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = K.counts()
+    require_counts("tune", counts, TRAIN_KERNELS)
+    values = [float(v) for _, v in trial.reports]
+    require(len(values) == TUNE_EPOCHS and all(
+        math.isfinite(v) for v in values) and best == min(values),
+        f"tune: a finite val_log_mae each epoch ({values})")
+    print(f"[tune] one trial, {TUNE_EPOCHS} epochs on the {TUNE_GRAPHS} "
+          f"smallest labelled graphs on the card: {wall:.3f} s, "
+          f"val_log_mae per epoch {values}, best {best}", flush=True)
+    return counts
+
+
+def run_label_paths(K, dev, mc_data=None, mb_data=None) -> dict:
+    """Phase 17, the label pipeline: ``[parse]`` on phase 5's and 6's
+    files, then ``[harvest]``, ``[predict-all]`` and ``[tune]``.  Returns
+    {path: counts}."""
+    from ltr_lowrank_sdp_torch.testing import (matcomp_sdpa,
+                                               multiblock_lp_sdpa, write_sdpa)
+
+    t17 = time.perf_counter()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for tag, data, make in (
+                ("matcomp", mc_data, lambda: matcomp_sdpa(*MC_ARGS)),
+                ("multiblock_lp", mb_data, lambda: multiblock_lp_sdpa(
+                    MB_DIMS, MB_M, MB_NLP, MB_SEED))):
+            files.append((tag, os.path.join(tmp, f"{tag}.dat-s")))
+            write_sdpa(files[-1][1], make() if data is None else data)
+        check_parse(files)
+        for tag, fn in (("harvest", run_harvest),
+                        ("predict_all", run_predict_all),
+                        ("tune", run_tune_trial)):
+            t = time.perf_counter()
+            sub = os.path.join(tmp, tag)
+            os.makedirs(sub)
+            counts[tag] = fn(K, dev, sub)
+            print(f"[time] {tag} {time.perf_counter() - t:.1f} s",
+                  flush=True)
+    print(f"[time] phase 17 (label pipeline) {time.perf_counter() - t17:.1f} "
+          "s", flush=True)
+    return counts
+
+
+def label_paths_alone() -> int:
+    """``--label-paths``: the build, then phase 17 (the label pipeline)
+    alone."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    print(f"[card] {card_line()}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.perf_counter()
+    K.build_kernels()
+    print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    counts = run_label_paths(K, dev)
+    print(json.dumps({"label_counts": counts}))
+    print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 def row_paths_alone() -> int:
     """``--row-paths``: the build, phase 4's MaxCut solve through the CLI,
     then phase 16 (the row-sharded mode) alone."""
@@ -4265,6 +4578,8 @@ def main() -> int:
         mode.add_argument("--train-step", metavar="HIDDEN,HEADS")
         mode.add_argument("--row-paths", action="store_true",
                           help="phase 16 alone, after phase 4's solve")
+        mode.add_argument("--label-paths", action="store_true",
+                          help="phase 17 (the label pipeline) alone")
         ap.add_argument("--time-limit", type=float, default=600.0)
         ap.add_argument("--profile", action="store_true")
         ap.add_argument("--logfile", default=None)
@@ -4276,6 +4591,8 @@ def main() -> int:
             return train_step_parts(args.train_step)
         if args.row_paths:
             return row_paths_alone()
+        if args.label_paths:
+            return label_paths_alone()
         return theta_solve(args.theta_solve, args.time_limit, args.profile,
                            args.logfile, args.dtype)
     card = card_line()
@@ -4658,6 +4975,10 @@ def main() -> int:
     print(f"[time] phase 16 (row-sharded mode) "
           f"{time.perf_counter() - t16:.1f} s", flush=True)
 
+    # ---- phase 17: the label pipeline ----------------------------------- #
+    label_counts = run_label_paths(K, dev, mc_data, mb_data)
+    del mc_data, mb_data
+
     # ---- phase 15: report --------------------------------------------- #
     # one row per kernel, measured at the shapes of the path that first
     # carried it (MaxCut for K1-K4, the sparse cone for K5 and K6, the
@@ -4698,6 +5019,11 @@ def main() -> int:
         if name in width_rows:
             # K9-K12 at the GNN widths (training instances, dropout on)
             kernels[-1]["widths"] = width_rows[name]
+        # phase 17's paths that launched it: harvest (K1-K6), predict_all
+        # (K9, K10), tune (K9-K12)
+        kernels[-1]["label_path_launches"] = {
+            path: c[name][0] for path, c in label_counts.items()
+            if c[name][0]}
     # K1-K8 on float32 values: launches from the float32 run of the path
     # whose shapes the row was measured at
     for name, row in report_f32.items():

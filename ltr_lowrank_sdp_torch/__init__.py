@@ -4,10 +4,12 @@ The LoRADS-class Burer-Monteiro solver (ALM -> ADMM -> Lanczos dual
 certificate) for every cone the JAX package reads (diag, sparse and dense
 constraints, several blocks, an LP cone), in float64 or float32, with its
 float64 polish; the HALLaR solver; the rank-schedule predictor (GATv2 + LSTM)
-with its serve, benchmark and training entry points; and the parallel modes
-(constraint-sharded solves, batched ALM steps).  The conic operators, the
-predictor's segment softmax and pooling and their backward passes run
-through thirteen hand-written CUDA kernels (``csrc/``, bound in
+with its serve, benchmark, training and tuning entry points; the label
+pipeline (the native SDPA parser, the instance generator, the harvester and
+the schedule writer of ``scripts/``); and the parallel modes
+(constraint-sharded and row-sharded solves, batched ALM steps).  The conic
+operators, the predictor's segment softmax and pooling and their backward
+passes run through thirteen hand-written CUDA kernels (``csrc/``, bound in
 :mod:`.ops.kernels`); the ALM inner pass and the ADMM chunks with their CG
 run as device-resident loops, replayed as CUDA graphs with conditional nodes
 (:mod:`.solver.devloop`).

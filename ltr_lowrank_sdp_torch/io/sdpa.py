@@ -1,8 +1,8 @@
 """SDPA sparse-format reader.
 
-A copy of ``ltr_lowrank_sdp_tpu/io/sdpa.py`` without the native parser.
-Produces the raw block data that :mod:`ltr_lowrank_sdp_torch.problem`
-canonicalizes into the solver's representation.
+A copy of ``ltr_lowrank_sdp_tpu/io/sdpa.py``.  Produces the raw block data
+that :mod:`ltr_lowrank_sdp_torch.problem` canonicalizes into the solver's
+representation.
 
 Format semantics follow the reference reader ``LReadSDPA``
 (``lorads/src/src_semi/io/lorads_file_io.c:59-456``):
@@ -21,7 +21,8 @@ Format semantics follow the reference reader ``LReadSDPA``
 
 The file is tokenized once and the entry section is parsed vectorized,
 which is orders of magnitude faster than a per-line Python loop on large
-instances.
+instances.  The C++ streaming parser (:mod:`.native`, built with g++ at first
+use) is faster still and is used when it builds.
 """
 
 from __future__ import annotations
@@ -96,10 +97,33 @@ def _dedupe_sum(rows, cols, vals, extra=None):
     return rows[idx], cols[idx], summed, extra[idx]
 
 
-def read_sdpa(path: str | os.PathLike) -> SDPAData:
-    """Parse an SDPA sparse (.dat-s) file with the vectorized Python
-    tokenizer (the JAX package's native C++ parser is a later slice of the
-    port)."""
+def read_sdpa(path: str | os.PathLike, use_native: bool = True) -> SDPAData:
+    """Parse an SDPA sparse (.dat-s) file.
+
+    Uses the native C++ streaming parser when it builds; otherwise warns
+    with the build's failure (:func:`.native.build_error`) and uses the
+    vectorized Python tokenizer.  A file the native parser rejects is read
+    again by the Python tokenizer, as the JAX package does.  Both share the
+    same canonicalization (negation / triangle swap / dedup)."""
+    if use_native:
+        from . import native
+
+        try:
+            raw = native.parse_raw(str(path))
+        except ValueError:
+            raw = None
+        else:
+            if raw is None:
+                warnings.warn("native SDPA parser unavailable ("
+                              f"{native.build_error()}); using the Python "
+                              "tokenizer")
+        if raw is not None:
+            dims_arr, n_lp, b, cid, blk, row, col, val = raw
+            return _postprocess(
+                [int(x) for x in dims_arr], n_lp, b,
+                cid.astype(np.int64), blk.astype(np.int64),
+                row.astype(np.int64), col.astype(np.int64), val,
+            )
     return _read_sdpa_python(path)
 
 

@@ -435,5 +435,11 @@ def predict_schedule_for_graph(model: RankSchedulePredictor, graph: dict,
     Returns (schedule list[int], length int).
     """
     sched, L = predict_raw(model, graph)
-    s = np.maximum(np.round(sched[:L]), min_rank).astype(int)
-    return s.tolist(), L
+    return schedule_from_raw(sched, L, min_rank), L
+
+
+def schedule_from_raw(sched: np.ndarray, length: int,
+                      min_rank: int = 1) -> list:
+    """The integer schedule of an unrounded prediction: its first
+    ``length`` values rounded, at least ``min_rank``."""
+    return np.maximum(np.round(sched[:length]), min_rank).astype(int).tolist()

@@ -19,7 +19,10 @@ per block, b = A(X0) for a random PSD X0) at any size and adds an LP cone;
 trace constraint, one X_ij = 0 per edge) built as arrays.
 
 ``captured_kernel_nodes`` counts the device kernels that one call launches
-on the card (the smoke run and the tests marked ``cuda``).
+on the card (the smoke run and the tests marked ``cuda``).  ``same_sdpa``
+compares two readings of a file (either package's ``SDPAData``), array by
+array; ``StubTrial`` answers an Optuna trial's calls from a table (``optuna``
+is not a dependency).
 """
 
 from __future__ import annotations
@@ -418,3 +421,50 @@ def captured_kernel_nodes(fn) -> int:
     if any(t != 0 for t in kinds):           # CU_GRAPH_NODE_TYPE_KERNEL
         raise RuntimeError(f"a captured call holds other nodes: {kinds}")
     return len(kinds)
+
+
+def same_sdpa(a, b) -> bool:
+    """Two ``SDPAData`` (either package's) with the same sizes and the same
+    arrays, dtypes included."""
+    def arrays(d):
+        out = [d.b]
+        for blk in d.blocks:
+            out += [blk.c_rows, blk.c_cols, blk.c_vals, blk.a_rows,
+                    blk.a_cols, blk.a_vals, blk.a_cid]
+        return out + [getattr(d, f) for f in ("lp_c", "lp_col", "lp_cid",
+                                              "lp_vals")]
+
+    xs, ys = arrays(a), arrays(b)
+    return ((a.n_constrs, tuple(a.block_dims), a.n_lp_cols)
+            == (b.n_constrs, tuple(b.block_dims), b.n_lp_cols)
+            and len(xs) == len(ys)
+            and all((x is None and y is None) or (
+                x is not None and y is not None
+                and np.asarray(x).dtype == np.asarray(y).dtype
+                and np.array_equal(x, y)) for x, y in zip(xs, ys)))
+
+
+class StubTrial:
+    """The calls the tuner's ``objective`` makes of an Optuna trial,
+    answered from a table of values; ``report`` keeps each epoch's value,
+    ``should_prune`` is false."""
+
+    def __init__(self, values):
+        self.values, self.reports = values, []
+
+    def suggest_int(self, name, low, high, step=1):
+        assert low <= self.values[name] <= high, name
+        return self.values[name]
+
+    def suggest_float(self, name, low, high, log=False):
+        return self.values[name]
+
+    def suggest_categorical(self, name, choices):
+        assert self.values[name] in choices, name
+        return self.values[name]
+
+    def report(self, value, step):
+        self.reports.append((step, value))
+
+    def should_prune(self):
+        return False

@@ -176,11 +176,13 @@ def batch_tensors(b: GraphBatch, device) -> dict:
             "length": t(b.length, torch.long)}
 
 
-def step_generator(device, seed: int, epoch: int, nb: int) -> torch.Generator:
+def step_generator(device, seed: int, epoch: int, nb: int,
+                   stride: int = 10000) -> torch.Generator:
     """The generator of the dropout masks and coins of step ``nb`` of
-    ``epoch`` (the JAX package's ``fold_in(rng, epoch * 10000 + nb)``)."""
+    ``epoch`` (the JAX package's ``fold_in(rng, epoch * stride + nb)``:
+    10000 in ``train.py``, 1000 in ``tune.py``)."""
     return torch.Generator(device=device).manual_seed(
-        (seed << 32) + epoch * 10000 + nb)
+        (seed << 32) + epoch * stride + nb)
 
 
 def train_loss(model: RankSchedulePredictor, t: dict, b: GraphBatch,

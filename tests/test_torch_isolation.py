@@ -88,6 +88,32 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())     # nothing written, nothing solved
 
 
+def test_label_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
+                                                          tmp_path):
+    from ltr_lowrank_sdp_torch import tune
+    from ltr_lowrank_sdp_torch.scripts import harvest, predict_all
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "inst").mkdir()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        harvest.main(["--instances", str(tmp_path / "inst"), "--root",
+                      str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_all.main(["-c", str(ROOT / "runs" / "r5"), "--instances",
+                          str(ROOT / "benchmark" / "instances"), "--root",
+                          str(ROOT / "dataset"), "--out",
+                          str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tune.main(["--root", str(ROOT / "dataset"), "--output-dir",
+                   str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()     # nothing written
+    # --cpu is --device cpu
+    assert harvest.main(["--instances", str(tmp_path / "inst"), "--root",
+                         str(tmp_path / "cpu"), "--cpu"]) == 0
+    assert sorted(p.name for p in (tmp_path / "cpu").iterdir()) == [
+        "logs", "proc", "sol_json"]
+
+
 def test_hallar_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch,
                                                             tmp_path):
     from ltr_lowrank_sdp_torch.hallar import cli as hcli
