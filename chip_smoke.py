@@ -299,6 +299,10 @@ Phases, in order; any failed check raises and the script exits nonzero:
    ranks of this card (``[mc-row2]``), the n = 2^20 Delaunay MaxCut through
    the CLI (``[dn20]``) and row-sharded at world size 1 over NCCL
    (``[dn20-row1]``), K1-K4 on each half of that cone (``[row-kernels]``);
+18. the scaling report's twin (``scripts/scaling_report.py``) at world size
+   1 on its JAX configuration (random MaxCut n = 8,192, rank 16): the
+   unsharded solver and the sharded one over one NCCL rank, the same inner
+   iterations (``[scaling-1]``);
 17. the label pipeline: the native SDPA parser (built with g++) against the
    Python tokenizer on phase 5's and 6's files (``[parse]``: identical
    arrays, each reader's seconds); the generator twin writes the dataset's
@@ -343,6 +347,20 @@ Phase 16 or 17 alone, after the build (phase 16 after phase 4's solve):
 
     python3 chip_smoke.py --row-paths
     python3 chip_smoke.py --label-paths
+
+The sharded modes over NCCL on four cards, one rank a card (with fewer it
+exits 1 with the count): phases 4-6's files constraint-sharded at world
+sizes 2 and 4 (``[constr-nccl2/4]``: the unsharded counts and pobj within
+1e-9, every rank equal, their kernels launched), phase 4's file and the
+n = 2^20 Delaunay MaxCut row-sharded (``[mc-row-nccl2/4]``,
+``[dn20-row1/2/4]``, each world size above 1 again over gloo with the same
+bits; a world size whose counts part from world size 1's is held to the
+DIMACS limits on its own), 16 batched instances over four ranks
+(``[batch4]``), the dry run on a 2 x 2 mesh (``[dryrun4]``) and the
+scaling twin at 1, 2, 4 ranks on both axes (``[scaling]``, its artifacts
+written to ``--scaling-out``):
+
+    python3 chip_smoke.py --multi-card [--scaling-out DIR]
 
 One diagnosis: the float32 training step of phase 12 at one GNN width with
 K9 and K11 each swapped for its plain version in float32 or float64, each
@@ -528,6 +546,17 @@ SHARD_REPLACES = {"coo_contract_segsum":
                   "ltr_lowrank_sdp_tpu/parallel/meshops.py:220"}
 BATCH_B, BATCH_RANK, BATCH_STEPS, BATCH_RHO = 8, 20, 25, 1.0
 BATCH_TOL = 1e-10
+# the multi-card mode (--multi-card, MULTI_CARDS cards, one NCCL rank a
+# card): phases 4-6's files constraint-sharded ([constr-ncclN]), phase 4's
+# file and the n = 2^20 Delaunay MaxCut row-sharded ([mc-row-ncclN],
+# [dn20-rowN]) at each world size of MULTI_WORLDS; BATCH4_B instances over
+# MULTI_CARDS ranks ([batch4]); the dry run on a 2 x 2 mesh ([dryrun4]); the
+# scaling twin at SCALING_WORLDS on both axes ([scaling]); its world-size-1
+# rows in the default run ([scaling-1])
+MULTI_CARDS = 4
+MULTI_WORLDS = (2, 4)
+BATCH4_B = 16
+SCALING_WORLDS = (1, 2, 4)
 # the row-sharded mode (mesh_axis="row"): bench.py:73-78's delaunay_n20_gen
 # (n = 2^20, the construction of its _ensure_dn20, phase1_tol=1e+1,
 # heuristic_factor=100) unsharded through the CLI and row-sharded at world
@@ -3861,22 +3890,147 @@ def shard_layouts(cone, inner, dev, D, s):
     return mops
 
 
-def _parallel_rank(solves, batch):
-    """One rank of phase 14: the sharded solve of each (problem, params) of
-    ``solves``, then, with ``batch`` = (problem, R, dual, rho, steps), the
-    batched ALM steps with the world on the batch axis; each twice, cold (the
-    rank's first launches, as a user's first call) and warm."""
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _parallel_rank(solves, batch, device=None):
+    """One rank of phase 14 and of ``[constr-nccl*]`` / ``[batch4]``: the
+    sharded solve of each (problem, params) of ``solves``, then, with
+    ``batch`` = (problem, R, dual, rho, steps), the batched ALM steps with
+    the world on the batch axis; each twice, cold (the rank's first
+    launches, as a user's first call) and warm."""
     import torch.distributed as dist
 
     from ltr_lowrank_sdp_torch.parallel.dryrun import (batched_steps,
                                                        sharded_solve)
 
-    out = {"solves": [[sharded_solve(prob, params) for _ in range(2)]
+    out = {"solves": [[sharded_solve(prob, params, device) for _ in range(2)]
                       for prob, params in solves]}
     if batch is not None:
-        out["batch"] = [batched_steps(*batch, dist.get_world_size())
-                        for _ in range(2)]
+        out["batch"] = [batched_steps(*batch, dist.get_world_size(),
+                                      device=device) for _ in range(2)]
     return out
+
+
+def batch_problem(B):
+    """B Delaunay MaxCut instances of n = 2^14 (seeds MAIN_SEED + k),
+    stacked, with seeded starting factors and zero duals."""
+    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
+    from ltr_lowrank_sdp_torch.parallel.batch import batched_from_problems
+    from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
+
+    t = time.perf_counter()
+    bprob = batched_from_problems([
+        maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
+            MAIN_N, seed=MAIN_SEED + k)) for k in range(B)])
+    g = torch.Generator().manual_seed(B)
+    R0 = torch.randn((B, bprob.n, BATCH_RANK), generator=g,
+                     dtype=torch.float64) / math.sqrt(BATCH_RANK)
+    dual0 = torch.zeros((B, bprob.n), dtype=torch.float64)
+    print(f"[batch] {B} Delaunay MaxCut instances n={bprob.n}, "
+          f"{bprob.c_vals.shape[1]} objective entries each (padded), rank "
+          f"{BATCH_RANK}, built in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return bprob, R0, dual0, g
+
+
+def check_sharded_solves(solves, ranks, ws, backend, tag_of) -> dict:
+    """The gate of a constraint-sharded world's solves (``PERF.md`` section
+    2): each of ``solves`` = (tag, problem, params, unsharded result,
+    kernels, sharded), solved cold and warm on every rank of ``ranks``, has
+    the unsharded solve's status and counts, pobj within PAR_POBJ_RTOL, every
+    rank and run rank 0's first, its kernels launched and no plain version
+    run, and its cones sharded as ``sharded`` says (dense-A cones delegate,
+    as the JAX package's ``MeshConeOps`` does).  Returns {tag: rank 0's
+    counts}."""
+    counts = {}
+    for k, (tag, _, _, ref, kernels, sharded) in enumerate(solves):
+        ptag = tag_of(tag)
+        o, warm = ranks[0]["solves"][k]
+        rel = abs(o["pobj"] - ref.pobj) / abs(ref.pobj)
+        ms = o["ms_per_allreduce"]
+        print(f"[{ptag}] {backend}, {ws} rank(s) on {o['device']}, mesh "
+              f"{o['mesh']}: {o['status']} pobj {o['pobj']:.12e} "
+              f"(unsharded {ref.pobj:.12e}, {rel:.2e} relative, tol "
+              f"{PAR_POBJ_RTOL:g}); ALM outer {o['alm_outer_iters']} "
+              f"inner {o['alm_inner_iters']}, ADMM {o['admm_iters']}, CG "
+              f"{o['cg_iters']} (unsharded {ref.alm_outer_iters} / "
+              f"{ref.alm_inner_iters}, {ref.admm_iters}, {ref.cg_iters}); "
+              f"solve cold {o['solve_time']:.3f} s, warm "
+              f"{warm['solve_time']:.3f} s (unsharded, CLI "
+              f"{ref.solve_time:.3f} s), host syncs {o['host_syncs']}, "
+              f"all-reduces {o['allreduce_calls']} of "
+              f"{o['allreduce_bytes'] / 1e6:.1f} MB on rank 0, "
+              f"{'none' if ms is None else f'{ms:.4f} ms'} each (mean "
+              f"payload, after the solve), stop decisions (Mesh.agree) "
+              f"{o['agree_calls']}; cones sharded {o['sharded']}",
+              flush=True)
+        require_counts(ptag, o["counts"], kernels)
+        require(o["sharded"] == sharded,
+                f"{ptag}: cones sharded {o['sharded']}, expected {sharded}")
+        for p in [warm] + [x for r in ranks[1:] for x in r["solves"][k]]:
+            require(all(p[f] == o[f] for f in (
+                "status", "pobj", "dobj", "alm_outer_iters",
+                "alm_inner_iters", "admm_iters", "cg_iters")),
+                    f"{ptag}: rank {p['rank']}'s solves part from rank "
+                    f"0's first")
+        require(o["status"] == ref.status.value,
+                f"{ptag}: status {o['status']}, unsharded "
+                f"{ref.status.value}")
+        require((o["alm_outer_iters"], o["alm_inner_iters"],
+                 o["admm_iters"], o["cg_iters"])
+                == (ref.alm_outer_iters, ref.alm_inner_iters,
+                    ref.admm_iters, ref.cg_iters),
+                f"{ptag}: the counts differ from the unsharded solve")
+        require(rel <= PAR_POBJ_RTOL,
+                f"{ptag}: pobj {rel:.2e} from the unsharded solve")
+        counts[ptag] = o["counts"]
+    return counts
+
+
+def check_batch(tag, ranks, bprob, R0, dual0, dev, ws, backend) -> dict:
+    """``[tag]``: the batched steps of every rank (cold and warm) against a
+    loop over the single instances on ``dev``, to BATCH_TOL of scale; one K1
+    launch a step for all of a rank's instances.  Returns rank 0's
+    counts."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    from ltr_lowrank_sdp_torch.parallel.batch import local_alm_steps
+
+    B = int(R0.shape[0])
+    o, warm = ranks[0]["batch"]
+    require_counts(tag, o["counts"], ("spmm_sym_csr", "diag_rowdot"))
+    require(o["counts"]["spmm_sym_csr"][0] == BATCH_STEPS,
+            f"{tag}: one K1 launch per step for all of a rank's instances")
+    K.reset_counts()
+    t = time.perf_counter()
+    loop = [local_alm_steps(bprob, i, i + 1, R0[i:i + 1], dual0[i:i + 1],
+                            BATCH_RHO, BATCH_STEPS, dev) for i in range(B)]
+    _sync(dev)
+    loop_s = time.perf_counter() - t
+    loop_counts = K.counts()
+    err = 0.0
+    for k, name in enumerate(("R", "dual", "pinf")):
+        want = torch.cat([x[k] for x in loop]).cpu()
+        for got in (torch.from_numpy(x[name]) for r in ranks
+                    for x in r["batch"]):
+            err = max(err, float((got - want).abs().max()
+                                 / want.abs().max().clamp_min(1.0)))
+    pinf = o["pinf"]
+    print(f"[{tag}] {ws} {backend} ranks x {B // ws} instances, mesh "
+          f"{o['mesh']}, {BATCH_STEPS} steps: cold {o['wall']:.3f} s, warm "
+          f"{warm['wall']:.3f} s on rank 0 (layouts and gather included; K1 "
+          f"{o['counts']['spmm_sym_csr'][0]}, K2 "
+          f"{o['counts']['diag_rowdot'][0]} launches); the loop over "
+          f"single instances on one card {loop_s:.3f} s (K1 "
+          f"{loop_counts['spmm_sym_csr'][0]} launches); max difference "
+          f"{err:.2e} of scale (tol {BATCH_TOL:g}); pinf "
+          f"{float(pinf.min()):.3e} .. {float(pinf.max()):.3e}",
+          flush=True)
+    require(err <= BATCH_TOL, f"{tag}: the batched steps differ from the "
+                              f"loop")
+    return o["counts"]
 
 
 def run_parallel_paths(K, dev, solves):
@@ -3888,27 +4042,11 @@ def run_parallel_paths(K, dev, solves):
     steps with the batch axis over both.  Every rank's counters are set to 0
     just before each solve or run and read just after.  Returns ({path: rank
     0's counts}, row B: K1 on one rank's block-diagonal CSR of the batch)."""
-    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
-    from ltr_lowrank_sdp_torch.parallel.batch import (LocalBatch,
-                                                      batched_from_problems,
-                                                      local_alm_steps)
+    from ltr_lowrank_sdp_torch.parallel.batch import LocalBatch
     from ltr_lowrank_sdp_torch.parallel.dryrun import dryrun
     from ltr_lowrank_sdp_torch.parallel.launch import spawn
-    from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
 
-    # BATCH_B Delaunay MaxCut instances of n = 2^14
-    t = time.perf_counter()
-    bprob = batched_from_problems([
-        maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
-            MAIN_N, seed=MAIN_SEED + k)) for k in range(BATCH_B)])
-    g = torch.Generator().manual_seed(BATCH_B)
-    R0 = torch.randn((BATCH_B, bprob.n, BATCH_RANK), generator=g,
-                     dtype=torch.float64) / math.sqrt(BATCH_RANK)
-    dual0 = torch.zeros((BATCH_B, bprob.n), dtype=torch.float64)
-    print(f"[batch] {BATCH_B} Delaunay MaxCut instances n={bprob.n}, "
-          f"{bprob.c_vals.shape[1]} objective entries each (padded), rank "
-          f"{BATCH_RANK}, built in {time.perf_counter() - t:.1f} s",
-          flush=True)
+    bprob, R0, dual0, g = batch_problem(BATCH_B)
     # row B: the batched C Y + w o Y (JAX: a scatter-add in vmap) is K1 on
     # one rank's block-diagonal CSR of its BATCH_B // 2 instances
     lb = LocalBatch(bprob, 0, BATCH_B // 2, dev, torch.float64)
@@ -3932,7 +4070,9 @@ def run_parallel_paths(K, dev, solves):
     del lb, csr, Y, w, c_sparse
 
     counts = {}
-    cases = [(prob, params) for _, prob, params, _ in solves]
+    solves = [(tag, prob, params, ref, PAR_KERNELS, [True])
+              for tag, prob, params, ref in solves]
+    cases = [(prob, params) for _, prob, params, *_ in solves]
     for ws, backend in PAR_RUNS:
         batch = ((bprob, R0, dual0, BATCH_RHO, BATCH_STEPS) if ws > 1
                  else None)
@@ -3940,79 +4080,11 @@ def run_parallel_paths(K, dev, solves):
         ranks = spawn(_parallel_rank, ws, (cases, batch), backend=backend)
         print(f"[parallel] {ws} rank(s), {backend}: start to join "
               f"{time.perf_counter() - t:.1f} s", flush=True)
-        for k, (tag, _, _, ref) in enumerate(solves):
-            ptag = f"{tag}-sharded{ws}"
-            o, warm = ranks[0]["solves"][k]
-            rel = abs(o["pobj"] - ref.pobj) / abs(ref.pobj)
-            print(f"[{ptag}] {backend}, {ws} rank(s) on {o['device']}, mesh "
-                  f"{o['mesh']}: {o['status']} pobj {o['pobj']:.12e} "
-                  f"(unsharded {ref.pobj:.12e}, {rel:.2e} relative, tol "
-                  f"{PAR_POBJ_RTOL:g}); ALM outer {o['alm_outer_iters']} "
-                  f"inner {o['alm_inner_iters']}, ADMM {o['admm_iters']}, CG "
-                  f"{o['cg_iters']} (unsharded {ref.alm_outer_iters} / "
-                  f"{ref.alm_inner_iters}, {ref.admm_iters}, {ref.cg_iters}); "
-                  f"solve cold {o['solve_time']:.3f} s, warm "
-                  f"{warm['solve_time']:.3f} s (unsharded, CLI "
-                  f"{ref.solve_time:.3f} s), host syncs {o['host_syncs']}, "
-                  f"all-reduces {o['allreduce_calls']} of "
-                  f"{o['allreduce_bytes'] / 1e6:.1f} MB on rank 0",
-                  flush=True)
-            require_counts(ptag, o["counts"], PAR_KERNELS)
-            require(all(o["sharded"]), f"{ptag}: every cone sharded")
-            for p in [warm] + [x for r in ranks[1:] for x in r["solves"][k]]:
-                require(all(p[f] == o[f] for f in (
-                    "status", "pobj", "dobj", "alm_outer_iters",
-                    "alm_inner_iters", "admm_iters", "cg_iters")),
-                        f"{ptag}: rank {p['rank']}'s solves part from rank "
-                        f"0's first")
-            require(o["status"] == ref.status.value,
-                    f"{ptag}: status {o['status']}, unsharded "
-                    f"{ref.status.value}")
-            require((o["alm_outer_iters"], o["alm_inner_iters"],
-                     o["admm_iters"], o["cg_iters"])
-                    == (ref.alm_outer_iters, ref.alm_inner_iters,
-                        ref.admm_iters, ref.cg_iters),
-                    f"{ptag}: the counts differ from the unsharded solve")
-            require(rel <= PAR_POBJ_RTOL,
-                    f"{ptag}: pobj {rel:.2e} from the unsharded solve")
-            counts[ptag] = o["counts"]
-        if batch is None:
-            continue
-
-        # the batched steps against a loop over the single instances here
-        o, warm = ranks[0]["batch"]
-        require_counts("batch", o["counts"], ("spmm_sym_csr", "diag_rowdot"))
-        require(o["counts"]["spmm_sym_csr"][0] == BATCH_STEPS,
-                "batch: one K1 launch per step for all of a rank's instances")
-        K.reset_counts()
-        t = time.perf_counter()
-        loop = [local_alm_steps(bprob, i, i + 1, R0[i:i + 1], dual0[i:i + 1],
-                                BATCH_RHO, BATCH_STEPS, dev)
-                for i in range(BATCH_B)]
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t
-        loop_counts = K.counts()
-        err = 0.0
-        for k, name in enumerate(("R", "dual", "pinf")):
-            want = torch.cat([x[k] for x in loop]).cpu()
-            for got in (torch.from_numpy(x[name]) for r in ranks
-                        for x in r["batch"]):
-                err = max(err, float((got - want).abs().max()
-                                     / want.abs().max().clamp_min(1.0)))
-        pinf = o["pinf"]
-        print(f"[batch] {ws} {backend} ranks x {BATCH_B // ws} instances, "
-              f"{BATCH_STEPS} steps: cold {o['wall']:.3f} s, warm "
-              f"{warm['wall']:.3f} s on rank 0 (layouts and gather included; K1 "
-              f"{o['counts']['spmm_sym_csr'][0]}, K2 "
-              f"{o['counts']['diag_rowdot'][0]} launches); the loop over "
-              f"single instances on this card {loop_s:.3f} s (K1 "
-              f"{loop_counts['spmm_sym_csr'][0]} launches); max difference "
-              f"{err:.2e} of scale (tol {BATCH_TOL:g}); pinf "
-              f"{float(pinf.min()):.3e} .. {float(pinf.max()):.3e}",
-              flush=True)
-        require(err <= BATCH_TOL,
-                "batch: the batched steps differ from the loop")
-        counts["batch"] = o["counts"]
+        counts.update(check_sharded_solves(
+            solves, ranks, ws, backend, lambda tag: f"{tag}-sharded{ws}"))
+        if batch is not None:
+            counts["batch"] = check_batch("batch", ranks, bprob, R0, dual0,
+                                          dev, ws, backend)
 
     t = time.perf_counter()
     line = dryrun(2, "gloo")
@@ -4126,11 +4198,11 @@ def check_row_kernels(K, cone_data, inner, dev, r) -> dict:
     return report
 
 
-def _row_line(tag, backend, o, ref_counts=None):
+def _row_line(tag, backend, o, ref_text=""):
     print(f"[{tag}] {backend}, {o['world']} rank(s) on {o['device']}: "
           f"{o['status']} pobj {o['pobj']:.12e} gap {o['gap']:.3e} pinf_l1 "
           f"{o['pinf_l1']:.3e} dinf_l1 {o['dinf_l1']:.3e}; ALM outer / "
-          f"inner, ADMM, CG {o['counts']} (unsharded {ref_counts}); final "
+          f"inner, ADMM, CG {o['counts']} ({ref_text}); final "
           f"ranks {o['final_ranks']}; solve {o['solve_time']:.3f} s, stages "
           f"{json.dumps({k: round(v, 4) for k, v in o['stage_times'].items()})}"
           f"; host syncs {o['host_syncs']}; collectives "
@@ -4156,37 +4228,27 @@ def _require_row(tag, o, ranks, ref_status, ref_counts, ref_pobj):
     require_counts(tag, o["kernels"], MAXCUT_KERNELS)
 
 
-def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
-    """Phase 16: the row-sharded mode.  ``[mc-row2]``: phase 4's problem
-    row-sharded at world size ROW_WORLD over gloo, both ranks on this card;
-    ``[dn20]``: the n = 2^20 Delaunay MaxCut through the CLI (the replayed
-    loops) and row-sharded at world size 1 over NCCL, both held to the host
-    float64 DIMACS limits and to each other; ``[row-kernels]`` on its cone.
-    Every rank's counters are set to 0 just before its solve and read just
-    after.  Returns ({path: rank 0's counts}, the kernels-line rows)."""
+def _row_rank(prob, params, device=None):
+    """One rank of ``[dn20-rowN]``: :func:`row_solve` of ``prob``, the
+    gathered factors on rank 0 only (for its host check)."""
+    import torch.distributed as dist
+
+    from ltr_lowrank_sdp_torch.parallel.dryrun import row_solve
+
+    return row_solve(prob, params, device, factors=dist.get_rank() == 0)
+
+
+def run_dn20(dev, optimal):
+    """``[dn20]``: the n = 2^20 Delaunay MaxCut through the CLI (the
+    replayed loops), held to the host float64 DIMACS limits, the reference
+    of its row-sharded solves.  Returns (its counts, the problem, its
+    params, (ALM outer / inner, ADMM, CG counts, status, pobj), the
+    adjacency)."""
     import scipy.io
 
     from ltr_lowrank_sdp_torch import cli
-    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
-    from ltr_lowrank_sdp_torch.ops.coneops import ConeOps
-    from ltr_lowrank_sdp_torch.parallel.dryrun import row_solve
-    from ltr_lowrank_sdp_torch.parallel.launch import spawn
-    from ltr_lowrank_sdp_torch.problem import initial_ranks, load_problem
-    from ltr_lowrank_sdp_torch.solver.common import host_metrics_f64
+    from ltr_lowrank_sdp_torch.problem import load_problem
     from ltr_lowrank_sdp_torch.testing import delaunay_maxcut_adjacency
-
-    counts = {}
-    ref_counts = (mc_res.alm_outer_iters, mc_res.alm_inner_iters,
-                  mc_res.admm_iters, mc_res.cg_iters)
-    t = time.perf_counter()
-    ranks = spawn(row_solve, ROW_WORLD, (mc_prob, mc_params), backend="gloo")
-    print(f"[mc-row2] {ROW_WORLD} ranks, gloo: start to join "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
-    o = ranks[0]
-    _row_line("mc-row2", "gloo", o, ref_counts)
-    _require_row("mc-row2", o, ranks, mc_res.status.value, ref_counts,
-                 mc_res.pobj)
-    counts["mc-row2"] = o["kernels"]
 
     t = time.perf_counter()
     adj = delaunay_maxcut_adjacency(DN20_N, seed=DN20_SEED)
@@ -4200,6 +4262,7 @@ def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
         scipy.io.savemat(path, {"Problem": {"A": adj}})
         print(f"[dn20] wrote {os.path.getsize(path) / 1e6:.1f} MB .mat in "
               f"{time.perf_counter() - t:.1f} s", flush=True)
+        torch.cuda.init()       # the memory statistics need the allocator
         torch.cuda.reset_peak_memory_stats(dev)
         dn_counts, res, _ = run_main_path(
             "dn20", path, MAIN_FLAGS, MAXCUT_KERNELS, optimal[:1],
@@ -4210,31 +4273,136 @@ def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
         prob = load_problem(path)
         params = cli.params_from_args(cli.build_arg_parser().parse_args(
             [path, *MAIN_FLAGS]))
-    counts["dn20"] = dn_counts
     ref = ((res.alm_outer_iters, res.alm_inner_iters, res.admm_iters,
             res.cg_iters), res.status.value, res.pobj)
     del res
     torch.cuda.empty_cache()
+    return dn_counts, prob, params, ref, adj
+
+
+def run_dn20_rows(prob, params, ref, worlds, backend="nccl", device=None,
+                  cross=None):
+    """``[dn20-rowN]`` for each N of ``worlds``: ``prob`` row-sharded over N
+    ranks (one card a rank over NCCL), each held to the host float64
+    DIMACS limits on rank 0's gathered factors, every rank to rank 0.
+    N = 1 is held to the unsharded solve ``ref`` (its status, counts and
+    pobj within ROW_POBJ_RTOL).  A larger world adds its partials in its
+    own partition, so its counts may part from ``[dn20-row1]``'s: with the
+    same counts its pobj is held within ROW_POBJ_RTOL of world 1's; with
+    other counts it is another certified solution, held to the same DIMACS
+    limits on its own, its distance from world 1's pobj printed beside the
+    two solves' certified gaps, sum of gap (1 + |pobj| + |dobj|) (not a
+    bound: the CPU parts past it at n = 2^17 on 4 ranks, ``PERF.md``
+    section 6).  With ``cross`` (a backend) the same world size runs
+    again over it (``[dn20-rowN-<cross>]``) and must give the same counts
+    and the same pobj, dobj and gap bits: the collective is an exact gather,
+    so the partition alone sets them.  Returns ({tag: rank 0's kernel
+    counts}, {N: rank 0's result without the factors})."""
+    from ltr_lowrank_sdp_torch.parallel.launch import spawn
+    from ltr_lowrank_sdp_torch.solver.common import host_metrics_f64
+
+    def solve(ws, tag, over):
+        t = time.perf_counter()
+        ranks = spawn(_row_rank, ws, (prob, params, device), backend=over)
+        o = ranks[0]
+        print(f"[{tag}] {ws} rank(s), {over}: start to join "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        base = results.get(1)
+        _row_line(tag, over, o, f"unsharded {ref[0]}" if base is None
+                  else f"world size 1 {base['counts']}")
+        Ravg = tuple(0.5 * (u + v) for u, v in zip(o.pop("U"), o.pop("V")))
+        pobj, dobj, pinf, _, gap = host_metrics_f64(
+            prob, Ravg, Ravg, None, None, o.pop("dual"), o["obj_scale"])
+        del Ravg
+        ms = o["ms_per_collective"]
+        print(f"[{tag}] host f64: pobj {pobj:.10e} dobj {dobj:.10e} pinf_l1 "
+              f"{pinf:.3e} gap {gap:.3e}; solver dinf_l1 "
+              f"{o['dinf_l1']:.3e}; per rank: peak device memory "
+              f"{[round(r.get('peak_bytes', 0) / 2 ** 30, 2) for r in ranks]}"
+              f" GiB, rows {[r['rows'][0] for r in ranks]}, collectives "
+              f"{[r['collectives'] for r in ranks]}, "
+              f"{o['collective_bytes'] / max(o['collectives'], 1) / 1e3:.1f}"
+              f" kB each on rank 0, "
+              f"{'none' if ms is None else f'{ms:.4f} ms'} each (mean "
+              f"payload, after the solve), stop decisions "
+              f"{o['agree_calls']}", flush=True)
+        require(o["status"] == "primal_dual_optimal",
+                f"{tag}: status {o['status']}")
+        require(pinf <= DN20_LIMITS[0] and gap <= DN20_LIMITS[1]
+                and o["dinf_l1"] <= DN20_LIMITS[2],
+                f"{tag}: DIMACS errors above {DN20_LIMITS}")
+        for p in ranks[1:]:
+            require(all(p[f] == o[f] for f in (
+                "status", "pobj", "dobj", "gap", "counts")),
+                    f"{tag}: rank {p['rank']}'s solve parts from rank 0's")
+        require_counts(tag, o["kernels"], MAXCUT_KERNELS)
+        return o
+
+    counts, results = {}, {}
+    for ws in worlds:
+        tag = f"dn20-row{ws}"
+        o = solve(ws, tag, backend)
+        base = results.get(1)
+        if base is None:
+            _require_row(tag, o, [o], ref[1], ref[0], ref[2])
+        else:
+            diff = abs(o["pobj"] - base["pobj"])
+            same = tuple(o["counts"]) == tuple(base["counts"])
+            gaps = sum(x["gap"] * (1.0 + abs(x["pobj"]) + abs(x["dobj"]))
+                       for x in (o, base))
+            print(f"[{tag}] against [dn20-row1]: counts {o['counts']} "
+                  f"{'equal to' if same else 'PART from'} world 1's "
+                  f"{base['counts']}; |pobj - pobj_1| {diff:.6g} "
+                  f"({diff / abs(base['pobj']):.2e} relative; tol "
+                  f"{ROW_POBJ_RTOL:g} relative with the same counts), the "
+                  f"certified gaps {gaps:.6g}", flush=True)
+            if same:
+                require(diff <= ROW_POBJ_RTOL * abs(base["pobj"]),
+                        f"{tag}: pobj {diff:.6g} from [dn20-row1]")
+        if cross is not None and ws > 1:
+            c = solve(ws, f"{tag}-{cross}", cross)
+            same = all(c[f] == o[f] for f in ("counts", "pobj", "dobj",
+                                               "gap"))
+            print(f"[{tag}-{cross}] against {backend}: counts {c['counts']}, "
+                  f"pobj {c['pobj']!r} ({backend} {o['pobj']!r}): "
+                  f"{'the same bits' if same else 'PART'}", flush=True)
+            require(same, f"{tag}: {cross} and {backend} part")
+        counts[tag] = o["kernels"]
+        results[ws] = o
+    return counts, results
+
+
+def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
+    """Phase 16: the row-sharded mode.  ``[mc-row2]``: phase 4's problem
+    row-sharded at world size ROW_WORLD over gloo, both ranks on this card;
+    ``[dn20]``: the n = 2^20 Delaunay MaxCut through the CLI (the replayed
+    loops) and row-sharded at world size 1 over NCCL, both held to the host
+    float64 DIMACS limits and to each other; ``[row-kernels]`` on its cone.
+    Every rank's counters are set to 0 just before its solve and read just
+    after.  Returns ({path: rank 0's counts}, the kernels-line rows)."""
+    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
+    from ltr_lowrank_sdp_torch.ops.coneops import ConeOps
+    from ltr_lowrank_sdp_torch.parallel.dryrun import row_solve
+    from ltr_lowrank_sdp_torch.parallel.launch import spawn
+    from ltr_lowrank_sdp_torch.problem import initial_ranks
+
+    counts = {}
+    ref_counts = (mc_res.alm_outer_iters, mc_res.alm_inner_iters,
+                  mc_res.admm_iters, mc_res.cg_iters)
     t = time.perf_counter()
-    (o,) = spawn(row_solve, 1, (prob, params, None, None, None, True),
-                 backend="nccl")
-    print(f"[dn20-row1] 1 rank, nccl: start to join "
+    ranks = spawn(row_solve, ROW_WORLD, (mc_prob, mc_params), backend="gloo")
+    print(f"[mc-row2] {ROW_WORLD} ranks, gloo: start to join "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    _row_line("dn20-row1", "nccl", o, ref[0])
-    Ravg = tuple(0.5 * (u + v) for u, v in zip(o["U"], o["V"]))
-    pobj, dobj, pinf, _, gap = host_metrics_f64(prob, Ravg, Ravg, None, None,
-                                                o["dual"], o["obj_scale"])
-    print(f"[dn20-row1] host f64: pobj {pobj:.10e} dobj {dobj:.10e} pinf_l1 "
-          f"{pinf:.3e} gap {gap:.3e}; solver dinf_l1 {o['dinf_l1']:.3e}",
-          flush=True)
-    require(o["status"] == "primal_dual_optimal",
-            f"dn20-row1: status {o['status']}")
-    require(pinf <= DN20_LIMITS[0] and gap <= DN20_LIMITS[1]
-            and o["dinf_l1"] <= DN20_LIMITS[2],
-            f"dn20-row1: DIMACS errors above {DN20_LIMITS}")
-    _require_row("dn20-row1", o, [o], ref[1], ref[0], ref[2])
-    counts["dn20-row1"] = o["kernels"]
-    del o, Ravg
+    o = ranks[0]
+    _row_line("mc-row2", "gloo", o, f"unsharded {ref_counts}")
+    _require_row("mc-row2", o, ranks, mc_res.status.value, ref_counts,
+                 mc_res.pobj)
+    counts["mc-row2"] = o["kernels"]
+
+    dn_counts, prob, params, ref, adj = run_dn20(dev, optimal)
+    counts["dn20"] = dn_counts
+    row_counts, _ = run_dn20_rows(prob, params, ref, (1,))
+    counts.update(row_counts)
 
     cone_data = maxcut_problem_from_adjacency(adj).cones[0]
     inner = ConeOps(cone_data, dev)
@@ -4515,6 +4683,258 @@ def run_label_paths(K, dev, mc_data=None, mb_data=None) -> dict:
     return counts
 
 
+def run_scaling(tag, worlds, cases, out_dir=None, device=None) -> list:
+    """``[tag]``: the scaling twin (``scripts/scaling_report.py``) at each
+    world size of ``worlds`` for each (axis, problem) of ``cases``, with its
+    JAX configuration's parameters.  Every world size must give a row; on
+    the constraint axis every row must have the same inner iterations (the
+    sums are exact by ownership), on the row axis they are printed.  With
+    ``out_dir`` each payload is written there as ``scaling_<axis>.json``.
+    Returns the payloads."""
+    from ltr_lowrank_sdp_torch.scripts import scaling_report as SR
+
+    payloads = []
+    for axis, prob in cases:
+        t = time.perf_counter()
+        payload = SR.report(worlds, prob, SR.jax_params(), axis, device)
+        require(payload is not None, f"{tag}: no row measured")
+        rows = payload["rows"]
+        for r in rows:
+            ms = r["ms_per_collective"]
+            secs = [round(x, 4) for x in r["seconds_by_rank"]]
+            peaks = [None if b is None else round(b / 2 ** 30, 3)
+                     for b in r["peak_bytes_by_rank"]]
+            print(f"[{tag}] {axis} axis, {prob.name} n={prob.block_dims[0]}"
+                  f": {r['devices']} rank(s) {r['mode']}, {r['backend']}: "
+                  f"inner {r['inner_iters']} in {r['dispatches']} "
+                  f"dispatch(es), {r['seconds']:.4f} s, "
+                  f"{r['alm_inner_iters_per_sec']:.2f} inner/s, speedup "
+                  f"{r.get('speedup_vs_1dev', float('nan')):.3f} (against "
+                  f"the sharded world size 1); collectives "
+                  f"{r['collectives']} of {r['collective_bytes'] / 1e6:.3f} "
+                  f"MB, {'none' if ms is None else f'{ms:.4f} ms'} each; "
+                  f"seconds by rank {secs}, peak GiB by rank {peaks}",
+                  flush=True)
+        got = sorted({r["devices"] for r in rows if r["mode"] == "sharded"})
+        require(got == sorted(worlds),
+                f"{tag}: sharded rows at {got}, asked {list(worlds)}")
+        inner = {r["inner_iters"] for r in rows}
+        print(f"[{tag}] {axis} axis: inner iterations "
+              f"{[r['inner_iters'] for r in rows]} "
+              f"({'identical' if len(inner) == 1 else 'PART'}); cards "
+              f"{payload['cards']}; peer access {payload['peer_access']}; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        if axis == "constr":
+            require(len(inner) == 1,
+                    f"{tag}: the constraint axis parts the inner iterations")
+        if out_dir is not None:
+            path = os.path.join(out_dir, f"scaling_{axis}.json")
+            with open(path, "w") as f:
+                json.dump(payload, f, indent=1)
+            print(f"[{tag}] wrote {path}", flush=True)
+        payloads.append(payload)
+    return payloads
+
+
+def check_scaling_one() -> None:
+    """``[scaling-1]``: the scaling twin at world size 1 on its JAX
+    configuration, the unsharded solver and the sharded one over one NCCL
+    rank: the same inner iterations."""
+    from ltr_lowrank_sdp_torch.scripts import scaling_report as SR
+
+    t = time.perf_counter()
+    torch.cuda.empty_cache()
+    run_scaling("scaling-1", (1,), [("constr", SR.jax_problem())])
+    print(f"[time] scaling-1 {time.perf_counter() - t:.1f} s", flush=True)
+
+
+def run_multi_card(dev, backend="nccl", device=None, scaling_out=None):
+    """The multi-card mode's sub-phases on ``dev`` (the parent's card) and
+    ranks over ``backend`` (on ``device``: None, one card a rank).  Each
+    sub-phase prints its ``[time]``; one that fails is reported and the
+    next runs.  Returns the names of the failed ones."""
+    from ltr_lowrank_sdp_torch import cli
+    from ltr_lowrank_sdp_torch.config import SolverStatus
+    from ltr_lowrank_sdp_torch.parallel.dryrun import dryrun
+    from ltr_lowrank_sdp_torch.parallel.launch import spawn
+    from ltr_lowrank_sdp_torch.problem import load_problem
+    from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
+                                               matcomp_sdpa,
+                                               multiblock_lp_sdpa,
+                                               write_sdpa)
+
+    optimal = (SolverStatus.PRIMAL_DUAL_OPTIMAL, SolverStatus.PRIMAL_OPTIMAL)
+    failed = []
+    state = {}
+
+    def phase(name, fn):
+        t = time.perf_counter()
+        try:
+            fn()
+        except Exception:       # report it, run the next sub-phase
+            import traceback
+
+            print(f"[{name}] FAILED\n{traceback.format_exc()}", flush=True)
+            failed.append(name)
+        print(f"[time] {name} {time.perf_counter() - t:.1f} s", flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def constr():
+        # the unsharded CLI solves of phases 4-6's files, then each file
+        # constraint-sharded over every world size
+        import scipy.io
+
+        solves = []
+        with tempfile.TemporaryDirectory() as tmp:
+            # (tag, writer, flags, the CLI's kernels, the sharded solve's,
+            # blocks)
+            for tag, write, flags, launched, kernels, n_blocks in (
+                    ("main", lambda p: scipy.io.savemat(p, {"Problem": {
+                        "A": delaunay_maxcut_adjacency(MAIN_N,
+                                                       seed=MAIN_SEED)}}),
+                     MAIN_FLAGS, MAXCUT_KERNELS, PAR_KERNELS, 1),
+                    ("matcomp", lambda p: write_sdpa(p, matcomp_sdpa(
+                        *MC_ARGS)), MC_FLAGS, SPARSE_KERNELS, PAR_KERNELS,
+                     1),
+                    ("multiblock_lp", lambda p: write_sdpa(
+                        p, multiblock_lp_sdpa(MB_DIMS, MB_M, MB_NLP,
+                                              MB_SEED)), (), MB_KERNELS,
+                     MB_KERNELS, len(MB_DIMS))):
+                path = os.path.join(tmp, f"{tag}.mat" if tag == "main"
+                                    else f"{tag}.dat-s")
+                write(path)
+                c, res, _ = run_main_path(
+                    tag, path, flags, launched,
+                    optimal[:1] if tag == "main" else optimal,
+                    (1e-5, 1e-5, 1e-5) if tag == "main"
+                    else (1e-5, 5e-5, 5e-5), dev, n_blocks=n_blocks,
+                    repeat=False)
+                check_solve_counts(tag, res, c)
+                params = cli.params_from_args(
+                    cli.build_arg_parser().parse_args([path, *flags]))
+                prob = load_problem(path)
+                # MeshConeOps leaves a dense-A cone whole (the multi-block
+                # + LP path's blocks), as the JAX package's does
+                solves.append((tag, prob, params, res, kernels,
+                               [c.kind_a != "dense" for c in prob.cones]))
+        state["main"] = solves[0]
+        cases = [(prob, params) for _, prob, params, *_ in solves]
+        for ws in MULTI_WORLDS:
+            t = time.perf_counter()
+            ranks = spawn(_parallel_rank, ws, (cases, None, device),
+                          backend=backend)
+            print(f"[constr-nccl{ws}] {ws} ranks, {backend}: start to join "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+            check_sharded_solves(solves, ranks, ws, backend,
+                                 lambda tag: f"constr-nccl{ws} {tag}")
+
+    def rows():
+        # phase 4's file row-sharded at every world size against its
+        # unsharded solve, then the n = 2^20 Delaunay MaxCut at world size
+        # 1, then every world size against world size 1
+        if "main" in state:
+            tag, prob, params, res, _, _ = state.pop("main")
+            ref = (res.alm_outer_iters, res.alm_inner_iters,
+                   res.admm_iters, res.cg_iters)
+            for ws in MULTI_WORLDS:
+                ranks = spawn(_row_rank, ws, (prob, params, device),
+                              backend=backend)
+                o = ranks[0]
+                for k in ("U", "V", "dual"):
+                    o.pop(k)
+                mtag = f"mc-row-nccl{ws}"
+                _row_line(mtag, backend, o, f"unsharded {ref}")
+                rel = abs(o["pobj"] - res.pobj) / abs(res.pobj)
+                same = tuple(o["counts"]) == ref
+                print(f"[{mtag}] pobj against the unsharded solve {rel:.2e} "
+                      f"relative (tol {ROW_POBJ_RTOL:g}); counts "
+                      f"{'equal to' if same else 'PART from'} the unsharded "
+                      f"{ref}", flush=True)
+                require(o["status"] == res.status.value and
+                        rel <= ROW_POBJ_RTOL,
+                        f"{mtag}: status or pobj part from the unsharded "
+                        f"solve")
+                for p in ranks[1:]:
+                    require(all(p[f] == o[f] for f in (
+                        "status", "pobj", "dobj", "gap", "counts")),
+                            f"{mtag}: rank {p['rank']}'s solve parts from "
+                            f"rank 0's")
+                require_counts(mtag, o["kernels"], MAXCUT_KERNELS)
+        _, prob, params, ref, _ = run_dn20(dev, optimal)
+        state["dn20"] = prob
+        run_dn20_rows(prob, params, ref, (1,) + MULTI_WORLDS, backend,
+                      device, cross="gloo")
+
+    def batch4():
+        bprob, R0, dual0, _ = batch_problem(BATCH4_B)
+        t = time.perf_counter()
+        ranks = spawn(_parallel_rank, MULTI_CARDS,
+                      ([], (bprob, R0, dual0, BATCH_RHO, BATCH_STEPS),
+                       device), backend=backend)
+        print(f"[batch4] {MULTI_CARDS} ranks, {backend}: start to join "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        check_batch("batch4", ranks, bprob, R0, dual0, dev, MULTI_CARDS,
+                    backend)
+
+    def dryrun4():
+        line = dryrun(MULTI_CARDS, backend, device)
+        print(f"[dryrun4] {line}", flush=True)
+        require("mesh batch=2 constr=2" in line,
+                "dryrun4: the dry run's mesh is 2 x 2")
+
+    def scaling():
+        from ltr_lowrank_sdp_torch.scripts import scaling_report as SR
+
+        run_scaling("scaling", SCALING_WORLDS,
+                    [("constr", SR.jax_problem()),
+                     ("row", state.pop("dn20", None)
+                      or SR.delaunay_problem(DN20_SEED))],
+                    scaling_out, device)
+
+    for name, fn in (("constr-nccl", constr), ("row-nccl", rows),
+                     ("batch4", batch4), ("dryrun4", dryrun4),
+                     ("scaling", scaling)):
+        phase(name, fn)
+    return failed
+
+
+def multi_card(scaling_out) -> int:
+    """``--multi-card``: the build, then the sharded modes over NCCL at
+    world sizes 2 and 4, one card a rank (:func:`run_multi_card`).  Needs
+    MULTI_CARDS cards: with fewer it exits 1 with the count."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+    from ltr_lowrank_sdp_torch.scripts.scaling_report import (card_lines,
+                                                              peer_access)
+
+    cards = torch.cuda.device_count()
+    if cards < MULTI_CARDS:
+        print(f"chip_smoke --multi-card: needs {MULTI_CARDS} cards, this "
+              f"host has {cards}", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    lines = card_lines()
+    for k, line in enumerate(lines):
+        print(f"[card {k}] {line}", flush=True)
+    print(f"[peer-access] {peer_access()} (can_device_access_peer, row i "
+          f"column j)", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.perf_counter()
+    K.build_kernels()
+    print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    failed = run_multi_card(dev, scaling_out=scaling_out)
+    print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        print(f"chip_smoke --multi-card: failed: {', '.join(failed)}",
+              file=sys.stderr)
+        return 1
+    print(lines[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def label_paths_alone() -> int:
     """``--label-paths``: the build, then phase 17 (the label pipeline)
     alone."""
@@ -4580,6 +5000,12 @@ def main() -> int:
                           help="phase 16 alone, after phase 4's solve")
         mode.add_argument("--label-paths", action="store_true",
                           help="phase 17 (the label pipeline) alone")
+        mode.add_argument("--multi-card", action="store_true",
+                          help=f"the sharded modes over NCCL on "
+                               f"{MULTI_CARDS} cards")
+        ap.add_argument("--scaling-out", default=os.path.join(
+            ROOT, "ltr_lowrank_sdp_torch", "scripts"),
+            help="where --multi-card writes the scaling twin's artifacts")
         ap.add_argument("--time-limit", type=float, default=600.0)
         ap.add_argument("--profile", action="store_true")
         ap.add_argument("--logfile", default=None)
@@ -4593,6 +5019,8 @@ def main() -> int:
             return row_paths_alone()
         if args.label_paths:
             return label_paths_alone()
+        if args.multi_card:
+            return multi_card(args.scaling_out)
         return theta_solve(args.theta_solve, args.time_limit, args.profile,
                            args.logfile, args.dtype)
     card = card_line()
@@ -4974,6 +5402,9 @@ def main() -> int:
     del mc_prob
     print(f"[time] phase 16 (row-sharded mode) "
           f"{time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- phase 18: the scaling twin at world size 1 -------------------- #
+    check_scaling_one()
 
     # ---- phase 17: the label pipeline ----------------------------------- #
     label_counts = run_label_paths(K, dev, mc_data, mb_data)

@@ -38,7 +38,7 @@ from ..solver.driver import Solver
 from ..testing import random_maxcut_problem
 from .batch import BatchedMaxCutProblem, batched_alm_steps
 from .launch import spawn
-from .mesh import make_mesh
+from .mesh import collective_ms, make_mesh
 
 
 def _batch_axis(world_size: int) -> int:
@@ -48,15 +48,20 @@ def _batch_axis(world_size: int) -> int:
     return 1
 
 
-def sharded_solve(prob, params: SolverParams) -> dict:
-    """On one rank, on its card: the solve of ``prob`` with every cone
-    constraint-sharded over the whole world, the launch counters set to 0
-    just before and read just after.  Returns the result's numbers as plain
-    Python values."""
-    mesh = make_mesh()
+def sharded_solve(prob, params: SolverParams,
+                  device: Optional[str] = None) -> dict:
+    """On one rank, on its card (or ``device``): the solve of ``prob`` with
+    every cone constraint-sharded over the whole world, the launch counters
+    set to 0 just before and read just after.  Returns the result's numbers
+    as plain Python values, the operators' all-reduces (calls, bytes), the
+    stop decisions' (``Mesh.agree``) and the mean time of one all-reduce of
+    the operators' mean payload, measured after the solve."""
+    mesh = make_mesh(device=device)
     solver = Solver(prob, params, mesh=mesh)
     K.reset_counts()
     res = solver.solve()
+    calls = sum(c.allreduce_calls for c in solver.cones)
+    nbytes = sum(c.allreduce_bytes for c in solver.cones)
     return {
         "rank": mesh.rank, "mesh": dict(mesh.shape),
         "device": str(mesh.device), "status": res.status.value,
@@ -67,8 +72,11 @@ def sharded_solve(prob, params: SolverParams) -> dict:
         "admm_iters": res.admm_iters, "cg_iters": res.cg_iters,
         "final_ranks": res.final_ranks, "host_syncs": res.host_syncs,
         "solve_time": res.solve_time,
-        "allreduce_calls": sum(c.allreduce_calls for c in solver.cones),
-        "allreduce_bytes": sum(c.allreduce_bytes for c in solver.cones),
+        "allreduce_calls": calls, "allreduce_bytes": nbytes,
+        "agree_calls": mesh.agree_calls,
+        "ms_per_allreduce": (collective_ms(mesh.group("constr"),
+                                           nbytes // calls, mesh.device)
+                             if calls else None),
         "counts": K.counts(), "sharded": [c.sharded for c in solver.cones]}
 
 
@@ -99,26 +107,33 @@ def row_solve(prob, params: SolverParams, device: Optional[str] = None,
         "solve_time": res.solve_time, "stage_times": res.stage_times,
         "collectives": solver.red.calls,
         "collective_bytes": solver.red.bytes,
+        "agree_calls": mesh.agree_calls,
         "rows": [ops.n_local for ops in solver.cones],
         "partitions": [p.describe() for p in solver.row_parts],
         "kernels": K.counts()}
     if mesh.device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
+    out["ms_per_collective"] = (
+        collective_ms(mesh.group("row"), solver.red.bytes // solver.red.calls,
+                      mesh.device) if solver.red.calls else None)
     if factors:
         out.update(U=res.U, V=res.V, dual=res.dual, obj_scale=res.obj_scale)
     return out
 
 
 def batched_steps(prob: BatchedMaxCutProblem, R, dual, rho: float,
-                  num_steps: int, batch: int) -> dict:
-    """On one rank, on its card: ``batched_alm_steps`` over a mesh of the
-    world with ``batch`` on the batch axis, the launch counters set to 0
-    just before and read just after, timed to a synchronize."""
-    mesh = make_mesh(batch=batch)
+                  num_steps: int, batch: int,
+                  device: Optional[str] = None) -> dict:
+    """On one rank, on its card (or ``device``): ``batched_alm_steps`` over
+    a mesh of the world with ``batch`` on the batch axis, the launch
+    counters set to 0 just before and read just after, timed to a
+    synchronize."""
+    mesh = make_mesh(batch=batch, device=device)
     K.reset_counts()
     t = time.perf_counter()
     out = batched_alm_steps(mesh, prob, R, dual, rho, num_steps)
-    torch.cuda.synchronize()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - t
     return {"rank": mesh.rank, "mesh": dict(mesh.shape),
             "device": str(mesh.device), "wall": wall, "counts": K.counts(),

@@ -30,8 +30,9 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
     os.environ["LOCAL_RANK"] = str(rank)
     card = None
     if backend == "nccl":
-        # one rank per card: bind it, so NCCL need not guess
-        card = torch.device("cuda", rank % torch.cuda.device_count())
+        # one rank per card (spawn checked that there are enough): bind it,
+        # so NCCL need not guess
+        card = torch.device("cuda", rank)
         torch.cuda.set_device(card)
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world_size,
@@ -49,6 +50,17 @@ def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
         pickle.dump(result, f)
 
 
+def check_nccl_world(world_size: int) -> None:
+    """Refuse an NCCL world of more ranks than this host has cards: NCCL
+    takes one card a rank, and two ranks bound to one card fail later with
+    an opaque duplicate-GPU error."""
+    cards = torch.cuda.device_count()
+    if world_size > cards:
+        raise ValueError(f"{world_size} NCCL ranks need {world_size} cards, "
+                         f"this host has {cards}: NCCL runs one rank a card "
+                         f"(gloo can share one)")
+
+
 def spawn(fn: Callable, world_size: int, args: Sequence = (),
           backend: str = "gloo", timeout: float = TIMEOUT_S) -> List:
     """Run ``fn(*args)`` on ``world_size`` new processes joined in one
@@ -56,7 +68,11 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
     tensors through the host, or ``"nccl"``) and return the list of their
     results, by rank.  ``fn`` and its results must pickle; each rank runs
     one torch thread (the ranks share the host's cores).  A collective
-    that waits ``timeout`` seconds fails its rank."""
+    that waits ``timeout`` seconds fails its rank.  NCCL rank r runs on
+    ``cuda:r``; an NCCL world larger than the card count is refused
+    (:func:`check_nccl_world`) before any rank starts."""
+    if backend == "nccl":
+        check_nccl_world(world_size)
     with tempfile.TemporaryDirectory() as tmp:
         mp.start_processes(
             _rank_main, args=(fn, world_size, backend,

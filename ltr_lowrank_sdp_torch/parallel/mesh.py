@@ -24,10 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from .launch import check_nccl_world
 
 
 @dataclasses.dataclass
@@ -41,6 +44,7 @@ class Mesh:
     coords: Tuple[int, int]
     device: torch.device
     groups: Dict[str, object]
+    agree_calls: int = 0        # the all-reduces (and host reads) of agree
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``."""
@@ -59,6 +63,7 @@ class Mesh:
         t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32,
                          device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.groups[axis])
+        self.agree_calls += 1
         return tuple(bool(v) for v in t.tolist())
 
 
@@ -69,10 +74,11 @@ def make_mesh(batch: Optional[int] = None, axis_names=("batch", "constr"),
     Every rank calls this with the same arguments (the groups are created
     collectively).  ``batch`` fixes the batch-axis size (it must divide the
     world size); by default every rank is on the constraint axis.  The
-    device is ``cuda:<local rank % device count>``, made the current one,
-    unless ``device`` names another (``"cpu"`` for the plain versions); it
-    never drops to the CPU on its own.  A world of one process is a 1 x 1
-    mesh."""
+    device is ``cuda:<local rank>`` over NCCL (a world larger than the card
+    count is refused) and ``cuda:<local rank % device count>`` over gloo
+    (ranks may share a card), made the current one, unless ``device`` names
+    another (``"cpu"`` for the plain versions); it never drops to the CPU on
+    its own.  A world of one process is a 1 x 1 mesh."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized default process "
                            "group (torch.distributed.init_process_group)")
@@ -99,7 +105,11 @@ def make_mesh(batch: Optional[int] = None, axis_names=("batch", "constr"),
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to run the mesh on the CPU")
         local = int(os.environ.get("LOCAL_RANK", rank))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
+        if dist.get_backend() == "nccl":
+            check_nccl_world(n)
+        else:
+            local %= torch.cuda.device_count()
+        dev = torch.device("cuda", local)
     else:
         dev = torch.device(device)
     if dev.type == "cuda":
@@ -111,3 +121,34 @@ def make_mesh(batch: Optional[int] = None, axis_names=("batch", "constr"),
     return Mesh(shape={axis_names[0]: batch, axis_names[1]: c},
                 axis_names=tuple(axis_names), rank=rank, coords=(i, j),
                 device=dev, groups=groups)
+
+
+def collective_ms(group, nbytes: int, device: torch.device,
+                  iters: int = 50) -> float:
+    """Mean milliseconds of one ``all_reduce`` of ``nbytes`` (float64) over
+    ``group``, every rank of which calls this together: after a warm-up and
+    a barrier, CUDA events around ``iters`` calls over NCCL, the host clock
+    to a synchronize over gloo (which reduces through the host)."""
+    buf = torch.zeros(max(1, int(nbytes) // 8), dtype=torch.float64,
+                      device=device)
+    for _ in range(3):
+        dist.all_reduce(buf, group=group)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    dist.barrier(group=group)
+    if not (cuda and dist.get_backend(group) == "nccl"):
+        t = time.perf_counter()
+        for _ in range(iters):
+            dist.all_reduce(buf, group=group)
+        if cuda:
+            torch.cuda.synchronize(device)
+        return (time.perf_counter() - t) / iters * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        dist.all_reduce(buf, group=group)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

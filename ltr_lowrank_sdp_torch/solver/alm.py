@@ -205,8 +205,11 @@ class ALMPhase:
         work = 1.0
         for ops, (n, r) in zip(cones, self.shapes):
             work += 3.0 * ops.constr_flops(r) + ops.apply_flops(r)
-        inner_budget = int(min(max(DISPATCH_FLOP_BUDGET / work, 64), 200_000))
-        self.inner_pass_cap = int(min(800, inner_budget))
+        # the JAX dispatch's inner-iteration budget (its yields change no
+        # iterate; the scaling report counts dispatches by it)
+        self.inner_budget = int(min(max(DISPATCH_FLOP_BUDGET / work, 64),
+                                    200_000))
+        self.inner_pass_cap = int(min(800, self.inner_budget))
         # float32-only phase-1 over-tightness guard (see _inner_pass)
         self._p1_guard = b.dtype == torch.float32
 

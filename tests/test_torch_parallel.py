@@ -23,6 +23,15 @@ per rank), and every rank runs every case and returns its arrays.
 * A rank that owns nothing: world size 3 on a 2-constraint cone.
 * ``mesh_axis="row"`` on a mesh without a ``row`` axis raises (the row
   mode itself: ``tests/test_torch_row_shard.py``).
+* World size 4 (what ``chip_smoke.py --multi-card`` runs over NCCL as
+  ``[constr-nccl4]``): on a cone of phase 5's matrix-completion family each
+  sharded operator gives world size 1's bits on every rank, and
+  ``constr_vals`` / ``apply_a`` the unsharded operators' bits; phase 4's
+  family (a Delaunay MaxCut with phase 4's flags) solved sharded gives the
+  unsharded solve's status and counts, pobj within 1e-9, world size 1's
+  numbers exactly, every rank rank 0's.
+* An NCCL world larger than the card count is refused by ``spawn`` and
+  ``make_mesh`` with the counts, before any rank starts or binds a card.
 """
 
 import jax
@@ -30,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ltr_lowrank_sdp_tpu.config import SolverParams as JaxSolverParams
 from ltr_lowrank_sdp_tpu.ops.coneops import ConeOps as JaxConeOps
@@ -44,13 +54,17 @@ from ltr_lowrank_sdp_tpu.testing import (
 from ltr_lowrank_sdp_tpu.testing import (
     random_multiblock_problem as jax_random_multiblock_problem)
 from ltr_lowrank_sdp_torch.config import SolverParams, SolverStatus
+from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
 from ltr_lowrank_sdp_torch.ops.coneops import ConeOps
+from ltr_lowrank_sdp_torch.parallel import dryrun
 from ltr_lowrank_sdp_torch.parallel.launch import spawn
 from ltr_lowrank_sdp_torch.parallel.mesh import Mesh, make_mesh
 from ltr_lowrank_sdp_torch.parallel.meshops import (MeshConeOps,
                                                     _partition_by_id)
 from ltr_lowrank_sdp_torch.solver.driver import Solver
-from ltr_lowrank_sdp_torch.testing import (random_maxcut_problem,
+from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
+                                           matcomp_problem,
+                                           random_maxcut_problem,
                                            random_multiblock_problem,
                                            random_sparse_cone)
 from tests.test_coneops import random_cone
@@ -311,3 +325,100 @@ def test_row_mode_and_a_foreign_device_raise():
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# world size 4
+
+
+def _world4_cone():
+    """A sparse cone of phase 5's family (matrix completion, chip_smoke's
+    ``MC_ARGS`` at the tests' size) and seeded inputs of rank R."""
+    prob = matcomp_problem(60, 60, 1, 1.0, seed=0)
+    cone = prob.cones[0]
+    assert cone.kind_a == "sparse"
+    rng = np.random.default_rng(4)
+    return cone, {k: rng.normal(size=s) for k, s in (
+        ("U", (cone.n, R)), ("V", (cone.n, R)), ("w", (prob.m,)),
+        ("Y", (cone.n, R)))}
+
+
+def _world4_solve():
+    """Phase 4's family and flags (``--phase1Tol 1e+1 --heuristicFactor
+    100``) at the tests' size."""
+    return (maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
+        1024, seed=10)), SolverParams(phase1_tol=10.0, heuristic_factor=100.0))
+
+
+def _world4_rank():
+    mesh = make_mesh(device="cpu")
+    cone, x = _world4_cone()
+    mops = MeshConeOps(cone, ConeOps(cone, "cpu"), mesh)
+    assert mops.sharded
+    ops = {name: [a.numpy() for a in _apply(mops, name, x, torch.tensor)]
+           for name in OPS}
+    solve = dryrun.sharded_solve(*_world4_solve(), device="cpu")
+    return {"ops": ops, "solve": {k: solve[k] for k in (
+        "status", "pobj", "dobj", "pinf_l1", "gap", "alm_outer_iters",
+        "alm_inner_iters", "admm_iters", "cg_iters", "allreduce_calls",
+        "sharded")}}
+
+
+@pytest.fixture(scope="module")
+def world4():
+    return {ws: spawn(_world4_rank, ws) for ws in (1, 4)}
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_world4_operators_are_exact(world4, name):
+    cone, x = _world4_cone()
+    inner = ConeOps(cone, "cpu")
+    want = [a.numpy() for a in _apply(inner, name, x, torch.tensor)]
+    for rank_out in world4[4]:
+        for got, ref, full in zip(rank_out["ops"][name],
+                                  world4[1][0]["ops"][name], want):
+            np.testing.assert_array_equal(got, ref, err_msg=name)
+            if name in ("constr_vals", "apply_a"):
+                np.testing.assert_array_equal(got, full, err_msg=name)
+            else:
+                np.testing.assert_allclose(got, full, rtol=1e-13,
+                                           atol=1e-13, err_msg=name)
+
+
+def test_world4_solve_takes_the_unsharded_path(world4):
+    prob, params = _world4_solve()
+    res = Solver(prob, params, device="cpu").solve()
+    got = world4[4][0]["solve"]
+    assert got["status"] == res.status.value == "primal_dual_optimal"
+    assert (got["alm_outer_iters"], got["alm_inner_iters"],
+            got["admm_iters"], got["cg_iters"]) == (
+        res.alm_outer_iters, res.alm_inner_iters, res.admm_iters,
+        res.cg_iters)
+    assert got["pobj"] == pytest.approx(res.pobj, rel=1e-9, abs=1e-9)
+    assert got["sharded"] == [True] and got["allreduce_calls"] > 0
+    assert got == world4[1][0]["solve"]
+    for rank_out in world4[4]:
+        assert rank_out["solve"] == got
+
+
+def test_spawn_refuses_more_nccl_ranks_than_cards(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError,
+                       match="4 NCCL ranks need 4 cards, this host has 2"):
+        spawn(_world4_rank, 4, backend="nccl")
+
+
+def test_make_mesh_refuses_more_nccl_ranks_than_cards(tmp_path,
+                                                      monkeypatch):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+        with pytest.raises(ValueError,
+                           match="1 NCCL ranks need 1 cards, this host has "
+                                 "0"):
+            make_mesh()
+    finally:
+        dist.destroy_process_group()

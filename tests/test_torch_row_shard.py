@@ -30,6 +30,17 @@ Each world size (1, 2, 3) is started once for the module
   SDP summed in another order; 1.8e-6 in pobj and 2.4e-6 in the gap over
   relabelings 0-3, so the 1e-8 / 1e-9 of the constraint-sharded test,
   whose sums keep the unsharded order, cannot hold for any row split).
+* World size 4 (what ``chip_smoke.py --multi-card`` runs over NCCL as
+  ``[dn20-row4]``) on a Delaunay MaxCut of phase 4's family and flags at the
+  tests' size: RCM blocks of 256 rows with their halos, and the solve with
+  the unsharded solve's status and counts, pobj within 1e-9 relative,
+  pinf and gap within 1e-10, every rank rank 0's.  Each world size adds its
+  partials in its own partition, so its bits may part from world size 1's;
+  at these sizes (and on phase 4's n = 2^14 file at world sizes 2 and 4)
+  the counts do not.  ``python tests/test_torch_row_shard.py K W ...``
+  prints the solve of the Delaunay MaxCut of 2^K points (seed K, phase 4's
+  flags) unsharded and row-sharded over W gloo ranks on the CPU, one line
+  each: at K = 16 the counts part at W = 2 and 4 (minutes a line).
 * The dry run's axis 1b.
 * ``-m cuda`` (no JAX: ``python -m pytest --noconftest
   tests/test_torch_row_shard.py -m cuda``): the row-sharded solve at world
@@ -44,6 +55,7 @@ import pytest
 import torch
 
 from ltr_lowrank_sdp_torch.config import SolverParams
+from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
 from ltr_lowrank_sdp_torch.ops import kernels as K
 from ltr_lowrank_sdp_torch.ops.coneops import build_cone_ops_internal
 from ltr_lowrank_sdp_torch.parallel import dryrun
@@ -54,7 +66,8 @@ from ltr_lowrank_sdp_torch.parallel.rowshard import (RowConeOps,
                                                      ShardLayout,
                                                      _sym_pattern)
 from ltr_lowrank_sdp_torch.solver.driver import Solver
-from ltr_lowrank_sdp_torch.testing import (random_maxcut_problem,
+from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
+                                           random_maxcut_problem,
                                            random_multiblock_problem,
                                            random_sparse_cone)
 
@@ -418,6 +431,42 @@ def test_row_solve_of_general_cones(port_side, unsharded):
     assert got["collectives"] > 0
 
 
+def _delaunay():
+    """Phase 4's family and flags (``--phase1Tol 1e+1 --heuristicFactor
+    100``) at the tests' size."""
+    return (maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
+        1024, seed=10)), SolverParams(phase1_tol=10.0, heuristic_factor=100.0))
+
+
+def test_partition_of_a_delaunay_maxcut_at_world_4():
+    prob, _ = _delaunay()
+    inner = build_cone_ops_internal(prob, "cpu")[0][0]
+    part = RowPartition.for_cone(prob.cones[0], inner, 4)
+    assert part.sizes == [256] * 4
+    assert all(h.size > 0 for h in part.halo)
+    order = inner.c_csr.order.numpy()
+    for s, own in enumerate(part.owned):
+        np.testing.assert_array_equal(own, np.sort(order[256 * s:
+                                                         256 * (s + 1)]))
+
+
+def test_row_solve_at_world_4():
+    prob, params = _delaunay()
+    res0 = Solver(prob, params, device="cpu").solve()
+    ranks = spawn(dryrun.row_solve, 4, (prob, params, "cpu"))
+    got = ranks[0]
+    assert got["status"] == res0.status.value == "primal_dual_optimal"
+    assert got["counts"] == _counts(res0)
+    np.testing.assert_allclose(got["pobj"], res0.pobj, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got["pinf_l1"], res0.pinf_l1, atol=1e-10)
+    np.testing.assert_allclose(got["gap"], res0.gap, atol=1e-10)
+    assert got["rows"] == [256] and got["collectives"] > 0
+    for r in ranks[1:]:
+        for f in ("status", "pobj", "dobj", "pinf_l1", "gap", "dinf_l1",
+                  "counts", "final_ranks", "collectives"):
+            assert r[f] == got[f], f
+
+
 def test_dryrun_runs_axis_1b():
     line = dryrun.dryrun(3, device="cpu")
     assert ("row-sharded solve (n = 48; rank 0: 16 owned, 0 halo, 0 "
@@ -444,3 +493,39 @@ def test_row_solve_over_nccl_on_the_card():
     assert got["pobj"] == res0.pobj and got["gap"] == res0.gap
     assert got["kernels"]["spmm_sym_csr"][0] > 0
     assert got["kernels"]["spmm_sym_csr"][1] == 0
+
+
+def _parting(k: int, worlds) -> None:
+    """One line a solve of the Delaunay MaxCut of 2^k points: unsharded,
+    then row-sharded over each world size of ``worlds`` (gloo, CPU)."""
+    import time
+
+    torch.set_num_threads(1)
+    prob = maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
+        2 ** k, seed=k))
+    params = SolverParams(phase1_tol=10.0, heuristic_factor=100.0)
+    t = time.perf_counter()
+    res = Solver(prob, params, device="cpu").solve()
+    print(f"n=2^{k} unsharded: {res.status.value} {_counts(res)} pobj "
+          f"{res.pobj!r} ({time.perf_counter() - t:.1f} s)", flush=True)
+    for ws in worlds:
+        t = time.perf_counter()
+        ranks = spawn(dryrun.row_solve, ws, (prob, params, "cpu"))
+        o = ranks[0]
+        same = all(r["pobj"] == o["pobj"] and r["counts"] == o["counts"]
+                   for r in ranks)
+        diff = abs(o["pobj"] - res.pobj)
+        bound = (o["gap"] * (1 + abs(o["pobj"]) + abs(o["dobj"]))
+                 + res.gap * (1 + abs(res.pobj) + abs(res.dobj)))
+        print(f"n=2^{k} world size {ws}: {o['status']} {o['counts']} pobj "
+              f"{o['pobj']!r} gap {o['gap']:.3e}, {diff / abs(res.pobj):.2e} "
+              f"from the unsharded (gap {res.gap:.3e}); |difference| "
+              f"{diff:.6g}, the certified gaps' bound {bound:.6g}; every "
+              f"rank rank 0's: {same} ({time.perf_counter() - t:.1f} s)",
+              flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    _parting(int(sys.argv[1]), [int(w) for w in sys.argv[2:]])
