@@ -350,17 +350,17 @@ Phase 16 or 17 alone, after the build (phase 16 after phase 4's solve):
 
 The sharded modes over NCCL on four cards, one rank a card (with fewer it
 exits 1 with the count): phases 4-6's files constraint-sharded at world
-sizes 2 and 4 (``[constr-nccl2/4]``: the unsharded counts and pobj within
-1e-9, every rank equal, their kernels launched), phase 4's file and the
-n = 2^20 Delaunay MaxCut row-sharded (``[mc-row-nccl2/4]``,
-``[dn20-row1/2/4]``, each world size above 1 again over gloo with the same
-bits; a world size whose counts part from world size 1's is held to the
-DIMACS limits on its own), 16 batched instances over four ranks
-(``[batch4]``), the dry run on a 2 x 2 mesh (``[dryrun4]``) and the
-scaling twin at 1, 2, 4 ranks on both axes (``[scaling]``, its artifacts
-written to ``--scaling-out``):
+sizes 2 and 4 (``constr-nccl``: the unsharded counts and pobj within 1e-9,
+every rank equal, their kernels launched), the n = 2^20 Delaunay MaxCut
+row-sharded (``row-nccl``: ``[dn20-row1/2/4]``; a world size whose counts
+part from world size 1's is held to the DIMACS limits on its own and its
+certified bracket of the optimum must overlap world size 1's), 16 batched
+instances over four ranks (``batch4``), the dry run on a 2 x 2 mesh
+(``dryrun4``) and the scaling twin at 1, 2, 4 ranks on both axes
+(``scaling``, its artifacts written to ``--scaling-out``); all of them, or
+the sub-phases named:
 
-    python3 chip_smoke.py --multi-card [--scaling-out DIR]
+    python3 chip_smoke.py --multi-card [SUBPHASE ...] [--scaling-out DIR]
 
 One diagnosis: the float32 training step of phase 12 at one GNN width with
 K9 and K11 each swapped for its plain version in float32 or float64, each
@@ -547,14 +547,15 @@ SHARD_REPLACES = {"coo_contract_segsum":
 BATCH_B, BATCH_RANK, BATCH_STEPS, BATCH_RHO = 8, 20, 25, 1.0
 BATCH_TOL = 1e-10
 # the multi-card mode (--multi-card, MULTI_CARDS cards, one NCCL rank a
-# card): phases 4-6's files constraint-sharded ([constr-ncclN]), phase 4's
-# file and the n = 2^20 Delaunay MaxCut row-sharded ([mc-row-ncclN],
-# [dn20-rowN]) at each world size of MULTI_WORLDS; BATCH4_B instances over
+# card; its sub-phases MULTI_PHASES): phases 4-6's files constraint-sharded
+# ([constr-ncclN]) and the n = 2^20 Delaunay MaxCut row-sharded
+# ([dn20-rowN]) at each world size of MULTI_WORLDS; BATCH4_B instances over
 # MULTI_CARDS ranks ([batch4]); the dry run on a 2 x 2 mesh ([dryrun4]); the
 # scaling twin at SCALING_WORLDS on both axes ([scaling]); its world-size-1
 # rows in the default run ([scaling-1])
 MULTI_CARDS = 4
 MULTI_WORLDS = (2, 4)
+MULTI_PHASES = ("constr-nccl", "row-nccl", "batch4", "dryrun4", "scaling")
 BATCH4_B = 16
 SCALING_WORLDS = (1, 2, 4)
 # the row-sharded mode (mesh_axis="row"): bench.py:73-78's delaunay_n20_gen
@@ -3895,6 +3896,16 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _ms_per_collective(calls, nbytes, device):
+    """On every rank of a world after its sharded solve: the mean ms of one
+    all-reduce of the solve's mean payload over the world (the solve's
+    axis: its mesh has no other), or None where it issued none."""
+    from ltr_lowrank_sdp_torch.parallel.mesh import collective_ms
+
+    return (collective_ms(None, nbytes // calls, torch.device(device))
+            if calls else None)
+
+
 def _parallel_rank(solves, batch, device=None):
     """One rank of phase 14 and of ``[constr-nccl*]`` / ``[batch4]``: the
     sharded solve of each (problem, params) of ``solves``, then, with
@@ -3906,7 +3917,13 @@ def _parallel_rank(solves, batch, device=None):
     from ltr_lowrank_sdp_torch.parallel.dryrun import (batched_steps,
                                                        sharded_solve)
 
-    out = {"solves": [[sharded_solve(prob, params, device) for _ in range(2)]
+    def solve(prob, params):
+        o = sharded_solve(prob, params, device)
+        o["ms_per_allreduce"] = _ms_per_collective(
+            o["allreduce_calls"], o["allreduce_bytes"], o["device"])
+        return o
+
+    out = {"solves": [[solve(prob, params) for _ in range(2)]
                       for prob, params in solves]}
     if batch is not None:
         out["batch"] = [batched_steps(*batch, dist.get_world_size(),
@@ -4235,7 +4252,10 @@ def _row_rank(prob, params, device=None):
 
     from ltr_lowrank_sdp_torch.parallel.dryrun import row_solve
 
-    return row_solve(prob, params, device, factors=dist.get_rank() == 0)
+    o = row_solve(prob, params, device, factors=dist.get_rank() == 0)
+    o["ms_per_collective"] = _ms_per_collective(
+        o["collectives"], o["collective_bytes"], o["device"])
+    return o
 
 
 def run_dn20(dev, optimal):
@@ -4280,8 +4300,7 @@ def run_dn20(dev, optimal):
     return dn_counts, prob, params, ref, adj
 
 
-def run_dn20_rows(prob, params, ref, worlds, backend="nccl", device=None,
-                  cross=None):
+def run_dn20_rows(prob, params, ref, worlds, backend="nccl", device=None):
     """``[dn20-rowN]`` for each N of ``worlds``: ``prob`` row-sharded over N
     ranks (one card a rank over NCCL), each held to the host float64
     DIMACS limits on rank 0's gathered factors, every rank to rank 0.
@@ -4289,35 +4308,41 @@ def run_dn20_rows(prob, params, ref, worlds, backend="nccl", device=None,
     pobj within ROW_POBJ_RTOL).  A larger world adds its partials in its
     own partition, so its counts may part from ``[dn20-row1]``'s: with the
     same counts its pobj is held within ROW_POBJ_RTOL of world 1's; with
-    other counts it is another certified solution, held to the same DIMACS
-    limits on its own, its distance from world 1's pobj printed beside the
-    two solves' certified gaps, sum of gap (1 + |pobj| + |dobj|) (not a
-    bound: the CPU parts past it at n = 2^17 on 4 ranks, ``PERF.md``
-    section 6).  With ``cross`` (a backend) the same world size runs
-    again over it (``[dn20-rowN-<cross>]``) and must give the same counts
-    and the same pobj, dobj and gap bits: the collective is an exact gather,
-    so the partition alone sets them.  Returns ({tag: rank 0's kernel
-    counts}, {N: rank 0's result without the factors})."""
+    other counts its certified bracket of the optimum
+    (``testing.optimum_bracket``, the solver's own least eigenvalue of the
+    slack) must overlap world 1's, which bounds the two pobj's distance by
+    the brackets' widths with each pobj in its bracket.  Returns ({tag: rank
+    0's kernel counts}, {N: rank 0's result without the factors})."""
     from ltr_lowrank_sdp_torch.parallel.launch import spawn
     from ltr_lowrank_sdp_torch.solver.common import host_metrics_f64
+    from ltr_lowrank_sdp_torch.testing import optimum_bracket
 
-    def solve(ws, tag, over):
+    def solve(ws, tag):
         t = time.perf_counter()
-        ranks = spawn(_row_rank, ws, (prob, params, device), backend=over)
+        ranks = spawn(_row_rank, ws, (prob, params, device), backend=backend)
         o = ranks[0]
-        print(f"[{tag}] {ws} rank(s), {over}: start to join "
+        print(f"[{tag}] {ws} rank(s), {backend}: start to join "
               f"{time.perf_counter() - t:.1f} s", flush=True)
         base = results.get(1)
-        _row_line(tag, over, o, f"unsharded {ref[0]}" if base is None
+        _row_line(tag, backend, o, f"unsharded {ref[0]}" if base is None
                   else f"world size 1 {base['counts']}")
-        Ravg = tuple(0.5 * (u + v) for u, v in zip(o.pop("U"), o.pop("V")))
+        U, V, dual = o.pop("U"), o.pop("V"), o.pop("dual")
+        Ravg = tuple(0.5 * (u + v) for u, v in zip(U, V))
         pobj, dobj, pinf, _, gap = host_metrics_f64(
-            prob, Ravg, Ravg, None, None, o.pop("dual"), o["obj_scale"])
+            prob, Ravg, Ravg, None, None, dual, o["obj_scale"])
         del Ravg
+        # the solver's Lanczos value of the slack's least eigenvalue
+        o["lam_min"] = -o["dinf_l1"] * (1.0 + prob.c_nrm1)
+        o["bracket"] = optimum_bracket(prob, U, V, dual, o["obj_scale"],
+                                       o["lam_min"])
+        del U, V, dual
         ms = o["ms_per_collective"]
         print(f"[{tag}] host f64: pobj {pobj:.10e} dobj {dobj:.10e} pinf_l1 "
               f"{pinf:.3e} gap {gap:.3e}; solver dinf_l1 "
-              f"{o['dinf_l1']:.3e}; per rank: peak device memory "
+              f"{o['dinf_l1']:.3e} (least eigenvalue of the slack "
+              f"{o['lam_min']:.6e}); the optimum certified in "
+              f"[{o['bracket'][0]:.6f}, {o['bracket'][1]:.6f}]; per rank: "
+              f"peak device memory "
               f"{[round(r.get('peak_bytes', 0) / 2 ** 30, 2) for r in ranks]}"
               f" GiB, rows {[r['rows'][0] for r in ranks]}, collectives "
               f"{[r['collectives'] for r in ranks]}, "
@@ -4341,35 +4366,82 @@ def run_dn20_rows(prob, params, ref, worlds, backend="nccl", device=None,
     counts, results = {}, {}
     for ws in worlds:
         tag = f"dn20-row{ws}"
-        o = solve(ws, tag, backend)
+        o = solve(ws, tag)
         base = results.get(1)
         if base is None:
             _require_row(tag, o, [o], ref[1], ref[0], ref[2])
+        elif tuple(o["counts"]) == tuple(base["counts"]):
+            diff = abs(o["pobj"] - base["pobj"])
+            print(f"[{tag}] against [dn20-row1]: counts {o['counts']} equal"
+                  f"; pobj {diff / abs(base['pobj']):.2e} relative (tol "
+                  f"{ROW_POBJ_RTOL:g})", flush=True)
+            require(diff <= ROW_POBJ_RTOL * abs(base["pobj"]),
+                    f"{tag}: pobj {diff:.6g} from [dn20-row1]")
         else:
             diff = abs(o["pobj"] - base["pobj"])
-            same = tuple(o["counts"]) == tuple(base["counts"])
-            gaps = sum(x["gap"] * (1.0 + abs(x["pobj"]) + abs(x["dobj"]))
-                       for x in (o, base))
-            print(f"[{tag}] against [dn20-row1]: counts {o['counts']} "
-                  f"{'equal to' if same else 'PART from'} world 1's "
-                  f"{base['counts']}; |pobj - pobj_1| {diff:.6g} "
-                  f"({diff / abs(base['pobj']):.2e} relative; tol "
-                  f"{ROW_POBJ_RTOL:g} relative with the same counts), the "
-                  f"certified gaps {gaps:.6g}", flush=True)
-            if same:
-                require(diff <= ROW_POBJ_RTOL * abs(base["pobj"]),
-                        f"{tag}: pobj {diff:.6g} from [dn20-row1]")
-        if cross is not None and ws > 1:
-            c = solve(ws, f"{tag}-{cross}", cross)
-            same = all(c[f] == o[f] for f in ("counts", "pobj", "dobj",
-                                               "gap"))
-            print(f"[{tag}-{cross}] against {backend}: counts {c['counts']}, "
-                  f"pobj {c['pobj']!r} ({backend} {o['pobj']!r}): "
-                  f"{'the same bits' if same else 'PART'}", flush=True)
-            require(same, f"{tag}: {cross} and {backend} part")
+            (lo, hi), (lo1, hi1) = o["bracket"], base["bracket"]
+            overlap = max(lo, lo1) <= min(hi, hi1)
+            # each pobj and the optimum lie in its bracket's hull
+            bound = sum(max(x["bracket"][1], x["pobj"])
+                        - min(x["bracket"][0], x["pobj"]) for x in (o, base))
+            gaps = sum(abs(x["pobj"] - x["dobj"]) for x in (o, base))
+            print(f"[{tag}] against [dn20-row1]: counts {o['counts']} PART "
+                  f"from {base['counts']}; |pobj - pobj_1| {diff:.6g} "
+                  f"({diff / abs(base['pobj']):.2e} relative; the two "
+                  f"|pobj - dobj| {gaps:.6g}); the certified brackets "
+                  f"[{lo:.6f}, {hi:.6f}] and [{lo1:.6f}, {hi1:.6f}] "
+                  f"{'overlap' if overlap else 'DO NOT overlap'}, which "
+                  f"bounds |pobj - pobj_1| by {bound:.6g}", flush=True)
+            require(overlap, f"{tag}: its certified bracket misses "
+                             f"[dn20-row1]'s: the two solves share no "
+                             f"optimum")
         counts[tag] = o["kernels"]
         results[ws] = o
     return counts, results
+
+
+def run_dn20_relabeled(adj, params, base, dev):
+    """``[dn20-relabeled]``: the unsharded solve, on ``dev``, of the n =
+    2^20 Delaunay MaxCut with its vertices relabeled by one seeded
+    permutation: the same SDP summed in another order, the control of a
+    row-sharded world size whose counts part.  Held as such a world size is
+    against ``base`` (``[dn20-row1]``'s result): the host float64 DIMACS
+    limits and its certified bracket overlapping ``base``'s."""
+    import numpy as np
+
+    from ltr_lowrank_sdp_torch.io.maxcut import maxcut_problem_from_adjacency
+    from ltr_lowrank_sdp_torch.solver.common import host_metrics_f64
+    from ltr_lowrank_sdp_torch.solver.driver import Solver
+    from ltr_lowrank_sdp_torch.testing import optimum_bracket
+
+    perm = np.random.default_rng(0).permutation(adj.shape[0])
+    prob = maxcut_problem_from_adjacency(adj[perm][:, perm].tocsc())
+    res = Solver(prob, params, device=dev).solve()
+    counts = (res.alm_outer_iters, res.alm_inner_iters, res.admm_iters,
+              res.cg_iters)
+    R = tuple(0.5 * (u + v) for u, v in zip(res.U, res.V))
+    pobj, dobj, pinf, _, gap = host_metrics_f64(
+        prob, R, R, None, None, res.dual, res.obj_scale)
+    lam = -res.dinf_l1 * (1.0 + prob.c_nrm1)
+    lo, hi = optimum_bracket(prob, res.U, res.V, res.dual, res.obj_scale,
+                             lam)
+    lo1, hi1 = base["bracket"]
+    diff = abs(res.pobj - base["pobj"])
+    print(f"[dn20-relabeled] unsharded, vertices permuted (seed 0): "
+          f"{res.status.value} counts {counts} ([dn20-row1] "
+          f"{base['counts']}); solve {res.solve_time:.3f} s; host f64 pobj "
+          f"{pobj:.10e} dobj {dobj:.10e} pinf_l1 {pinf:.3e} gap {gap:.3e}; "
+          f"solver dinf_l1 {res.dinf_l1:.3e}; |pobj - pobj_1| {diff:.6g} "
+          f"({diff / abs(base['pobj']):.2e} relative); the certified bracket "
+          f"[{lo:.6f}, {hi:.6f}] "
+          f"{'overlaps' if max(lo, lo1) <= min(hi, hi1) else 'MISSES'} "
+          f"[dn20-row1]'s", flush=True)
+    require(res.status.value == "primal_dual_optimal"
+            and pinf <= DN20_LIMITS[0] and gap <= DN20_LIMITS[1]
+            and res.dinf_l1 <= DN20_LIMITS[2],
+            "dn20-relabeled: not optimal within the DIMACS limits")
+    require(max(lo, lo1) <= min(hi, hi1),
+            "dn20-relabeled: its certified bracket misses [dn20-row1]'s")
 
 
 def run_row_paths(K, dev, mc_prob, mc_params, mc_res, optimal):
@@ -4748,11 +4820,13 @@ def check_scaling_one() -> None:
     print(f"[time] scaling-1 {time.perf_counter() - t:.1f} s", flush=True)
 
 
-def run_multi_card(dev, backend="nccl", device=None, scaling_out=None):
-    """The multi-card mode's sub-phases on ``dev`` (the parent's card) and
-    ranks over ``backend`` (on ``device``: None, one card a rank).  Each
-    sub-phase prints its ``[time]``; one that fails is reported and the
-    next runs.  Returns the names of the failed ones."""
+def run_multi_card(dev, names=MULTI_PHASES, backend="nccl", device=None,
+                   scaling_out=None):
+    """The multi-card mode's sub-phases ``names`` (of MULTI_PHASES, in
+    order) on ``dev`` (the parent's card) and ranks over ``backend`` (on
+    ``device``: None, one card a rank).  Each sub-phase prints its
+    ``[time]``; one that fails is reported and the next runs.  Returns the
+    names of the failed ones."""
     from ltr_lowrank_sdp_torch import cli
     from ltr_lowrank_sdp_torch.config import SolverStatus
     from ltr_lowrank_sdp_torch.parallel.dryrun import dryrun
@@ -4818,7 +4892,6 @@ def run_multi_card(dev, backend="nccl", device=None, scaling_out=None):
                 # + LP path's blocks), as the JAX package's does
                 solves.append((tag, prob, params, res, kernels,
                                [c.kind_a != "dense" for c in prob.cones]))
-        state["main"] = solves[0]
         cases = [(prob, params) for _, prob, params, *_ in solves]
         for ws in MULTI_WORLDS:
             t = time.perf_counter()
@@ -4830,41 +4903,14 @@ def run_multi_card(dev, backend="nccl", device=None, scaling_out=None):
                                  lambda tag: f"constr-nccl{ws} {tag}")
 
     def rows():
-        # phase 4's file row-sharded at every world size against its
-        # unsharded solve, then the n = 2^20 Delaunay MaxCut at world size
-        # 1, then every world size against world size 1
-        if "main" in state:
-            tag, prob, params, res, _, _ = state.pop("main")
-            ref = (res.alm_outer_iters, res.alm_inner_iters,
-                   res.admm_iters, res.cg_iters)
-            for ws in MULTI_WORLDS:
-                ranks = spawn(_row_rank, ws, (prob, params, device),
-                              backend=backend)
-                o = ranks[0]
-                for k in ("U", "V", "dual"):
-                    o.pop(k)
-                mtag = f"mc-row-nccl{ws}"
-                _row_line(mtag, backend, o, f"unsharded {ref}")
-                rel = abs(o["pobj"] - res.pobj) / abs(res.pobj)
-                same = tuple(o["counts"]) == ref
-                print(f"[{mtag}] pobj against the unsharded solve {rel:.2e} "
-                      f"relative (tol {ROW_POBJ_RTOL:g}); counts "
-                      f"{'equal to' if same else 'PART from'} the unsharded "
-                      f"{ref}", flush=True)
-                require(o["status"] == res.status.value and
-                        rel <= ROW_POBJ_RTOL,
-                        f"{mtag}: status or pobj part from the unsharded "
-                        f"solve")
-                for p in ranks[1:]:
-                    require(all(p[f] == o[f] for f in (
-                        "status", "pobj", "dobj", "gap", "counts")),
-                            f"{mtag}: rank {p['rank']}'s solve parts from "
-                            f"rank 0's")
-                require_counts(mtag, o["kernels"], MAXCUT_KERNELS)
-        _, prob, params, ref, _ = run_dn20(dev, optimal)
+        # the n = 2^20 Delaunay MaxCut at world size 1 against its unsharded
+        # solve, then every world size against world size 1, then the
+        # unsharded solve of the graph relabeled
+        _, prob, params, ref, adj = run_dn20(dev, optimal)
         state["dn20"] = prob
-        run_dn20_rows(prob, params, ref, (1,) + MULTI_WORLDS, backend,
-                      device, cross="gloo")
+        _, results = run_dn20_rows(prob, params, ref, (1,) + MULTI_WORLDS,
+                                   backend, device)
+        run_dn20_relabeled(adj, params, results[1], dev)
 
     def batch4():
         bprob, R0, dual0, _ = batch_problem(BATCH4_B)
@@ -4892,17 +4938,18 @@ def run_multi_card(dev, backend="nccl", device=None, scaling_out=None):
                       or SR.delaunay_problem(DN20_SEED))],
                     scaling_out, device)
 
-    for name, fn in (("constr-nccl", constr), ("row-nccl", rows),
-                     ("batch4", batch4), ("dryrun4", dryrun4),
-                     ("scaling", scaling)):
-        phase(name, fn)
+    subphases = {"constr-nccl": constr, "row-nccl": rows,
+                 "batch4": batch4, "dryrun4": dryrun4, "scaling": scaling}
+    for name in names:
+        phase(name, subphases[name])
     return failed
 
 
-def multi_card(scaling_out) -> int:
+def multi_card(names, scaling_out) -> int:
     """``--multi-card``: the build, then the sharded modes over NCCL at
-    world sizes 2 and 4, one card a rank (:func:`run_multi_card`).  Needs
-    MULTI_CARDS cards: with fewer it exits 1 with the count."""
+    world sizes 2 and 4, one card a rank (:func:`run_multi_card`), all of
+    them or the sub-phases ``names``.  Needs MULTI_CARDS cards: with fewer
+    it exits 1 with the count."""
     from ltr_lowrank_sdp_torch.ops import kernels as K
     from ltr_lowrank_sdp_torch.scripts.scaling_report import (card_lines,
                                                               peer_access)
@@ -4922,7 +4969,7 @@ def multi_card(scaling_out) -> int:
     t = time.perf_counter()
     K.build_kernels()
     print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
-    failed = run_multi_card(dev, scaling_out=scaling_out)
+    failed = run_multi_card(dev, names, scaling_out=scaling_out)
     print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
     if failed:
         print(f"chip_smoke --multi-card: failed: {', '.join(failed)}",
@@ -5000,9 +5047,12 @@ def main() -> int:
                           help="phase 16 alone, after phase 4's solve")
         mode.add_argument("--label-paths", action="store_true",
                           help="phase 17 (the label pipeline) alone")
-        mode.add_argument("--multi-card", action="store_true",
+        mode.add_argument("--multi-card", nargs="*", metavar="SUBPHASE",
+                          choices=MULTI_PHASES,
                           help=f"the sharded modes over NCCL on "
-                               f"{MULTI_CARDS} cards")
+                               f"{MULTI_CARDS} cards: every sub-phase, or "
+                               f"those named (a four-card call costs four "
+                               f"times its seconds)")
         ap.add_argument("--scaling-out", default=os.path.join(
             ROOT, "ltr_lowrank_sdp_torch", "scripts"),
             help="where --multi-card writes the scaling twin's artifacts")
@@ -5019,8 +5069,10 @@ def main() -> int:
             return row_paths_alone()
         if args.label_paths:
             return label_paths_alone()
-        if args.multi_card:
-            return multi_card(args.scaling_out)
+        if args.multi_card is not None:
+            return multi_card(
+                [n for n in MULTI_PHASES if n in args.multi_card]
+                or MULTI_PHASES, args.scaling_out)
         return theta_solve(args.theta_solve, args.time_limit, args.profile,
                            args.logfile, args.dtype)
     card = card_line()

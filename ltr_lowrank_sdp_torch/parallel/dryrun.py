@@ -38,7 +38,7 @@ from ..solver.driver import Solver
 from ..testing import random_maxcut_problem
 from .batch import BatchedMaxCutProblem, batched_alm_steps
 from .launch import spawn
-from .mesh import collective_ms, make_mesh
+from .mesh import make_mesh
 
 
 def _batch_axis(world_size: int) -> int:
@@ -53,15 +53,12 @@ def sharded_solve(prob, params: SolverParams,
     """On one rank, on its card (or ``device``): the solve of ``prob`` with
     every cone constraint-sharded over the whole world, the launch counters
     set to 0 just before and read just after.  Returns the result's numbers
-    as plain Python values, the operators' all-reduces (calls, bytes), the
-    stop decisions' (``Mesh.agree``) and the mean time of one all-reduce of
-    the operators' mean payload, measured after the solve."""
+    as plain Python values, the operators' all-reduces (calls, bytes) and
+    the stop decisions' (``Mesh.agree``)."""
     mesh = make_mesh(device=device)
     solver = Solver(prob, params, mesh=mesh)
     K.reset_counts()
     res = solver.solve()
-    calls = sum(c.allreduce_calls for c in solver.cones)
-    nbytes = sum(c.allreduce_bytes for c in solver.cones)
     return {
         "rank": mesh.rank, "mesh": dict(mesh.shape),
         "device": str(mesh.device), "status": res.status.value,
@@ -72,11 +69,9 @@ def sharded_solve(prob, params: SolverParams,
         "admm_iters": res.admm_iters, "cg_iters": res.cg_iters,
         "final_ranks": res.final_ranks, "host_syncs": res.host_syncs,
         "solve_time": res.solve_time,
-        "allreduce_calls": calls, "allreduce_bytes": nbytes,
+        "allreduce_calls": sum(c.allreduce_calls for c in solver.cones),
+        "allreduce_bytes": sum(c.allreduce_bytes for c in solver.cones),
         "agree_calls": mesh.agree_calls,
-        "ms_per_allreduce": (collective_ms(mesh.group("constr"),
-                                           nbytes // calls, mesh.device)
-                             if calls else None),
         "counts": K.counts(), "sharded": [c.sharded for c in solver.cones]}
 
 
@@ -113,9 +108,6 @@ def row_solve(prob, params: SolverParams, device: Optional[str] = None,
         "kernels": K.counts()}
     if mesh.device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(mesh.device)
-    out["ms_per_collective"] = (
-        collective_ms(mesh.group("row"), solver.red.bytes // solver.red.calls,
-                      mesh.device) if solver.red.calls else None)
     if factors:
         out.update(U=res.U, V=res.V, dual=res.dual, obj_scale=res.obj_scale)
     return out

@@ -256,19 +256,17 @@ def starting_factors(prob: SDPProblem, params: SolverParams):
 
 
 def report(devices: Sequence[int], prob: SDPProblem, params: SolverParams,
-           axis: str = "constr", device: Optional[str] = None,
-           init_factors=None) -> Optional[dict]:
+           axis: str = "constr", device: Optional[str] = None
+           ) -> Optional[dict]:
     """The scaling rows of ``prob`` at each world size of ``devices`` (the
-    artifact's payload), or None when no row was measured.
-    ``init_factors``: per-cone (n, r) starting factors (default: the
-    solve's own draw)."""
+    artifact's payload), each from :func:`starting_factors`, or None when
+    no row was measured."""
     on_cpu = device is not None and torch.device(device).type == "cpu"
     backend = "gloo" if on_cpu else "nccl"
     if not on_cpu:
         check_nccl_world(max(devices))
         K.build_kernels()       # once, before the ranks use them
-    R0 = (starting_factors(prob, params) if init_factors is None
-          else [np.asarray(f, np.float64) for f in init_factors])
+    R0 = starting_factors(prob, params)
     rows = []
 
     def add(ws, every, wall):

@@ -21,8 +21,9 @@ trace constraint, one X_ij = 0 per edge) built as arrays.
 ``captured_kernel_nodes`` counts the device kernels that one call launches
 on the card (the smoke run and the tests marked ``cuda``).  ``same_sdpa``
 compares two readings of a file (either package's ``SDPAData``), array by
-array; ``StubTrial`` answers an Optuna trial's calls from a table (``optuna``
-is not a dependency).
+array; ``optimum_bracket`` is where a MaxCut solve certifies the optimum to
+lie (the smoke run's row-sharded gate); ``StubTrial`` answers an Optuna
+trial's calls from a table (``optuna`` is not a dependency).
 """
 
 from __future__ import annotations
@@ -383,6 +384,37 @@ def dense_objective_matrix(cone: ConeData) -> np.ndarray:
     off = cone.c_rows != cone.c_cols
     np.add.at(C, (cone.c_cols[off], cone.c_rows[off]), cone.c_vals[off])
     return C
+
+
+def optimum_bracket(prob: SDPProblem, U, V, dual, obj_scale: float,
+                    lam_min: float) -> tuple:
+    """(lower, upper): where one solve of ``prob`` certifies the optimum
+    to lie.  ``prob`` has one cone, whose constraints fix its diagonal
+    (MaxCut's diag(X) = 1), and no LP cone.  Upper: the objective of
+    (U + V) / 2 with each row rescaled to meet its constraint exactly, a
+    feasible point.  Lower: weak duality with the slack
+    S = C - A^T(dual / obj_scale) whose least eigenvalue is ``lam_min``:
+    <C, X> >= b.y + min(lam_min, 0) tr X on every feasible X.  The solve's
+    own pobj and dobj are no such bounds: its factors miss the constraints
+    (pinf) and its S is not PSD (dinf).  The solver's Lanczos value,
+    -dinf_l1 (1 + c_nrm1) for such a problem, is a Ritz value, never below
+    the least eigenvalue: the bracket it gives lies inside the exact one."""
+    from .solver.common import host_metrics_f64
+
+    (cone,) = prob.cones
+    if cone.kind_a != "diag" or prob.lp is not None or not np.array_equal(
+            np.sort(cone.diag_idx), np.arange(cone.n)):
+        raise ValueError("optimum_bracket: one cone with one diagonal "
+                         "constraint a row, no LP cone")
+    target = np.zeros(cone.n)
+    target[cone.diag_idx] = (np.asarray(prob.b, np.float64)[cone.diag_cid]
+                             / cone.diag_val)
+    R = 0.5 * (np.asarray(U[0], np.float64) + np.asarray(V[0], np.float64))
+    R *= np.sqrt(target / np.sum(R * R, axis=1))[:, None]
+    upper = host_metrics_f64(prob, [R], [R], None, None, dual, obj_scale)[0]
+    dobj = float(np.asarray(prob.b, np.float64)
+                 @ np.asarray(dual, np.float64)) / float(obj_scale)
+    return dobj + min(float(lam_min), 0.0) * float(target.sum()), upper
 
 
 def captured_kernel_nodes(fn) -> int:

@@ -37,10 +37,19 @@ Each world size (1, 2, 3) is started once for the module
   pinf and gap within 1e-10, every rank rank 0's.  Each world size adds its
   partials in its own partition, so its bits may part from world size 1's;
   at these sizes (and on phase 4's n = 2^14 file at world sizes 2 and 4)
-  the counts do not.  ``python tests/test_torch_row_shard.py K W ...``
+  the counts do not.
+* ``testing.optimum_bracket`` (the gate of a row-sharded world size whose
+  counts part): its upper end is <C, X> of the rescaled factor, computed
+  densely; the solver's Lanczos value is not below the exact least
+  eigenvalue of the slack, so its bracket lies inside the exact one; the
+  exact brackets of the solve and of a relabeled problem's solve overlap.
+* ``python -m tests.test_torch_row_shard K W ...`` (from the repo's root)
   prints the solve of the Delaunay MaxCut of 2^K points (seed K, phase 4's
-  flags) unsharded and row-sharded over W gloo ranks on the CPU, one line
-  each: at K = 16 the counts part at W = 2 and 4 (minutes a line).
+  flags) unsharded, row-sharded over each W gloo ranks, and unsharded on
+  the graph relabeled (one random permutation): counts, pobj, dobj, the
+  slack's least eigenvalue (ARPACK) beside the solver's, each solve's
+  bracket and whether it overlaps the unsharded solve's (minutes a line at
+  K = 16, 17).
 * The dry run's axis 1b.
 * ``-m cuda`` (no JAX: ``python -m pytest --noconftest
   tests/test_torch_row_shard.py -m cuda``): the row-sharded solve at world
@@ -67,6 +76,8 @@ from ltr_lowrank_sdp_torch.parallel.rowshard import (RowConeOps,
                                                      _sym_pattern)
 from ltr_lowrank_sdp_torch.solver.driver import Solver
 from ltr_lowrank_sdp_torch.testing import (delaunay_maxcut_adjacency,
+                                           dense_objective_matrix,
+                                           optimum_bracket,
                                            random_maxcut_problem,
                                            random_multiblock_problem,
                                            random_sparse_cone)
@@ -467,6 +478,63 @@ def test_row_solve_at_world_4():
             assert r[f] == got[f], f
 
 
+def _slack(prob, dual, obj_scale):
+    """S = C - A^T(dual / obj_scale) of a MaxCut problem, scipy CSR."""
+    import scipy.sparse as sp
+
+    cone = prob.cones[0]
+    C = sp.coo_matrix((cone.c_vals, (cone.c_rows, cone.c_cols)),
+                      shape=(cone.n, cone.n)).tocsr()
+    y = np.zeros(cone.n)
+    np.add.at(y, cone.diag_idx, cone.diag_val
+              * np.asarray(dual, np.float64)[cone.diag_cid] / obj_scale)
+    return (C + sp.triu(C, 1).T - sp.diags(y)).tocsr()
+
+
+def _relabeled_graph(adj, seed):
+    """The MaxCut problem of ``adj`` with its vertices permuted."""
+    perm = np.random.default_rng(seed).permutation(adj.shape[0])
+    return maxcut_problem_from_adjacency(adj[perm][:, perm].tocsc())
+
+
+def _bracketed(prob, params):
+    """The unsharded solve of ``prob``, the exact least eigenvalue of its
+    slack and its exact bracket."""
+    res = Solver(prob, params, device="cpu").solve()
+    lam = np.linalg.eigvalsh(_slack(prob, res.dual, res.obj_scale)
+                             .toarray())[0]
+    return res, lam, optimum_bracket(prob, res.U, res.V, res.dual,
+                                     res.obj_scale, lam)
+
+
+def test_optimum_bracket_is_certified():
+    prob, params = _delaunay()
+    res, lam, (lo, hi) = _bracketed(prob, params)
+    assert res.status.value == "primal_dual_optimal"
+    lam_solver = -res.dinf_l1 * (1.0 + prob.c_nrm1)
+    assert lam < 0 and lam <= lam_solver <= 0
+    lo_s, hi_s = optimum_bracket(prob, res.U, res.V, res.dual,
+                                 res.obj_scale, lam_solver)
+    assert hi_s == hi and lo <= lo_s <= hi
+    R = 0.5 * (res.U[0] + res.V[0])
+    X = R @ R.T
+    d = 1.0 / np.sqrt(np.diag(X))
+    X = X * d[:, None] * d[None, :]
+    assert np.sum(dense_objective_matrix(prob.cones[0]) * X) == \
+        pytest.approx(hi, rel=1e-12)
+    assert lo <= hi
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_optimum_brackets_of_a_relabeled_solve_overlap(seed):
+    prob, params = _delaunay()
+    _, _, (lo, hi) = _bracketed(prob, params)
+    adj = delaunay_maxcut_adjacency(1024, seed=10)
+    res, _, (lo_r, hi_r) = _bracketed(_relabeled_graph(adj, seed), params)
+    assert res.status.value == "primal_dual_optimal"
+    assert max(lo, lo_r) <= min(hi, hi_r)
+
+
 def test_dryrun_runs_axis_1b():
     line = dryrun.dryrun(3, device="cpu")
     assert ("row-sharded solve (n = 48; rank 0: 16 owned, 0 halo, 0 "
@@ -497,32 +565,62 @@ def test_row_solve_over_nccl_on_the_card():
 
 def _parting(k: int, worlds) -> None:
     """One line a solve of the Delaunay MaxCut of 2^k points: unsharded,
-    then row-sharded over each world size of ``worlds`` (gloo, CPU)."""
+    row-sharded over each world size of ``worlds`` (gloo, CPU), unsharded
+    on the graph relabeled; each against the unsharded solve."""
     import time
 
+    from scipy.sparse.linalg import eigsh
+
     torch.set_num_threads(1)
-    prob = maxcut_problem_from_adjacency(delaunay_maxcut_adjacency(
-        2 ** k, seed=k))
+    adj = delaunay_maxcut_adjacency(2 ** k, seed=k)
+    prob = maxcut_problem_from_adjacency(adj)
     params = SolverParams(phase1_tol=10.0, heuristic_factor=100.0)
+
+    def report(tag, p, o, ref):
+        lam = eigsh(_slack(p, o["dual"], o["obj_scale"]), k=1, which="SA",
+                    tol=1e-10, ncv=64)[0][0]
+        lam_solver = -o["dinf_l1"] * (1.0 + p.c_nrm1)
+        lo, hi = optimum_bracket(p, o["U"], o["V"], o["dual"],
+                                 o["obj_scale"], lam)
+        lo_s = optimum_bracket(p, o["U"], o["V"], o["dual"], o["obj_scale"],
+                               lam_solver)[0]
+        line = (f"n=2^{k} {tag}: {o['status']} {o['counts']} pobj "
+                f"{o['pobj']!r} dobj {o['dobj']!r} pinf {o['pinf_l1']:.3e} "
+                f"gap {o['gap']:.3e}; least eigenvalue of the slack {lam:.6e}"
+                f" (the solver's {lam_solver:.6e}); bracket [{lo:.6f}, "
+                f"{hi:.6f}] ([{lo_s:.6f}, {hi:.6f}] with the solver's)")
+        if ref is not None:
+            diff = abs(o["pobj"] - ref["pobj"])
+            gaps = sum(abs(x["pobj"] - x["dobj"]) for x in (o, ref))
+            top = min(hi, ref["hi"])
+            line += (f"; |pobj - unsharded| {diff:.6g} "
+                     f"({diff / abs(ref['pobj']):.2e}), the two |pobj - dobj|"
+                     f" {gaps:.6g}, brackets overlap "
+                     f"{max(lo, ref['lo']) <= top} (with the solver's "
+                     f"{max(lo_s, ref['lo_s']) <= top})")
+        print(f"{line} ({time.perf_counter() - t:.1f} s)", flush=True)
+        return {"pobj": o["pobj"], "dobj": o["dobj"], "lo": lo, "hi": hi,
+                "lo_s": lo_s}
+
+    def unsharded(p):
+        res = Solver(p, params, device="cpu").solve()
+        return {"status": res.status.value, "counts": _counts(res),
+                "pobj": res.pobj, "dobj": res.dobj, "pinf_l1": res.pinf_l1,
+                "gap": res.gap, "dinf_l1": res.dinf_l1, "U": res.U,
+                "V": res.V, "dual": res.dual, "obj_scale": res.obj_scale}
+
     t = time.perf_counter()
-    res = Solver(prob, params, device="cpu").solve()
-    print(f"n=2^{k} unsharded: {res.status.value} {_counts(res)} pobj "
-          f"{res.pobj!r} ({time.perf_counter() - t:.1f} s)", flush=True)
+    ref = report("unsharded", prob, unsharded(prob), None)
     for ws in worlds:
         t = time.perf_counter()
-        ranks = spawn(dryrun.row_solve, ws, (prob, params, "cpu"))
-        o = ranks[0]
-        same = all(r["pobj"] == o["pobj"] and r["counts"] == o["counts"]
-                   for r in ranks)
-        diff = abs(o["pobj"] - res.pobj)
-        bound = (o["gap"] * (1 + abs(o["pobj"]) + abs(o["dobj"]))
-                 + res.gap * (1 + abs(res.pobj) + abs(res.dobj)))
-        print(f"n=2^{k} world size {ws}: {o['status']} {o['counts']} pobj "
-              f"{o['pobj']!r} gap {o['gap']:.3e}, {diff / abs(res.pobj):.2e} "
-              f"from the unsharded (gap {res.gap:.3e}); |difference| "
-              f"{diff:.6g}, the certified gaps' bound {bound:.6g}; every "
-              f"rank rank 0's: {same} ({time.perf_counter() - t:.1f} s)",
-              flush=True)
+        ranks = spawn(dryrun.row_solve, ws, (prob, params, "cpu", None, None,
+                                             True))
+        assert all(r["pobj"] == ranks[0]["pobj"]
+                   and r["counts"] == ranks[0]["counts"] for r in ranks)
+        report(f"world size {ws}", prob, ranks[0], ref)
+    t = time.perf_counter()
+    relabeled = _relabeled_graph(adj, 0)
+    report("relabeled, unsharded", relabeled, unsharded(relabeled), ref)
 
 
 if __name__ == "__main__":

@@ -71,8 +71,12 @@ def jax_measure():
 
 @pytest.fixture(scope="module")
 def twin(jax_measure):
-    return SR.report((1, 2), SR.jax_problem(N), SR.jax_params(), "constr",
-                     "cpu", init_factors=jax_measure[1])
+    """The twin's rows at world sizes 1 and 2, each from JAX's factors."""
+    R0 = [np.asarray(f, np.float64) for f in jax_measure[1]]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(SR, "starting_factors", lambda prob, params: R0)
+        return SR.report((1, 2), SR.jax_problem(N), SR.jax_params(),
+                         "constr", "cpu")
 
 
 def test_inner_iters_equal_at_world_sizes_1_and_2(twin):
