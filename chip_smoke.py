@@ -261,23 +261,33 @@ Phases, in order; any failed check raises and the script exits nonzero:
    reference's trace-bound min-eig case and a 40 x 40 matrix completion at a
    reduced ``maxiter_fista`` (the same outer iterations, rank and FISTA
    steps, pobj to 1e-9 and 1e-8), and the min-eig case in float32 (its
-   ``<C, YY^T>`` summed in float32 on K4's float32 instance, as the
-   reference's ``jnp.sum``): both converge, pobj within 1e-6 of each other,
-   their FISTA steps printed side by side (``[hallar-min-eig-f32]``); K4's
-   float32-summing instance at the n = 3,000 path's C and final rank
-   against the float64 sum of its terms; K4, K5 and K6 at HALLaR's layouts on a
-   maximum stable set cone of n = 1,024 (dense C as its n(n+1)/2 upper
-   entries); then ``ltr_lowrank_sdp_torch.hallar.cli`` on
+   ``<C, YY^T>`` summed in float32 in K5's segment m of the union layout,
+   as the reference's ``jnp.sum``): both converge, pobj within 1e-6 of each
+   other, their FISTA steps printed side by side
+   (``[hallar-min-eig-f32]``); the c5 maximum stable set through ADAP-AIPP
+   (``[hallar-c5-aipp]``: both converge, pobj within 1e-8, the counts side
+   by side); K4's float32-summing instance (on no path since the fused
+   step) at the n = 3,000 path's C and final rank against the float64 sum
+   of its terms; K5 (union layout) and K6 at HALLaR's layouts on a maximum
+   stable set cone of n = 1,024 (dense C as its n(n+1)/2 upper entries),
+   and ``[hallar-fused]`` there: K14-K16 and K5's union layout held to
+   their plain versions over machine steps in float64 and float32, AL and
+   prox (each sum within gamma_N sum |terms|, each elementwise output
+   within 4 eps max |plain|, K16's scalars and the step's decisions the
+   plain step's); then ``ltr_lowrank_sdp_torch.hallar.cli`` on
    ``matcomp_sdpa(1500, 1500, 3, 3.0, 0)`` (n = 3,000, m = 216,171, the
    size of the HALLaR binary's README example) with ``--trace_bound`` 3
    ||M||_* and default parameters, counters set to 0 just before and read
    just after: converged with pinf and gap <= 1e-5, pobj within 1e-5 of the
-   LoRADS path's solve of the same file (``--heuristicFactor 10``), K4, K5
-   and K6 launched, nothing else and no plain version run; solve time,
-   outer iterations, rank, FISTA steps, host reads and CUDA-graph replays
-   printed; K4-K6 held at the path's layouts and final rank; the inner
-   loop's machine step timed eagerly and replayed as a CUDA graph; one
-   outer iteration at ``maxiter_fista`` 500 under the profiler;
+   LoRADS path's solve of the same file (``--heuristicFactor 10``), K5, K6
+   and K14-K16 launched, nothing else (K4 neither) and no plain version
+   run; solve time, outer iterations, rank, FISTA and machine steps, host
+   reads and CUDA-graph replays printed; K5 and K6 held at the path's
+   layouts and final rank, and ``[hallar-fused]`` there with K14-K16
+   timed; the plain and the fused machine step each timed eagerly and
+   replayed as a CUDA graph, with the graph nodes of a step (at most 10
+   for the fused one); one outer iteration at ``maxiter_fista`` 500 under
+   the profiler;
 14. the parallel modes (``ltr_lowrank_sdp_torch.parallel``): phases 4 and
    5's files solved again with every cone constraint-sharded
    (``Solver(mesh=...)``, ``launch.spawn`` of ``dryrun.sharded_solve``), at
@@ -515,9 +525,21 @@ K4_ACC32_TOL = 1e-5       # K4 summing in float32: of the sum of |terms|
 # (ADAP-FISTA); held to the LoRADS path's solve of the same file
 HALLAR_MC = (1500, 1500, 3, 3.0, 0)
 HALLAR_LIMIT_S = 300.0
-HALLAR_KERNELS = ("sym_contract_sum", "coo_contract_segsum",
-                  "spmm_constr_csr")
-HALLAR_REPLACES = "ltr_lowrank_sdp_tpu/hallar/solver.py:179,184,188"
+HALLAR_KERNELS = ("coo_contract_segsum", "spmm_constr_csr",
+                  "fista_candidate", "al_value", "fista_commit")
+HALLAR_REPLACES = {
+    "coo_contract_segsum": "ltr_lowrank_sdp_tpu/hallar/solver.py:179,184 "
+                           "(AX with CX, one union layout of A and C)",
+    "spmm_constr_csr": "ltr_lowrank_sdp_tpu/hallar/solver.py:188",
+    "fista_candidate": "ltr_lowrank_sdp_tpu/hallar/solver.py:221-247,"
+                       "198-202,291-318",
+    "al_value": "ltr_lowrank_sdp_tpu/hallar/solver.py:208-214,277-284",
+    "fista_commit": "ltr_lowrank_sdp_tpu/hallar/solver.py:231-232,239-247"}
+# HALLaR's c5 maximum stable set through ADAP-AIPP, card against CPU: both
+# converge, pobj within this of each other (the 5-cycle is chaotic in the
+# reference itself: the counts are printed side by side, not held equal)
+HALLAR_AIPP_POBJ_RTOL = 1e-8
+HALLAR_FUSED_STEPS = 24      # machine steps held to the plain step's
 HALLAR_POBJ_RTOL = 1e-5
 HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
 HALLAR_PROFILE_FISTA = 500   # inner steps of the profiled outer iteration
@@ -607,9 +629,12 @@ LOOPS = [
     "13 ltr_lowrank_sdp_tpu/ops/lanczos.py:162 oracle_rank_gram -> "
     "ltr_lowrank_sdp_torch/ops/lanczos.py (torch.matmul + host eigh)",
     "15 ltr_lowrank_sdp_tpu/hallar/solver.py:205,258 _make_fista, "
-    "_make_aipp; ops/lanczos.py:115 lanczos_min_eig_vec -> "
-    "ltr_lowrank_sdp_torch/hallar/solver.py (a torch.where state machine "
-    "over K4-K6, replayed as CUDA graphs), ops/lanczos.py",
+    "_make_aipp -> ltr_lowrank_sdp_torch/hallar/solver.py (ported: the "
+    "machine step on K14 fista_candidate, K5 on the union layout, K15 "
+    "al_value, K6, K16 fista_commit, replayed as CUDA graphs; the prox "
+    "rounds and AIPP's acceptance test plain torch on the host); "
+    "ops/lanczos.py:115 lanczos_min_eig_vec -> ops/lanczos.py (torch over "
+    "K6)",
 ]
 
 
@@ -1682,15 +1707,15 @@ def _measure_gnn(name, tag, kern, plain, plain64, nbytes, flops, lib=None,
 
 
 def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
-    """K5, K4 and K6 as HALLaR's ``_Ops`` calls them: A(YY^T) (K5, U is V),
-    <C, YY^T> (K4, U is V) and (C + A*(w)) Y (K6 on the one layout of A and
-    C, weights [w, 1]) at ``rank``, and K6 at r = 1 (the Lanczos matvec).
-    ``positive`` draws Y >= 0, so that K4's sum over a dense C has no
-    cancellation and 1e-12 holds the kernel, not the order of a cancelling
-    sum.  Returns {name: row} at ``rank``."""
-    seg, csr = ops.a_seg, ops.s_csr
+    """K5 and K6 as HALLaR's ``_Ops`` calls them: [A(YY^T), <C, YY^T>] (K5,
+    U is V, on the union layout of A and C, C's entries the segment m) and
+    (C + A*(w)) Y (K6 on the one CSR of A and C, weights [w, 1]) at
+    ``rank``, and K6 at r = 1 (the Lanczos matvec).  ``positive`` draws Y >=
+    0, so that C's sum over a dense C has no cancellation and 1e-12 holds
+    the kernel, not the order of a cancelling sum.  Returns {name: row} at
+    ``rank``."""
+    seg, csr = ops.ac_seg, ops.s_csr
     n, m, nnz, slots = ops.n, ops.m, seg.nnz, csr.nnz
-    nnz_c = int(ops.c_rows.numel())
     f8, i4 = 8, 4
     g = torch.Generator(device=dev).manual_seed(2031)
     w = torch.randn(m + 1, generator=g, dtype=torch.float64, device=dev)
@@ -1720,73 +1745,370 @@ def check_hallar_kernels(K, ops, dev, rank, tag, positive=False):
         check_k6_warps(K, csr, w, Y, shape, timed=True)
         k6["instance"] = i6
         if r == 1:
-            continue        # K4 and K5 run at the factor's rank only
+            continue        # K5 runs at the factor's rank only
         i5 = k56_instance(K, "coo_contract_segsum", r, seg, mode=1)
         k5 = _measure(
-            "coo_contract_segsum", f"U-is-V {shape} nnz={nnz} {i5}",
-            lambda: K.coo_contract_segsum(seg, Y, Y),
+            "coo_contract_segsum", f"U-is-V A+C union {shape} nnz={nnz} "
+            f"(C {int(ops.c_rows.numel())}) {i5}",
+            lambda: ops.axc(Y),
             lambda: K.coo_contract_segsum_plain(seg, Y, Y),
-            (m + 1) * i4 + nnz * (2 * i4 + f8) + m * f8 + n * r * f8,
-            2.0 * nnz * r)
-        k4 = _measure(
-            "sym_contract_sum", f"U-is-V {shape} C nnz={nnz_c}",
-            lambda: K.sym_contract_sum(ops.c_rows, ops.c_cols, ops.c_dbl,
-                                       Y, Y),
-            lambda: K.sym_contract_sum_plain(ops.c_rows, ops.c_cols,
-                                             ops.c_dbl, Y, Y),
-            nnz_c * (2 * i4 + f8) + n * r * f8 + f8, (2.0 * r + 1) * nnz_c)
-        require(torch.equal(K.coo_contract_segsum(seg, Y, Y),
-                            K.coo_contract_segsum(seg, Y, Y))
-                and torch.equal(ops.CX(Y), ops.CX(Y)),
-                f"K4/K5 {shape}: two calls gave different bits")
+            (m + 2) * i4 + nnz * (2 * i4 + f8) + (m + 1) * f8 + n * r * f8,
+            2.0 * nnz * r, extra=[(lambda: ops.axc(Y), lambda: K.axc_plain(
+                ops.a_seg, ops.c_rows, ops.c_cols, ops.c_dbl, Y))])
+        require(torch.equal(ops.axc(Y), ops.axc(Y)),
+                f"K5 {shape}: two calls gave different bits")
         check_k5_kc(K, seg, Y, Y, shape, timed=True)
-        k4.update(check_k4_plans(K, ops.c_rows, ops.c_cols, ops.c_dbl, Y, Y,
-                                 shape))
-        count_k4_kernels(K, ops.c_rows, ops.c_cols, ops.c_dbl, Y, shape)
         k5["instance"] = i5
-        report = {"sym_contract_sum": k4, "coo_contract_segsum": k5,
-                  "spmm_constr_csr": k6}
+        report = {"coo_contract_segsum": k5, "spmm_constr_csr": k6}
     return report
+
+
+def _gamma(n: int, dt) -> float:
+    e = torch.finfo(dt).eps
+    return n * e / (1.0 - n * e)
+
+
+def _fsum(t: torch.Tensor) -> float:
+    return math.fsum(t.double().flatten().cpu().tolist())
+
+
+def _sum_ratio(got, terms, extra=0) -> float:
+    """|got - the exact sum of ``terms``| over gamma_{N + extra} sum
+    |terms|: within the bound at most 1."""
+    bound = _gamma(terms.numel() + extra, terms.dtype) * _fsum(terms.abs())
+    return abs(float(got) - _fsum(terms)) / max(bound, 1e-300)
+
+
+def _elem_ratio(a, b) -> float:
+    """max |a - b| over 4 eps max |b|: within the bound at most 1."""
+    eps = torch.finfo(b.dtype).eps
+    return float((a - b).abs().max()) / max(
+        4 * eps * float(b.abs().max()), 1e-300)
+
+
+def _k5_bounds(K, ops, Y) -> torch.Tensor:
+    """K5 on the union layout: each constraint's sum of N_i r terms is
+    within gamma sum |terms| of the exact one, so a kernel's and a plain
+    version's within twice that of each other: that bound, (m + 1,)
+    float64."""
+    seg = ops.ac_seg
+    aseg = K.SegCOO(n=seg.n, m=seg.m, seg_ptr=seg.seg_ptr, rows=seg.rows,
+                    cols=seg.cols, coef=seg.coef.abs())
+    mags = K.coo_contract_segsum_plain(aseg, Y.abs(), Y.abs().clone())
+    lens = (seg.seg_ptr[1:] - seg.seg_ptr[:-1]).double()
+    n = lens * Y.shape[1] + Y.shape[1]
+    e = torch.finfo(Y.dtype).eps
+    return 2 * (n * e / (1 - n * e)) * mags.double()
+
+
+def _k5_ratio(got, plain, bound) -> float:
+    return float(((got - plain).double().abs() / bound.clamp_min(1e-300))
+                 .max())
+
+
+def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
+    """``[hallar-fused]``: K14-K16 and K5 on the union layout against their
+    plain versions on the card, in float64 and float32, on the AL and the
+    prox subproblem, over HALLAR_FUSED_STEPS machine steps of ``prob`` at
+    rank ``r``.  At every step both see the plain chain's state: each sum
+    within gamma_N sum |terms| of the exact sum (K14, K15's value; K5 per
+    constraint), each elementwise output within 4 eps max |plain| (K14's
+    Yc and Zn, K15's weights, K16's Y, Z, gz on the plain chain's inputs,
+    and its scalars equal); the fused step's grow, commit and done equal
+    the plain step's wherever the plain margin exceeds the sums' bounds.
+    ``timed``: K14-K16 timed beside their plain versions (float64, the AL
+    subproblem); returns their rows."""
+    rows = {}
+    for dt in (torch.float64, torch.float32):
+        ops = H._Ops(prob, dt, dev)
+        n, m = ops.n, ops.m
+        eps = torch.finfo(dt).eps
+        g = torch.Generator(device=dev).manual_seed(2034)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, dtype=torch.float64,
+                               device=dev).to(dt)
+
+        Y0 = ops.project(rnd(n, r))
+        p, beta = 0.1 * rnd(m), 12.5
+        params = H.HallarParams(maxiter_fista=10 ** 6)
+        tol = max(params.err_tol_fista, H.STOP_TOL_EPS * eps)
+        worst = dict.fromkeys(("k14 elem", "k14 sums", "k5", "k15 value",
+                               "k15 weights", "k16 elem"), 0.0)
+        seen = {"commit": 0, "grow": 0, "done": 0, "near": 0,
+                "scalars": 0}
+        for prox in (False, True):
+            W = ops.project(rnd(n, r)) if prox else None
+            lam = 0.5 if prox else 1.0
+            val, val_grad = (H.prox_functions(ops, p, beta, W, lam) if prox
+                             else H.al_functions(ops, p, beta))
+            st = H.fista_init(Y0, 1.0, val_grad)
+            for _ in range(HALLAR_FUSED_STEPS):
+                Yc, Zn, sc = K.fista_candidate(st.Z, st.gz, st.L, st.Y,
+                                               st.tk, W, ops.sqrt_tau)
+                Ycp, Znp, scp = K.fista_candidate_plain(
+                    st.Z, st.gz, st.L, st.Y, st.tk, W, ops.sqrt_tau)
+                d = Yc - st.Z
+                terms = [(sc[K.SC_GD], st.gz * d, 0),
+                         (sc[K.SC_DD], d * d, 0),
+                         (sc[K.SC_DNORM].double() ** 2, d * d, 3),
+                         (sc[K.SC_YNORM].double() ** 2, Yc * Yc, 3)]
+                if prox:
+                    terms += [(sc[K.SC_WY], (Yc - W) ** 2, 0),
+                              (sc[K.SC_WZ], (Zn - W) ** 2, 0)]
+                worst["k14 elem"] = max(worst["k14 elem"],
+                                        _elem_ratio(Yc, Ycp),
+                                        _elem_ratio(Zn, Znp))
+                worst["k14 sums"] = max(worst["k14 sums"], *(
+                    _sum_ratio(a, t, x) for a, t, x in terms))
+                require(float(sc[K.SC_TN]) == float(scp[K.SC_TN]),
+                        f"K14 {tag}: tn differs from the plain version's")
+                ax = ops.axc(Yc)
+                axp = K.coo_contract_segsum_plain(ops.ac_seg, Yc, Yc)
+                k5b = _k5_bounds(K, ops, Yc)
+                worst["k5"] = max(worst["k5"], _k5_ratio(ax, axp, k5b))
+                wsq = sc[K.SC_WY] if prox else None
+                wk = torch.empty(m + 1, dtype=dt, device=dev)
+                wp = torch.empty(m + 1, dtype=dt, device=dev)
+                v = K.al_value(ax, ops.b, p, beta, lam, wsq, wk)
+                vp = K.al_value_plain(ax, ops.b, p, beta, lam, wsq, wp)
+                res = ax[:m] - ops.b
+                mag = lam * (abs(float(ax[m])) + _fsum((p * res).abs())
+                             + 0.5 * beta * _fsum(res * res)) + (
+                    0.5 * float(wsq) if prox else 0.0)
+                worst["k15 value"] = max(worst["k15 value"], abs(
+                    float(v) - float(vp)) / (_gamma(m + 4, dt) * mag))
+                worst["k15 weights"] = max(worst["k15 weights"],
+                                           _elem_ratio(wk, wp))
+                # the plain chain's step, and the fused one from its state
+                stk = H.FistaState(**{f: getattr(st, f).clone()
+                                      for f in st.__dataclass_fields__})
+                new_p = H._machine_step(st, ops, params, val, val_grad,
+                                        plain=True)
+                new_k = H._machine_step(stk, ops, params, val, val_grad)
+                # K16 alone on the plain chain's inputs
+                fy_p = K.al_value_plain(
+                    K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols,
+                                ops.c_dbl, Ycp), ops.b, p, beta, lam,
+                    scp[K.SC_WY] if prox else None)
+                wq = torch.empty(m + 1, dtype=dt, device=dev)
+                axz = K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols,
+                                  ops.c_dbl, Znp)
+                fzn_p = K.al_value_plain(axz, ops.b, p, beta, lam,
+                                         scp[K.SC_WZ] if prox else None, wq)
+                S = K.spmm_constr_csr_plain(ops.s_csr, wq, Znp)
+                args = (Ycp, Znp, scp, fy_p, fzn_p, S, W, lam,
+                        params.maxiter_fista, params.L_inc_fista,
+                        params.L0_fista, tol)
+                one = [getattr(st, f).clone() for f in
+                       ("Y", "Z", "gz", "tk", "L", "k", "done", "fz")]
+                want = K.fista_commit_plain(*one, *args)
+                got = K.fista_commit(*[t.clone() for t in one], *args)
+                worst["k16 elem"] = max(worst["k16 elem"], *(
+                    _elem_ratio(a, b) for a, b in zip(got[:3], want[:3])))
+                require(all(torch.equal(a, b)
+                            for a, b in zip(got[3:], want[3:])),
+                        f"K16 {tag}: a scalar differs from the plain "
+                        "version's")
+                seen["scalars"] += 1
+                # the decisions of the two chains
+                L0v, k0 = float(st.L), int(st.k)
+                ub = float(st.fz + scp[K.SC_GD] + 0.5 * st.L * scp[K.SC_DD])
+                margin = abs(float(fy_p) - (ub + 1e-12))
+                gd_t, dd_t = st.gz * (Ycp - st.Z), (Ycp - st.Z) ** 2
+                nn = Yc.numel()
+                ax_err = float(((p.double().abs()
+                                 + beta * res.double().abs())
+                                * k5b[:m]).sum() + k5b[m])
+                bound = 2 * (_gamma(m + 4, dt) * mag + lam * ax_err
+                             + _gamma(nn, dt) * (_fsum(gd_t.abs())
+                                                 + 0.5 * L0v
+                                                 * _fsum(dd_t)))
+                dec_p = (int(new_p.k) - k0, float(new_p.L) != L0v
+                         and int(new_p.k) == k0, bool(new_p.done))
+                dec_k = (int(new_k.k) - k0, float(new_k.L) != L0v
+                         and int(new_k.k) == k0, bool(new_k.done))
+                if margin > bound:
+                    crit = L0v * float(scp[K.SC_DNORM])
+                    tol_r = tol * (1 + float(scp[K.SC_YNORM]))
+                    dbound = 2 * _gamma(nn + 3, dt) * (crit + tol_r)
+                    if dec_p[0] == 0 or abs(crit - tol_r) > dbound:
+                        require(dec_k == dec_p,
+                                f"hallar fused {tag}: the fused step's "
+                                f"decisions {dec_k} are not the plain "
+                                f"step's {dec_p}")
+                    else:
+                        seen["near"] += 1
+                else:
+                    seen["near"] += 1
+                seen["commit"] += dec_p[0]
+                seen["grow"] += int(dec_p[1])
+                seen["done"] += int(dec_p[2])
+                st = new_p
+        name = "float64" if dt == torch.float64 else "float32"
+        print(f"[hallar-fused] {tag} r={r} {name}: over "
+              f"{2 * HALLAR_FUSED_STEPS} machine steps (AL and prox) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+              + " of their bounds (at most 1); K16's scalars equal the plain "
+              f"version's in {seen['scalars']} steps; plain decisions "
+              f"{seen['commit']} commits, {seen['grow']} grows, "
+              f"{seen['done']} done, equal in the fused step wherever the "
+              f"margin exceeds the bound ({seen['near']} within it)",
+              flush=True)
+        require(all(v <= 1.0 for v in worst.values()),
+                f"hallar fused {tag} {name}: a kernel is outside its bound "
+                f"({worst})")
+        if timed and dt == torch.float64:
+            rows = _time_fused(K, H, ops, dev, r, tag)
+        del ops
+    return rows
+
+
+def _time_fused(K, H, ops, dev, r, tag):
+    """K14-K16 timed beside their plain versions at rank r (float64, the AL
+    subproblem, a commit every call); rows of the kernels line."""
+    n, m = ops.n, ops.m
+    N = n * r
+    f8 = 8
+    g = torch.Generator(device=dev).manual_seed(2035)
+    Z, gz, Y = (torch.randn((n, r), generator=g, dtype=torch.float64,
+                            device=dev) for _ in range(3))
+    L = torch.tensor(3.5, dtype=torch.float64, device=dev)
+    tk = torch.tensor(1.75, dtype=torch.float64, device=dev)
+    Yc, Zn, sc = K.fista_candidate(Z, gz, L, Y, tk, None, ops.sqrt_tau)
+    ax = ops.axc(Yc)
+    p = torch.randn(m, generator=g, dtype=torch.float64, device=dev)
+    w = torch.empty(m + 1, dtype=torch.float64, device=dev)
+    S = K.spmm_constr_csr(ops.s_csr, ops.wbuf, Zn)
+    fy = torch.tensor(-1e300, dtype=torch.float64, device=dev)
+    state = [Y.clone(), Z.clone(), gz.clone(), tk.clone(), L.clone(),
+             torch.zeros((), dtype=torch.int64, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.float64, device=dev)]
+    args = (Yc, Zn, sc, fy, fy, S, None, 1.0, 10 ** 12, 2.0, 1.0, 1e-8)
+    calls = {
+        "fista_candidate": (
+            lambda: K.fista_candidate(Z, gz, L, Y, tk, None, ops.sqrt_tau),
+            lambda: K.fista_candidate_plain(Z, gz, L, Y, tk, None,
+                                            ops.sqrt_tau),
+            5 * N * f8 + 9 * f8, 16.0 * N),
+        "al_value": (
+            lambda: K.al_value(ax, ops.b, p, 12.5, 1.0, None, w),
+            lambda: K.al_value_plain(ax, ops.b, p, 12.5, 1.0, None, w),
+            (4 * m + 3) * f8, 6.0 * m),
+        "fista_commit": (
+            lambda: K.fista_commit(*state, *args),
+            lambda: K.fista_commit_plain(*state, *args),
+            6 * N * f8 + 16 * f8, 1.0 * N)}
+    rows = {}
+    for name, (kern, plain, nbytes, flops) in calls.items():
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        print(f"[kernel] {name} {tag} n={n} m={m} r={r} float64: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), library none (no single call), "
+              f"{nbytes / ms / 1e6:.1f} GB/s; host-issued call "
+              f"{host_call_ms(kern):.4f} ms", flush=True)
+        err = 0.0
+        if name == "fista_candidate":
+            err = max(float((a - b).abs().max()) for a, b in zip(
+                kern(), plain()))
+        elif name == "al_value":
+            err = abs(float(kern()) - float(plain()))
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+    # K16's error: one call on copies, against its plain version
+    st2 = [t.clone() for t in state]
+    want = K.fista_commit_plain(*st2, *args)
+    got = K.fista_commit(*[t.clone() for t in st2], *args)
+    rows["fista_commit"]["max_abs_err"] = max(
+        float((a.double() - b.double()).abs().max())
+        for a, b in zip(got, want))
+    return rows
 
 
 def time_machine_step(H, ops, dev, r, tau, chunks=4):
     """The inner loop's machine step at rank ``r`` on the path's layouts,
-    issued eagerly and replayed as a captured CUDA graph (what
-    ``run_fista`` does after its first chunk): host clock over ``chunks``
-    chunks of ``H.FISTA_CHUNK`` steps, synchronized."""
+    the plain one (the plain versions of K14-K16, K5 and K6 composed in
+    torch) and the fused one, each issued eagerly and replayed as a
+    captured CUDA graph (what ``run_fista`` does after its first chunk):
+    host clock over ``chunks`` chunks of ``H.FISTA_CHUNK`` steps,
+    synchronized; and the graph nodes of one step
+    (``testing.captured_node_kinds``)."""
+    from ltr_lowrank_sdp_torch.testing import captured_node_kinds
+
     params = H.HallarParams(maxiter_fista=10 ** 9)
     val, val_grad = H.al_functions(
         ops, torch.zeros(ops.m, dtype=torch.float64, device=dev), 10.0)
     g = torch.Generator(device=dev).manual_seed(2032)
     Y0 = ops.project(tau * torch.randn((ops.n, r), generator=g,
                                        dtype=torch.float64, device=dev))
+    out = {}
+    for label, plain in (("plain", True), ("fused", False)):
+        def run_chunk(st, plain=plain):
+            for _ in range(H.FISTA_CHUNK):
+                st = H._machine_step(st, ops, params, val, val_grad,
+                                     plain=plain)
+            return st
 
-    def run_chunk(st):
-        for _ in range(H.FISTA_CHUNK):
-            st = H._machine_step(st, ops, params, val, val_grad)
-        return st
-
-    stream = torch.cuda.Stream(dev)     # as run_fista: eager on a side stream
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(stream):
-        st = run_chunk(H.fista_init(Y0, 1.0, val_grad))     # warm-up
+        stream = torch.cuda.Stream(dev)  # as run_fista: eager on a side one
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            st = run_chunk(H.fista_init(Y0, 1.0, val_grad))     # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(chunks):
+                st = run_chunk(st)
+            torch.cuda.synchronize()
+        eager = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
+        graph, st, _ = H._capture_chunk(st, run_chunk, stream)
+        graph.replay()
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(chunks):
-            st = run_chunk(st)
+            graph.replay()
         torch.cuda.synchronize()
-    eager = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
-    graph, st, _ = H._capture_chunk(st, run_chunk, stream)
-    graph.replay()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(chunks):
-        graph.replay()
-    torch.cuda.synchronize()
-    replayed = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
-    print(f"[hallar] machine step at r={r}: eager {eager:.4f} ms, replayed "
-          f"as a CUDA graph {replayed:.4f} ms ({eager / replayed:.2f}x)",
-          flush=True)
+        replayed = (time.perf_counter() - t) / (chunks * H.FISTA_CHUNK) * 1e3
+        del graph
+        one = H.FistaState(**{f: getattr(st, f).clone()
+                              for f in st.__dataclass_fields__})
+        kinds = captured_node_kinds(lambda: H._machine_step(
+            one, ops, params, val, val_grad, plain=plain))
+        out[label] = (eager, replayed, len(kinds))
+        print(f"[hallar] {label} machine step at r={r}: eager {eager:.4f} "
+              f"ms, replayed as a CUDA graph {replayed:.4f} ms "
+              f"({eager / replayed:.2f}x); {len(kinds)} graph nodes a step "
+              f"({kinds.count(0)} kernels)", flush=True)
+    print(f"[hallar] machine step replayed: fused {out['fused'][1]:.4f} ms "
+          f"against plain {out['plain'][1]:.4f} ms "
+          f"({out['plain'][1] / out['fused'][1]:.2f}x), graph nodes a step "
+          f"{out['fused'][2]} against {out['plain'][2]}", flush=True)
+    require(out["fused"][2] <= 10,
+            f"the fused machine step has {out['fused'][2]} graph nodes")
+    return out
+
+
+def run_hallar_aipp(H, dev) -> None:
+    """The c5 maximum stable set through ADAP-AIPP (``inner_solver="aipp"``,
+    ``maxiter_fista`` 300) on the card against the CPU: both converge, pobj
+    within HALLAR_AIPP_POBJ_RTOL; the counts side by side."""
+    params = H.HallarParams(inner_solver="aipp", maxiter_fista=300)
+    prob = H.build_mss_problem([(0, 1), (1, 2), (2, 3), (3, 4), (4, 0)], 5)
+    res = {side: H.hallar_solve(prob, params, device=where)
+           for side, where in (("gpu", dev), ("cpu", "cpu"))}
+    for side, r in res.items():
+        print(f"[hallar-c5-aipp] {side} converged {r.converged} pobj "
+              f"{r.pobj:.12e} gap {r.rel_gap:.2e} iters {r.iters} rank "
+              f"{r.final_rank} fista steps {r.fista_steps} host reads "
+              f"{r.host_reads} graph replays {r.graph_replays} "
+              f"{r.solve_time:.2f} s", flush=True)
+    diff = abs(res["gpu"].pobj - res["cpu"].pobj) / abs(res["cpu"].pobj)
+    print(f"[hallar-c5-aipp] |pobj gpu - pobj cpu| / |pobj| {diff:.3e} "
+          f"(tol {HALLAR_AIPP_POBJ_RTOL:g})", flush=True)
+    require(res["gpu"].converged and res["cpu"].converged
+            and diff <= HALLAR_AIPP_POBJ_RTOL,
+            "hallar c5 aipp: GPU and CPU part")
 
 
 def hallar_min_eig_problem():
@@ -1810,8 +2132,8 @@ def hallar_min_eig_problem():
 
 def check_hallar_f32(H, dev) -> None:
     """HALLaR's float32 min-eig case on the card beside the CPU: <C, YY^T>
-    sums in float32 (K4's float32 instance on the card, the plain float32
-    sum on the CPU), as the reference's ``jnp.sum`` does.  The inner loop's
+    sums in float32 (K5's segment m of the union layout on the card, K4's
+    plain float32 sum on the CPU), as the reference's ``jnp.sum`` does.  The inner loop's
     stop step follows float32 rounding (its tolerance floored at
     ``STOP_TOL_EPS`` epsilons, ``hallar/solver.py``) and differs between
     the two: both are printed; both must stop before the cap and converge
@@ -1839,8 +2161,8 @@ def check_hallar_f32(H, dev) -> None:
 
 
 def check_k4_acc32(K, ops, dev, r, tag) -> None:
-    """K4's float32-summing instance (HALLaR's float32 ``CX``) on ``ops``'s
-    C at rank r: against the float64 sum of the same float32 terms, to
+    """K4's float32-summing instance (HALLaR's float32 ``CX`` until its
+    fused step; on no path since) on ``ops``'s C at rank r: against the float64 sum of the same float32 terms, to
     K4_ACC32_TOL of the sum of their magnitudes, the same bits on two
     calls and as its plain version on the CPU (which follows the kernel's
     order), and timed beside its plain version."""
@@ -1919,6 +2241,7 @@ def run_hallar_path(K, dev, tmp):
                 f"hallar {tag}: GPU and CPU part")
         require(diff <= tol, f"hallar {tag}: GPU and CPU pobj differ")
     check_hallar_f32(H, dev)
+    run_hallar_aipp(H, dev)
 
     # the maximum stable set cone at n = 1,024: C = -ee^T stored as its
     # n(n+1)/2 upper entries, as the reference does
@@ -1926,10 +2249,11 @@ def run_hallar_path(K, dev, tmp):
     rng = np.random.default_rng(seed)
     e = rng.integers(0, n_mss, size=(n_mss * deg // 2, 2))
     e = np.unique(np.sort(e[e[:, 0] != e[:, 1]], axis=1), axis=0)
-    mss = H._Ops(H.build_mss_problem([tuple(x) for x in e.tolist()], n_mss),
-                 torch.float64, dev)
+    mss_prob = H.build_mss_problem([tuple(x) for x in e.tolist()], n_mss)
+    mss = H._Ops(mss_prob, torch.float64, dev)
     check_hallar_kernels(K, mss, dev, 8, f"mss{n_mss}", positive=True)
     del mss
+    check_hallar_fused(K, H, mss_prob, dev, 8, f"mss{n_mss}")
 
     # the path: the .dat-s file, the LoRADS path's solve of it, then HALLaR
     path = os.path.join(tmp, "hallar_mc3000.dat-s")
@@ -1955,7 +2279,7 @@ def run_hallar_path(K, dev, tmp):
                "-o", out])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = K.counts()
+    counts = {**K.counts(), **K.loop_counts()}
     with open(out) as fh:
         res = json.load(fh)
     print(f"[hallar] counts {json.dumps(counts)}")
@@ -1966,6 +2290,13 @@ def run_hallar_path(K, dev, tmp):
           f"each), host reads {res['host_reads']}, graph replays "
           f"{res['graph_replays']}, launches inside them "
           f"{json.dumps(res['graph_runs'])}", flush=True)
+    # one eager chunk an inner solve, the rest replays, FISTA_CHUNK steps each
+    machine = (res["iters"] + res["graph_replays"]) * H.FISTA_CHUNK
+    print(f"[hallar] machine steps {machine} ({res['iters']} eager chunks + "
+          f"{res['graph_replays']} replays of {H.FISTA_CHUNK}): "
+          f"{res['solve_time'] / machine * 1e3:.4f} ms a machine step over "
+          f"the solve; {res['fista_steps'] / machine:.3f} committed steps a "
+          f"machine step", flush=True)
     rel = abs(res["pobj"] - lorads.pobj) / abs(lorads.pobj)
     print(f"[hallar] converged {res['converged']} pobj {res['pobj']:.12e} "
           f"dval {res['dval']:.12e} pinf {res['pinf']:.3e} gap "
@@ -1998,6 +2329,8 @@ def run_hallar_path(K, dev, tmp):
     check_k4_acc32(K, ops, dev, res["final_rank"], "hallar mc3000")
     time_machine_step(H, ops, dev, res["final_rank"], tau)
     del ops
+    rows.update(check_hallar_fused(K, H, prob, dev, res["final_rank"],
+                                   "hallar mc3000", timed=True))
     profile_call(lambda: H.hallar_solve(prob, H.HallarParams(
         maxiter_hallar=1, maxiter_fista=HALLAR_PROFILE_FISTA), device=dev),
         "hallar-profile", f"one outer iteration at maxiter_fista="
@@ -5107,10 +5440,11 @@ def main() -> int:
     built = K.build_kernels()
     print(f"[build] {len(built)} kernels in {time.perf_counter() - t:.1f} s "
           f"({', '.join(built)})")
-    require(len(K.KERNELS) == 13 and all(
+    require(len(K.KERNELS) == 13 and len(K.LOOP_KERNELS) == 3 and all(
         k.lib_path is not None and k.lib_path.exists()
-        for k in K.KERNELS.values()), "thirteen kernels built")
-    for k in K.KERNELS.values():
+        for k in (*K.KERNELS.values(), *K.LOOP_KERNELS.values())),
+        "sixteen kernels built")
+    for k in (*K.KERNELS.values(), *K.LOOP_KERNELS.values()):
         if k.name not in PTXAS_BY_INSTANCE:
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -5475,7 +5809,8 @@ def main() -> int:
                    "multiblock_lp": mb_counts, "theta": th_counts,
                    **serve_counts, "train": train_counts,
                    "hallar": hallar_counts, "gather_probe": gather_counts}
-    first_path = {**{name: "matcomp" for name in SPARSE_KERNELS},
+    first_path = {**{name: "hallar" for name in K.LOOP_KERNELS},
+                  **{name: "matcomp" for name in SPARSE_KERNELS},
                   **{name: "maxcut" for name in MAXCUT_KERNELS},
                   "lp_constr_segsum": "multiblock_lp",
                   "lp_col_wsum": "multiblock_lp",
@@ -5484,14 +5819,14 @@ def main() -> int:
                   "graph_pool_bwd": "train",
                   "gather_rowsum": "gather_probe"}
     kernels = []
-    for name, k in K.KERNELS.items():
+    for name, k in (*K.KERNELS.items(), *K.LOOP_KERNELS.items()):
         by_path = {path: {"launches": path_counts[path][name][0], **rows[name]}
                    for path, rows in report.items() if name in rows}
         if name in HALLAR_KERNELS:
             # HALLaR's inner loop replays CUDA graphs: the counter saw each
             # launch inside one once, at capture; the replays ran it again
             by_path["hallar"].update(
-                replaces=HALLAR_REPLACES,
+                replaces=HALLAR_REPLACES[name],
                 graph_replay_launches=hallar_res["graph_runs"].get(name, 0))
         kernels.append({
             "name": name, "route": "cuda",
@@ -5506,7 +5841,7 @@ def main() -> int:
         # (K9, K10), tune (K9-K12)
         kernels[-1]["label_path_launches"] = {
             path: c[name][0] for path, c in label_counts.items()
-            if c[name][0]}
+            if c.get(name, (0, 0))[0]}
     # K1-K8 on float32 values: launches from the float32 run of the path
     # whose shapes the row was measured at
     for name, row in report_f32.items():

@@ -13,22 +13,25 @@ lambda_min(S) is negative enough.  The arithmetic and its order are the
 reference's; see its docstring for the method's sources.
 
 The conic operators of :class:`_Ops` run on the hand-written kernels of
-:mod:`..ops.kernels`: A(YY^T) on K5 (``coo_contract_segsum``, U is V), <C,
-YY^T> on K4 (``sym_contract_sum``) and (C + A*(w)) Y on K6
-(``spmm_constr_csr``) over one layout of A and C together; on CPU tensors
-their plain versions.
+:mod:`..ops.kernels`: A(YY^T) and <C, YY^T> together on K5
+(``coo_contract_segsum``, U is V) over one layout of A and C, C's entries
+the constraint m (:meth:`_Ops.axc`), and (C + A*(w)) Y on K6
+(``spmm_constr_csr``) over another; on CPU tensors their plain versions
+(<C, YY^T> there by K4's, ``sym_contract_sum``).
 
 The reference runs the inner FISTA as one fused ``lax.while_loop`` per
 dispatch.  Here it is a state machine on device tensors (:func:`_machine_step`):
 one step evaluates the projected candidate at the current L and either
 doubles L (the backtracking test failed) or commits the FISTA update and
-evaluates the AL value and gradient at the new extrapolated point.  Every
-branch is a ``torch.where``, so a chunk of ``FISTA_CHUNK`` steps runs with
+evaluates the AL value and gradient at the new extrapolated point.  A step
+is the loop body's kernels K14-K16 around K5 and K6: the candidate
+(``fista_candidate``), its value (K5, ``al_value``), the value and K6's
+weights at the extrapolated point (K5, ``al_value``), K6, and the commit
+(``fista_commit``, in place), so a chunk of ``FISTA_CHUNK`` steps runs with
 no host read; the host reads ``done`` and ``k`` once per chunk.  A step past
 ``done`` or ``maxiter_fista`` leaves the state as it is, as the while loop
 would have stopped there.  On the GPU a chunk is captured once per inner
-solve as a CUDA graph and replayed (:func:`run_fista`): the eager loop
-issues some 80 small launches per step and would be bound by the host.
+solve as a CUDA graph and replayed (:func:`run_fista`).
 """
 
 from __future__ import annotations
@@ -192,8 +195,11 @@ class _Ops:
 
     Layouts built once on the host: A's entries sorted by constraint for K5
     (whose ``coef`` is the reference's ``a_dbl``), C's entries with their
-    doubled off-diagonal weights for K4, and one symmetric CSR of A and C
-    together for K6, C's entries as constraint ``m`` with weight 1."""
+    doubled off-diagonal weights for K4, the same entries of A and C as one
+    K5 layout of m + 1 constraints (C the last, ``coef`` its ``c_dbl``), and
+    one symmetric CSR of A and C together for K6, C's entries as constraint
+    ``m`` with weight 1, with its weight vector ``wbuf`` ([w, 1], written by
+    K15)."""
 
     def __init__(self, prob: SpectraplexProblem, dtype: torch.dtype,
                  device):
@@ -214,13 +220,17 @@ class _Ops:
         self.c_cols = torch.tensor(cc, dtype=torch.int32, device=device)
         self.c_dbl = torch.tensor(np.where(cr != cc, 2.0, 1.0) * cv,
                                   dtype=dtype, device=device)
-        self.s_csr = K.ConstrCSR.from_upper_coo(
-            np.concatenate([np.asarray(prob.a_rows, np.int64), cr]),
-            np.concatenate([np.asarray(prob.a_cols, np.int64), cc]),
-            np.concatenate([np.asarray(prob.a_vals, np.float64), cv]),
-            np.concatenate([np.asarray(prob.a_cid, np.int64),
-                            np.full(cr.size, prob.m, np.int64)]),
-            prob.n, prob.m + 1, device, dtype)
+        # A's entries and C's as constraint m
+        union = (np.concatenate([np.asarray(prob.a_rows, np.int64), cr]),
+                 np.concatenate([np.asarray(prob.a_cols, np.int64), cc]),
+                 np.concatenate([np.asarray(prob.a_vals, np.float64), cv]),
+                 np.concatenate([np.asarray(prob.a_cid, np.int64),
+                                 np.full(cr.size, prob.m, np.int64)]))
+        self.s_csr = K.ConstrCSR.from_upper_coo(*union, prob.n, prob.m + 1,
+                                                device, dtype)
+        self.ac_seg = K.SegCOO.from_coo(*union, prob.n, prob.m + 1, device,
+                                        dtype)
+        self.wbuf = torch.ones(prob.m + 1, dtype=dtype, device=device)
         self._one = torch.ones(1, dtype=dtype, device=device)
 
     def AX(self, Y: torch.Tensor) -> torch.Tensor:
@@ -234,20 +244,67 @@ class _Ops:
         return K.sym_contract_sum(self.c_rows, self.c_cols, self.c_dbl, Y, Y,
                                   acc32=self.dtype == torch.float32)
 
+    def axc(self, Y: torch.Tensor) -> torch.Tensor:
+        """[A(YY^T), <C, YY^T>] (m + 1,): on the card one K5 launch on the
+        union layout (C's sum in the compute dtype, as the reference's
+        ``jnp.sum``), on the CPU the plain version, ``[AX(Y), CX(Y)]``
+        (:func:`..ops.kernels.axc_plain`)."""
+        if Y.is_cuda:
+            return K.coo_contract_segsum(self.ac_seg, Y, Y)
+        return torch.cat([self.AX(Y), self.CX(Y)[None]])
+
     def SY(self, w: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
         """(C + A*(w)) Y: K6 with the weights ``[w, 1]``."""
         return K.spmm_constr_csr(self.s_csr, torch.cat([w, self._one]), Y)
 
     def project(self, Y: torch.Tensor) -> torch.Tensor:
         """Project onto the Frobenius ball ||Y||_F <= sqrt(tau)."""
-        nrm = torch.linalg.vector_norm(Y)
-        scale = torch.clamp(self.sqrt_tau / torch.clamp(nrm, min=1e-30),
-                            max=1.0)
-        return Y * scale
+        return K.project_plain(Y, self.sqrt_tau)
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+_vdot = K._vdot
+
+
+@dataclasses.dataclass
+class Subproblem:
+    """The inner FISTA's objective: the AL subproblem ``AL(Y; p, beta) =
+    <C, YY^T> + <p, r> + beta/2 <r, r>``, r = A(YY^T) - b (reference
+    ``al_val_grad`` :208-214), or with a prox centre W ADAP-AIPP's ``lam
+    AL(Y) + 1/2 ||Y - W||^2`` (``prox_val_grad`` :277-284)."""
+
+    ops: _Ops
+    p: torch.Tensor
+    beta: float
+    W: Optional[torch.Tensor] = None
+    lam: float = 1.0
+
+    def _wsq(self, Y):
+        if self.W is None:
+            return None
+        diff = Y - self.W
+        return _vdot(diff, diff)
+
+    def value(self, Y: torch.Tensor) -> torch.Tensor:
+        ops = self.ops
+        return K.al_value(ops.axc(Y), ops.b, self.p, self.beta, self.lam,
+                          self._wsq(Y))
+
+    def value_grad(self, Y: torch.Tensor):
+        ops = self.ops
+        v = K.al_value(ops.axc(Y), ops.b, self.p, self.beta, self.lam,
+                       self._wsq(Y), weights=ops.wbuf)
+        S = K.spmm_constr_csr(ops.s_csr, ops.wbuf, Y)
+        if self.W is None:
+            return v, 2.0 * S
+        return v, self.lam * 2.0 * S + (Y - self.W)
+
+
+def _subproblem(val_grad: Callable) -> Subproblem:
+    sub = getattr(val_grad, "__self__", None)
+    if not isinstance(sub, Subproblem):
+        raise TypeError("the inner loop takes the functions of al_functions "
+                        "or prox_functions")
+    return sub
 
 
 # --------------------------------------------------------------------------- #
@@ -272,9 +329,12 @@ class FistaState:
 
 
 def fista_init(Y0: torch.Tensor, L0, val_grad: Callable) -> FistaState:
+    """The state at Y0.  On the card K16 updates the state in place, so Y
+    and Z get buffers of their own there."""
     fz, gz = val_grad(Y0)
+    Y, Z = (Y0.clone(), Y0.clone()) if Y0.is_cuda else (Y0, Y0)
     return FistaState(
-        Y=Y0, Z=Y0, tk=torch.ones((), dtype=Y0.dtype, device=Y0.device),
+        Y=Y, Z=Z, tk=torch.ones((), dtype=Y0.dtype, device=Y0.device),
         L=torch.as_tensor(L0, dtype=Y0.dtype, device=Y0.device).clone(),
         k=torch.zeros((), dtype=torch.int64, device=Y0.device),
         done=torch.zeros((), dtype=torch.bool, device=Y0.device),
@@ -282,41 +342,50 @@ def fista_init(Y0: torch.Tensor, L0, val_grad: Callable) -> FistaState:
 
 
 def _machine_step(st: FistaState, ops: _Ops, params: HallarParams,
-                  val: Callable, val_grad: Callable) -> FistaState:
+                  val: Callable, val_grad: Callable,
+                  plain: bool = False) -> FistaState:
     """One step of the inner loop (reference ``_make_fista`` :220-247).
 
-    The candidate ``project(Z - gz / L)`` is tested as the backtracking
-    loop's condition tests it (:226-232).  A failed test multiplies L by
-    ``L_inc_fista``; a passed one commits the FISTA update (:236-247) and
-    evaluates the value and gradient at the new Z, which the reference does
-    at the top of its next iteration.  Only the value is needed for the
-    test, so the candidate's gradient is never formed.  The stop test's
-    tolerance is floored at ``STOP_TOL_EPS`` epsilons of the dtype."""
-    Yc = ops.project(st.Z - st.gz / st.L)
-    fy = val(Yc)
-    diff = Yc - st.Z
-    ub = st.fz + _vdot(st.gz, diff) + 0.5 * st.L * _vdot(diff, diff)
-    grow = (fy > ub + 1e-12) & (st.L < 1e12)
-    go = ~st.done & (st.k < params.maxiter_fista)
-    commit = go & ~grow
-    grow = go & grow
-    tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * st.tk * st.tk))
-    Zn = Yc + ((st.tk - 1.0) / tn) * (Yc - st.Y)
-    crit = st.L * torch.linalg.vector_norm(diff)
+    The candidate ``project(Z - gz / L)`` (K14) is tested as the
+    backtracking loop's condition tests it (:226-232), on its value (K5 of
+    the candidate, K15).  A failed test multiplies L by ``L_inc_fista``; a
+    passed one commits the FISTA update (:236-247) with the value and
+    gradient at the new Z (K5 of it, K15 with K6's weights, K6), which the
+    reference evaluates at the top of its next iteration: K16 takes the
+    decision and updates the state, in place on the card.  The value and
+    gradient at the new Z are formed on a failed test too, as the reference
+    forms them, so the counts stay the reference's.  Only the value is
+    needed for the test, so the candidate's gradient is never formed.  The
+    stop test's tolerance is floored at ``STOP_TOL_EPS`` epsilons of the
+    dtype.  ``plain`` takes the plain versions on any device (the smoke
+    run's plain step)."""
+    sub = _subproblem(val_grad)
+    W = sub.W
+    if plain:
+        candidate, value, commit = (K.fista_candidate_plain,
+                                    K.al_value_plain, K.fista_commit_plain)
+        spmm = K.spmm_constr_csr_plain
+
+        def axc(Y):
+            return K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols, ops.c_dbl,
+                               Y)
+    else:
+        candidate, value, commit = (K.fista_candidate, K.al_value,
+                                    K.fista_commit)
+        spmm, axc = K.spmm_constr_csr, ops.axc
+    Yc, Zn, sc = candidate(st.Z, st.gz, st.L, st.Y, st.tk, W, ops.sqrt_tau)
+    prox = W is not None
+    fy = value(axc(Yc), ops.b, sub.p, sub.beta, sub.lam,
+               sc[K.SC_WY] if prox else None)
+    fzn = value(axc(Zn), ops.b, sub.p, sub.beta, sub.lam,
+                sc[K.SC_WZ] if prox else None, ops.wbuf)
+    S = spmm(ops.s_csr, ops.wbuf, Zn)
     tol = max(params.err_tol_fista, STOP_TOL_EPS * torch.finfo(Yc.dtype).eps)
-    done = crit <= tol * (1.0 + torch.linalg.vector_norm(Yc))
-    Ln = torch.clamp(st.L / params.L_inc_fista, min=params.L0_fista)
-    fzn, gzn = val_grad(Zn)
-    return FistaState(
-        Y=torch.where(commit, Yc, st.Y),
-        Z=torch.where(commit, Zn, st.Z),
-        tk=torch.where(commit, tn, st.tk),
-        L=torch.where(commit, Ln,
-                      torch.where(grow, st.L * params.L_inc_fista, st.L)),
-        k=st.k + commit,
-        done=torch.where(commit, done, st.done),
-        fz=torch.where(commit, fzn, st.fz),
-        gz=torch.where(commit, gzn, st.gz))
+    Y, Z, gz, tk, L, k, done, fz = commit(
+        st.Y, st.Z, st.gz, st.tk, st.L, st.k, st.done, st.fz, Yc, Zn, sc, fy,
+        fzn, S, W, sub.lam, params.maxiter_fista, params.L_inc_fista,
+        params.L0_fista, tol)
+    return FistaState(Y=Y, Z=Z, tk=tk, L=L, k=k, done=done, fz=fz, gz=gz)
 
 
 class _Counters:
@@ -341,14 +410,17 @@ def _capture_chunk(st: FistaState, run_chunk: Callable, stream):
     of each kernel in one replay)."""
     st = FistaState(**{f.name: getattr(st, f.name).clone()
                        for f in dataclasses.fields(st)})
-    before = {name: k.launches for name, k in K.KERNELS.items()}
+    kernels = {**K.KERNELS, **K.LOOP_KERNELS}
+    before = {name: k.launches for name, k in kernels.items()}
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=stream):
         out = run_chunk(st)
         for f in dataclasses.fields(st):
-            getattr(st, f.name).copy_(getattr(out, f.name))
+            dst, src = getattr(st, f.name), getattr(out, f.name)
+            if dst is not src:
+                dst.copy_(src)
     per_replay = {name: k.launches - before[name]
-                  for name, k in K.KERNELS.items()
+                  for name, k in kernels.items()
                   if k.launches > before[name]}
     return graph, st, per_replay
 
@@ -365,7 +437,9 @@ def run_fista(ops: _Ops, params: HallarParams, Y0: torch.Tensor, L0,
     warm-up) and the rest replay it as a CUDA graph, captured once per
     inner solve: p, beta and the prox centre are fixed inside one, and so
     are the shapes.  The graph runs the same kernels in the same order as
-    the eager chunk."""
+    the eager chunk.  ``val`` and ``val_grad`` are those of
+    :func:`al_functions` or :func:`prox_functions`."""
+    _subproblem(val_grad)
     st = fista_init(Y0, L0, val_grad)
 
     def run_chunk(st):
@@ -397,46 +471,19 @@ def run_fista(ops: _Ops, params: HallarParams, Y0: torch.Tensor, L0,
             graph, st, per_replay = _capture_chunk(st, run_chunk, stream)
 
 
-def _al_value(ops: _Ops, p: torch.Tensor, beta: float):
-    """Y -> (A(YY^T) - b, the AL value <C, YY^T> + p.r + beta/2 |r|^2)."""
-
-    def value(Y):
-        resid = ops.AX(Y) - ops.b
-        return resid, (ops.CX(Y) + _vdot(p, resid)
-                       + 0.5 * beta * _vdot(resid, resid))
-
-    return value
-
-
 def al_functions(ops: _Ops, p: torch.Tensor, beta: float):
     """The AL value and (value, gradient) of the subproblem (reference
     ``al_val_grad`` :208-214)."""
-    value = _al_value(ops, p, beta)
-
-    def val_grad(Y):
-        resid, v = value(Y)
-        return v, 2.0 * ops.SY(p + beta * resid, Y)
-
-    return (lambda Y: value(Y)[1]), val_grad
+    sub = Subproblem(ops, p, beta)
+    return sub.value, sub.value_grad
 
 
 def prox_functions(ops: _Ops, p: torch.Tensor, beta: float, W: torch.Tensor,
                    lam: float):
     """The prox subproblem ``lam * AL(Y) + 1/2 ||Y - W||^2``: its value and
     (value, gradient) (reference ``prox_val_grad`` :277-284)."""
-    value = _al_value(ops, p, beta)
-
-    def val(Y):
-        diff = Y - W
-        return lam * value(Y)[1] + 0.5 * _vdot(diff, diff)
-
-    def val_grad(Y):
-        resid, v = value(Y)
-        diff = Y - W
-        return (lam * v + 0.5 * _vdot(diff, diff),
-                lam * 2.0 * ops.SY(p + beta * resid, Y) + diff)
-
-    return val, val_grad
+    sub = Subproblem(ops, p, beta, W, lam)
+    return sub.value, sub.value_grad
 
 
 def fista(ops: _Ops, params: HallarParams, Y0, p, beta: float, L0,
@@ -533,8 +580,9 @@ def hallar_solve(prob: SpectraplexProblem,
     for it in range(params.maxiter_hallar):
         Y, L, k_inner = inner(ops, params, Y, p, beta, L, counters)
         steps += k_inner
-        post = counters.get(torch.cat([ops.AX(Y), ops.CX(Y)[None],
-                                    torch.linalg.vector_norm(Y)[None] ** 2]))
+        post = counters.get(torch.cat([ops.axc(Y),
+                                       torch.linalg.vector_norm(Y)[None]
+                                       ** 2]))
         ax, cx, ysq = post[:prob.m], post[prob.m], post[prob.m + 1]
         resid = ax - prob.b
         pinf_abs = float(np.linalg.norm(resid))

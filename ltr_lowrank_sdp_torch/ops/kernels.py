@@ -1,4 +1,4 @@
-"""The port's thirteen CUDA kernels, their plain PyTorch versions, and the build.
+"""The port's sixteen CUDA kernels, their plain PyTorch versions, and the build.
 
 Each kernel lives in ``csrc/<name>.cu`` with a plain C entry point.  At first
 use on a CUDA tensor the sources are compiled with ``nvcc`` for ``sm_90a``
@@ -51,6 +51,21 @@ K12    graph_pool_bwd        the VJP of K10's function (float32)
 K13    gather_rowsum         scripts/pallas_gather_probe.py kern, the one
                              pl.pallas_call: the column sum of
                              index-gathered rows (float32)
+=====  ====================  ==============================================
+
+and in :data:`LOOP_KERNELS` (counted by :func:`loop_counts`), the body of
+HALLaR's inner FISTA loop (``hallar/solver.py``, replacing
+``ltr_lowrank_sdp_tpu/hallar/solver.py`` ``_make_fista`` / ``_make_aipp``,
+which XLA compiles into a few fusions inside one ``lax.while_loop``):
+
+=====  ====================  ==============================================
+K14    fista_candidate       the projected candidate, the extrapolated
+                             point and their sums (:221-247, :198-202,
+                             the prox body :291-318)
+K15    al_value              the AL (or prox) value of A(YY^T) and <C,
+                             YY^T>, and K6's weights (:208-214, :277-284)
+K16    fista_commit          the backtracking decision and the FISTA
+                             update, in place (:231-232, :239-247)
 =====  ====================  ==============================================
 
 K1-K4 carry the MaxCut family (one diagonal constraint per row); K5 and K6
@@ -214,16 +229,16 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
 
 
 # an empty kernel for the launch floor (csrc/launch_floor.cu): built with the
-# thirteen, counted by no path
+# kernels, counted by no path
 LAUNCH_FLOOR = Kernel("launch_floor", "none", (_P,))
 # the conditional graph nodes of the solver's device-resident loops
-# (csrc/graph_cond.cu, bound in solver/devloop.py): built with the thirteen;
+# (csrc/graph_cond.cu, bound in solver/devloop.py): built with the kernels;
 # its symbol reports the CUDA runtime's version
 GRAPH_COND = Kernel("graph_cond", "none", (ctypes.POINTER(_I),))
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
+    for k in (*KERNELS.values(), *LOOP_KERNELS.values()):
         k.launches = 0
         k.launches_f32 = 0
         k.plain_calls = 0
@@ -267,7 +282,8 @@ def build_kernels() -> List[str]:
     Returns the names built by this call.  Raises with nvcc's output when a
     build fails."""
     todo = []
-    for k in (*KERNELS.values(), LAUNCH_FLOOR, GRAPH_COND):
+    for k in (*KERNELS.values(), *LOOP_KERNELS.values(), LAUNCH_FLOOR,
+              GRAPH_COND):
         k.lib_path = _lib_path(k)
         if not k.lib_path.exists():
             todo.append(k)
@@ -318,7 +334,7 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
     KC = 2 and ``(1, 8, 1)`` for K4's U-is-V at G = 8, CPL = 1."""
     out: Dict[Tuple, Tuple[int, int, int]] = {}
     key, spill = None, (0, 0)
-    for line in KERNELS[name].build_log.splitlines():
+    for line in {**KERNELS, **LOOP_KERNELS}[name].build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             fn = m.group(1)
@@ -3051,3 +3067,259 @@ def gather_rowsum_with(plan: Optional[K13Plan], Y: torch.Tensor,
         _K13_SCRATCH.pop((dev, stream), None)   # its counts may not be 0
         raise
     return out
+
+
+# --------------------------------------------------------------------------- #
+# K14-K16: HALLaR's inner FISTA step (the loop body of _make_fista)
+# --------------------------------------------------------------------------- #
+
+
+LOOP_KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    Kernel("fista_candidate",
+           "ltr_lowrank_sdp_tpu/hallar/solver.py:221-247,198-202,291-318",
+           (_I, _I) + (_P,) * 6 + (_I, _D) + (_P,) * 6 + (_I, _P),
+           typed=True),
+    Kernel("al_value",
+           "ltr_lowrank_sdp_tpu/hallar/solver.py:208-214,277-284",
+           (_I, _I, _P, _P, _P, _I, _D, _D, _D, _P, _P, _P, _P, _P, _I, _P),
+           typed=True),
+    Kernel("fista_commit",
+           "ltr_lowrank_sdp_tpu/hallar/solver.py:231-232,239-247",
+           (_I, _I) + (_P,) * 15 + (_I, _D, ctypes.c_longlong, _D, _D, _D,
+                                   _P, _I, _P),
+           typed=True),
+)}
+
+FUSED_THREADS = 256       # kThreads in fista_candidate.cu, al_value.cu,
+                          # fista_commit.cu
+FUSED_MAX_BLOCKS = 264    # two blocks an SM of the H100's 132
+# the entries of the candidate's scalar vector (fista_candidate's ``sc``)
+SC_GD, SC_DD, SC_DNORM, SC_YNORM, SC_WY, SC_WZ, SC_TN = range(7)
+SC_LEN = 7
+
+
+def loop_counts() -> Dict[str, Tuple[int, int]]:
+    """``{name: (launches, plain_calls)}`` of K14-K16."""
+    return {k.name: (k.launches, k.plain_calls)
+            for k in LOOP_KERNELS.values()}
+
+
+def fused_blocks(N: int) -> int:
+    """The grid of K14-K16 over ``N`` values: a block of ``FUSED_THREADS``
+    an ``FUSED_THREADS`` values up to ``FUSED_MAX_BLOCKS``, the rest taken by
+    stride.  A function of N alone, so a sum's order (each thread's strided
+    terms in order, a fixed tree over the block, the block partials in
+    block order) and bits do not depend on the card."""
+    return max(1, min(-(-int(N) // FUSED_THREADS), FUSED_MAX_BLOCKS))
+
+
+def project_plain(X: torch.Tensor, sqrt_tau: float) -> torch.Tensor:
+    """X projected onto the Frobenius ball ||X||_F <= sqrt_tau (the
+    reference's ``_Ops.project``, ``ltr_lowrank_sdp_tpu/hallar/solver.py``
+    :198-202)."""
+    nrm = torch.linalg.vector_norm(X)
+    scale = torch.clamp(sqrt_tau / torch.clamp(nrm, min=1e-30), max=1.0)
+    return X * scale
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def fista_candidate_plain(Z, gz, L, Y, tk, W, sqrt_tau: float):
+    """Plain version of K14: the projected candidate ``Yc = project(Z - gz
+    / L)``, the extrapolated point ``Zn = Yc + ((tk - 1) / tn) (Yc - Y)``
+    with ``tn = (1 + sqrt(1 + 4 tk^2)) / 2``, and the scalars ``sc`` (SC_*):
+    <gz, Yc - Z>, ||Yc - Z||^2, ||Yc - Z||, ||Yc||, and for a prox
+    subproblem (``W`` given) ||Yc - W||^2 and ||Zn - W||^2 (else 0), and
+    tn.  Returns (Yc, Zn, sc)."""
+    Yc = project_plain(Z - gz / L, sqrt_tau)
+    diff = Yc - Z
+    tn = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * tk * tk))
+    Zn = Yc + ((tk - 1.0) / tn) * (Yc - Y)
+    parts = [_vdot(gz, diff), _vdot(diff, diff),
+             torch.linalg.vector_norm(diff), torch.linalg.vector_norm(Yc)]
+    if W is None:
+        parts += [torch.zeros((), dtype=Yc.dtype, device=Yc.device)] * 2
+    else:
+        dy, dz = Yc - W, Zn - W
+        parts += [_vdot(dy, dy), _vdot(dz, dz)]
+    return Yc, Zn, torch.stack(parts + [tn])
+
+
+def al_value_plain(axc, b, p, beta: float, lam: float, wsq=None,
+                   weights=None):
+    """Plain version of K15: with ``axc = [A(YY^T), <C, YY^T>]`` and ``r =
+    A(YY^T) - b``, the AL value ``<C, YY^T> + <p, r> + beta/2 <r, r>``, or
+    for a prox subproblem (``wsq`` = ||Y - W||^2 given) ``lam`` times it
+    plus ``wsq / 2``; with ``weights`` (m + 1,) also writes K6's weights
+    ``[p + beta r, 1]`` there."""
+    m = b.numel()
+    resid = axc[:m] - b
+    v = axc[m] + _vdot(p, resid) + 0.5 * beta * _vdot(resid, resid)
+    if wsq is not None:
+        v = lam * v + 0.5 * wsq
+    if weights is not None:
+        weights[:m].copy_(p + beta * resid)
+        weights[m:].fill_(1.0)
+    return v
+
+
+def fista_commit_plain(Y, Z, gz, tk, L, k, done, fz, Yc, Zn, sc, fy, fzn, S,
+                       W, lam: float, maxiter: int, L_inc: float, L0: float,
+                       tol: float):
+    """Plain version of K16: the backtracking test of the candidate (grow
+    when ``fy > fz + <gz, Yc - Z> + L/2 ||Yc - Z||^2 + 1e-12`` and ``L <
+    1e12``), and on a commit the FISTA update: Y, Z, tk, L, k, the stop
+    test ``L ||Yc - Z|| <= tol (1 + ||Yc||)``, fz and the gradient
+    ``2 lam S (+ Zn - W)``, S = (C + A*(w)) Zn; on a grow L times
+    ``L_inc``; past ``done`` or ``maxiter`` nothing.  Returns the new (Y,
+    Z, gz, tk, L, k, done, fz)."""
+    ub = fz + sc[SC_GD] + 0.5 * L * sc[SC_DD]
+    grow = (fy > ub + 1e-12) & (L < 1e12)
+    go = ~done & (k < maxiter)
+    commit = go & ~grow
+    grow = go & grow
+    crit = L * sc[SC_DNORM]
+    stop = crit <= tol * (1.0 + sc[SC_YNORM])
+    Ln = torch.clamp(L / L_inc, min=L0)
+    gzn = 2.0 * S if W is None else lam * 2.0 * S + (Zn - W)
+    return (torch.where(commit, Yc, Y), torch.where(commit, Zn, Z),
+            torch.where(commit, gzn, gz), torch.where(commit, sc[SC_TN], tk),
+            torch.where(commit, Ln, torch.where(grow, L * L_inc, L)),
+            k + commit, torch.where(commit, stop, done),
+            torch.where(commit, fzn, fz))
+
+
+def axc_plain(a_seg: SegCOO, c_rows, c_cols, c_dbl, Y) -> torch.Tensor:
+    """Plain version of K5 on HALLaR's union layout of A and C (C's entries
+    the segment m): ``[A(YY^T), <C, YY^T>]`` (m + 1,), by K5's and K4's
+    plain versions, <C, YY^T> summed in the compute dtype (float32 in K4's
+    float32 order) as the reference's ``jnp.sum``."""
+    return torch.cat([
+        coo_contract_segsum_plain(a_seg, Y, Y),
+        sym_contract_sum_plain(c_rows, c_cols, c_dbl, Y, Y,
+                               acc32=Y.dtype == torch.float32)[None]])
+
+
+def _fused_scratch(dev: torch.device, words: int) -> _K4Scratch:
+    """K14-K16's partials (``words`` float64 words) and ticket: an eager
+    call takes K4's per-stream scratch (eager calls on one stream run in
+    order, and every ticket wraps back to 0); a call captured into a CUDA
+    graph gets partials of its own and a ticket from the pool of zeroed
+    tickets (:func:`_graph_tickets`), so no two graphs, nor a graph and the
+    eager calls on its capture stream, share them."""
+    if torch.cuda.is_current_stream_capturing():
+        return _K4Scratch(
+            torch.empty(max(words, 1), dtype=torch.float64, device=dev),
+            _graph_tickets(dev))
+    return _k4_scratch(dev, _stream(dev), words)
+
+
+def _scalar(t: torch.Tensor, name: str, dtype, dev) -> None:
+    _check(t, name, dtype, (), dev)
+
+
+def fista_candidate(Z: torch.Tensor, gz: torch.Tensor, L: torch.Tensor,
+                    Y: torch.Tensor, tk: torch.Tensor,
+                    W: Optional[torch.Tensor], sqrt_tau: float):
+    """K14: :func:`fista_candidate_plain`'s (Yc, Zn, sc) in two launches:
+    (a) the sum of squares of Z - gz / L and the projection's scale, (b) Yc,
+    Zn and the sums.  L and tk are read on the card (they change between a
+    CUDA graph's replays); each sum is block partials added by the last
+    block to take the ticket, in block order."""
+    k = LOOP_KERNELS["fista_candidate"]
+    if _is_cpu(Z):
+        k.plain_calls += 1
+        return fista_candidate_plain(Z, gz, L, Y, tk, W, sqrt_tau)
+    dev = Z.device
+    dt = _value_dtype(Z, "Z")
+    shape = tuple(Z.shape)
+    for t, name in ((Z, "Z"), (gz, "gz"), (Y, "Y")) + (
+            () if W is None else ((W, "W"),)):
+        _check(t, name, dt, shape, dev)
+    _scalar(L, "L", dt, dev)
+    _scalar(tk, "tk", dt, dev)
+    N = _i32(Z.numel(), "n * r")
+    blocks = fused_blocks(N)
+    ws = _fused_scratch(dev, 5 * blocks)
+    Yc = torch.empty_like(Z)
+    Zn = torch.empty_like(Z)
+    scale = torch.empty((), dtype=dt, device=dev)
+    sc = torch.empty(SC_LEN, dtype=dt, device=dev)
+    k.launch(_f32(dt), int(W is not None), Z.data_ptr(), gz.data_ptr(),
+             Y.data_ptr(), _ptr(W), L.data_ptr(), tk.data_ptr(), N,
+             float(sqrt_tau), scale.data_ptr(), Yc.data_ptr(), Zn.data_ptr(),
+             ws.part.data_ptr(), ws.ticket.data_ptr(), sc.data_ptr(), blocks,
+             _stream(dev))
+    return Yc, Zn, sc
+
+
+def al_value(axc: torch.Tensor, b: torch.Tensor, p: torch.Tensor,
+             beta: float, lam: float, wsq: Optional[torch.Tensor] = None,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K15: :func:`al_value_plain` in one launch over the m + 1 entries of
+    ``axc`` (the sums <p, r> and <r, r> by block partials and a ticket); a
+    0-dim tensor.  ``wsq`` (a prox subproblem's ||Y - W||^2) is read on the
+    card."""
+    k = LOOP_KERNELS["al_value"]
+    if _is_cpu(axc):
+        k.plain_calls += 1
+        return al_value_plain(axc, b, p, beta, lam, wsq, weights)
+    dev = axc.device
+    dt = _value_dtype(axc, "axc")
+    m = int(b.numel())
+    _check(axc, "axc", dt, (m + 1,), dev)
+    _check(b, "b", dt, (m,), dev)
+    _check(p, "p", dt, (m,), dev)
+    if wsq is not None:
+        _scalar(wsq, "wsq", dt, dev)
+    if weights is not None:
+        _check(weights, "weights", dt, (m + 1,), dev)
+    blocks = fused_blocks(m + 1)
+    ws = _fused_scratch(dev, 2 * blocks)
+    out = torch.empty((), dtype=dt, device=dev)
+    k.launch(_f32(dt), int(wsq is not None), axc.data_ptr(), b.data_ptr(),
+             p.data_ptr(), _i32(m, "m"), float(beta), 0.5 * float(beta),
+             float(lam), _ptr(wsq), _ptr(weights), out.data_ptr(),
+             ws.part.data_ptr(), ws.ticket.data_ptr(), blocks, _stream(dev))
+    return out
+
+
+def fista_commit(Y, Z, gz, tk, L, k, done, fz, Yc, Zn, sc, fy, fzn, S, W,
+                 lam: float, maxiter: int, L_inc: float, L0: float,
+                 tol: float):
+    """K16: :func:`fista_commit_plain` in one launch, in place on (Y, Z, gz,
+    tk, L, k, done, fz), which it returns.  Every block takes the decisions
+    from the scalars as they stood before the step and selects its elements;
+    only the last block to take the ticket (after every other block has
+    read them) writes the scalars."""
+    kern = LOOP_KERNELS["fista_commit"]
+    if _is_cpu(Y):
+        kern.plain_calls += 1
+        return fista_commit_plain(Y, Z, gz, tk, L, k, done, fz, Yc, Zn, sc,
+                                  fy, fzn, S, W, lam, maxiter, L_inc, L0,
+                                  tol)
+    dev = Y.device
+    dt = _value_dtype(Y, "Y")
+    shape = tuple(Y.shape)
+    for t, name in ((Y, "Y"), (Z, "Z"), (gz, "gz"), (Yc, "Yc"), (Zn, "Zn"),
+                    (S, "S")) + (() if W is None else ((W, "W"),)):
+        _check(t, name, dt, shape, dev)
+    for t, name in ((tk, "tk"), (L, "L"), (fz, "fz"), (fy, "fy"),
+                    (fzn, "fzn")):
+        _scalar(t, name, dt, dev)
+    _scalar(k, "k", torch.int64, dev)
+    _scalar(done, "done", torch.bool, dev)
+    _check(sc, "sc", dt, (SC_LEN,), dev)
+    N = _i32(Y.numel(), "n * r")
+    blocks = fused_blocks(N)
+    ws = _fused_scratch(dev, 0)
+    kern.launch(_f32(dt), int(W is not None), Y.data_ptr(), Z.data_ptr(),
+                gz.data_ptr(), tk.data_ptr(), L.data_ptr(), k.data_ptr(),
+                done.data_ptr(), fz.data_ptr(), Yc.data_ptr(), Zn.data_ptr(),
+                sc.data_ptr(), fy.data_ptr(), fzn.data_ptr(), S.data_ptr(),
+                _ptr(W), N, float(lam) * 2.0, int(maxiter), float(L_inc),
+                float(L0), float(tol), ws.ticket.data_ptr(), blocks,
+                _stream(dev))
+    return Y, Z, gz, tk, L, k, done, fz

@@ -29,6 +29,7 @@ trial's calls from a table (``optuna`` is not a dependency).
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import numpy as np
 import scipy.sparse
@@ -417,11 +418,11 @@ def optimum_bracket(prob: SDPProblem, U, V, dual, obj_scale: float,
     return dobj + min(float(lam_min), 0.0) * float(target.sum()), upper
 
 
-def captured_kernel_nodes(fn) -> int:
-    """The device kernels one ``fn()`` launches, exactly: the nodes of a
-    CUDA graph captured from one call on a side stream (warmed up there
-    first), read through libcuda (cuGraphGetNodes).  Raises if the graph
-    holds a node other than a kernel (a copy, a memset)."""
+def captured_node_kinds(fn) -> List[int]:
+    """The node types (``CUgraphNodeType``: 0 a kernel, 2 a memset, ...) of
+    a CUDA graph captured from one ``fn()`` on a side stream (warmed up
+    there first), read through libcuda (cuGraphGetNodes): what one call
+    puts on the device, node by node."""
     cu = ctypes.CDLL("libcuda.so.1")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -450,6 +451,15 @@ def captured_kernel_nodes(fn) -> int:
             kinds.append(t.value)
     finally:
         cu.cuGraphDestroy(graph)
+    return kinds
+
+
+def captured_kernel_nodes(fn) -> int:
+    """The device kernels one ``fn()`` launches, exactly: the nodes of a
+    CUDA graph captured from one call (:func:`captured_node_kinds`).
+    Raises if the graph holds a node other than a kernel (a copy, a
+    memset)."""
+    kinds = captured_node_kinds(fn)
     if any(t != 0 for t in kinds):           # CU_GRAPH_NODE_TYPE_KERNEL
         raise RuntimeError(f"a captured call holds other nodes: {kinds}")
     return len(kinds)
