@@ -273,8 +273,9 @@ Phases, in order; any failed check raises and the script exits nonzero:
    and ``[hallar-fused]`` there: K14-K16 and K5's union layout held to
    their plain versions over machine steps in float64 and float32, AL and
    prox (each sum within gamma_N sum |terms|, each elementwise output
-   within 4 eps max |plain|, K16's scalars and the step's decisions the
-   plain step's); then ``ltr_lowrank_sdp_torch.hallar.cli`` on
+   within 4 eps max |plain|, K15's weights at one point and at both the
+   plain bits, K16's scalars and the step's decisions the plain step's);
+   then ``ltr_lowrank_sdp_torch.hallar.cli`` on
    ``matcomp_sdpa(1500, 1500, 3, 3.0, 0)`` (n = 3,000, m = 216,171, the
    size of the HALLaR binary's README example) with ``--trace_bound`` 3
    ||M||_* and default parameters, counters set to 0 just before and read
@@ -285,8 +286,8 @@ Phases, in order; any failed check raises and the script exits nonzero:
    reads and CUDA-graph replays printed; K5 and K6 held at the path's
    layouts and final rank, and ``[hallar-fused]`` there with K14-K16
    timed; the plain and the fused machine step each timed eagerly and
-   replayed as a CUDA graph, with the graph nodes of a step (at most 10
-   for the fused one); one outer iteration at ``maxiter_fista`` 500 under
+   replayed as a CUDA graph, with the graph nodes of a step (8 for the
+   fused one); ``[k14-plan]``; one outer iteration at ``maxiter_fista`` 500 under
    the profiler;
 14. the parallel modes (``ltr_lowrank_sdp_torch.parallel``): phases 4 and
    5's files solved again with every cone constraint-sharded
@@ -444,7 +445,8 @@ THETA_LIMIT_S = 180.0
 DENSE_KERNELS = ("coo_contract_segsum", "spmm_constr_csr")
 PTXAS_BY_INSTANCE = DENSE_KERNELS + ("sym_contract_sum", "gatv2_softmax_agg",
                                      "gatv2_softmax_agg_bwd",
-                                     "diag_normal_matvec", "gather_rowsum")
+                                     "diag_normal_matvec", "gather_rowsum",
+                                     "fista_candidate", "al_value")
 SLEEP_CYCLES = 50_000_000  # about 30 ms at the H100's clocks
 # the rank-schedule predictor: a checkpoint of the repo's one model width
 # (hidden 64, 3 GATv2 layers x 4 heads, LSTM 96 x 2), its serve path's
@@ -541,6 +543,19 @@ HALLAR_REPLACES = {
 HALLAR_AIPP_POBJ_RTOL = 1e-8
 HALLAR_FUSED_STEPS = 24      # machine steps held to the plain step's
 HALLAR_POBJ_RTOL = 1e-5
+# the path's solve: outer iterations, final rank, committed FISTA steps (the
+# counts of the step's earlier designs, the torch.where step's and the two
+# K15 calls'), and the graph nodes of its machine step (K14 1, K5 2 x 2 with
+# C's long segment, K15's pair 1, K6 1, K16 1)
+HALLAR_COUNTS = (10, 7, 100000)
+HALLAR_STEP_NODES = 8
+HALLAR_FUSED_RANKS = (2,)    # [hallar-fused] at these path ranks besides
+                             # the final one
+# [k14-plan]: K14's plans timed at N = n r of these (n, r), and at the
+# threshold K14_CLUSTER_MAX_N; [hallar-fused] holds the two-launch plan on
+# its own at HALLAR_K14_ABOVE, past the threshold
+K14_PLAN_SHAPES = ((3000, 2), (3000, 7))
+HALLAR_K14_ABOVE = (3000, 22)
 HALLAR_MSS = (1024, 8, 7)    # maximum stable set: n, average degree, seed
 HALLAR_PROFILE_FISTA = 500   # inner steps of the profiled outer iteration
 
@@ -1806,18 +1821,66 @@ def _k5_ratio(got, plain, bound) -> float:
                  .max())
 
 
+def _replays_equal(fn, want) -> bool:
+    """``fn()`` captured into a CUDA graph (after a warm-up on the capture
+    stream) and replayed twice: whether each replay's outputs equal
+    ``want`` bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(out, want))
+    del graph
+    return same
+
+
+def _k14_ratios(K, out, plain, Z, gz, W):
+    """K14's (Yc, Zn, sc) against the plain version's: the elementwise
+    ratio to 4 eps and the sums' ratio to gamma_N (at most 1 within)."""
+    Yc, Zn, sc = out
+    Ycp, Znp, scp = plain
+    d = Yc - Z
+    terms = [(sc[K.SC_GD], gz * d, 0), (sc[K.SC_DD], d * d, 0),
+             (sc[K.SC_DNORM].double() ** 2, d * d, 3),
+             (sc[K.SC_YNORM].double() ** 2, Yc * Yc, 3)]
+    if W is not None:
+        terms += [(sc[K.SC_WY], (Yc - W) ** 2, 0),
+                  (sc[K.SC_WZ], (Zn - W) ** 2, 0)]
+    require(float(sc[K.SC_TN]) == float(scp[K.SC_TN]),
+            "K14: tn differs from the plain version's")
+    return (max(_elem_ratio(Yc, Ycp), _elem_ratio(Zn, Znp)),
+            max(_sum_ratio(a, t, x) for a, t, x in terms))
+
+
 def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
     """``[hallar-fused]``: K14-K16 and K5 on the union layout against their
     plain versions on the card, in float64 and float32, on the AL and the
     prox subproblem, over HALLAR_FUSED_STEPS machine steps of ``prob`` at
-    rank ``r``.  At every step both see the plain chain's state: each sum
-    within gamma_N sum |terms| of the exact sum (K14, K15's value; K5 per
-    constraint), each elementwise output within 4 eps max |plain| (K14's
-    Yc and Zn, K15's weights, K16's Y, Z, gz on the plain chain's inputs,
-    and its scalars equal); the fused step's grow, commit and done equal
-    the plain step's wherever the plain margin exceeds the sums' bounds.
-    ``timed``: K14-K16 timed beside their plain versions (float64, the AL
-    subproblem); returns their rows."""
+    rank ``r``.  At every step both see the plain chain's state: K14's
+    planned launch (one cluster up to K14_CLUSTER_MAX_N) and its two-launch
+    plan, each sum within gamma_N sum |terms| of the exact sum and each
+    elementwise output (Yc, Zn) within 4 eps max |plain|, tn the plain
+    bits, a cluster plan the bits of its host order
+    (``kernels.fista_candidate_order``); K5 per constraint; K15's pair
+    against two ``al_value_plain`` calls, each value within gamma_{m+4}
+    and the weights the plain bits; K15's single-point launch at each point
+    the same against ``al_value_plain``, its value the bits of its host
+    order (``kernels.al_value_order``) and of the pair's; K16's Y, Z, gz
+    within 4 eps on the plain chain's inputs and its scalars equal; the
+    fused step's grow, commit and done equal the plain step's wherever the
+    plain margin exceeds the sums' bounds.  Then K14's two plans, K15's
+    pair and its single point replayed from CUDA graphs give their eager
+    bits.  ``timed``: K14-K16 timed beside their plain versions (float64,
+    the AL subproblem); returns their rows."""
     rows = {}
     for dt in (torch.float64, torch.float32):
         ops = H._Ops(prob, dt, dev)
@@ -1833,53 +1896,98 @@ def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
         p, beta = 0.1 * rnd(m), 12.5
         params = H.HallarParams(maxiter_fista=10 ** 6)
         tol = max(params.err_tol_fista, H.STOP_TOL_EPS * eps)
-        worst = dict.fromkeys(("k14 elem", "k14 sums", "k5", "k15 value",
-                               "k15 weights", "k16 elem"), 0.0)
+        plan = K.k14_plan(n * r)
+        two = K.K14Plan(0, blocks=K.fused_blocks(n * r))
+        worst = dict.fromkeys(("k14 elem", "k14 sums", "k14 two-launch elem",
+                               "k14 two-launch sums", "k5", "k15 value",
+                               "k15 single value", "k16 elem"), 0.0)
         seen = {"commit": 0, "grow": 0, "done": 0, "near": 0,
-                "scalars": 0}
+                "scalars": 0, "order": 0, "replays": 0, "single": 0}
         for prox in (False, True):
             W = ops.project(rnd(n, r)) if prox else None
             lam = 0.5 if prox else 1.0
             val, val_grad = (H.prox_functions(ops, p, beta, W, lam) if prox
                              else H.al_functions(ops, p, beta))
             st = H.fista_init(Y0, 1.0, val_grad)
-            for _ in range(HALLAR_FUSED_STEPS):
-                Yc, Zn, sc = K.fista_candidate(st.Z, st.gz, st.L, st.Y,
-                                               st.tk, W, ops.sqrt_tau)
-                Ycp, Znp, scp = K.fista_candidate_plain(
-                    st.Z, st.gz, st.L, st.Y, st.tk, W, ops.sqrt_tau)
-                d = Yc - st.Z
-                terms = [(sc[K.SC_GD], st.gz * d, 0),
-                         (sc[K.SC_DD], d * d, 0),
-                         (sc[K.SC_DNORM].double() ** 2, d * d, 3),
-                         (sc[K.SC_YNORM].double() ** 2, Yc * Yc, 3)]
-                if prox:
-                    terms += [(sc[K.SC_WY], (Yc - W) ** 2, 0),
-                              (sc[K.SC_WZ], (Zn - W) ** 2, 0)]
-                worst["k14 elem"] = max(worst["k14 elem"],
-                                        _elem_ratio(Yc, Ycp),
-                                        _elem_ratio(Zn, Znp))
-                worst["k14 sums"] = max(worst["k14 sums"], *(
-                    _sum_ratio(a, t, x) for a, t, x in terms))
-                require(float(sc[K.SC_TN]) == float(scp[K.SC_TN]),
-                        f"K14 {tag}: tn differs from the plain version's")
-                ax = ops.axc(Yc)
-                axp = K.coo_contract_segsum_plain(ops.ac_seg, Yc, Yc)
-                k5b = _k5_bounds(K, ops, Yc)
-                worst["k5"] = max(worst["k5"], _k5_ratio(ax, axp, k5b))
-                wsq = sc[K.SC_WY] if prox else None
+            for step in range(HALLAR_FUSED_STEPS):
+                args14 = (st.Z, st.gz, st.L, st.Y, st.tk, W, ops.sqrt_tau)
+                Yc, Zn, sc = K.fista_candidate(*args14)
+                plain14 = K.fista_candidate_plain(*args14)
+                Ycp, Znp, scp = plain14
+                e, su = _k14_ratios(K, (Yc, Zn, sc), plain14, st.Z, st.gz, W)
+                worst["k14 elem"] = max(worst["k14 elem"], e)
+                worst["k14 sums"] = max(worst["k14 sums"], su)
+                e, su = _k14_ratios(K, K.fista_candidate_with(two, *args14),
+                                    plain14, st.Z, st.gz, W)
+                worst["k14 two-launch elem"] = max(
+                    worst["k14 two-launch elem"], e)
+                worst["k14 two-launch sums"] = max(
+                    worst["k14 two-launch sums"], su)
+                if plan.cluster:
+                    host = K.fista_candidate_order(*args14, plan)
+                    require(all(torch.equal(a.cpu(), b) for a, b in
+                                zip((Yc, Zn, sc), host)),
+                            f"K14 {tag}: the cluster plan is not its host "
+                            "order's bits")
+                    seen["order"] += 1
+                ax, axz = ops.axc(Yc), ops.axc(Zn)
+                for y, a in ((Yc, ax), (Zn, axz)):
+                    worst["k5"] = max(worst["k5"], _k5_ratio(
+                        a, K.coo_contract_segsum_plain(ops.ac_seg, y, y),
+                        _k5_bounds(K, ops, y)))
+                wsq = (sc[K.SC_WY], sc[K.SC_WZ]) if prox else (None, None)
                 wk = torch.empty(m + 1, dtype=dt, device=dev)
                 wp = torch.empty(m + 1, dtype=dt, device=dev)
-                v = K.al_value(ax, ops.b, p, beta, lam, wsq, wk)
-                vp = K.al_value_plain(ax, ops.b, p, beta, lam, wsq, wp)
-                res = ax[:m] - ops.b
-                mag = lam * (abs(float(ax[m])) + _fsum((p * res).abs())
-                             + 0.5 * beta * _fsum(res * res)) + (
-                    0.5 * float(wsq) if prox else 0.0)
-                worst["k15 value"] = max(worst["k15 value"], abs(
-                    float(v) - float(vp)) / (_gamma(m + 4, dt) * mag))
-                worst["k15 weights"] = max(worst["k15 weights"],
-                                           _elem_ratio(wk, wp))
+                pair = K.al_value_pair(ax, axz, ops.b, p, beta, lam, *wsq, wk)
+                pair_p = K.al_value_pair_plain(ax, axz, ops.b, p, beta, lam,
+                                               *wsq, wp)
+                require(torch.equal(wk, wp), f"K15 {tag}: the weights are "
+                        "not the plain version's bits")
+                mags = []
+                for v, vp, a, w in zip(pair, pair_p, (ax, axz), wsq):
+                    res = a[:m] - ops.b
+                    mags.append(lam * (abs(float(a[m])) + _fsum(
+                        (p * res).abs()) + 0.5 * beta * _fsum(res * res)) + (
+                        0.5 * float(w) if prox else 0.0))
+                    worst["k15 value"] = max(worst["k15 value"], abs(
+                        float(v) - float(vp)) / (_gamma(m + 4, dt)
+                                                 * mags[-1]))
+                # the single-point launch (fista_init, Subproblem.value and
+                # value_grad) at each point, against al_value_plain: the
+                # weights its bits, the value its host order's bits, the
+                # pair's value and within gamma_{m+4}
+                for q, (a, w) in enumerate(zip((ax, axz), wsq)):
+                    w1 = torch.empty(m + 1, dtype=dt, device=dev)
+                    w1p = torch.empty(m + 1, dtype=dt, device=dev)
+                    v1 = K.al_value(a, ops.b, p, beta, lam, w, w1)
+                    v1p = K.al_value_plain(a, ops.b, p, beta, lam, w, w1p)
+                    require(torch.equal(w1, w1p), f"K15 {tag}: the "
+                            "single-point weights are not the plain bits")
+                    require(torch.equal(v1.cpu(), K.al_value_order(
+                        a, ops.b, p, beta, lam, w)) and torch.equal(
+                            v1, pair[q]), f"K15 {tag}: the single-point "
+                            "value is not its host order's bits")
+                    worst["k15 single value"] = max(
+                        worst["k15 single value"], abs(float(v1) - float(
+                            v1p)) / (_gamma(m + 4, dt) * mags[q]))
+                seen["single"] += 2
+                res, mag = ax[:m] - ops.b, mags[0]
+                k5b = _k5_bounds(K, ops, Yc)
+                if step == 0:
+                    # each kernel replayed from a CUDA graph: its eager bits
+                    wr = torch.empty(m + 1, dtype=dt, device=dev)
+                    require(_replays_equal(
+                        lambda: K.fista_candidate(*args14), (Yc, Zn, sc))
+                        and _replays_equal(lambda: K.fista_candidate_with(
+                            two, *args14), K.fista_candidate_with(
+                                two, *args14))
+                        and _replays_equal(lambda: K.al_value_pair(
+                            ax, axz, ops.b, p, beta, lam, *wsq, wr), pair)
+                        and _replays_equal(lambda: (K.al_value(
+                            ax, ops.b, p, beta, lam, wsq[0]),), pair[:1]),
+                        f"K14 / K15 {tag}: a replay differs from the eager "
+                        "call's bits")
+                    seen["replays"] += 4
                 # the plain chain's step, and the fused one from its state
                 stk = H.FistaState(**{f: getattr(st, f).clone()
                                       for f in st.__dataclass_fields__})
@@ -1887,15 +1995,14 @@ def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
                                         plain=True)
                 new_k = H._machine_step(stk, ops, params, val, val_grad)
                 # K16 alone on the plain chain's inputs
-                fy_p = K.al_value_plain(
-                    K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols,
-                                ops.c_dbl, Ycp), ops.b, p, beta, lam,
-                    scp[K.SC_WY] if prox else None)
                 wq = torch.empty(m + 1, dtype=dt, device=dev)
-                axz = K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols,
-                                  ops.c_dbl, Znp)
-                fzn_p = K.al_value_plain(axz, ops.b, p, beta, lam,
-                                         scp[K.SC_WZ] if prox else None, wq)
+                fy_p, fzn_p = K.al_value_pair_plain(
+                    K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols, ops.c_dbl,
+                                Ycp),
+                    K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols, ops.c_dbl,
+                                Znp), ops.b, p, beta, lam,
+                    scp[K.SC_WY] if prox else None,
+                    scp[K.SC_WZ] if prox else None, wq)
                 S = K.spmm_constr_csr_plain(ops.s_csr, wq, Znp)
                 args = (Ycp, Znp, scp, fy_p, fzn_p, S, W, lam,
                         params.maxiter_fista, params.L_inc_fista,
@@ -1947,10 +2054,16 @@ def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
                 st = new_p
         name = "float64" if dt == torch.float64 else "float32"
         print(f"[hallar-fused] {tag} r={r} {name}: over "
-              f"{2 * HALLAR_FUSED_STEPS} machine steps (AL and prox) "
+              f"{2 * HALLAR_FUSED_STEPS} machine steps (AL and prox), K14 "
+              f"planned {plan.describe()}: "
               + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
-              + " of their bounds (at most 1); K16's scalars equal the plain "
-              f"version's in {seen['scalars']} steps; plain decisions "
+              + " of their bounds (at most 1); the cluster plan its host "
+              f"order's bits in {seen['order']} steps; K15's weights the "
+              f"plain bits and K16's scalars equal the plain version's in "
+              f"{seen['scalars']} steps; {seen['single']} single-point K15 "
+              f"launches the plain weights' bits, their host order's and "
+              f"the pair's values; {seen['replays']} kernels replayed "
+              f"from CUDA graphs with their eager bits; plain decisions "
               f"{seen['commit']} commits, {seen['grow']} grows, "
               f"{seen['done']} done, equal in the fused step wherever the "
               f"margin exceeds the bound ({seen['near']} within it)",
@@ -1964,9 +2077,41 @@ def check_hallar_fused(K, H, prob, dev, r, tag, timed=False):
     return rows
 
 
+def check_k14_above(K, dev, shape, tag):
+    """``[hallar-fused]`` past K14_CLUSTER_MAX_N: the planned two-launch
+    plan against the plain version at (n, r) = ``shape``, float64 and
+    float32, AL and prox, and replayed from a CUDA graph."""
+    n, r = shape
+    plan = K.k14_plan(n * r)
+    require(plan.cluster == 0, f"K14 {tag}: N = {n * r} is not past the "
+            "cluster plan's threshold")
+    worst = [0.0, 0.0]
+    g = torch.Generator(device=dev).manual_seed(2036)
+    for dt in (torch.float64, torch.float32):
+        Z, gz, Y, W = (torch.randn((n, r), generator=g, dtype=torch.float64,
+                                   device=dev).to(dt) for _ in range(4))
+        L = torch.tensor(3.5, dtype=dt, device=dev)
+        tk = torch.tensor(1.75, dtype=dt, device=dev)
+        for w in (None, W):
+            args = (Z, gz, L, Y, tk, w, 0.5 * math.sqrt(n * r))
+            out = K.fista_candidate(*args)
+            ratios = _k14_ratios(K, out, K.fista_candidate_plain(*args), Z,
+                                 gz, w)
+            worst = [max(a, b) for a, b in zip(worst, ratios)]
+            require(_replays_equal(lambda: K.fista_candidate(*args), out),
+                    f"K14 {tag}: a replay differs from the eager call")
+    print(f"[hallar-fused] K14 {tag} N={n * r} (n={n}, r={r}) planned "
+          f"{plan.describe()}, float64 and float32, AL and prox: elem "
+          f"{worst[0]:.3f}, sums {worst[1]:.3f} of their bounds (at most 1); "
+          f"replayed with its eager bits", flush=True)
+    require(max(worst) <= 1.0, f"K14 {tag}: outside its bound")
+
+
 def _time_fused(K, H, ops, dev, r, tag):
     """K14-K16 timed beside their plain versions at rank r (float64, the AL
-    subproblem, a commit every call); rows of the kernels line."""
+    subproblem, a commit every call; K15 as the machine step calls it, the
+    pair, and beside it two single-point launches); rows of the kernels
+    line."""
     n, m = ops.n, ops.m
     N = n * r
     f8 = 8
@@ -1976,7 +2121,7 @@ def _time_fused(K, H, ops, dev, r, tag):
     L = torch.tensor(3.5, dtype=torch.float64, device=dev)
     tk = torch.tensor(1.75, dtype=torch.float64, device=dev)
     Yc, Zn, sc = K.fista_candidate(Z, gz, L, Y, tk, None, ops.sqrt_tau)
-    ax = ops.axc(Yc)
+    ax, axz = ops.axc(Yc), ops.axc(Zn)
     p = torch.randn(m, generator=g, dtype=torch.float64, device=dev)
     w = torch.empty(m + 1, dtype=torch.float64, device=dev)
     S = K.spmm_constr_csr(ops.s_csr, ops.wbuf, Zn)
@@ -1993,9 +2138,11 @@ def _time_fused(K, H, ops, dev, r, tag):
                                             ops.sqrt_tau),
             5 * N * f8 + 9 * f8, 16.0 * N),
         "al_value": (
-            lambda: K.al_value(ax, ops.b, p, 12.5, 1.0, None, w),
-            lambda: K.al_value_plain(ax, ops.b, p, 12.5, 1.0, None, w),
-            (4 * m + 3) * f8, 6.0 * m),
+            lambda: K.al_value_pair(ax, axz, ops.b, p, 12.5, 1.0, None, None,
+                                    w),
+            lambda: K.al_value_pair_plain(ax, axz, ops.b, p, 12.5, 1.0, None,
+                                          None, w),
+            (5 * m + 5) * f8, 12.0 * m),
         "fista_commit": (
             lambda: K.fista_commit(*state, *args),
             lambda: K.fista_commit_plain(*state, *args),
@@ -2014,7 +2161,16 @@ def _time_fused(K, H, ops, dev, r, tag):
             err = max(float((a - b).abs().max()) for a, b in zip(
                 kern(), plain()))
         elif name == "al_value":
-            err = abs(float(kern()) - float(plain()))
+            err = max(abs(float(a) - float(b))
+                      for a, b in zip(kern(), plain()))
+            singles = time_ms(lambda: (
+                K.al_value(ax, ops.b, p, 12.5, 1.0),
+                K.al_value(axz, ops.b, p, 12.5, 1.0, None, w)))
+            print(f"[kernel] al_value pair {tag} m={m} float64: one launch "
+                  f"for both points {ms:.4f} ms beside two single-point "
+                  f"launches {singles:.4f} ms (a step's two calls before the "
+                  "pair)",
+                  flush=True)
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": None}
@@ -2084,9 +2240,70 @@ def time_machine_step(H, ops, dev, r, tau, chunks=4):
           f"against plain {out['plain'][1]:.4f} ms "
           f"({out['plain'][1] / out['fused'][1]:.2f}x), graph nodes a step "
           f"{out['fused'][2]} against {out['plain'][2]}", flush=True)
-    require(out["fused"][2] <= 10,
-            f"the fused machine step has {out['fused'][2]} graph nodes")
+    require(out["fused"][2] == HALLAR_STEP_NODES,
+            f"the fused machine step has {out['fused'][2]} graph nodes, not "
+            f"{HALLAR_STEP_NODES}")
     return out
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device time of one call replayed from a CUDA graph: ``reps``
+    calls captured once (after a warm-up on the capture stream), the graph
+    replayed ``replays`` times behind a sleep kernel between CUDA events:
+    a call's cost inside the solver's replayed chunks, the gaps between
+    graph nodes included."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def run_k14_plan(K, dev):
+    """``[k14-plan]``: K14's plans (float64, the AL subproblem) at N = n r
+    of K14_PLAN_SHAPES and at the threshold K14_CLUSTER_MAX_N: the cluster
+    plan and the two-launch plan, each against the plain version, eager
+    (``time_ms``) and replayed (``graph_ms``)."""
+    g = torch.Generator(device=dev).manual_seed(2037)
+    for n, rr in (*K14_PLAN_SHAPES, (K.K14_CLUSTER_MAX_N // 8, 8)):
+        N = n * rr
+        Z, gz, Y = (torch.randn((n, rr), generator=g, dtype=torch.float64,
+                                device=dev) for _ in range(3))
+        L = torch.tensor(3.5, dtype=torch.float64, device=dev)
+        tk = torch.tensor(1.75, dtype=torch.float64, device=dev)
+        args = (Z, gz, L, Y, tk, None, 0.5 * math.sqrt(N))
+        plain = K.fista_candidate_plain(*args)
+        planned = K.k14_plan(N)
+        for plan in (K.k14_cluster_plan(N),
+                     K.K14Plan(0, blocks=K.fused_blocks(N))):
+            def fn(plan=plan):
+                return K.fista_candidate_with(plan, *args)
+
+            e, su = _k14_ratios(K, fn(), plain, Z, gz, None)
+            require(max(e, su) <= 1.0, f"[k14-plan] N={N} "
+                    f"{plan.describe()}: outside its bound")
+            mark = " (planned)" if plan == planned else ""
+            print(f"[k14-plan] N={N} (n={n}, r={rr}) float64 AL "
+                  f"{plan.describe()}{mark}: eager {time_ms(fn):.5f} ms, "
+                  f"replayed {graph_ms(fn):.5f} ms; elem {e:.3f}, sums "
+                  f"{su:.3f} of their bounds", flush=True)
 
 
 def run_hallar_aipp(H, dev) -> None:
@@ -2306,6 +2523,9 @@ def run_hallar_path(K, dev, tmp):
             and res["rel_gap"] <= 1e-5, "hallar: not converged to 1e-5")
     require(rel <= HALLAR_POBJ_RTOL,
             "hallar: pobj differs from the LoRADS path's")
+    require((res["iters"], res["final_rank"], res["fista_steps"])
+            == HALLAR_COUNTS, f"hallar: outer iterations, final rank and "
+            f"committed steps are not {HALLAR_COUNTS}")
     for name, (launches, plain_calls) in counts.items():
         if name in HALLAR_KERNELS:
             require(launches > 0, f"{name} was not launched on the hallar "
@@ -2328,9 +2548,13 @@ def run_hallar_path(K, dev, tmp):
                                 "hallar mc3000")
     check_k4_acc32(K, ops, dev, res["final_rank"], "hallar mc3000")
     time_machine_step(H, ops, dev, res["final_rank"], tau)
+    run_k14_plan(K, dev)
     del ops
     rows.update(check_hallar_fused(K, H, prob, dev, res["final_rank"],
                                    "hallar mc3000", timed=True))
+    for r in HALLAR_FUSED_RANKS:
+        check_hallar_fused(K, H, prob, dev, r, "hallar mc3000")
+    check_k14_above(K, dev, HALLAR_K14_ABOVE, "past the threshold")
     profile_call(lambda: H.hallar_solve(prob, H.HallarParams(
         maxiter_hallar=1, maxiter_fista=HALLAR_PROFILE_FISTA), device=dev),
         "hallar-profile", f"one outer iteration at maxiter_fista="
@@ -5315,6 +5539,45 @@ def multi_card(names, scaling_out) -> int:
     return 0
 
 
+def print_ptxas(K, kernels) -> None:
+    """``[ptxas]``: each kernel's registers and spills as ``-Xptxas -v``
+    gave them in this process's build; those of PTXAS_BY_INSTANCE by their
+    template arguments."""
+    for k in kernels:
+        if k.name not in PTXAS_BY_INSTANCE:
+            for line in k.build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"[ptxas] {k.name}: {line.strip()}")
+            continue
+        for key, (regs, st, ld) in sorted(K.ptxas_usage(k.name).items()):
+            print(f"[ptxas] {k.name} {key[0]}<{key[1]}"
+                  f"{''.join(f', {x}' for x in key[2])}>: {regs} registers, "
+                  f"spill stores / loads {st} / {ld} bytes")
+
+
+def hallar_path_alone() -> int:
+    """``--hallar-path``: the build with the HALLaR kernels' registers, the
+    launch floor, then phase 13 (the HALLaR path, ``[k14-plan]`` with it)
+    alone."""
+    from ltr_lowrank_sdp_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    print(f"[card] {card_line()}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.perf_counter()
+    K.build_kernels()
+    print(f"[build] {time.perf_counter() - t:.1f} s", flush=True)
+    print_ptxas(K, [{**K.KERNELS, **K.LOOP_KERNELS}[name]
+                    for name in HALLAR_KERNELS])
+    print(f"[launch-floor] {time_ms(lambda: K.launch_floor(dev)):.5f} ms",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, _, rows = run_hallar_path(K, dev, tmp)
+    print(json.dumps({"hallar_counts": counts, "hallar_kernels": rows}))
+    print(f"[total] {time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
 def label_paths_alone() -> int:
     """``--label-paths``: the build, then phase 17 (the label pipeline)
     alone."""
@@ -5380,6 +5643,8 @@ def main() -> int:
                           help="phase 16 alone, after phase 4's solve")
         mode.add_argument("--label-paths", action="store_true",
                           help="phase 17 (the label pipeline) alone")
+        mode.add_argument("--hallar-path", action="store_true",
+                          help="phase 13 (the HALLaR path) alone")
         mode.add_argument("--multi-card", nargs="*", metavar="SUBPHASE",
                           choices=MULTI_PHASES,
                           help=f"the sharded modes over NCCL on "
@@ -5402,6 +5667,8 @@ def main() -> int:
             return row_paths_alone()
         if args.label_paths:
             return label_paths_alone()
+        if args.hallar_path:
+            return hallar_path_alone()
         if args.multi_card is not None:
             return multi_card(
                 [n for n in MULTI_PHASES if n in args.multi_card]
@@ -5444,17 +5711,7 @@ def main() -> int:
         k.lib_path is not None and k.lib_path.exists()
         for k in (*K.KERNELS.values(), *K.LOOP_KERNELS.values())),
         "sixteen kernels built")
-    for k in (*K.KERNELS.values(), *K.LOOP_KERNELS.values()):
-        if k.name not in PTXAS_BY_INSTANCE:
-            for line in k.build_log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[ptxas] {k.name}: {line.strip()}")
-            continue
-        # K4-K6, K11: every instantiation by its template arguments
-        for key, (regs, st, ld) in sorted(K.ptxas_usage(k.name).items()):
-            print(f"[ptxas] {k.name} {key[0]}<{key[1]}"
-                  f"{''.join(f', {x}' for x in key[2])}>: {regs} registers, "
-                  f"spill stores / loads {st} / {ld} bytes")
+    print_ptxas(K, (*K.KERNELS.values(), *K.LOOP_KERNELS.values()))
 
     # the launch floor: an empty kernel through the same ctypes path
     floor_ms = time_ms(lambda: K.launch_floor(dev))

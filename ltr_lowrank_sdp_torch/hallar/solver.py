@@ -25,9 +25,11 @@ one step evaluates the projected candidate at the current L and either
 doubles L (the backtracking test failed) or commits the FISTA update and
 evaluates the AL value and gradient at the new extrapolated point.  A step
 is the loop body's kernels K14-K16 around K5 and K6: the candidate
-(``fista_candidate``), its value (K5, ``al_value``), the value and K6's
-weights at the extrapolated point (K5, ``al_value``), K6, and the commit
-(``fista_commit``, in place), so a chunk of ``FISTA_CHUNK`` steps runs with
+(``fista_candidate``, one thread-block cluster), A(YY^T) and <C, YY^T> at
+the candidate and at the extrapolated point (K5 twice), both values and
+K6's weights at the extrapolated point (one ``al_value_pair``), K6, and the
+commit (``fista_commit``, in place): 8 graph nodes where C is a long
+segment of K5's layout.  So a chunk of ``FISTA_CHUNK`` steps runs with
 no host read; the host reads ``done`` and ``k`` once per chunk.  A step past
 ``done`` or ``maxiter_fista`` leaves the state as it is, as the while loop
 would have stopped there.  On the GPU a chunk is captured once per inner
@@ -347,38 +349,40 @@ def _machine_step(st: FistaState, ops: _Ops, params: HallarParams,
     """One step of the inner loop (reference ``_make_fista`` :220-247).
 
     The candidate ``project(Z - gz / L)`` (K14) is tested as the
-    backtracking loop's condition tests it (:226-232), on its value (K5 of
-    the candidate, K15).  A failed test multiplies L by ``L_inc_fista``; a
-    passed one commits the FISTA update (:236-247) with the value and
-    gradient at the new Z (K5 of it, K15 with K6's weights, K6), which the
-    reference evaluates at the top of its next iteration: K16 takes the
-    decision and updates the state, in place on the card.  The value and
-    gradient at the new Z are formed on a failed test too, as the reference
-    forms them, so the counts stay the reference's.  Only the value is
-    needed for the test, so the candidate's gradient is never formed.  The
-    stop test's tolerance is floored at ``STOP_TOL_EPS`` epsilons of the
-    dtype.  ``plain`` takes the plain versions on any device (the smoke
-    run's plain step)."""
+    backtracking loop's condition tests it (:226-232), on its value.  A
+    failed test multiplies L by ``L_inc_fista``; a passed one commits the
+    FISTA update (:236-247) with the value and gradient at the new Z, which
+    the reference evaluates at the top of its next iteration.  The step
+    runs K14, K5 at the candidate and at the new Z, one K15 for both values
+    and K6's weights (a programmatic dependent launch after the second K5),
+    K6, and K16, which takes the decision and updates the state, in place
+    on the card.  The value and gradient at the new Z are formed on a
+    failed test too, as the reference forms them, so the counts stay the
+    reference's.  Only the value is needed for the test, so the
+    candidate's gradient is never formed.  The stop test's tolerance is
+    floored at ``STOP_TOL_EPS`` epsilons of the dtype.  ``plain`` takes the
+    plain versions on any device (the smoke run's plain step); K15's pair
+    is there two plain value calls, the candidate's first."""
     sub = _subproblem(val_grad)
     W = sub.W
     if plain:
-        candidate, value, commit = (K.fista_candidate_plain,
-                                    K.al_value_plain, K.fista_commit_plain)
+        candidate, values, commit = (K.fista_candidate_plain,
+                                     K.al_value_pair_plain,
+                                     K.fista_commit_plain)
         spmm = K.spmm_constr_csr_plain
 
         def axc(Y):
             return K.axc_plain(ops.a_seg, ops.c_rows, ops.c_cols, ops.c_dbl,
                                Y)
     else:
-        candidate, value, commit = (K.fista_candidate, K.al_value,
-                                    K.fista_commit)
+        candidate, values, commit = (K.fista_candidate, K.al_value_pair,
+                                     K.fista_commit)
         spmm, axc = K.spmm_constr_csr, ops.axc
     Yc, Zn, sc = candidate(st.Z, st.gz, st.L, st.Y, st.tk, W, ops.sqrt_tau)
     prox = W is not None
-    fy = value(axc(Yc), ops.b, sub.p, sub.beta, sub.lam,
-               sc[K.SC_WY] if prox else None)
-    fzn = value(axc(Zn), ops.b, sub.p, sub.beta, sub.lam,
-                sc[K.SC_WZ] if prox else None, ops.wbuf)
+    fy, fzn = values(axc(Yc), axc(Zn), ops.b, sub.p, sub.beta, sub.lam,
+                     sc[K.SC_WY] if prox else None,
+                     sc[K.SC_WZ] if prox else None, ops.wbuf)
     S = spmm(ops.s_csr, ops.wbuf, Zn)
     tol = max(params.err_tol_fista, STOP_TOL_EPS * torch.finfo(Yc.dtype).eps)
     Y, Z, gz, tk, L, k, done, fz = commit(

@@ -61,9 +61,13 @@ which XLA compiles into a few fusions inside one ``lax.while_loop``):
 =====  ====================  ==============================================
 K14    fista_candidate       the projected candidate, the extrapolated
                              point and their sums (:221-247, :198-202,
-                             the prox body :291-318)
+                             the prox body :291-318): one thread-block
+                             cluster, or two launches past
+                             K14_CLUSTER_MAX_N (:func:`k14_plan`)
 K15    al_value              the AL (or prox) value of A(YY^T) and <C,
-                             YY^T>, and K6's weights (:208-214, :277-284)
+                             YY^T>, and K6's weights (:208-214, :277-284):
+                             at one point, or both points of a machine
+                             step in one launch (:func:`al_value_pair`)
 K16    fista_commit          the backtracking decision and the FISTA
                              update, in place (:231-232, :239-247)
 =====  ====================  ==============================================
@@ -327,7 +331,8 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
     (empty when the library was already built).  ``kind`` is ``"main"``,
     K5's second launch ``"long_reduce"``, K11's two passes ``"dst"`` and
     ``"src"``, K13's ``"hist"`` and ``"pass"`` (the counts plan) and
-    ``"tiles"`` (the gather); the value type ``"f64"``, ``"f32"`` or
+    ``"tiles"`` (the gather), K14's ``"cluster"``, ``"norm"`` and
+    ``"step"`` (its cluster plan, its two-launch plan's launches); the value type ``"f64"``, ``"f32"`` or
     ``"-"`` (a float32 kernel with no value template); the ints the
     template's int and bool arguments in order, e.g. ``(32, 5)`` for K6's G
     = 32, CPL = 5, ``(2, 16, 2, 2)`` for K5's pair mode at G = 16, CPL = 2,
@@ -340,7 +345,8 @@ def ptxas_usage(name: str) -> Dict[Tuple, Tuple[int, int, int]]:
             fn = m.group(1)
             t = re.search(r"_kernelI((?:L[ib]\d+E|[df])+)E", fn)
             kind = next((k for k in ("long_reduce", "dst", "src", "hist",
-                                     "pass", "tiles")
+                                     "pass", "tiles", "cluster", "norm",
+                                     "step")
                          if f"{k}_kernel" in fn), "main")
             types = "" if t is None else re.sub(r"L[ib]\d+E", "", t.group(1))
             key = None if t is None else (
@@ -3077,11 +3083,12 @@ def gather_rowsum_with(plan: Optional[K13Plan], Y: torch.Tensor,
 LOOP_KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("fista_candidate",
            "ltr_lowrank_sdp_tpu/hallar/solver.py:221-247,198-202,291-318",
-           (_I, _I) + (_P,) * 6 + (_I, _D) + (_P,) * 6 + (_I, _P),
+           (_I, _I) + (_P,) * 6 + (_I, _D) + (_P,) * 6 + (_I,) * 3 + (_P,),
            typed=True),
     Kernel("al_value",
            "ltr_lowrank_sdp_tpu/hallar/solver.py:208-214,277-284",
-           (_I, _I, _P, _P, _P, _I, _D, _D, _D, _P, _P, _P, _P, _P, _I, _P),
+           (_I, _I, _I, _P, _P, _P, _P, _I, _D, _D, _D, _P, _P, _P, _P, _P,
+            _P, _I, _P),
            typed=True),
     Kernel("fista_commit",
            "ltr_lowrank_sdp_tpu/hallar/solver.py:231-232,239-247",
@@ -3090,12 +3097,26 @@ LOOP_KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            typed=True),
 )}
 
-FUSED_THREADS = 256       # kThreads in fista_candidate.cu, al_value.cu,
-                          # fista_commit.cu
+FUSED_THREADS = 256       # kThreads in fista_candidate.cu (its two-launch
+                          # plan), al_value.cu, fista_commit.cu
 FUSED_MAX_BLOCKS = 264    # two blocks an SM of the H100's 132
 # the entries of the candidate's scalar vector (fista_candidate's ``sc``)
 SC_GD, SC_DD, SC_DNORM, SC_YNORM, SC_WY, SC_WZ, SC_TN = range(7)
 SC_LEN = 7
+
+# K14's cluster plan (fista_candidate.cu): kClusterCtas CTAs of
+# kClusterThreads threads, the values a thread it is instantiated for, and
+# the N above which the two-launch plan takes over
+K14_CLUSTER_CTAS = 16
+K14_CLUSTER_THREADS = 512
+K14_CLUSTER_VALS = (1, 2, 4, 8)
+K14_CLUSTER_MAX_N = (K14_CLUSTER_CTAS * K14_CLUSTER_THREADS
+                     * K14_CLUSTER_VALS[-1])       # 65,536
+# K15 (al_value.cu): kThreads a block, kChunks 16-byte chunks a thread
+# loaded before its wait, and the most blocks
+K15_THREADS = 256
+K15_CHUNKS = 2
+K15_MAX_BLOCKS = 528
 
 
 def loop_counts() -> Dict[str, Tuple[int, int]]:
@@ -3105,12 +3126,172 @@ def loop_counts() -> Dict[str, Tuple[int, int]]:
 
 
 def fused_blocks(N: int) -> int:
-    """The grid of K14-K16 over ``N`` values: a block of ``FUSED_THREADS``
-    an ``FUSED_THREADS`` values up to ``FUSED_MAX_BLOCKS``, the rest taken by
-    stride.  A function of N alone, so a sum's order (each thread's strided
-    terms in order, a fixed tree over the block, the block partials in
-    block order) and bits do not depend on the card."""
+    """The grid of K14's two-launch plan and K16 over ``N`` values: a block
+    of ``FUSED_THREADS`` an ``FUSED_THREADS`` values up to
+    ``FUSED_MAX_BLOCKS``, the rest taken by stride.  A function of N alone,
+    so a sum's order (each thread's strided terms in order, a fixed tree
+    over the block, the block partials in block order) and bits do not
+    depend on the card."""
     return max(1, min(-(-int(N) // FUSED_THREADS), FUSED_MAX_BLOCKS))
+
+
+@dataclasses.dataclass(frozen=True)
+class K14Plan:
+    """K14's launch: ``cluster`` (``K14_CLUSTER_CTAS``) CTAs of one
+    thread-block cluster with ``vals`` values a thread (the cluster plan),
+    or with ``cluster`` 0 the two-launch plan on ``blocks`` blocks."""
+
+    cluster: int
+    vals: int = 0
+    blocks: int = 0
+
+    def describe(self) -> str:
+        if self.cluster == 0:
+            return f"two launches of {self.blocks} blocks"
+        return (f"one cluster of {self.cluster} CTAs x "
+                f"{K14_CLUSTER_THREADS} threads x {self.vals} values")
+
+
+def k14_cluster_plan(N: int) -> K14Plan:
+    """The cluster plan for N values: the fewest values a thread that hold
+    them.  Raises past ``K14_CLUSTER_MAX_N``."""
+    per = K14_CLUSTER_CTAS * K14_CLUSTER_THREADS
+    for v in K14_CLUSTER_VALS:
+        if per * v >= N:
+            return K14Plan(K14_CLUSTER_CTAS, v)
+    raise ValueError(f"N = {N} exceeds a cluster of {K14_CLUSTER_CTAS} "
+                     f"CTAs ({K14_CLUSTER_MAX_N} values)")
+
+
+def k14_plan(N: int) -> K14Plan:
+    """K14's plan for N = n r values, a function of N alone (so are the
+    sums' order and bits): the cluster plan up to ``K14_CLUSTER_MAX_N``
+    (every value in a register), the two-launch plan above."""
+    N = int(N)
+    if N > K14_CLUSTER_MAX_N:
+        return K14Plan(0, blocks=fused_blocks(N))
+    return k14_cluster_plan(N)
+
+
+def k15_blocks(m: int, dtype: torch.dtype) -> int:
+    """K15's grid over m values of ``dtype``: enough ``K15_THREADS``-thread
+    blocks for ``K15_CHUNKS`` 16-byte chunks a thread, at most
+    ``K15_MAX_BLOCKS`` (the rest taken by stride).  A function of m and the
+    value type alone, and so is the sums' order."""
+    vec = 16 // (4 if dtype == torch.float32 else 8)
+    chunks = -(-int(m) // vec)
+    return max(1, min(-(-chunks // (K15_THREADS * K15_CHUNKS)),
+                      K15_MAX_BLOCKS))
+
+
+def _thread_sums(terms: np.ndarray, threads: int, vec: int = 1
+                 ) -> np.ndarray:
+    """Each of ``threads`` threads' sum of its terms, as K14's cluster plan
+    and K15 form it: the terms cut into chunks of ``vec``, chunk c taken by
+    thread c mod threads, a thread's chunks in order and a chunk's terms in
+    order, added one by one from 0 in the terms' type (the padding past the
+    end adds +0, which changes no sum that starts at +0)."""
+    dt = terms.dtype
+    per = threads * vec
+    k = max(1, -(-terms.size // per))
+    pad = np.zeros(k * per, dt)
+    pad[:terms.size] = terms
+    seq = pad.reshape(k, threads, vec).transpose(1, 0, 2).reshape(threads, -1)
+    acc = np.zeros(threads, dt)
+    for col in seq.T:
+        acc = acc + col
+    return acc
+
+
+def _halving(v: np.ndarray) -> np.ndarray:
+    """The sum over the last axis (a power of two) by the kernels' xor
+    shuffle trees: halves added lane by lane until one is left."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _block_partials(terms: np.ndarray, blocks: int, threads: int,
+                    vec: int = 1) -> np.ndarray:
+    """The block partials of one sum: the thread sums, the warps' trees,
+    then the tree over each block's warp partials."""
+    t = _thread_sums(terms, blocks * threads, vec)
+    return _halving(_halving(t.reshape(-1, 32)).reshape(blocks, -1))
+
+
+def _in_order(parts: np.ndarray) -> np.ndarray:
+    """Partials added one by one from 0 in their order (K14's CTA partials
+    in rank order)."""
+    acc = parts.dtype.type(0)
+    for x in parts:
+        acc = parts.dtype.type(acc + x)
+    return acc
+
+
+def fista_candidate_order(Z, gz, L, Y, tk, W, sqrt_tau: float,
+                          plan: Optional[K14Plan] = None):
+    """K14's cluster plan (``plan``; None: :func:`k14_plan`, which must be a
+    cluster plan) evaluated on the host in its order, bit for bit: the
+    elementwise operations of :func:`fista_candidate_plain` one rounding
+    each, every sum as :func:`_block_partials` forms a CTA's partial and
+    the CTA partials in rank order.  Tensors or arrays on the host; returns
+    (Yc, Zn, sc) as tensors."""
+    Z, gz, L, Y, tk = _host(Z, gz, L, Y, tk)
+    Wh = None if W is None else _host(W)[0]
+    shape, dt = Z.shape, Z.dtype
+    plan = plan or k14_plan(Z.size)
+    if plan.cluster == 0:
+        raise ValueError("the two-launch plan has no host order")
+    one = dt.type(1)
+
+    def total(terms):
+        return _in_order(_block_partials(
+            terms.ravel(), plan.cluster, K14_CLUSTER_THREADS))
+
+    z, g, y = Z.ravel(), gz.ravel(), Y.ravel()
+    L, tk = dt.type(L), dt.type(tk)
+    x = z - g / L
+    nrm = np.sqrt(total(x * x))
+    scale = min((one / max(nrm, dt.type(1e-30))) * dt.type(sqrt_tau), one)
+    tn = dt.type(0.5) * (one + np.sqrt(one + (dt.type(4) * tk) * tk))
+    a = (tk - one) / tn
+    yc = x * scale
+    zn = yc + a * (yc - y)
+    d = yc - z
+    s = [total(g * d), total(d * d)]
+    s += [np.sqrt(s[1]), np.sqrt(total(yc * yc))]
+    if Wh is None:
+        s += [dt.type(0), dt.type(0)]
+    else:
+        w = Wh.ravel()
+        s += [total((yc - w) * (yc - w)), total((zn - w) * (zn - w))]
+    sc = np.array(s + [tn], dt)
+    return (torch.from_numpy(yc.reshape(shape)),
+            torch.from_numpy(zn.reshape(shape)), torch.from_numpy(sc))
+
+
+def al_value_order(axc, b, p, beta: float, lam: float, wsq=None):
+    """K15 at one point evaluated on the host in its order, bit for bit
+    (:func:`k15_blocks`' grid, :func:`_block_partials` over 16-byte chunks,
+    the block partials added by lane l = q mod 32 in block order, then the
+    warp's tree): the value, as a 0-dim tensor.  The pair's two values are
+    this at each point."""
+    axc, b, p = _host(axc, b, p)
+    dt = axc.dtype
+    m = b.size
+    vec = 16 // dt.itemsize
+    blocks = k15_blocks(m, _torch_dtype(dt))
+
+    def total(terms):
+        parts = _block_partials(terms, blocks, K15_THREADS, vec)
+        return _halving(_thread_sums(parts, 32))
+
+    r = axc[:m] - b
+    v = (axc[m] + total(p * r)) + dt.type(0.5 * beta) * total(r * r)
+    if wsq is not None:
+        v = dt.type(lam) * v + dt.type(0.5) * dt.type(_host(wsq)[0])
+    return torch.tensor(v, dtype=_torch_dtype(dt))
 
 
 def project_plain(X: torch.Tensor, sqrt_tau: float) -> torch.Tensor:
@@ -3223,15 +3404,26 @@ def _scalar(t: torch.Tensor, name: str, dtype, dev) -> None:
 def fista_candidate(Z: torch.Tensor, gz: torch.Tensor, L: torch.Tensor,
                     Y: torch.Tensor, tk: torch.Tensor,
                     W: Optional[torch.Tensor], sqrt_tau: float):
-    """K14: :func:`fista_candidate_plain`'s (Yc, Zn, sc) in two launches:
-    (a) the sum of squares of Z - gz / L and the projection's scale, (b) Yc,
-    Zn and the sums.  L and tk are read on the card (they change between a
-    CUDA graph's replays); each sum is block partials added by the last
-    block to take the ticket, in block order."""
-    k = LOOP_KERNELS["fista_candidate"]
+    """K14: :func:`fista_candidate_plain`'s (Yc, Zn, sc) as
+    :func:`k14_plan` picks from N: one launch of one thread-block cluster
+    (the CTAs' partials through distributed shared memory), or above
+    ``K14_CLUSTER_MAX_N`` two launches, (a) the sum of squares of Z - gz / L
+    and the projection's scale, (b) Yc, Zn and the sums, each by block
+    partials and a ticket.  L and tk are read on the card (they change
+    between a CUDA graph's replays)."""
     if _is_cpu(Z):
-        k.plain_calls += 1
+        LOOP_KERNELS["fista_candidate"].plain_calls += 1
         return fista_candidate_plain(Z, gz, L, Y, tk, W, sqrt_tau)
+    return fista_candidate_with(None, Z, gz, L, Y, tk, W, sqrt_tau)
+
+
+def fista_candidate_with(plan: Optional[K14Plan], Z, gz, L, Y, tk, W,
+                         sqrt_tau: float):
+    """K14 launched with ``plan`` (None: :func:`k14_plan`) on CUDA
+    tensors."""
+    if _is_cpu(Z):
+        raise ValueError("fista_candidate_with launches on CUDA tensors")
+    k = LOOP_KERNELS["fista_candidate"]
     dev = Z.device
     dt = _value_dtype(Z, "Z")
     shape = tuple(Z.shape)
@@ -3241,49 +3433,99 @@ def fista_candidate(Z: torch.Tensor, gz: torch.Tensor, L: torch.Tensor,
     _scalar(L, "L", dt, dev)
     _scalar(tk, "tk", dt, dev)
     N = _i32(Z.numel(), "n * r")
-    blocks = fused_blocks(N)
-    ws = _fused_scratch(dev, 5 * blocks)
+    plan = plan or k14_plan(N)
+    if plan.cluster:
+        if (plan.cluster != K14_CLUSTER_CTAS
+                or plan.vals not in K14_CLUSTER_VALS
+                or plan.cluster * K14_CLUSTER_THREADS * plan.vals < N):
+            raise ValueError(f"{plan.describe()} does not hold N = {N}")
+        ws, scale = None, None
+    else:
+        ws = _fused_scratch(dev, 5 * plan.blocks)
+        scale = torch.empty((), dtype=dt, device=dev)
     Yc = torch.empty_like(Z)
     Zn = torch.empty_like(Z)
-    scale = torch.empty((), dtype=dt, device=dev)
     sc = torch.empty(SC_LEN, dtype=dt, device=dev)
     k.launch(_f32(dt), int(W is not None), Z.data_ptr(), gz.data_ptr(),
              Y.data_ptr(), _ptr(W), L.data_ptr(), tk.data_ptr(), N,
-             float(sqrt_tau), scale.data_ptr(), Yc.data_ptr(), Zn.data_ptr(),
-             ws.part.data_ptr(), ws.ticket.data_ptr(), sc.data_ptr(), blocks,
-             _stream(dev))
+             float(sqrt_tau), _ptr(scale), Yc.data_ptr(), Zn.data_ptr(),
+             None if ws is None else ws.part.data_ptr(),
+             None if ws is None else ws.ticket.data_ptr(), sc.data_ptr(),
+             plan.blocks, plan.cluster, plan.vals, _stream(dev))
     return Yc, Zn, sc
+
+
+def _al_value_launch(ax, ax2, b, p, beta, lam, wsq, wsq2, weights,
+                     npoints: int) -> torch.Tensor:
+    k = LOOP_KERNELS["al_value"]
+    dev = ax.device
+    dt = _value_dtype(ax, "axc")
+    m = int(b.numel())
+    for t, name in ((ax, "axc"), (ax2, "axc2")):
+        if t is not None:
+            _check(t, name, dt, (m + 1,), dev)
+    _check(b, "b", dt, (m,), dev)
+    _check(p, "p", dt, (m,), dev)
+    for t, name in ((wsq, "wsq"), (wsq2, "wsq2")):
+        if t is not None:
+            _scalar(t, name, dt, dev)
+    if weights is not None:
+        _check(weights, "weights", dt, (m + 1,), dev)
+    blocks = k15_blocks(m, dt)
+    ws = _fused_scratch(dev, 2 * npoints * blocks)
+    out = torch.empty(npoints, dtype=dt, device=dev)
+    k.launch(_f32(dt), int(wsq is not None), int(npoints == 2),
+             ax.data_ptr(), _ptr(ax2), b.data_ptr(), p.data_ptr(),
+             _i32(m, "m"), float(beta), 0.5 * float(beta), float(lam),
+             _ptr(wsq), _ptr(wsq2), _ptr(weights), out.data_ptr(),
+             ws.part.data_ptr(), ws.ticket.data_ptr(), blocks, _stream(dev))
+    return out
 
 
 def al_value(axc: torch.Tensor, b: torch.Tensor, p: torch.Tensor,
              beta: float, lam: float, wsq: Optional[torch.Tensor] = None,
              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K15: :func:`al_value_plain` in one launch over the m + 1 entries of
-    ``axc`` (the sums <p, r> and <r, r> by block partials and a ticket); a
-    0-dim tensor.  ``wsq`` (a prox subproblem's ||Y - W||^2) is read on the
-    card."""
-    k = LOOP_KERNELS["al_value"]
+    """K15 at one point: :func:`al_value_plain` in one launch over the m +
+    1 entries of ``axc`` (the sums <p, r> and <r, r> by block partials and
+    a ticket); a 0-dim tensor.  ``wsq`` (a prox subproblem's ||Y - W||^2)
+    is read on the card.  Launched plainly, after the kernel before it has
+    finished, so that kernel may write b or p."""
     if _is_cpu(axc):
-        k.plain_calls += 1
+        LOOP_KERNELS["al_value"].plain_calls += 1
         return al_value_plain(axc, b, p, beta, lam, wsq, weights)
-    dev = axc.device
-    dt = _value_dtype(axc, "axc")
-    m = int(b.numel())
-    _check(axc, "axc", dt, (m + 1,), dev)
-    _check(b, "b", dt, (m,), dev)
-    _check(p, "p", dt, (m,), dev)
-    if wsq is not None:
-        _scalar(wsq, "wsq", dt, dev)
-    if weights is not None:
-        _check(weights, "weights", dt, (m + 1,), dev)
-    blocks = fused_blocks(m + 1)
-    ws = _fused_scratch(dev, 2 * blocks)
-    out = torch.empty((), dtype=dt, device=dev)
-    k.launch(_f32(dt), int(wsq is not None), axc.data_ptr(), b.data_ptr(),
-             p.data_ptr(), _i32(m, "m"), float(beta), 0.5 * float(beta),
-             float(lam), _ptr(wsq), _ptr(weights), out.data_ptr(),
-             ws.part.data_ptr(), ws.ticket.data_ptr(), blocks, _stream(dev))
-    return out
+    return _al_value_launch(axc, None, b, p, beta, lam, wsq, None, weights,
+                            1)[0]
+
+
+def al_value_pair_plain(axc, axc2, b, p, beta: float, lam: float, wsq=None,
+                        wsq2=None, weights=None):
+    """Plain version of K15's pair: :func:`al_value_plain` at the
+    candidate (``axc``, ``wsq``) and then at the extrapolated point
+    (``axc2``, ``wsq2``, writing its ``weights``).  Returns (fy, fzn)."""
+    return (al_value_plain(axc, b, p, beta, lam, wsq),
+            al_value_plain(axc2, b, p, beta, lam, wsq2, weights))
+
+
+def al_value_pair(axc: torch.Tensor, axc2: torch.Tensor, b: torch.Tensor,
+                  p: torch.Tensor, beta: float, lam: float,
+                  wsq: Optional[torch.Tensor], wsq2: Optional[torch.Tensor],
+                  weights: torch.Tensor):
+    """K15 at both points of a machine step in one launch: the values fy at
+    the candidate (``axc``) and fzn at the extrapolated point (``axc2``),
+    the four sums from one read of b and p, and the second point's K6
+    weights.  Launched as a programmatic dependent of the kernel before it
+    (K5's reduce): b and p load before its wait, so the kernel launched
+    just before the pair on the stream must not write b or p (on the
+    machine step it is K5, which writes ``axc2``).  On the CPU the plain
+    version, two :func:`al_value_plain` calls (``plain_calls`` counts
+    both).  Returns (fy, fzn), 0-dim tensors."""
+    if _is_cpu(axc):
+        LOOP_KERNELS["al_value"].plain_calls += 2
+        return al_value_pair_plain(axc, axc2, b, p, beta, lam, wsq, wsq2,
+                                   weights)
+    out = _al_value_launch(axc, axc2, b, p, beta, lam, wsq, wsq2, weights,
+                           2)
+    return out[0], out[1]
 
 
 def fista_commit(Y, Z, gz, tk, L, k, done, fz, Yc, Zn, sc, fy, fzn, S, W,
